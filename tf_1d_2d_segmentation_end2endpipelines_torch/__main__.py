@@ -1,0 +1,39 @@
+"""``python -m tf_1d_2d_segmentation_end2endpipelines_torch serve ...``:
+the port's command line (JAX: drivers.py:936-946, :1067-1071)."""
+from __future__ import annotations
+
+import argparse
+import typing as tp
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
+    parser = argparse.ArgumentParser(
+        prog="python -m tf_1d_2d_segmentation_end2endpipelines_torch",
+        description="tpuseg on PyTorch/CUDA (the ported verbs)")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_srv = sub.add_parser(
+        "serve", help="HTTP serving of a trained fold (POST an image, get "
+        "a PNG mask); weights from <save_dir>/Fold_<fold>/best.pt")
+    p_srv.add_argument("config", nargs="?", default="Train_Configs.ini")
+    p_srv.add_argument("--host", default="127.0.0.1")
+    p_srv.add_argument("--port", type=int, default=8000)
+    p_srv.add_argument("--fold", type=int, default=1)
+    p_srv.add_argument("--max-batch", type=int, default=1)
+    p_srv.add_argument("--threshold", type=float, default=0.5)
+    p_srv.add_argument("--device", default="cuda",
+                       help="torch device to serve on (default: cuda)")
+    p_srv.add_argument("--seed", type=int, default=None,
+                       help="seed of the weights served when best.pt is "
+                       "absent (default: the INI seed)")
+    p_srv.add_argument("--int8", action="store_true",
+                       help="int8 serving (not ported yet: raises)")
+    args = parser.parse_args(argv)
+    if args.cmd == "serve":
+        from .serve import serve
+        serve(args.config, host=args.host, port=args.port, fold=args.fold,
+              max_batch=args.max_batch, threshold=args.threshold,
+              int8=args.int8, device=args.device, seed=args.seed)
+
+
+if __name__ == "__main__":
+    main()

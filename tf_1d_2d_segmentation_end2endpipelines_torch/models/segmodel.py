@@ -1,0 +1,111 @@
+"""Top-level segmentation model of the serving slice
+(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
+
+Ported: the from-scratch UNet genre without deep supervision, autoencoder
+mode, attention gates or ConvLSTM fusion, with any decoder that
+``decoders.build_decoder`` has (UNet++ so far).
+"""
+from __future__ import annotations
+
+import typing as tp
+
+import torch
+from torch import nn
+
+from ..ops import apply_activation
+from ..ops.blocks import lecun_normal_
+from .decoders import build_decoder
+from .encoders import LatentLayer, ScratchEncoder
+
+
+class SegModel(nn.Module):
+    """Config-driven segmentation network (JAX ``SegModel``).
+
+    ``forward`` takes an NHWC batch, as the JAX module does, casts it to
+    ``dtype`` and returns ``{"out": NHWC tensor}`` in ``dtype``.  Parameters
+    are float32 and drawn from ``generator`` (a CPU ``torch.Generator``);
+    move the model with ``.to(device)`` and call ``.eval()`` before use."""
+
+    def __init__(self, decoder_name: str, model_width: int, model_depth: int,
+                 in_channels: int = 3, output_nums: int = 1, ds: int = 0,
+                 ae: int = 0, ag: int = 0, lstm: int = 0, dense_loop: int = 1,
+                 is_transconv: bool = True,
+                 final_activation: tp.Optional[str] = "sigmoid",
+                 genre: str = "UNet", train_mode: str = "from_scratch",
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        if train_mode != "from_scratch":
+            raise NotImplementedError(
+                f"train_mode {train_mode!r} is not ported yet")
+        if genre != "UNet" or ae:
+            raise NotImplementedError(
+                "only the UNet genre without autoencoder mode is ported")
+        if model_depth < 1:
+            raise ValueError("The depth of the model cannot be less than 1")
+        W, D = model_width, model_depth
+        self.model_depth = D
+        self.final_activation = final_activation
+        self.dtype = dtype
+        self.ScratchEncoder_0 = ScratchEncoder(
+            decoder_name, in_channels, W, D, dtype=dtype, generator=generator)
+        self.LatentLayer_0 = LatentLayer(decoder_name, W, D, dense_loop,
+                                         dtype=dtype, generator=generator)
+        decoder = build_decoder(decoder_name, model_width=W, model_depth=D,
+                                D_S=ds, A_G=ag, LSTM=lstm,
+                                is_transconv=is_transconv, dtype=dtype,
+                                generator=generator)
+        self.add_module(f"{type(decoder).__name__}_0", decoder)
+        self._decoder_name = f"{type(decoder).__name__}_0"
+        self.out = nn.Conv2d(W, output_nums, 1)
+        with torch.no_grad():  # flax nn.Conv defaults
+            lecun_normal_(self.out.weight, W, generator)
+            self.out.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = x.contiguous(memory_format=torch.channels_last)
+        taps, bottom = self.ScratchEncoder_0(x)
+        conv = self.LatentLayer_0(bottom)
+        skips = taps[:self.model_depth] + [conv]
+        deconv, _ = getattr(self, self._decoder_name)(skips)
+        out = nn.functional.conv2d(deconv, self.out.weight.to(self.dtype))
+        out = out + self.out.bias.to(self.dtype).view(1, -1, 1, 1)
+        out = apply_activation(out, self.final_activation)
+        return {"out": out.permute(0, 2, 3, 1)}
+
+
+def model_selector(
+    model_genre: str,
+    encoder_name: str,
+    decoder_name: str,
+    length: int,
+    width: int = 1,
+    model_width: int = 64,
+    model_depth: int = 5,
+    num_channels: int = 3,
+    output_nums: int = 1,
+    ds: int = 0,
+    ae: int = 0,
+    ag: int = 0,
+    lstm: int = 0,
+    dense_loop: int = 1,
+    is_transconv: bool = True,
+    final_activation: str = "sigmoid",
+    train_mode: str = "from_scratch",
+    dtype: torch.dtype = torch.float32,
+    generator: tp.Optional[torch.Generator] = None,
+) -> SegModel:
+    """String-dispatch factory with the JAX ``model_selector``'s surface
+    (segmodel.py:173).  ``num_channels`` sizes the first conv; ``length``,
+    ``width`` and ``encoder_name`` are accepted for parity (the model takes
+    any spatial size; only the from-scratch encoder is ported)."""
+    if model_genre not in ("UNet", "FPN"):
+        raise ValueError(f"Unknown model genre {model_genre!r}")
+    return SegModel(
+        decoder_name=decoder_name, model_width=model_width,
+        model_depth=model_depth, in_channels=num_channels,
+        output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,
+        dense_loop=dense_loop, is_transconv=is_transconv,
+        final_activation=final_activation, genre=model_genre,
+        train_mode=train_mode, dtype=dtype, generator=generator)

@@ -1,0 +1,220 @@
+"""Block library of the serving slice: the 2D blocks the flagship UNet++
+runs, ported from tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
+
+Layout: modules and block functions take and return (B, C, H, W) tensors
+in ``torch.channels_last`` memory, i.e. the JAX package's NHWC buffers
+seen through PyTorch's NCHW indexing.  Parameters stay float32; a block
+built with ``dtype=torch.bfloat16`` casts its weights and activations to
+bf16 in the same places the flax modules do, so converted weights give
+the JAX outputs.  Forward only: training (batch statistics, gradients)
+is not ported yet.
+
+Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``,
+``ConvTranspose_0``, ``ConvBlock_<k>``), so a flax parameter path maps to
+a ``state_dict`` key by a plain table (utils/flax_to_torch.py).
+"""
+from __future__ import annotations
+
+import math
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .kernels import pyramid
+
+# Keras's LeakyReLU slope, which the reference keeps (blocks.py:77).
+LEAKY_SLOPE = 0.3
+
+
+# JAX multiplies by the slope rounded to the activation dtype (a weak
+# python scalar), where F.leaky_relu would keep 0.3 in float32.
+_SLOPES = {dt: float(torch.tensor(LEAKY_SLOPE, dtype=dt))
+           for dt in (torch.float32, torch.bfloat16)}
+
+
+def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * _SLOPES[x.dtype])
+
+
+_ACTIVATIONS: tp.Dict[str, tp.Optional[tp.Callable]] = {
+    "relu": torch.relu,
+    "leakyrelu": _leaky_relu,
+    "leaky_relu": _leaky_relu,
+    "sigmoid": torch.sigmoid,
+    "linear": None,
+    "none": None,
+}
+
+
+def get_activation(name: tp.Optional[str]
+                   ) -> tp.Optional[tp.Callable[[torch.Tensor], torch.Tensor]]:
+    """Activation by the reference's name; None for linear/None."""
+    if name is None:
+        return None
+    key = name.lower()
+    if key not in _ACTIVATIONS:
+        raise NotImplementedError(
+            f"activation {name!r} is not ported yet (ported: "
+            f"{sorted(_ACTIVATIONS)})")
+    return _ACTIVATIONS[key]
+
+
+def apply_activation(x: torch.Tensor, name: tp.Optional[str]) -> torch.Tensor:
+    fn = get_activation(name)
+    return x if fn is None else fn(x)
+
+
+def he_uniform_(w: torch.Tensor, fan_in: int,
+                generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+    """Keras/flax ``he_uniform``: U(-sqrt(6/fan_in), sqrt(6/fan_in))."""
+    lim = math.sqrt(6.0 / fan_in)
+    return nn.init.uniform_(w, -lim, lim, generator=generator)
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+    """flax's default kernel init: a normal truncated at two standard
+    deviations, rescaled so the variance is 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm`` in eval mode (running statistics).
+
+    Matches flax's order of operations: the input is promoted to float32,
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and only the result
+    is cast back to the activation dtype.  ``momentum`` keeps flax's
+    meaning (weight of the old running value) for the training port."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 epsilon: float = 1e-3):
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm training mode is not ported yet; call .eval()")
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)
+
+
+class ConvBlock(nn.Module):
+    """conv -> [BatchNorm] -> [activation] (JAX ``ConvBlock``, blocks.py:191).
+
+    SAME padding, stride 1, odd square kernel, with bias: the
+    configurations the slice runs.  Kernel init he_uniform, zero bias."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 use_bn: bool = True, activation: tp.Optional[str] = "relu",
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        if kernel % 2 != 1:
+            raise NotImplementedError("ConvBlock: only odd kernels (SAME "
+                                      "padding, stride 1) are ported")
+        self.kernel = kernel
+        self.activation = activation
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(in_features, features, kernel,
+                                padding=kernel // 2)
+        with torch.no_grad():
+            he_uniform_(self.Conv_0.weight, kernel * kernel * in_features,
+                        generator)
+            self.Conv_0.bias.zero_()
+        self.BatchNorm_0 = BatchNorm(features) if use_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.Conv_0
+        # flax casts input, kernel and bias to the compute dtype and adds
+        # the bias in that dtype, after the convolution
+        x = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype),
+                     padding=self.kernel // 2)
+        x = x + conv.bias.to(self.dtype).view(1, -1, 1, 1)
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        return apply_activation(x, self.activation)
+
+
+class TransConv(nn.Module):
+    """Transposed-conv upsample, 2D dialect (JAX ``TransConv``,
+    blocks.py:346): k4 s2 SAME, no BN, LeakyReLU 0.3.
+
+    flax stores the kernel as (kh, kw, C_out, C_in) with
+    ``transpose_kernel=True``; ``permute(3, 2, 0, 1)`` gives
+    ``conv_transpose2d``'s (C_in, C_out, kh, kw) weight, used with
+    ``padding=1`` and no flip (pinned by tests/test_torch_blocks.py).
+    Init as flax's ``ConvTranspose``: lecun_normal over that kernel shape,
+    whose fan-in axis is C_out; zero bias."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.ConvTranspose_0 = nn.ConvTranspose2d(in_features, features, 4,
+                                                  stride=2, padding=1)
+        with torch.no_grad():
+            lecun_normal_(self.ConvTranspose_0.weight, 16 * features,
+                          generator)
+            self.ConvTranspose_0.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ct = self.ConvTranspose_0
+        x = F.conv_transpose2d(x.to(self.dtype), ct.weight.to(self.dtype),
+                               stride=2, padding=1)
+        return _leaky_relu(x + ct.bias.to(self.dtype).view(1, -1, 1, 1))
+
+
+def downsample_pool(x: torch.Tensor, factor: int = 2,
+                    op: str = "max") -> torch.Tensor:
+    """Pool with window == stride == ``factor``, VALID (Keras semantics).
+
+    Max pooling by ``2**m`` is level m of the max-pool pyramid, so it runs
+    the pyramid kernel on a CUDA tensor (JAX: ``lax.reduce_window``)."""
+    if op == "max":
+        levels = int(factor).bit_length() - 1
+        if factor < 2 or factor != 1 << levels:
+            raise NotImplementedError(
+                f"max pool by {factor}: only powers of two are ported")
+        return pyramid.maxpool_pyramid(x, levels)[-1]
+    if op == "avg":
+        return F.avg_pool2d(x, factor, factor)
+    raise ValueError(f"Unknown pool op {op!r}")
+
+
+def concat(*tensors: torch.Tensor) -> torch.Tensor:
+    """Channel-axis concat (reference ``Concat_Block``)."""
+    return torch.cat(tensors, dim=1)
+
+
+class DenseBlock(nn.Module):
+    """One ConvBlock, then ``num_layers`` times ``x = x + ConvBlock(x)``
+    (JAX ``DenseBlock``, blocks.py:516)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 num_layers: int = 1, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        for k in range(num_layers + 1):
+            self.add_module(f"ConvBlock_{k}", ConvBlock(
+                in_features if k == 0 else features, features, kernel,
+                dtype=dtype, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ConvBlock_0(x)
+        for k in range(1, self.num_layers + 1):
+            x = x + getattr(self, f"ConvBlock_{k}")(x)
+        return x

@@ -1,0 +1,129 @@
+"""The typed training config and its INI loader, with the schema of
+tf_1d_2d_segmentation_end2endpipelines_tpu/utils/config.py (``TrainConfig``
+:20, ``load_train_config`` :333): a reference Train_Configs.ini loads
+unchanged.  The field comments live in the JAX package.
+"""
+from __future__ import annotations
+
+import configparser
+import dataclasses as dc
+import typing as tp
+
+
+def _to_bool(v: str) -> bool:
+    return str(v).strip().lower() in ("1", "true", "yes", "on")
+
+
+@dc.dataclass
+class TrainConfig:
+    train_dir: str = "Data/Train"
+    val_dir: str = "Data/Val"
+    data_loading_mode: str = "Custom_DataLoader"
+    independent_val_set: bool = True
+    validation_portion: float = 0.0
+    imlength: int = 512
+    imwidth: int = 512
+    image_color_mode: str = "rgb"
+    mask_color_mode: str = "grayscale"
+    num_channels: int = 3
+    normalizing_factor_img: float = 255.0
+    normalizing_factor_msk: float = 255.0
+    model_genre: str = "UNet"
+    encoder_mode: str = "from_scratch"   # reference: train_mode
+    encoder_name: str = "ResNet50"
+    encoder_trainable: bool = False
+    encoder_weights: str = "imagenet"
+    decoder_name: str = "UNet"
+    model_width: int = 16
+    model_depth: int = 5
+    output_nums: int = 1
+    a_e: int = 0
+    a_g: int = 0
+    lstm: int = 0
+    dense_loop: int = 2
+    feature_number: int = 1024
+    is_transconv: bool = True
+    alpha: float = 1.0
+    q_onn: int = 3
+    final_activation: str = "sigmoid"
+    class_number: int = 1
+    batch_size: int = 4
+    learning_rate: float = 2e-4
+    start_fold: int = 1
+    end_fold: int = 1
+    monitor_param: str = "val_loss"
+    patience_amount: int = 20
+    patience_amount_rlronp: int = 10
+    patience_mode: str = "min"
+    rlronp_factor: float = 0.1
+    num_epochs: int = 200
+    loss_function: str = "BinaryCrossentropy"
+    optimizer_function: str = "Adam"
+    metric_list: tp.Tuple[str, ...] = ("MeanSquaredError",)
+    save_history: bool = True
+    load_weights: bool = True
+    save_dir: str = "Results"
+    task_name: str = "None"
+    seed: int = 1
+    compute_dtype: str = "float32"
+    remat: str = ""
+    accumulation_steps: int = 1
+    model_parallel: int = 1
+    spatial_parallel: int = 1
+    pipeline_parallel: int = 1
+    exact_resume: bool = False
+    zero1: bool = False
+    clipnorm: float = 0.0
+    clipvalue: float = 0.0
+    global_clipnorm: float = 0.0
+    tensorboard_dir: str = ""
+    augment: bool = False
+    augment_device: bool = False
+    cache_data: bool = False
+    ema_decay: float = 0.0
+    patchify: bool = False
+    patch_width: int = 64
+    patch_height: int = 64
+    overlap_ratio: float = 0.0
+    d_s: int = 0
+    ds_type: str = "UNet"
+
+    @property
+    def train_mode(self) -> str:
+        return ("pretrained_encoder" if self.encoder_mode
+                == "pretrained_encoder" else "from_scratch")
+
+
+_T = tp.TypeVar("_T")
+
+
+def _coerce(field: dc.Field, raw: str):
+    t = field.type
+    if t in (bool, "bool"):
+        return _to_bool(raw)
+    if t in (int, "int"):
+        return int(float(raw))
+    if t in (float, "float"):
+        return float(raw)
+    if "Tuple" in str(t):
+        parts = [p.strip() for p in str(raw).split(",") if p.strip()]
+        return tuple(parts)
+    return str(raw)
+
+
+def _load_section(cls: tp.Type[_T], section: tp.Mapping[str, str]) -> _T:
+    fields = {f.name: f for f in dc.fields(cls)}
+    kwargs = {}
+    for key, raw in section.items():
+        name = key.lower()
+        if name in fields:
+            kwargs[name] = _coerce(fields[name], raw)
+    return cls(**kwargs)
+
+
+def load_train_config(path: str) -> TrainConfig:
+    """Load a reference-format Train_Configs.ini (section [TRAIN])."""
+    parser = configparser.ConfigParser()
+    with open(path) as f:
+        parser.read_file(f)
+    return _load_section(TrainConfig, parser["TRAIN"])
