@@ -3,22 +3,33 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path once, at the flagship's full width: the
-W32/D4 UNet++ on 256x256x3 in bf16 with weights drawn from a seed, behind
-``make_server`` with dynamic batching, answering 16 PNG requests from 4
-client threads.  Phases, each printing a line:
+Drives the port's two paths at the flagship's full width, the W32/D4
+UNet++ on 256x256x3 in bf16 with weights drawn from a seed: serving
+(``make_server`` with dynamic batching answering 16 PNG requests from 4
+client threads) and training (the ``train`` verb's fold loop on a
+synthetic PNG folder, batch 16, 2 epochs).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
 3. kernels: each kernel against its plain PyTorch version at the shapes
-   the serving path gives it (bit-exact: max is exact), with CUDA-event
-   times of both, as device time and as one call on an idle card
+   the serving and training paths give it and at edge cases (bit-exact:
+   max and its gradient routing are exact), with CUDA-event device times
+   of the kernel, the plain version and the PyTorch library call that
+   computes the same function (a yardstick the port never calls), and
+   the bound: bytes moved at 3.35 TB/s
 4. serve: 16/16 answered 200 with a 256x256 mask; masks equal to
    ``label_from_pred`` of the same model run with the plain pool, away
    from the threshold; the pyramid kernel launched exactly 4 times (one
    per encoder level) per device batch; p50 latencies
 5. reference: the same weights in float32 on the card (TF32 off) against
    the CPU on a small input, within 1e-4
+6. train: finite losses; the pool backward kernel launched 4 times per
+   train step and the pyramid 4 times per train step and validation
+   batch; best.pt written and served; on one fixed batch the loss falls
+   over 30 steps; p50 step time, img/s and peak memory
+7. train reference: one float32 train step on the card against the CPU,
+   loss, gradients, running statistics and parameters within stated
+   tolerances
 
 The line before the last is one JSON object describing each kernel; the
 last is ``{"ok": true, "device": {...}}``.  Any failure raises and the
@@ -35,6 +46,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from unittest import mock
 
@@ -48,6 +60,12 @@ N_CLIENTS = 4
 THRESHOLD = 0.5
 NEAR_THRESHOLD = 1e-2
 REPS = 30
+TRAIN_BATCH = 16
+N_TRAIN = 64
+N_VAL = 16
+TRAIN_EPOCHS = 2
+FIXED_STEPS = 30
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -125,26 +143,60 @@ def phase_build() -> None:
           f"in {dt:.2f} s", flush=True)
 
 
+def _bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move ``nbytes`` (each input
+    read once, each output written once) at the H100's 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _in_turns(fns: dict, flush) -> dict:
+    """Device time of each of ``fns`` (name -> callable), measured in
+    turns (order, reversed order) and averaged."""
+    t = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        t[name].append(_device_ms(fns[name], flush))
+    return {name: statistics.mean(v) for name, v in t.items()}
+
+
+def _path_row(name: str, source: str, replaces: str, max_err: float,
+              times: dict, nbytes: int) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": max_err,
+            "ms": times["kernel"], "plain_ms": times["plain"],
+            "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
+            "library_ms": times["library"]}
+
+
 def phase_kernels() -> dict:
     import torch
+    import torch.nn.functional as F
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pyramid)
 
-    cases = [  # (dtype, NHWC shape, levels, on the serving path)
-        (torch.bfloat16, (BATCH, 256, 256, 32), 1, True),
-        (torch.bfloat16, (BATCH, 128, 128, 64), 1, True),
-        (torch.bfloat16, (BATCH, 64, 64, 128), 1, True),
-        (torch.bfloat16, (BATCH, 32, 32, 256), 1, True),
-        (torch.float32, (BATCH, 256, 256, 1), 4, False),  # DS mask pyramid
-        (torch.float32, (2, 37, 53, 3), 2, False),         # ragged edges
-        (torch.bfloat16, (2, 37, 53, 16), 1, False),       # ragged, vector
-        (torch.bfloat16, (2, 16, 16, 3), 1, False),        # C % 8 != 0
+    cases = [  # (dtype, NHWC shape, levels, on which path)
+        (torch.bfloat16, (BATCH, 256, 256, 32), 1, "serve"),
+        (torch.bfloat16, (BATCH, 128, 128, 64), 1, "serve"),
+        (torch.bfloat16, (BATCH, 64, 64, 128), 1, "serve"),
+        (torch.bfloat16, (BATCH, 32, 32, 256), 1, "serve"),
+        (torch.bfloat16, (TRAIN_BATCH, 256, 256, 32), 1, "train"),
+        (torch.bfloat16, (TRAIN_BATCH, 128, 128, 64), 1, "train"),
+        (torch.bfloat16, (TRAIN_BATCH, 64, 64, 128), 1, "train"),
+        (torch.bfloat16, (TRAIN_BATCH, 32, 32, 256), 1, "train"),
+        (torch.float32, (BATCH, 256, 256, 1), 4, None),  # DS mask pyramid
+        (torch.float32, (2, 37, 53, 3), 2, None),         # ragged edges
+        (torch.bfloat16, (2, 37, 53, 16), 1, None),       # ragged, vector
+        (torch.bfloat16, (2, 16, 16, 3), 1, None),        # C % 8 != 0
     ]
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
     max_err = 0.0
-    path_ms = path_plain_ms = 0.0
+    path = {p: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0}
+            for p in ("serve", "train")}
     for dtype, shape, levels, on_path in cases:
         x = torch.randn(shape, generator=gen)
         x.view(-1)[x.numel() // 3] = float("nan")  # must propagate
@@ -162,32 +214,120 @@ def phase_kernels() -> dict:
                 if bool(fin.any()) else 0.0
             _check(err == 0.0, f"pyramid {shape} L{lvl}: max-abs {err}")
             max_err = max(max_err, err)
-        t = {"kernel": [], "plain": [], "kernel_call": [], "plain_call": []}
-        fns = {"kernel": lambda: pyramid.maxpool_pyramid(x, levels),
-               "plain": lambda: pyramid.maxpool_pyramid_plain(x, levels)}
-        for name in ("plain", "kernel", "kernel", "plain"):  # in turns
-            t[name].append(_device_ms(fns[name], flush))
-            t[name + "_call"].append(_call_ms(fns[name], flush))
-        ms, plain_ms = (statistics.mean(t[k]) for k in ("kernel", "plain"))
+        fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels),
+               "kernel": lambda: pyramid.maxpool_pyramid(x, levels)}
+        if levels == 1:  # the yardstick: PyTorch's own pool
+            fns["library"] = lambda: F.max_pool2d(x, 2)
+        t = _in_turns(fns, flush)
+        calls = {name: _call_ms(fns[name], flush)
+                 for name in ("kernel", "plain")}
+        nbytes = _bytes(x, *got)
+        lib = (f", library F.max_pool2d {t['library']:.4f} ms"
+               if "library" in t else "")
         if on_path:
-            path_ms += ms
-            path_plain_ms += plain_ms
+            for k in ("kernel", "plain", "library"):
+                path[on_path][k] += t[k]
+            path[on_path]["bytes"] += nbytes
         print(f"phase 3 kernel maxpool_pyramid {str(dtype)[6:]} "
               f"{tuple(shape)} L={levels}: equal to plain (max-abs 0, NaN "
-              f"kept); device time kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; one call on an idle card kernel "
-              f"{statistics.mean(t['kernel_call']):.4f} ms, plain "
-              f"{statistics.mean(t['plain_call']):.4f} ms (CUDA events, "
-              f"L2 flushed, medians of {REPS})", flush=True)
-    print(f"phase 3 kernels: serving path's pools per batch of {BATCH}, "
-          f"device time: kernel {path_ms:.4f} ms, plain "
-          f"{path_plain_ms:.4f} ms", flush=True)
-    return {"name": "maxpool_pyramid", "route": "cuda",
-            "source": "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/"
-                      "pyramid.cu",
-            "replaces": "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/"
-                        "pallas/pyramid.py:49",
-            "max_abs_err": max_err, "ms": path_ms, "plain_ms": path_plain_ms}
+              f"kept); device time kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms{lib}, bound {_bound_ms(nbytes):.4f} ms "
+              f"({nbytes} B at 3.35 TB/s); one call on an idle card kernel "
+              f"{calls['kernel']:.4f} ms, plain {calls['plain']:.4f} ms "
+              f"(CUDA events, L2 flushed, medians of {REPS})", flush=True)
+    for name, n in (("serve", BATCH), ("train", TRAIN_BATCH)):
+        q = path[name]
+        print(f"phase 3 kernels: the {name} path's four pools per batch of "
+              f"{n}, device time: kernel {q['kernel']:.4f} ms, plain "
+              f"{q['plain']:.4f} ms, library {q['library']:.4f} ms, bound "
+              f"{_bound_ms(q['bytes']):.4f} ms", flush=True)
+    return _path_row(
+        "maxpool_pyramid",
+        "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pyramid.cu",
+        "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/pallas/pyramid.py:49",
+        max_err, path["train"], path["train"]["bytes"])
+
+
+def phase_pool_backward() -> dict:
+    """maxpool2x2_backward against its plain version, bit for bit, at the
+    train path's four pools and at edge cases, with planted plateaus
+    (post-ReLU zeros, so ties decide the routing) and a planted NaN."""
+    import torch
+    import torch.nn.functional as F
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward)
+
+    cases = [  # (dtype, NHWC shape, on the train path)
+        (torch.bfloat16, (TRAIN_BATCH, 256, 256, 32), True),
+        (torch.bfloat16, (TRAIN_BATCH, 128, 128, 64), True),
+        (torch.bfloat16, (TRAIN_BATCH, 64, 64, 128), True),
+        (torch.bfloat16, (TRAIN_BATCH, 32, 32, 256), True),
+        (torch.float32, (4, 64, 64, 32), False),    # f32, vector path
+        (torch.bfloat16, (2, 37, 53, 16), False),   # ragged, vector path
+        (torch.float32, (2, 37, 53, 3), False),     # ragged, C % 4 != 0
+        (torch.bfloat16, (2, 16, 16, 12), False),   # C % 8 != 0
+        (torch.bfloat16, (1, 1, 1, 8), False),      # nothing pooled
+    ]
+    gen = torch.Generator().manual_seed(SEED + 2)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    max_err = 0.0
+    path = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    path_bytes = 0
+    for dtype, shape, on_path in cases:
+        x = torch.randn(shape, generator=gen)
+        x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ReLU plateaus
+        x.view(-1)[x.numel() // 3] = float("nan")
+        x = x.to("cuda", dtype).permute(0, 3, 1, 2)
+        b, c, h, w = x.shape
+        g = torch.randn((b, h // 2, w // 2, c), generator=gen).to(
+            "cuda", dtype).permute(0, 3, 1, 2)
+        before = pool_backward.launches
+        got = pool_backward.maxpool2x2_backward(x, g)
+        want = pool_backward.maxpool2x2_backward_plain(x, g)
+        torch.cuda.synchronize()
+        _check(pool_backward.launches == before + 1,
+               f"pool backward {shape}: not one launch")
+        _check(got.shape == want.shape and got.dtype == want.dtype and
+               got.is_contiguous(memory_format=torch.channels_last),
+               f"pool backward {shape}: {got.shape} {got.dtype}")
+        err = float((got.float() - want.float()).abs().max())
+        _check(torch.equal(got, want),
+               f"pool backward {shape}: max-abs {err}")
+        max_err = max(max_err, err)
+        if not on_path:
+            print(f"phase 3 kernel maxpool2x2_backward {str(dtype)[6:]} "
+                  f"{tuple(shape)}: equal to plain (max-abs 0)", flush=True)
+            continue
+        _, idx = F.max_pool2d(x, 2, return_indices=True)
+        fns = {
+            "plain": lambda: pool_backward.maxpool2x2_backward_plain(x, g),
+            "kernel": lambda: pool_backward.maxpool2x2_backward(x, g),
+            # the yardstick, given the indices its forward saved
+            "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx),
+        }
+        t = _in_turns(fns, flush)
+        nbytes = _bytes(x, g, got)
+        for k in path:
+            path[k] += t[k]
+        path_bytes += nbytes
+        print(f"phase 3 kernel maxpool2x2_backward {str(dtype)[6:]} "
+              f"{tuple(shape)}: equal to plain (max-abs 0, plateaus and a "
+              f"NaN); device time kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, library max_pool2d_with_indices_"
+              f"backward {t['library']:.4f} ms, bound "
+              f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s) (CUDA "
+              f"events, L2 flushed, medians of {REPS})", flush=True)
+    print(f"phase 3 kernels: the train path's four pool backwards per step "
+          f"of {TRAIN_BATCH}, device time: kernel {path['kernel']:.4f} ms, "
+          f"plain {path['plain']:.4f} ms, library {path['library']:.4f} ms, "
+          f"bound {_bound_ms(path_bytes):.4f} ms", flush=True)
+    return _path_row(
+        "maxpool2x2_backward",
+        "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pool_backward.cu",
+        "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py:467",
+        max_err, path, path_bytes)
 
 
 def _png(img: np.ndarray) -> bytes:
@@ -375,6 +515,204 @@ def phase_reference(model) -> None:
           f"{err:.3g} <= 1e-4", flush=True)
 
 
+def _serve_one_png(cfg, fold_dir: str) -> int:
+    """Status of one PNG request to ``make_server`` over ``fold_dir``."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.serve import (
+        make_server)
+
+    server = make_server(cfg, fold_dir, port=0, max_batch=1, device="cuda")
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    try:
+        img = (np.random.default_rng(SEED).uniform(size=(SIZE, SIZE, 3))
+               * 255).astype(np.uint8)
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/predict",
+            data=_png(img), method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status = resp.status
+                resp.read()
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"serving best.pt answered {e.code}: "
+                                 f"{e.read()[:2000]!r}") from e
+    finally:
+        server.shutdown()
+        server.server_close()
+        serving.join(timeout=60)
+    return status
+
+
+def phase_train(tmp: str) -> dict:
+    """The train verb's fold loop on the card, then a fixed-batch loop
+    that times the train step."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images, write_image_folder)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TrainConfig)
+
+    t0 = time.perf_counter()
+    for name, n, seed in (("Train", N_TRAIN, SEED), ("Val", N_VAL, SEED + 1)):
+        write_image_folder(os.path.join(tmp, "Data", name),
+                           *synthetic_images(n, SIZE, seed=seed))
+    # the flagship, __graft_entry__.py:26-29 and bench.py:60-84
+    cfg = TrainConfig(
+        train_dir=os.path.join(tmp, "Data", "Train"),
+        val_dir=os.path.join(tmp, "Data", "Val"), imlength=SIZE,
+        imwidth=SIZE, num_channels=3, encoder_mode="from_scratch",
+        decoder_name="UNetPP", model_width=32, model_depth=4, output_nums=1,
+        class_number=1, dense_loop=1, final_activation="sigmoid",
+        compute_dtype="bfloat16", loss_function="BCEDiceLoss",
+        optimizer_function="Adam", metric_list=("BinaryAccuracy",),
+        batch_size=TRAIN_BATCH, num_epochs=TRAIN_EPOCHS, seed=SEED,
+        save_dir=os.path.join(tmp, "Results"), load_weights=False)
+    print(f"phase 6 train: {N_TRAIN} train and {N_VAL} val {SIZE}x{SIZE} "
+          f"PNGs written in {time.perf_counter() - t0:.2f} s; W32/D4 UNet++ "
+          f"bf16, BCEDice, Adam lr {cfg.learning_rate}, batch "
+          f"{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs", flush=True)
+
+    pyramid.reset_launches()  # the main path's run starts here
+    pool_backward.reset_launches()
+    t0 = time.perf_counter()
+    hist = drivers.train(config=cfg, device="cuda")[1]
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd, copies = (pyramid.launches, pool_backward.launches,
+                        pool_backward.g_copies)  # ... and ends here
+    steps = TRAIN_EPOCHS * -(-N_TRAIN // TRAIN_BATCH)
+    val_batches = TRAIN_EPOCHS * -(-N_VAL // TRAIN_BATCH)
+    losses = hist["loss"] + hist["val_loss"]
+    _check(all(np.isfinite(losses)), f"non-finite losses {hist}")
+    _check(bwd == 4 * steps,
+           f"maxpool2x2_backward launched {bwd}x, not 4 x {steps} steps")
+    _check(fwd == 4 * steps + 4 * val_batches,
+           f"maxpool_pyramid launched {fwd}x, not 4 x ({steps} steps + "
+           f"{val_batches} val batches)")
+    print(f"phase 6 train: drivers.train in {train_s:.2f} s; loss "
+          f"{hist['loss']}, val_loss {hist['val_loss']}, steps/s "
+          f"{hist['steps_per_sec']}", flush=True)
+    print(f"phase 6 train: maxpool2x2_backward.launches = {bwd} = 4 x "
+          f"{steps} steps; maxpool_pyramid.launches = {fwd} = 4 x {steps} "
+          f"steps + 4 x {val_batches} val batches; gradient layout copies "
+          f"{copies}", flush=True)
+    fold = os.path.join(cfg.save_dir, "Fold_1")
+    _check(os.path.exists(os.path.join(fold, drivers.BEST_WEIGHTS)),
+           "best.pt not written")
+    status = _serve_one_png(cfg, fold)
+    _check(status == 200, f"serving best.pt answered {status}")
+    print(f"phase 6 train: {drivers.BEST_WEIGHTS} written; make_server "
+          f"loaded it and answered a PNG request with {status}", flush=True)
+
+    # fixed batch: the loss must fall; the step's time and memory
+    model = drivers._build_model(
+        cfg, generator=torch.Generator().manual_seed(SEED))
+    trainer = Trainer(model, loss=cfg.loss_function,
+                      optimizer=cfg.optimizer_function,
+                      learning_rate=cfg.learning_rate, device="cuda")
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 2)
+    x, y = trainer.to_device(x), trainer.to_device(y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_losses, step_s = [], []
+    for _ in range(FIXED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = trainer.train_step(x, y)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    first, last = (statistics.mean(step_losses[:5]),
+                   statistics.mean(step_losses[-5:]))
+    _check(all(np.isfinite(step_losses)) and last < first,
+           f"fixed-batch loss did not fall: {step_losses}")
+    p50 = statistics.median(step_s[5:])
+    print(f"phase 6 train: {FIXED_STEPS} steps on one batch of "
+          f"{TRAIN_BATCH}: mean loss of the first 5 {first:.5f}, of the "
+          f"last 5 {last:.5f}; p50 train step {p50 * 1e3:.3f} ms over the "
+          f"last {FIXED_STEPS - 5} (host clock, synchronized), "
+          f"{TRAIN_BATCH / p50:.1f} img/s; max_memory_allocated "
+          f"{peak} B ({peak / 2 ** 30:.3f} GiB)", flush=True)
+    return {"pyramid": fwd, "backward": bwd}
+
+
+def phase_train_reference() -> None:
+    """One float32 train step of a W8/D3 UNet++ on the card (the kernels,
+    cuDNN without TF32, deterministic) against the same step on the CPU
+    (the plain versions) from the same weights, batch and Adam state."""
+    import copy
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        bce_dice_loss, make_optimizer, make_train_step)
+
+    lr = 1e-3
+    cpu = SegModel("UNetPP", 8, 3, generator=torch.Generator().manual_seed(
+        SEED + 3))
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32))
+    y = torch.from_numpy((rng.uniform(size=(2, 64, 64, 1)) > 0.7).astype(
+        np.float32))
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        counts = (pyramid.launches, pool_backward.launches)
+        loss_c, _ = make_train_step(
+            cpu, make_optimizer("Adam", cpu.parameters(), lr),
+            bce_dice_loss)(x, y)
+        _check((pyramid.launches, pool_backward.launches) == counts,
+               "the CPU step launched a kernel")
+        loss_g, _ = make_train_step(
+            gpu, make_optimizer("Adam", gpu.parameters(), lr),
+            bce_dice_loss)(x.cuda(), y.cuda())
+        torch.cuda.synchronize()
+        launched = (pyramid.launches - counts[0],
+                    pool_backward.launches - counts[1])
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    _check(launched == (3, 3), f"the card's step launched {launched}")
+    gp = dict(gpu.named_parameters())
+    grad_err = max(float((p.grad - gp[k].grad.cpu()).abs().max())
+                   for k, p in cpu.named_parameters())
+    gs = gpu.state_dict()
+    stat_err = max(float((v - gs[k].cpu()).abs().max())
+                   for k, v in cpu.state_dict().items() if "running" in k)
+    diffs = torch.cat([(p.detach() - gp[k].detach().cpu()).abs().flatten()
+                       for k, p in cpu.named_parameters()])
+    loss_err = abs(float(loss_c) - float(loss_g))
+    # Adam's first update is about lr * sign(g): a gradient that rounding
+    # puts on the other side of 0 moves its parameter by up to 2 * lr
+    _check(loss_err <= 1e-5 and grad_err <= 1e-4 and stat_err <= 1e-5
+           and float(diffs.max()) <= 2 * lr
+           and float((diffs > 1e-5).float().mean()) <= 1e-3,
+           f"float32 train step card vs CPU: loss {loss_err}, grads "
+           f"{grad_err}, stats {stat_err}, params max {float(diffs.max())}")
+    print(f"phase 7 reference: float32 train step of a W8/D3 UNet++ on "
+          f"(2, 64, 64, 3), card (kernels 3+3 launches, cuDNN without TF32, "
+          f"deterministic) vs CPU (plain versions): loss {loss_err:.3g} <= "
+          f"1e-5, grads max-abs {grad_err:.3g} <= 1e-4, running stats "
+          f"{stat_err:.3g} <= 1e-5, params max-abs {float(diffs.max()):.3g} "
+          f"<= 2 lr with {float((diffs > 1e-5).float().mean()):.3g} of them "
+          f"beyond 1e-5 (<= 1e-3)", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -386,15 +724,19 @@ def main() -> int:
     import tf_1d_2d_segmentation_end2endpipelines_torch  # noqa: F401
     phase_device()
     phase_build()
-    kernel = phase_kernels()
+    rows = [phase_kernels(), phase_pool_backward()]
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(tmp)
     phase_reference(served["model"])
-    kernel["launches"] = served["launches"]
-    kernel = {k: kernel[k] for k in ("name", "route", "source", "replaces",
-                                     "launches", "max_abs_err", "ms",
-                                     "plain_ms")}
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = phase_train(tmp)
+    phase_train_reference()
+    rows[0]["launches"] = trained["pyramid"]
+    rows[1]["launches"] = trained["backward"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,7 +10,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (  # noqa: E402
-    pyramid)
+    pool_backward, pyramid)
 
 
 @pytest.mark.cuda
@@ -84,3 +84,117 @@ def test_cuda_segmodel_float32_matches_cpu():
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     assert float((gpu - cpu).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_serves_a_single_request():
+    """max_batch=1 (the serve verb's default): one decoded image, given
+    as numpy's ``x[None]`` (stride 0 on the batch axis), runs through the
+    kernel on the card."""
+    _need_cuda()
+    import numpy as np
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.serve import Predictor
+
+    model = SegModel("UNetPP", 8, 3, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0))
+    pred = Predictor(model.cuda().eval(), (32, 32, 3), max_batch=1)
+    x = np.random.default_rng(2).uniform(size=(32, 32, 3)).astype(np.float32)
+    before = pyramid.launches
+    out = pred(x[None])
+    assert out.shape == (1, 32, 32, 1) and np.isfinite(out).all()
+    assert pyramid.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bfloat16, (16, 256, 256, 32)),
+    (torch.bfloat16, (16, 32, 32, 256)),
+    (torch.float32, (4, 64, 64, 32)),    # 16-byte vector path, f32
+    (torch.bfloat16, (2, 37, 53, 16)),   # ragged, vector path
+    (torch.float32, (2, 37, 53, 3)),     # ragged, one channel a thread
+    (torch.bfloat16, (2, 16, 16, 12)),   # C % 8 != 0
+    (torch.float32, (3, 9, 11, 4)),
+    (torch.bfloat16, (1, 1, 1, 8)),      # nothing pooled: all zeros
+])
+def test_cuda_pool_backward_equals_plain_version(dtype, shape):
+    """On the card: the backward kernel launches once and equals the
+    plain version bit for bit, on post-ReLU plateaus (ties) with a NaN."""
+    _need_cuda()
+    g0 = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=g0)
+    x = torch.where(x < 0.3, torch.zeros_like(x), x)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    x = x.to("cuda", dtype).permute(0, 3, 1, 2)
+    b, c, h, w = x.shape
+    g = torch.randn((b, h // 2, w // 2, c), generator=g0).to(
+        "cuda", dtype).permute(0, 3, 1, 2)
+    before = pool_backward.launches
+    got = pool_backward.maxpool2x2_backward(x, g)
+    torch.cuda.synchronize()
+    assert pool_backward.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, pool_backward.maxpool2x2_backward_plain(x, g))
+
+
+@pytest.mark.cuda
+def test_cuda_pool_backward_refuses_what_the_kernel_does_not_take():
+    """A CUDA tensor launches the kernel or raises, never the plain
+    version; a gradient in another layout is copied (and counted)."""
+    _need_cuda()
+    cl = torch.channels_last
+    x = torch.randn(2, 8, 6, 6, device="cuda").contiguous(memory_format=cl)
+    g = torch.randn(2, 8, 3, 3, device="cuda")  # NCHW-contiguous
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pool_backward.maxpool2x2_backward(x.half(), g.half())
+    with pytest.raises(ValueError, match="channels_last"):
+        pool_backward.maxpool2x2_backward(x.contiguous(), g)
+    with pytest.raises(TypeError):
+        pool_backward.maxpool2x2_backward(x, g.double())
+    copies, launches = pool_backward.g_copies, pool_backward.launches
+    got = pool_backward.maxpool2x2_backward(x, g)
+    assert (pool_backward.g_copies, pool_backward.launches) == (
+        copies + 1, launches + 1)
+    assert torch.equal(got, pool_backward.maxpool2x2_backward_plain(x, g))
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_float32_matches_cpu():
+    """One float32 train step of a small UNet++ on the card (TF32 off,
+    deterministic cuDNN) against the CPU from the same weights: loss
+    within 1e-5 and gradients within 1e-4; 3 pool launches each way."""
+    _need_cuda()
+    import copy
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        bce_dice_loss, make_optimizer, make_train_step)
+
+    cpu = SegModel("UNetPP", 8, 3, generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand(2, 40, 48, 3, generator=gen)
+    y = (torch.rand(2, 40, 48, 1, generator=gen) > 0.6).float()
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_c, _ = make_train_step(
+            cpu, make_optimizer("Adam", cpu.parameters(), 1e-3),
+            bce_dice_loss)(x, y)
+        counts = (pyramid.launches, pool_backward.launches)
+        loss_g, _ = make_train_step(
+            gpu, make_optimizer("Adam", gpu.parameters(), 1e-3),
+            bce_dice_loss)(x.cuda(), y.cuda())
+        torch.cuda.synchronize()
+        assert (pyramid.launches, pool_backward.launches) == (
+            counts[0] + 3, counts[1] + 3)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cudnn.deterministic = flags
+    assert abs(float(loss_c) - float(loss_g)) <= 1e-5
+    gp = dict(gpu.named_parameters())
+    for k, p in cpu.named_parameters():
+        assert float((p.grad - gp[k].grad.cpu()).abs().max()) <= 1e-4, k

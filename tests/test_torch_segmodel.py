@@ -92,3 +92,29 @@ def test_unported_configurations_raise():
     for name in ("UNet", "UNet3P", "MultiResUNet", "SelfUNetPP"):
         with pytest.raises(NotImplementedError):
             SegModel(name, 4, 2)
+
+
+def test_batch_of_one_from_numpy_reaches_the_pool_channels_last(monkeypatch):
+    """numpy's ``x[None]`` has stride 0 on the batch axis; the model still
+    hands the pool (and so the CUDA kernel, which takes nothing else) a
+    channels_last tensor at every level.  Before the model copied its
+    input into a fresh channels_last tensor, the convolutions wrote NCHW
+    here and a served request of one image on the card failed."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+
+    seen = []
+    plain = pyramid.maxpool_pyramid
+
+    def spy(x, levels):
+        seen.append(x.is_contiguous(memory_format=torch.channels_last))
+        return plain(x, levels)
+
+    monkeypatch.setattr(pyramid, "maxpool_pyramid", spy)
+    x = np.random.default_rng(3).uniform(size=(16, 16, 3)).astype(
+        np.float32)[None]
+    assert x.strides[0] == 0
+    model = SegModel("UNetPP", 4, 2).eval()
+    with torch.inference_mode():
+        out = model(torch.from_numpy(x))["out"]
+    assert seen == [True, True] and tuple(out.shape) == (1, 16, 16, 1)

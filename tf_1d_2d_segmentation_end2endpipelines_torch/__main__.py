@@ -1,5 +1,5 @@
-"""``python -m tf_1d_2d_segmentation_end2endpipelines_torch serve ...``:
-the port's command line (JAX: drivers.py:936-946, :1067-1071)."""
+"""``python -m tf_1d_2d_segmentation_end2endpipelines_torch train|serve
+...``: the port's command line (JAX: drivers.py:936-946, :1067-1071)."""
 from __future__ import annotations
 
 import argparse
@@ -11,6 +11,14 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
         prog="python -m tf_1d_2d_segmentation_end2endpipelines_torch",
         description="tpuseg on PyTorch/CUDA (the ported verbs)")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    p_tr = sub.add_parser(
+        "train", help="fold-loop training from a Train_Configs.ini; writes "
+        "<save_dir>/Fold_<fold>/best.pt")
+    p_tr.add_argument("config", nargs="?", default="Train_Configs.ini")
+    p_tr.add_argument("--device", default="cuda",
+                      help="torch device to train on (default: cuda)")
+    p_tr.add_argument("--seed", type=int, default=None,
+                      help="replaces the INI seed (weights, shuffle, split)")
     p_srv = sub.add_parser(
         "serve", help="HTTP serving of a trained fold (POST an image, get "
         "a PNG mask); weights from <save_dir>/Fold_<fold>/best.pt")
@@ -28,7 +36,10 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     p_srv.add_argument("--int8", action="store_true",
                        help="int8 serving (not ported yet: raises)")
     args = parser.parse_args(argv)
-    if args.cmd == "serve":
+    if args.cmd == "train":
+        from .drivers import train
+        train(args.config, device=args.device, seed=args.seed)
+    elif args.cmd == "serve":
         from .serve import serve
         serve(args.config, host=args.host, port=args.port, fold=args.fold,
               max_batch=args.max_batch, threshold=args.threshold,

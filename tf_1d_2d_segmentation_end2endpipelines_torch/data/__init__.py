@@ -1,0 +1,9 @@
+"""Input pipeline of the port: host numpy and PIL."""
+from .generators import (  # noqa: F401
+    PrefetchLoader,
+    SegmentationFolderDataset,
+    SubsetDataset,
+    load_image,
+    split_dataset,
+)
+from .synthetic import synthetic_images, write_image_folder  # noqa: F401

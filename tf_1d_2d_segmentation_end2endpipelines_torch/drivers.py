@@ -1,21 +1,31 @@
-"""Model building and weight restore for the port's verbs
-(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/drivers.py:54-138).
+"""The port's verbs: the ``train`` fold loop, and the model building and
+weight restore that ``serve`` uses
+(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/drivers.py:54-138 and
+``train`` :197-403).
 
 Weights live in ``<save_dir>/Fold_<fold>/best.pt``: a ``state_dict`` of the
-port's model (``utils/flax_to_torch.py`` makes one from a flax tree).
+port's model, which ``train`` writes and ``serve`` loads
+(``utils/flax_to_torch.py`` makes one from a flax tree).
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import os
 import typing as tp
 
 import torch
 
+from .data import PrefetchLoader, SegmentationFolderDataset, split_dataset
 from .models import model_selector
-from .utils.config import TrainConfig
+from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
+                    Trainer, get_loss, make_metric, make_optimizer)
+from .train.checkpoint import weights_file
+from .utils.config import (TrainConfig, load_train_config, save_train_config,
+                           unported_train_keys)
 
 #: file name of a fold's serving weights under its checkpoint directory
-BEST_WEIGHTS = "best.pt"
+BEST_WEIGHTS = weights_file("best")
 
 
 def _resolve_dtype(cfg: TrainConfig, dtype: tp.Optional[torch.dtype]
@@ -83,3 +93,111 @@ def _restore_model(cfg: TrainConfig, ckpt_dir: str, action: str,
         print(f"WARNING: no 'best' checkpoint under {ckpt_dir}; "
               f"{action} freshly initialized weights", flush=True)
     return model.to(device).eval()
+
+
+def _fold_dir(cfg: TrainConfig, fold: int) -> str:
+    return os.path.join(cfg.save_dir or "", f"Fold_{fold}")
+
+
+def _fold_data_dir(directory: str, fold: int) -> str:
+    """``<directory>/fold_<k>`` when it exists, else ``directory``."""
+    sub = os.path.join(directory, f"fold_{fold}")
+    return sub if os.path.isdir(sub) else directory
+
+
+def _check_train_config(cfg: TrainConfig,
+                        dtype: tp.Optional[torch.dtype]) -> None:
+    """Raise ``NotImplementedError`` for whatever ``cfg`` asks that the
+    port cannot train yet, before the verb writes anything."""
+    bad = unported_train_keys(cfg)
+    if bad:
+        raise NotImplementedError(
+            "the port's train verb does not take these settings yet: "
+            + ", ".join(bad))
+    _build_model(cfg, dtype=dtype)  # an unported architecture raises
+    get_loss(cfg.loss_function)
+    for name in cfg.metric_list:
+        make_metric(name)
+    make_optimizer(cfg.optimizer_function,
+                   [torch.zeros(1, requires_grad=True)], cfg.learning_rate)
+
+
+def train(config_path: str = "Train_Configs.ini",
+          config: tp.Optional[TrainConfig] = None,
+          dtype: tp.Optional[torch.dtype] = None,
+          device: tp.Union[str, torch.device] = "cuda",
+          seed: tp.Optional[int] = None,
+          verbose: int = 1) -> tp.Dict[int, tp.Dict[str, tp.List[float]]]:
+    """Fold-loop training driver (reference Train.py).  Returns
+    ``{fold: history}`` and writes, under ``save_dir``, the config as
+    trained (``Train_Configs.ini``) and per fold ``Fold_<k>/best.pt`` (the
+    weights of the best epoch by ``monitor_param``), its optimizer state
+    and ``history.json``.
+
+    ``device`` defaults to the GPU and never falls back to the CPU;
+    ``seed`` replaces the INI ``seed`` (weights, shuffle, split)."""
+    cfg = config if config is not None else load_train_config(config_path)
+    if seed is not None:
+        cfg = dataclasses.replace(cfg, seed=seed)
+    device = resolve_device(device)
+    _check_train_config(cfg, dtype)
+    if cfg.save_dir:
+        os.makedirs(cfg.save_dir, exist_ok=True)
+        save_train_config(cfg, os.path.join(cfg.save_dir,
+                                            "Train_Configs.ini"))
+    size = (cfg.imlength, cfg.imwidth)
+
+    def dataset(directory: str, fold: int) -> SegmentationFolderDataset:
+        return SegmentationFolderDataset(
+            _fold_data_dir(directory, fold), size, cfg.image_color_mode,
+            cfg.mask_color_mode, cfg.normalizing_factor_img,
+            cfg.normalizing_factor_msk)
+
+    histories: tp.Dict[int, tp.Dict[str, tp.List[float]]] = {}
+    for fold in range(cfg.start_fold, cfg.end_fold + 1):
+        model = _build_model(cfg, dtype=dtype,
+                             generator=torch.Generator().manual_seed(cfg.seed))
+        train_ds = dataset(cfg.train_dir, fold)
+        split_val_ds = None
+        if not cfg.independent_val_set and cfg.validation_portion > 0:
+            train_ds, split_val_ds = split_dataset(
+                train_ds, cfg.validation_portion, seed=cfg.seed)
+        loader = PrefetchLoader(train_ds, cfg.batch_size, shuffle=True,
+                                seed=cfg.seed, cache=cfg.cache_data)
+        val_loader = None
+        if split_val_ds is not None and len(split_val_ds):
+            val_loader = PrefetchLoader(split_val_ds, cfg.batch_size,
+                                        shuffle=False, cache=cfg.cache_data)
+        elif cfg.independent_val_set and os.path.isdir(cfg.val_dir):
+            val_loader = PrefetchLoader(dataset(cfg.val_dir, fold),
+                                        cfg.batch_size, shuffle=False,
+                                        cache=cfg.cache_data)
+        trainer = Trainer(model, loss=cfg.loss_function,
+                          optimizer=cfg.optimizer_function,
+                          learning_rate=cfg.learning_rate,
+                          metrics=tuple(cfg.metric_list), device=device)
+        ckpt_dir = _fold_dir(cfg, fold)
+        ckpt = CheckpointManager(ckpt_dir)
+        if cfg.load_weights and ckpt.exists("best"):  # Train.py:361-369
+            ckpt.restore(trainer.model, trainer.optimizer, "best")
+            print(f"Fold {fold}: resumed from {ckpt.path('best')}",
+                  flush=True)
+        monitor = cfg.monitor_param
+        if monitor.startswith("val_") and val_loader is None:
+            monitor = monitor[len("val_"):] or "loss"
+        history = trainer.fit(
+            loader, val_data=val_loader, epochs=cfg.num_epochs,
+            callbacks=[
+                EarlyStopping(monitor=monitor, patience=cfg.patience_amount,
+                              mode=cfg.patience_mode),
+                ReduceLROnPlateau(monitor=monitor, factor=cfg.rlronp_factor,
+                                  patience=cfg.patience_amount_rlronp,
+                                  mode=cfg.patience_mode),
+            ],
+            checkpoint=ckpt, monitor=monitor, verbose=verbose)
+        histories[fold] = history
+        if cfg.save_history:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
+                json.dump(history, f)
+    return histories

@@ -1,4 +1,4 @@
-"""Decoders of the serving slice
+"""Decoders of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/decoders.py).
 
 Ported: the UNet++ nested grid (``GridDecoder(variant="PP")``, :223) with

@@ -1,4 +1,4 @@
-"""From-scratch encoder and latent layer of the serving slice
+"""From-scratch encoder and latent layer of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/encoders.py).
 
 Only the default families' branches are ported: the ConvBlock encoder

@@ -1,4 +1,4 @@
-"""Top-level segmentation model of the serving slice
+"""Top-level segmentation model of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
 
 Ported: the from-scratch UNet genre without deep supervision, autoencoder
@@ -23,8 +23,11 @@ class SegModel(nn.Module):
 
     ``forward`` takes an NHWC batch, as the JAX module does, casts it to
     ``dtype`` and returns ``{"out": NHWC tensor}`` in ``dtype``.  Parameters
-    are float32 and drawn from ``generator`` (a CPU ``torch.Generator``);
-    move the model with ``.to(device)`` and call ``.eval()`` before use."""
+    are float32 and drawn from ``generator`` (a CPU ``torch.Generator``).
+    In training mode BatchNorm uses the batch statistics, as the JAX
+    module's ``__call__(train=True)`` does; the head's activation runs in
+    ``dtype`` (bf16 under bf16), and a caller casts the outputs to float32
+    before the loss (JAX: train/state.py:157)."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
                  in_channels: int = 3, output_nums: int = 1, ds: int = 0,
@@ -63,8 +66,13 @@ class SegModel(nn.Module):
             self.out.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = x.contiguous(memory_format=torch.channels_last)
+        # a fresh channels_last copy in the compute dtype: a batch of one
+        # may come with any stride on its batch axis (numpy's x[None] gives
+        # 0), and cuDNN then writes every conv output in the NCHW layout,
+        # which the pool kernel refuses
+        x = x.permute(0, 3, 1, 2)
+        x = torch.empty(x.shape, dtype=self.dtype, device=x.device,
+                        memory_format=torch.channels_last).copy_(x)
         taps, bottom = self.ScratchEncoder_0(x)
         conv = self.LatentLayer_0(bottom)
         skips = taps[:self.model_depth] + [conv]

@@ -1,13 +1,13 @@
-"""Block library of the serving slice: the 2D blocks the flagship UNet++
-runs, ported from tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
+"""Block library of the port: the 2D blocks the flagship UNet++ runs,
+ported from tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
 
 Layout: modules and block functions take and return (B, C, H, W) tensors
 in ``torch.channels_last`` memory, i.e. the JAX package's NHWC buffers
 seen through PyTorch's NCHW indexing.  Parameters stay float32; a block
 built with ``dtype=torch.bfloat16`` casts its weights and activations to
 bf16 in the same places the flax modules do, so converted weights give
-the JAX outputs.  Forward only: training (batch statistics, gradients)
-is not ported yet.
+the JAX outputs and, through autograd, the JAX gradients (BatchNorm in
+training mode uses the batch statistics, as flax's does).
 
 Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``,
 ``ConvTranspose_0``, ``ConvBlock_<k>``), so a flax parameter path maps to
@@ -83,12 +83,19 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm`` in eval mode (running statistics).
+    """flax ``BatchNorm`` (JAX: ConvBlock's ``nn.BatchNorm``, blocks.py:224).
 
     Matches flax's order of operations: the input is promoted to float32,
     ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and only the result
-    is cast back to the activation dtype.  ``momentum`` keeps flax's
-    meaning (weight of the old running value) for the training port."""
+    is cast back to the activation dtype.
+
+    Eval mode normalizes with the running statistics.  Training mode
+    normalizes with the batch's: the mean and the biased variance over
+    N, H, W in float32, the variance as ``E[x**2] - E[x]**2`` clamped at 0
+    (flax's ``use_fast_variance``), and advances the running statistics
+    with flax's ``momentum`` (the weight of the old value, 0.99), biased
+    variance included.  ``F.batch_norm`` is not used: it would store the
+    unbiased variance."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -101,12 +108,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training mode is not ported yet; call .eval()")
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(
+                (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
 
@@ -182,12 +198,19 @@ def downsample_pool(x: torch.Tensor, factor: int = 2,
     """Pool with window == stride == ``factor``, VALID (Keras semantics).
 
     Max pooling by ``2**m`` is level m of the max-pool pyramid, so it runs
-    the pyramid kernel on a CUDA tensor (JAX: ``lax.reduce_window``)."""
+    the pyramid kernel on a CUDA tensor (JAX: ``lax.reduce_window``).  By
+    2 it is differentiable, with XLA's first-max gradient
+    (``pyramid.maxpool2x2``); larger factors are forward only."""
     if op == "max":
         levels = int(factor).bit_length() - 1
         if factor < 2 or factor != 1 << levels:
             raise NotImplementedError(
                 f"max pool by {factor}: only powers of two are ported")
+        if levels == 1:
+            return pyramid.maxpool2x2(x)
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError(
+                f"max pool by {factor} has no gradient yet (only by 2)")
         return pyramid.maxpool_pyramid(x, levels)[-1]
     if op == "avg":
         return F.avg_pool2d(x, factor, factor)

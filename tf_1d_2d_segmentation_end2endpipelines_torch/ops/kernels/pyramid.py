@@ -12,6 +12,11 @@ W and channel count; float32 and bfloat16.
 - :func:`maxpool_pyramid` is the wrapper.  On a CPU tensor it runs
   :func:`maxpool_pyramid_plain`; on a CUDA tensor it launches the kernel
   or raises.  Each launch adds one to :data:`launches`.
+- :func:`maxpool2x2` is level 1 as a differentiable op: its forward is
+  ``maxpool_pyramid(x, 1)``, its backward ``pool_backward.
+  maxpool2x2_backward`` (the CUDA kernel ``csrc/pool_backward.cu`` on a
+  CUDA tensor), which routes each gradient to the first maximum of its
+  window as XLA does.
 - :func:`fused_maxpool_pyramid` is the JAX package's NHWC entry point.
 """
 from __future__ import annotations
@@ -21,6 +26,8 @@ import threading
 import typing as tp
 
 import torch
+
+from .pool_backward import maxpool2x2_backward
 
 #: kernel launches so far in this process (never counts the plain version)
 launches = 0
@@ -108,6 +115,26 @@ def maxpool_pyramid(x: torch.Tensor, levels: int) -> tp.List[torch.Tensor]:
     if x.device.type == "cpu":
         return maxpool_pyramid_plain(x, levels)
     raise ValueError(f"maxpool_pyramid: unsupported device {x.device}")
+
+
+class MaxPool2x2(torch.autograd.Function):
+    """The 2x2 max pool (window = stride = 2, VALID floor truncation) of a
+    (B, C, H, W) tensor, with the gradient of XLA's max pool."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return maxpool_pyramid(x, 1)[0]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        return maxpool2x2_backward(x, g)
+
+
+def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable level 1 of the pyramid (see :class:`MaxPool2x2`)."""
+    return MaxPool2x2.apply(x)
 
 
 def fused_maxpool_pyramid(mask: torch.Tensor, levels: int

@@ -1,0 +1,30 @@
+"""Training of the port (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/
+train): losses, Adam, the train/eval/predict steps, metrics, callbacks,
+state_dict checkpoints and the ``Trainer``."""
+from .callbacks import (  # noqa: F401
+    BestTracker,
+    EarlyStopping,
+    ReduceLROnPlateau,
+    infer_mode,
+)
+from .checkpoint import CheckpointManager  # noqa: F401
+from .losses import (  # noqa: F401
+    bce_dice_loss,
+    binary_crossentropy,
+    deep_supervision_loss,
+    default_ds_weights,
+    dice_loss,
+    get_loss,
+)
+from .metrics import Metric, make_metric  # noqa: F401
+from .optimizers import (  # noqa: F401
+    get_learning_rate,
+    make_optimizer,
+    set_learning_rate,
+)
+from .state import (  # noqa: F401
+    make_eval_step,
+    make_predict_step,
+    make_train_step,
+)
+from .trainer import Trainer  # noqa: F401

@@ -127,3 +127,38 @@ def load_train_config(path: str) -> TrainConfig:
     with open(path) as f:
         parser.read_file(f)
     return _load_section(TrainConfig, parser["TRAIN"])
+
+
+def save_train_config(cfg: TrainConfig, path: str) -> None:
+    """Write ``cfg`` as an INI that ``load_train_config`` (here and in the
+    JAX package) reads back."""
+    parser = configparser.ConfigParser()
+    parser["TRAIN"] = {
+        k: (",".join(v) if isinstance(v, tuple) else str(v))
+        for k, v in dc.asdict(cfg).items()}
+    with open(path, "w") as f:
+        parser.write(f)
+
+
+def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
+    """The INI settings of ``cfg`` the port's ``train`` verb does not take
+    yet, as ``key = value`` strings (empty when it takes them all)."""
+    checks = (
+        ("d_s", cfg.d_s != 0),
+        ("augment", cfg.augment),
+        ("augment_device", cfg.augment_device),
+        ("patchify", cfg.patchify),
+        ("accumulation_steps", cfg.accumulation_steps > 1),
+        ("remat", bool(cfg.remat.strip())),
+        ("ema_decay", cfg.ema_decay > 0),
+        ("model_parallel", cfg.model_parallel > 1),
+        ("spatial_parallel", cfg.spatial_parallel > 1),
+        ("pipeline_parallel", cfg.pipeline_parallel > 1),
+        ("zero1", cfg.zero1),
+        ("exact_resume", cfg.exact_resume),
+        ("tensorboard_dir", bool(cfg.tensorboard_dir.strip())),
+        ("clipnorm", cfg.clipnorm != 0),
+        ("clipvalue", cfg.clipvalue != 0),
+        ("global_clipnorm", cfg.global_clipnorm != 0),
+    )
+    return [f"{key} = {getattr(cfg, key)!r}" for key, bad in checks if bad]

@@ -1,4 +1,5 @@
-"""Convert the JAX package's flax variables into the port's ``state_dict``.
+"""Convert the JAX package's flax variables into the port's ``state_dict``,
+and optax's Adam state into ``torch.optim.Adam``'s (``load_adam_state``).
 
 The port's modules carry the flax auto-names, so a flax path maps to a
 ``state_dict`` key by joining it with dots and renaming the leaf:
@@ -80,3 +81,22 @@ def load_flax_variables(model: torch.nn.Module,
                         variables: tp.Mapping[str, tp.Mapping]) -> None:
     """Convert ``variables`` and load them into ``model`` in place."""
     model.load_state_dict(flax_to_state_dict(variables, model.state_dict()))
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module, mu: tp.Mapping,
+                    nu: tp.Mapping, count: int) -> None:
+    """Carry optax's Adam state into ``torch.optim.Adam``'s for the
+    parameters of ``model``: ``mu`` (the first moments, a tree shaped like
+    flax ``params``) becomes ``exp_avg``, ``nu`` becomes ``exp_avg_sq``
+    and ``count`` (updates so far) ``step``.  The moments are placed on
+    each parameter's device."""
+    params = dict(model.named_parameters())
+    moments = [flax_to_state_dict({"params": tree}, params)
+               for tree in (mu, nu)]
+    for name, p in params.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moments[0][name].to(p.device),
+            "exp_avg_sq": moments[1][name].to(p.device),
+        }
