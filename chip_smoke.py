@@ -26,13 +26,16 @@ synthetic PNG folder, batch 16, 2 epochs).  Phases, each printing lines:
 6. train: finite losses; the pool backward kernel launched 4 times per
    train step and the pyramid 4 times per train step and validation
    batch; best.pt written and served; on one fixed batch the loss falls
-   over 30 steps; p50 step time, img/s and peak memory
+   over 30 steps; p50 step time, img/s and peak memory, and the verb's
+   own step time of its last epoch (loader included) beside it
 7. train reference: one float32 train step on the card against the CPU,
    loss, gradients, running statistics and parameters within stated
    tolerances
 
-The line before the last is one JSON object describing each kernel; the
-last is ``{"ok": true, "device": {...}}``.  Any failure raises and the
+The line before the last is one JSON object with a row for each kernel
+and each path that runs it (``path``: ``serve`` or ``train``): the
+launches of that path's run in phase 4 or 6, and the device times and
+bound of the calls that path makes per batch or step; the last is ``{"ok": true, "device": {...}}``.  Any failure raises and the
 exit code is not 0.  Without CUDA it exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -61,7 +64,7 @@ THRESHOLD = 0.5
 NEAR_THRESHOLD = 1e-2
 REPS = 30
 TRAIN_BATCH = 16
-N_TRAIN = 64
+N_TRAIN = 128
 N_VAL = 16
 TRAIN_EPOCHS = 2
 FIXED_STEPS = 30
@@ -162,9 +165,11 @@ def _in_turns(fns: dict, flush) -> dict:
     return {name: statistics.mean(v) for name, v in t.items()}
 
 
-def _path_row(name: str, source: str, replaces: str, max_err: float,
-              times: dict, nbytes: int) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
+def _path_row(name: str, path: str, source: str, replaces: str,
+              max_err: float, times: dict, nbytes: int) -> dict:
+    """The kernel's row of the JSON line for one path: device times and
+    bound summed over the calls that path makes per batch or step."""
+    return {"name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_err,
             "ms": times["kernel"], "plain_ms": times["plain"],
             "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
@@ -172,6 +177,8 @@ def _path_row(name: str, source: str, replaces: str, max_err: float,
 
 
 def phase_kernels() -> dict:
+    """maxpool_pyramid against its plain version; returns its JSON rows,
+    one per path (``serve``, ``train``)."""
     import torch
     import torch.nn.functional as F
 
@@ -241,11 +248,11 @@ def phase_kernels() -> dict:
               f"{n}, device time: kernel {q['kernel']:.4f} ms, plain "
               f"{q['plain']:.4f} ms, library {q['library']:.4f} ms, bound "
               f"{_bound_ms(q['bytes']):.4f} ms", flush=True)
-    return _path_row(
-        "maxpool_pyramid",
+    return {p: _path_row(
+        "maxpool_pyramid", p,
         "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pyramid.cu",
         "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/pallas/pyramid.py:49",
-        max_err, path["train"], path["train"]["bytes"])
+        max_err, path[p], path[p]["bytes"]) for p in path}
 
 
 def phase_pool_backward() -> dict:
@@ -282,11 +289,11 @@ def phase_pool_backward() -> dict:
         b, c, h, w = x.shape
         g = torch.randn((b, h // 2, w // 2, c), generator=gen).to(
             "cuda", dtype).permute(0, 3, 1, 2)
-        before = pool_backward.launches
+        before = pool_backward.launches.value
         got = pool_backward.maxpool2x2_backward(x, g)
         want = pool_backward.maxpool2x2_backward_plain(x, g)
         torch.cuda.synchronize()
-        _check(pool_backward.launches == before + 1,
+        _check(pool_backward.launches.value == before + 1,
                f"pool backward {shape}: not one launch")
         _check(got.shape == want.shape and got.dtype == want.dtype and
                got.is_contiguous(memory_format=torch.channels_last),
@@ -324,7 +331,7 @@ def phase_pool_backward() -> dict:
           f"plain {path['plain']:.4f} ms, library {path['library']:.4f} ms, "
           f"bound {_bound_ms(path_bytes):.4f} ms", flush=True)
     return _path_row(
-        "maxpool2x2_backward",
+        "maxpool2x2_backward", "train",
         "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pool_backward.cu",
         "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py:467",
         max_err, path, path_bytes)
@@ -404,14 +411,14 @@ def phase_serve(tmp: str) -> dict:
     serving = threading.Thread(target=server.serve_forever, daemon=True)
     serving.start()
     try:
-        pyramid.reset_launches()  # the main path's run starts here
+        pyramid.launches.reset()  # the main path's run starts here
         clients = [threading.Thread(target=client, args=(c,))
                    for c in range(N_CLIENTS)]
         for th in clients:
             th.start()
         for th in clients:
             th.join(timeout=600)
-        launches = pyramid.launches  # ... and ends here
+        launches = pyramid.launches.value  # ... and ends here
         _check(not any(th.is_alive() for th in clients), "clients hung")
     finally:
         server.shutdown()
@@ -431,18 +438,18 @@ def phase_serve(tmp: str) -> dict:
           f"{SIZE}x{SIZE} mask from {N_CLIENTS} clients; {n_batches} device "
           f"batches of {sorted(set(device_batches))}", flush=True)
     _check(launches == 4 * n_batches and n_batches > 0,
-           f"pyramid.launches {launches} != 4 x {n_batches} device batches")
-    print(f"phase 4 serve: pyramid.launches = {launches} = 4 encoder pools "
+           f"pyramid.launches.value {launches} != 4 x {n_batches} device batches")
+    print(f"phase 4 serve: pyramid.launches.value = {launches} = 4 encoder pools "
           f"x {n_batches} device batches", flush=True)
 
     # the same model with the plain pool, on the card, on the same decode
     decoded = np.stack([_decode_request(b, (SIZE, SIZE), "rgb", 255.0)
                         for b in bodies])
-    before = pyramid.launches
+    before = pyramid.launches.value
     with mock.patch.object(pyramid, "maxpool_pyramid",
                            pyramid.maxpool_pyramid_plain):
         probs = predictor(decoded)
-    _check(pyramid.launches == before, "plain-pool run launched the kernel")
+    _check(pyramid.launches.value == before, "plain-pool run launched the kernel")
     _check(probs.shape == (N_REQUESTS, SIZE, SIZE, 1)
            and bool(np.isfinite(probs).all())
            and 0.0 <= float(probs.min()) and float(probs.max()) <= 1.0,
@@ -499,10 +506,10 @@ def phase_reference(model) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        before = pyramid.launches
+        before = pyramid.launches.value
         with torch.inference_mode():
             gpu = ref(x.cuda())["out"].cpu()
-        launched = pyramid.launches - before
+        launched = pyramid.launches.value - before
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -577,14 +584,15 @@ def phase_train(tmp: str) -> dict:
           f"bf16, BCEDice, Adam lr {cfg.learning_rate}, batch "
           f"{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs", flush=True)
 
-    pyramid.reset_launches()  # the main path's run starts here
-    pool_backward.reset_launches()
+    pyramid.launches.reset()  # the main path's run starts here
+    pool_backward.launches.reset()
+    pool_backward.g_copies.reset()
     t0 = time.perf_counter()
     hist = drivers.train(config=cfg, device="cuda")[1]
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    fwd, bwd, copies = (pyramid.launches, pool_backward.launches,
-                        pool_backward.g_copies)  # ... and ends here
+    fwd, bwd, copies = (pyramid.launches.value, pool_backward.launches.value,
+                        pool_backward.g_copies.value)  # ... and ends here
     steps = TRAIN_EPOCHS * -(-N_TRAIN // TRAIN_BATCH)
     val_batches = TRAIN_EPOCHS * -(-N_VAL // TRAIN_BATCH)
     losses = hist["loss"] + hist["val_loss"]
@@ -639,6 +647,15 @@ def phase_train(tmp: str) -> dict:
           f"last {FIXED_STEPS - 5} (host clock, synchronized), "
           f"{TRAIN_BATCH / p50:.1f} img/s; max_memory_allocated "
           f"{peak} B ({peak / 2 ** 30:.3f} GiB)", flush=True)
+    # the verb's own rate: its loader (PNG decode) and host-to-device
+    # copies included, which the fixed batch leaves out
+    verb_ms = 1e3 / hist["steps_per_sec"][-1]
+    print(f"phase 6 train: the train verb's last epoch {verb_ms:.3f} ms a "
+          f"step ({hist['steps_per_sec'][-1]:.3f} steps/s, "
+          f"{TRAIN_BATCH * hist['steps_per_sec'][-1]:.1f} img/s, "
+          f"{-(-N_TRAIN // TRAIN_BATCH)} steps, loader and copies "
+          f"included), {verb_ms / (p50 * 1e3):.3f}x the fixed batch's p50",
+          flush=True)
     return {"pyramid": fwd, "backward": bwd}
 
 
@@ -671,18 +688,18 @@ def phase_train_reference() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     try:
-        counts = (pyramid.launches, pool_backward.launches)
+        counts = (pyramid.launches.value, pool_backward.launches.value)
         loss_c, _ = make_train_step(
             cpu, make_optimizer("Adam", cpu.parameters(), lr),
             bce_dice_loss)(x, y)
-        _check((pyramid.launches, pool_backward.launches) == counts,
+        _check((pyramid.launches.value, pool_backward.launches.value) == counts,
                "the CPU step launched a kernel")
         loss_g, _ = make_train_step(
             gpu, make_optimizer("Adam", gpu.parameters(), lr),
             bce_dice_loss)(x.cuda(), y.cuda())
         torch.cuda.synchronize()
-        launched = (pyramid.launches - counts[0],
-                    pool_backward.launches - counts[1])
+        launched = (pyramid.launches.value - counts[0],
+                    pool_backward.launches.value - counts[1])
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32,
@@ -724,16 +741,18 @@ def main() -> int:
     import tf_1d_2d_segmentation_end2endpipelines_torch  # noqa: F401
     phase_device()
     phase_build()
-    rows = [phase_kernels(), phase_pool_backward()]
+    pyr, bwd = phase_kernels(), phase_pool_backward()
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(tmp)
     phase_reference(served["model"])
     with tempfile.TemporaryDirectory() as tmp:
         trained = phase_train(tmp)
     phase_train_reference()
-    rows[0]["launches"] = trained["pyramid"]
-    rows[1]["launches"] = trained["backward"]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    pyr["serve"]["launches"] = served["launches"]
+    pyr["train"]["launches"] = trained["pyramid"]
+    bwd["launches"] = trained["backward"]
+    rows = [pyr["serve"], pyr["train"], bwd]
+    keys = ("name", "path", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)

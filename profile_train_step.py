@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
-    python3 profile_train_step.py [--steps 10] [--warmup 10] [--batch 16]
-                                  [--out DIR]
+    python3 profile_train_step.py [--out DIR]
 
 The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam) takes
-``--warmup`` train steps on one synthetic batch, then ``--steps`` more
-under ``torch.profiler``.  Prints the card's name and power limit, the
+10 train steps on one synthetic batch of 16, then 10 more under
+``torch.profiler``.  Prints the card's name and power limit, the
 host time per step with and without the profiler, the device time per
 step by kernel (the profiler's CUDA rows), grouped into the layers of
 PERF.md section 5, and the card's idle share of a step.  The full table
@@ -19,6 +18,8 @@ import os
 import subprocess
 import sys
 import time
+
+WARMUP, STEPS, BATCH = 10, 10, 16  # warm-up steps, profiled steps, batch
 
 GROUPS = (  # (layer, substrings of a device kernel's name), first match wins
     ("pool kernels (hand-written)", ("pool2x2", "pyramid")),
@@ -43,9 +44,6 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--warmup", type=int, default=10)
-    ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--out", default=os.path.join("build",
                                                   "profile_train_step"))
     args = ap.parse_args(argv)
@@ -67,7 +65,7 @@ def main(argv=None) -> int:
                      generator=torch.Generator().manual_seed(0))
     trainer = Trainer(model, loss="BCEDiceLoss", learning_rate=2e-4,
                       device="cuda")
-    x, y = synthetic_images(args.batch, 256, seed=0)
+    x, y = synthetic_images(BATCH, 256, seed=0)
     x, y = trainer.to_device(x), trainer.to_device(y)
 
     def steps(n: int) -> float:
@@ -78,11 +76,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / n * 1e3
 
-    steps(args.warmup)
-    plain_ms = steps(args.steps)
+    steps(WARMUP)
+    plain_ms = steps(STEPS)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prof_ms = steps(args.steps)
+        prof_ms = steps(STEPS)
     events = prof.key_averages()
     # the device's own rows, one per kernel name; a range that the host
     # annotates (Optimizer.step#Adam.step) also shows on the device's
@@ -94,7 +92,7 @@ def main(argv=None) -> int:
                          getattr(e, "self_cuda_time_total", 0))
         if dev_us > 0 and "CUDA" in str(e.device_type) \
                 and e.key not in host_keys:
-            rows.append((dev_us / args.steps / 1e3, e.count / args.steps,
+            rows.append((dev_us / STEPS / 1e3, e.count / STEPS,
                          e.key))
     if not rows:
         print("profile_train_step: the profiler recorded no device time",
@@ -104,11 +102,11 @@ def main(argv=None) -> int:
     busy = sum(r[0] for r in rows)
     # the profiler slows the host, not the kernels: the idle share of a
     # step is read against the step without it
-    print(f"batch {args.batch}: host time per step {plain_ms:.3f} ms without "
-          f"the profiler, {prof_ms:.3f} ms with it (mean of {args.steps} "
-          f"steps after {args.warmup} warm-up); device busy {busy:.3f} ms "
+    print(f"batch {BATCH}: host time per step {plain_ms:.3f} ms without "
+          f"the profiler, {prof_ms:.3f} ms with it (mean of {STEPS} "
+          f"steps after {WARMUP} warm-up); device busy {busy:.3f} ms "
           f"per step, idle share of a step without the profiler "
-          f"{1 - busy / plain_ms:.3f}; {args.batch / plain_ms * 1e3:.1f} "
+          f"{1 - busy / plain_ms:.3f}; {BATCH / plain_ms * 1e3:.1f} "
           f"img/s", flush=True)
     groups = {}
     for ms, n, name in rows:

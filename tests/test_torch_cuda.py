@@ -34,10 +34,10 @@ def test_cuda_kernel_equals_plain_version(dtype, shape, levels):
     x = torch.randn(shape, generator=g)
     x.view(-1)[x.numel() // 3] = float("nan")
     x = x.to("cuda", dtype).permute(0, 3, 1, 2)
-    before = pyramid.launches
+    before = pyramid.launches.value
     got = pyramid.maxpool_pyramid(x, levels)
     torch.cuda.synchronize()
-    assert pyramid.launches == before + 1
+    assert pyramid.launches.value == before + 1
     for k, w in zip(got, pyramid.maxpool_pyramid_plain(x, levels)):
         assert k.shape == w.shape
         assert torch.equal(k.nan_to_num(7.0), w.nan_to_num(7.0))
@@ -77,10 +77,10 @@ def test_cuda_segmodel_float32_matches_cpu():
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        before = pyramid.launches
+        before = pyramid.launches.value
         with torch.inference_mode():
             gpu = model(x.cuda())["out"].cpu()
-        assert pyramid.launches == before + 3
+        assert pyramid.launches.value == before + 3
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     assert float((gpu - cpu).abs().max()) <= 1e-4
@@ -101,10 +101,10 @@ def test_cuda_predictor_serves_a_single_request():
                      generator=torch.Generator().manual_seed(0))
     pred = Predictor(model.cuda().eval(), (32, 32, 3), max_batch=1)
     x = np.random.default_rng(2).uniform(size=(32, 32, 3)).astype(np.float32)
-    before = pyramid.launches
+    before = pyramid.launches.value
     out = pred(x[None])
     assert out.shape == (1, 32, 32, 1) and np.isfinite(out).all()
-    assert pyramid.launches == before + 3
+    assert pyramid.launches.value == before + 3
 
 
 @pytest.mark.cuda
@@ -130,10 +130,10 @@ def test_cuda_pool_backward_equals_plain_version(dtype, shape):
     b, c, h, w = x.shape
     g = torch.randn((b, h // 2, w // 2, c), generator=g0).to(
         "cuda", dtype).permute(0, 3, 1, 2)
-    before = pool_backward.launches
+    before = pool_backward.launches.value
     got = pool_backward.maxpool2x2_backward(x, g)
     torch.cuda.synchronize()
-    assert pool_backward.launches == before + 1
+    assert pool_backward.launches.value == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, pool_backward.maxpool2x2_backward_plain(x, g))
 
@@ -152,9 +152,9 @@ def test_cuda_pool_backward_refuses_what_the_kernel_does_not_take():
         pool_backward.maxpool2x2_backward(x.contiguous(), g)
     with pytest.raises(TypeError):
         pool_backward.maxpool2x2_backward(x, g.double())
-    copies, launches = pool_backward.g_copies, pool_backward.launches
+    copies, launches = pool_backward.g_copies.value, pool_backward.launches.value
     got = pool_backward.maxpool2x2_backward(x, g)
-    assert (pool_backward.g_copies, pool_backward.launches) == (
+    assert (pool_backward.g_copies.value, pool_backward.launches.value) == (
         copies + 1, launches + 1)
     assert torch.equal(got, pool_backward.maxpool2x2_backward_plain(x, g))
 
@@ -184,12 +184,12 @@ def test_cuda_train_step_float32_matches_cpu():
         loss_c, _ = make_train_step(
             cpu, make_optimizer("Adam", cpu.parameters(), 1e-3),
             bce_dice_loss)(x, y)
-        counts = (pyramid.launches, pool_backward.launches)
+        counts = (pyramid.launches.value, pool_backward.launches.value)
         loss_g, _ = make_train_step(
             gpu, make_optimizer("Adam", gpu.parameters(), 1e-3),
             bce_dice_loss)(x.cuda(), y.cuda())
         torch.cuda.synchronize()
-        assert (pyramid.launches, pool_backward.launches) == (
+        assert (pyramid.launches.value, pool_backward.launches.value) == (
             counts[0] + 3, counts[1] + 3)
     finally:
         torch.backends.cudnn.allow_tf32, \

@@ -105,16 +105,16 @@ def _fold_data_dir(directory: str, fold: int) -> str:
     return sub if os.path.isdir(sub) else directory
 
 
-def _check_train_config(cfg: TrainConfig,
-                        dtype: tp.Optional[torch.dtype]) -> None:
-    """Raise ``NotImplementedError`` for whatever ``cfg`` asks that the
-    port cannot train yet, before the verb writes anything."""
+def _check_train_config(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for whatever setting of ``cfg`` the
+    port cannot train yet, before the verb writes anything (the verb builds
+    its first model before writing, so an unported architecture raises
+    there)."""
     bad = unported_train_keys(cfg)
     if bad:
         raise NotImplementedError(
             "the port's train verb does not take these settings yet: "
             + ", ".join(bad))
-    _build_model(cfg, dtype=dtype)  # an unported architecture raises
     get_loss(cfg.loss_function)
     for name in cfg.metric_list:
         make_metric(name)
@@ -140,7 +140,13 @@ def train(config_path: str = "Train_Configs.ini",
     if seed is not None:
         cfg = dataclasses.replace(cfg, seed=seed)
     device = resolve_device(device)
-    _check_train_config(cfg, dtype)
+    _check_train_config(cfg)
+
+    def build() -> torch.nn.Module:
+        return _build_model(cfg, dtype=dtype,
+                            generator=torch.Generator().manual_seed(cfg.seed))
+
+    first_model = build()  # an unported architecture raises here
     if cfg.save_dir:
         os.makedirs(cfg.save_dir, exist_ok=True)
         save_train_config(cfg, os.path.join(cfg.save_dir,
@@ -155,8 +161,7 @@ def train(config_path: str = "Train_Configs.ini",
 
     histories: tp.Dict[int, tp.Dict[str, tp.List[float]]] = {}
     for fold in range(cfg.start_fold, cfg.end_fold + 1):
-        model = _build_model(cfg, dtype=dtype,
-                             generator=torch.Generator().manual_seed(cfg.seed))
+        model = first_model if fold == cfg.start_fold else build()
         train_ds = dataset(cfg.train_dir, fold)
         split_val_ds = None
         if not cfg.independent_val_set and cfg.validation_portion > 0:

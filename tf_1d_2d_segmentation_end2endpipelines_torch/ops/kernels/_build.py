@@ -1,8 +1,9 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-Every ``csrc/*.cu`` of the package is compiled by ``nvcc`` into one shared
-library with a plain C interface, at first use, into ``build/kernels/`` at
-the root of the checkout.  The library's file name carries a hash of the
+Every ``csrc/*.cu`` of the package is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one shared library with
+a plain C interface, at first use, into ``build/kernels/`` at the root of
+the checkout.  The library's file name carries a hash of the
 sources and flags, so an edited kernel is rebuilt and a stale library is
 never loaded.  The build goes to a process-unique temporary file that is
 renamed into place, so two processes racing to build never load a
@@ -26,7 +27,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -64,17 +65,36 @@ def library_path() -> str:
                         f"libtpuseg_kernels-{h.hexdigest()[:12]}.so")
 
 
+def _run_all(cmds: list) -> None:
+    """Run ``cmds`` side by side; raise with the output of each that
+    failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(so: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.build.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
+    nvcc, srcs = _nvcc(), _sources()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                  for src, obj in zip(srcs, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, so)
+    finally:
+        for path in (*objs, tmp):
+            if os.path.exists(path):
+                os.remove(path)
 
 
 def load_library() -> ctypes.CDLL:

@@ -22,37 +22,15 @@ it and what its design does about it.
 """
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from ._common import DTYPE_CODES, Counter
+
 #: kernel launches so far in this process (never counts the plain version)
-launches = 0
+launches = Counter()
 #: copies of an upstream gradient into channels_last memory on the kernel
 #: path (autograd may hand ``g`` in another layout)
-g_copies = 0
-_lock = threading.Lock()
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    global launches, g_copies
-    with _lock:
-        launches = 0
-        g_copies = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _lock:
-        launches += 1
-
-
-def _count_g_copy() -> None:
-    global g_copies
-    with _lock:
-        g_copies += 1
+g_copies = Counter()
 
 
 def _check_shapes(x: torch.Tensor, g: torch.Tensor) -> None:
@@ -99,7 +77,7 @@ def _maxpool2x2_backward_cuda(x: torch.Tensor, g: torch.Tensor
                               ) -> torch.Tensor:
     from ._build import check, load_library
 
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in DTYPE_CODES:
         raise TypeError(f"maxpool2x2_backward kernel takes float32 or "
                         f"bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
@@ -109,7 +87,7 @@ def _maxpool2x2_backward_cuda(x: torch.Tensor, g: torch.Tensor
         raise ValueError(f"gradient on {g.device}, input on {x.device}")
     if not g.is_contiguous(memory_format=torch.channels_last):
         g = g.contiguous(memory_format=torch.channels_last)
-        _count_g_copy()
+        g_copies.add()
     b, c, h, w = x.shape
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     if dx.numel() == 0:  # nothing to route: no launch
@@ -118,10 +96,10 @@ def _maxpool2x2_backward_cuda(x: torch.Tensor, g: torch.Tensor
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.tpuseg_maxpool2x2_backward(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), _DTYPE_CODES[x.dtype],
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), DTYPE_CODES[x.dtype],
             b, h, w, c, stream)
     check(lib, code, "maxpool2x2_backward")
-    _count_launch()
+    launches.add()
     return dx
 
 

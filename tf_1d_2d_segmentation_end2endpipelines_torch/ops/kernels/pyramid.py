@@ -11,7 +11,7 @@ W and channel count; float32 and bfloat16.
 
 - :func:`maxpool_pyramid` is the wrapper.  On a CPU tensor it runs
   :func:`maxpool_pyramid_plain`; on a CUDA tensor it launches the kernel
-  or raises.  Each launch adds one to :data:`launches`.
+  or raises.  Each launch adds one to :data:`launches` (its ``value``).
 - :func:`maxpool2x2` is level 1 as a differentiable op: its forward is
   ``maxpool_pyramid(x, 1)``, its backward ``pool_backward.
   maxpool2x2_backward`` (the CUDA kernel ``csrc/pool_backward.cu`` on a
@@ -22,30 +22,15 @@ W and channel count; float32 and bfloat16.
 from __future__ import annotations
 
 import ctypes
-import threading
 import typing as tp
 
 import torch
 
+from ._common import DTYPE_CODES, Counter
 from .pool_backward import maxpool2x2_backward
 
 #: kernel launches so far in this process (never counts the plain version)
-launches = 0
-_launch_lock = threading.Lock()
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def reset_launches() -> None:
-    global launches
-    with _launch_lock:
-        launches = 0
-
-
-def _count_launch() -> None:
-    global launches
-    with _launch_lock:
-        launches += 1
+launches = Counter()
 
 
 def _check_levels(x: torch.Tensor, levels: int) -> None:
@@ -77,7 +62,7 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int
                           ) -> tp.List[torch.Tensor]:
     from ._build import check, load_library
 
-    if x.dtype not in _DTYPE_CODES:
+    if x.dtype not in DTYPE_CODES:
         raise TypeError(f"maxpool_pyramid kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
@@ -94,10 +79,10 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.tpuseg_maxpool_pyramid(
-            x.data_ptr(), ctypes.addressof(ptrs), _DTYPE_CODES[x.dtype],
+            x.data_ptr(), ctypes.addressof(ptrs), DTYPE_CODES[x.dtype],
             b, h, w, c, levels, stream)
     check(lib, code, "maxpool_pyramid")
-    _count_launch()
+    launches.add()
     return outs
 
 

@@ -6,9 +6,10 @@ One device.  Per step: host batch to the device, one train step; the
 losses and metric states stay on the device until the epoch ends, when
 one read brings the epoch's scalars to the host.  Callbacks
 (EarlyStopping, ReduceLROnPlateau, the best checkpoint) run between
-epochs, as in the JAX package.  Not ported yet, and refused when asked
-for: exact resume, TensorBoard scalars, profiling, NaNGuard and learning
-rate schedules.
+epochs, as in the JAX package.  Not ported yet: exact resume and
+TensorBoard scalars (the INI keys that ask for them are refused by
+``utils/config.py``'s ``unported_train_keys``), profiling, NaNGuard and
+learning rate schedules.
 """
 from __future__ import annotations
 
@@ -73,19 +74,11 @@ class Trainer:
         checkpoint: tp.Optional[CheckpointManager] = None,
         monitor: str = "val_loss",
         verbose: int = 1,
-        profile_dir: tp.Optional[str] = None,
-        tensorboard_dir: tp.Optional[str] = None,
-        exact_resume: bool = False,
     ) -> tp.Dict[str, tp.List[float]]:
         """Train ``epochs`` epochs; returns the history: ``loss``,
         ``steps_per_sec``, the metrics, ``val_loss`` and ``val_<metric>``
         when there is validation data, ``lr`` and ``epoch_time`` per epoch
         (the JAX ``fit``'s keys)."""
-        for what, asked in (("profiling", profile_dir),
-                            ("TensorBoard scalars", tensorboard_dir),
-                            ("exact resume", exact_resume)):
-            if asked:
-                raise NotImplementedError(f"{what} is not ported yet")
         for cb in callbacks:
             if not isinstance(cb, (EarlyStopping, ReduceLROnPlateau)):
                 raise NotImplementedError(
