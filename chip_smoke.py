@@ -3,20 +3,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the flagship's full width, the W32/D4
-UNet++ on 256x256x3 in bf16 with weights drawn from a seed: serving
-(``make_server`` with dynamic batching answering 16 PNG requests from 4
-client threads) and training (the ``train`` verb's fold loop on a
-synthetic PNG folder, batch 16, 2 epochs).  Phases, each printing lines:
+Drives the port's paths at full width with weights drawn from a seed:
+serving the flagship W32/D4 UNet++ on 256x256x3 in bf16 (``make_server``
+with dynamic batching answering 16 PNG requests from 4 client threads);
+training it (the ``train`` verb's fold loop on a synthetic PNG folder,
+batch 16, 2 epochs); training UNet3+ W32/D4 with deep supervision through
+the same verb (``train_ds``); and BASELINE config 3's fixed-batch train
+step for UNet++ and UNet3+ (``config3_UNetPP``, ``config3_UNet3P``).
+Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
-3. kernels: each kernel against its plain PyTorch version at the shapes
-   the serving and training paths give it and at edge cases (bit-exact:
-   max and its gradient routing are exact), with CUDA-event device times
-   of the kernel, the plain version and the PyTorch library call that
-   computes the same function (a yardstick the port never calls), and
-   the bound: bytes moved at 3.35 TB/s
+3. kernels: each kernel against its plain PyTorch version at every call
+   each path makes (the pyramid at every level, or one level alone for a
+   pool by 2**m; the pool backward with windows 2, 4 and 8) and at edge
+   cases (bit-exact: max and its gradient routing are exact), with
+   CUDA-event device times of the kernel, the plain version and the
+   PyTorch library call that computes the same function (a yardstick the
+   port never calls), and the bound: bytes moved at 3.35 TB/s
 4. serve: 16/16 answered 200 with a 256x256 mask; masks equal to
    ``label_from_pred`` of the same model run with the plain pool, away
    from the threshold; the pyramid kernel launched exactly 4 times (one
@@ -31,12 +35,21 @@ synthetic PNG folder, batch 16, 2 epochs).  Phases, each printing lines:
 7. train reference: one float32 train step on the card against the CPU,
    loss, gradients, running statistics and parameters within stated
    tolerances
+8. train ds: phase 6 for UNet3+ with ``d_s = 1``: 11 pyramid launches
+   per train step and validation batch (4 encoder pools, 6 decoder pools,
+   1 target pyramid) and 10 pool-backward launches per step
+9. config 3: 20 counted steps each of UNet++ (4 + 4 launches a step) and
+   UNet3+ (10 + 10), finite ``out`` loss, p50 step, img/s, peak memory
+10. ds reference: phase 7 for a W8/D3 UNet3+ with ``ds=1`` and its
+    deep-supervision targets and loss weights
 
 The line before the last is one JSON object with a row for each kernel
-and each path that runs it (``path``: ``serve`` or ``train``): the
-launches of that path's run in phase 4 or 6, and the device times and
-bound of the calls that path makes per batch or step; the last is ``{"ok": true, "device": {...}}``.  Any failure raises and the
-exit code is not 0.  Without CUDA it exits 1 before printing any result.
+and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
+``config3_UNetPP`` or ``config3_UNet3P``): the launches of that path's
+run in phase 4, 6, 8 or 9, and the device times and bound of the calls
+that path makes per batch or step; the last is ``{"ok": true, "device":
+{...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
+exits 1 before printing any result.
 """
 from __future__ import annotations
 
@@ -68,6 +81,8 @@ N_TRAIN = 128
 N_VAL = 16
 TRAIN_EPOCHS = 2
 FIXED_STEPS = 30
+DS_EPOCHS = 2
+CONFIG3_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
@@ -165,176 +180,227 @@ def _in_turns(fns: dict, flush) -> dict:
     return {name: statistics.mean(v) for name, v in t.items()}
 
 
-def _path_row(name: str, path: str, source: str, replaces: str,
-              max_err: float, times: dict, nbytes: int) -> dict:
+_BF16, _F32 = "bfloat16", "float32"
+_ENC = [(TRAIN_BATCH, 256, 256, 32), (TRAIN_BATCH, 128, 128, 64),
+        (TRAIN_BATCH, 64, 64, 128), (TRAIN_BATCH, 32, 32, 256)]
+#: UNet3+ W32/D4's decoder pools per forward, in call order: (NHWC shape,
+#: factor) for decoder step j and tap k, factor 2**((D - j) - k - 1)
+#: (tf_1d_2d_segmentation_end2endpipelines_tpu/models/decoders.py:353-356)
+_DEC_3P = [(_ENC[0], 8), (_ENC[1], 4), (_ENC[2], 2),
+           (_ENC[0], 4), (_ENC[1], 2), (_ENC[0], 2)]
+_DS_MASK = (_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 4, False)
+
+# pyramid calls per batch or step of each path: (dtype, NHWC shape,
+# levels, pool), ``pool`` = level ``levels`` alone (``maxpool_level``, the
+# model's pools), else every level (``maxpool_pyramid``, the DS targets)
+_FWD_ENC_TRAIN = [(_BF16, s, 1, True) for s in _ENC]
+_FWD_DEC_3P = [(_BF16, s, f.bit_length() - 1, True) for s, f in _DEC_3P]
+FWD_PATHS = {
+    "serve": [(_BF16, (BATCH,) + s[1:], 1, True) for s in _ENC],
+    "train": _FWD_ENC_TRAIN,
+    "train_ds": _FWD_ENC_TRAIN + _FWD_DEC_3P + [_DS_MASK],
+    "config3_UNetPP": _FWD_ENC_TRAIN,
+    "config3_UNet3P": _FWD_ENC_TRAIN + _FWD_DEC_3P,
+}
+FWD_EDGES = [
+    (_F32, (2, 37, 53, 3), 2, False),       # ragged edges, every level
+    (_BF16, (2, 37, 53, 16), 1, True),      # ragged, 16-byte vector
+    (_BF16, (2, 16, 16, 3), 1, True),       # C % 8 != 0
+    (_BF16, (2, 37, 53, 16), 3, True),      # ragged, level 3 alone
+    (_F32, (2, 19, 23, 3), 2, True),        # one channel a thread
+    (_F32, (2, 33, 17, 4), 4, True),        # ragged, 16-byte, level 4
+]
+# pool-backward calls per step: (dtype, NHWC shape, factor)
+_BWD_ENC = [(_BF16, s, 2) for s in _ENC]
+_BWD_DEC_3P = [(_BF16, s, f) for s, f in _DEC_3P]
+BWD_PATHS = {
+    "train": _BWD_ENC,
+    "train_ds": _BWD_ENC + _BWD_DEC_3P,
+    "config3_UNetPP": _BWD_ENC,
+    "config3_UNet3P": _BWD_ENC + _BWD_DEC_3P,
+}
+BWD_EDGES = [
+    (_F32, (4, 64, 64, 32), 2),      # f32, vector path
+    (_BF16, (2, 37, 53, 16), 2),     # ragged, vector path
+    (_F32, (2, 37, 53, 3), 2),       # ragged, C % 4 != 0
+    (_BF16, (2, 16, 16, 12), 2),     # C % 8 != 0
+    (_BF16, (1, 1, 1, 8), 2),        # nothing pooled
+    (_F32, (2, 19, 23, 3), 4),       # ragged, one channel a thread
+    (_BF16, (2, 37, 53, 16), 8),     # ragged, vector path
+    (_F32, (2, 33, 17, 4), 16),
+    (_BF16, (1, 3, 3, 8), 4),        # nothing pooled
+]
+
+
+def _kernel_row(name: str, path: str, source: str, replaces: str,
+                max_err: float, cases: list, measured: dict) -> dict:
     """The kernel's row of the JSON line for one path: device times and
     bound summed over the calls that path makes per batch or step."""
+    rows = [measured[c] for c in cases]
     return {"name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_err,
-            "ms": times["kernel"], "plain_ms": times["plain"],
-            "bound_ms": _bound_ms(nbytes), "bound_by": "bytes",
-            "library_ms": times["library"]}
+            "ms": sum(r["kernel"] for r in rows),
+            "plain_ms": sum(r["plain"] for r in rows),
+            "bound_ms": _bound_ms(sum(r["bytes"] for r in rows)),
+            "bound_by": "bytes",
+            "library_ms": sum(r["library"] for r in rows)}
+
+
+def _print_paths(what: str, paths: dict, measured: dict) -> None:
+    for path, cases in paths.items():
+        rows = [measured[c] for c in cases]
+        print(f"phase 3 kernels: the {path} path's {len(cases)} {what} calls "
+              f"per batch or step, device time: kernel "
+              f"{sum(r['kernel'] for r in rows):.4f} ms, plain "
+              f"{sum(r['plain'] for r in rows):.4f} ms, library "
+              f"{sum(r['library'] for r in rows):.4f} ms, bound "
+              f"{_bound_ms(sum(r['bytes'] for r in rows)):.4f} ms",
+              flush=True)
+
+
+def _case_input(dtype: str, shape: tuple, gen, plateaus: bool):
+    import torch
+
+    x = torch.randn(shape, generator=gen)
+    if plateaus:
+        x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ReLU plateaus
+    x.view(-1)[x.numel() // 3] = float("nan")  # must propagate / route
+    return x.to("cuda", getattr(torch, dtype)).permute(0, 3, 1, 2)
 
 
 def phase_kernels() -> dict:
-    """maxpool_pyramid against its plain version; returns its JSON rows,
-    one per path (``serve``, ``train``)."""
+    """maxpool_pyramid (every level, or one level alone) against its plain
+    version at every call each path makes and at edge cases; returns
+    {path: JSON row}."""
     import torch
     import torch.nn.functional as F
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pyramid)
 
-    cases = [  # (dtype, NHWC shape, levels, on which path)
-        (torch.bfloat16, (BATCH, 256, 256, 32), 1, "serve"),
-        (torch.bfloat16, (BATCH, 128, 128, 64), 1, "serve"),
-        (torch.bfloat16, (BATCH, 64, 64, 128), 1, "serve"),
-        (torch.bfloat16, (BATCH, 32, 32, 256), 1, "serve"),
-        (torch.bfloat16, (TRAIN_BATCH, 256, 256, 32), 1, "train"),
-        (torch.bfloat16, (TRAIN_BATCH, 128, 128, 64), 1, "train"),
-        (torch.bfloat16, (TRAIN_BATCH, 64, 64, 128), 1, "train"),
-        (torch.bfloat16, (TRAIN_BATCH, 32, 32, 256), 1, "train"),
-        (torch.float32, (BATCH, 256, 256, 1), 4, None),  # DS mask pyramid
-        (torch.float32, (2, 37, 53, 3), 2, None),         # ragged edges
-        (torch.bfloat16, (2, 37, 53, 16), 1, None),       # ragged, vector
-        (torch.bfloat16, (2, 16, 16, 3), 1, None),        # C % 8 != 0
-    ]
+    on_path = list(dict.fromkeys(c for cs in FWD_PATHS.values() for c in cs))
     gen = torch.Generator().manual_seed(SEED)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    max_err = 0.0
-    path = {p: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0}
-            for p in ("serve", "train")}
-    for dtype, shape, levels, on_path in cases:
-        x = torch.randn(shape, generator=gen)
-        x.view(-1)[x.numel() // 3] = float("nan")  # must propagate
-        x = x.to("cuda", dtype).permute(0, 3, 1, 2)  # channels_last view
-        got = pyramid.maxpool_pyramid(x, levels)
-        want = pyramid.maxpool_pyramid_plain(x, levels)
+    max_err, measured = 0.0, {}
+    for case in on_path + FWD_EDGES:
+        dtype, shape, levels, pool = case
+        x = _case_input(dtype, shape, gen, plateaus=False)
+        if pool:
+            fns = {"plain": lambda: pyramid.maxpool_level_plain(x, levels),
+                   "kernel": lambda: pyramid.maxpool_level(x, levels),
+                   # the yardstick: PyTorch's own pool
+                   "library": lambda: F.max_pool2d(x, 1 << levels)}
+        else:
+            fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels),
+                   "kernel": lambda: pyramid.maxpool_pyramid(x, levels),
+                   "library": lambda: [F.max_pool2d(x, 1 << lvl)
+                                       for lvl in range(1, levels + 1)]}
+        before = pyramid.launches.value
+        got, want = fns["kernel"](), fns["plain"]()
         torch.cuda.synchronize()
-        for lvl, (k, p) in enumerate(zip(got, want), 1):
+        _check(pyramid.launches.value == before + 1,
+               f"pyramid {shape} L{levels}: not one launch")
+        got, want = ([got], [want]) if pool else (got, want)
+        for k, p in zip(got, want):
             _check(k.shape == p.shape and k.dtype == p.dtype,
-                   f"pyramid {shape} L{lvl}: {k.shape} vs {p.shape}")
+                   f"pyramid {shape} L{levels}: {k.shape} vs {p.shape}")
             _check(torch.equal(k.isnan(), p.isnan()),
-                   f"pyramid {shape} L{lvl}: NaN positions differ")
+                   f"pyramid {shape} L{levels}: NaN positions differ")
             fin = ~p.isnan()
             err = float((k[fin].float() - p[fin].float()).abs().max()) \
                 if bool(fin.any()) else 0.0
-            _check(err == 0.0, f"pyramid {shape} L{lvl}: max-abs {err}")
+            _check(err == 0.0, f"pyramid {shape} L{levels}: max-abs {err}")
             max_err = max(max_err, err)
-        fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels),
-               "kernel": lambda: pyramid.maxpool_pyramid(x, levels)}
-        if levels == 1:  # the yardstick: PyTorch's own pool
-            fns["library"] = lambda: F.max_pool2d(x, 2)
+        what = (f"maxpool_level {dtype} {tuple(shape)} L={levels} (pool by "
+                f"{1 << levels})" if pool else
+                f"maxpool_pyramid {dtype} {tuple(shape)} L={levels}")
+        if case not in on_path:
+            print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
+                  f"kept)", flush=True)
+            continue
         t = _in_turns(fns, flush)
         calls = {name: _call_ms(fns[name], flush)
                  for name in ("kernel", "plain")}
         nbytes = _bytes(x, *got)
-        lib = (f", library F.max_pool2d {t['library']:.4f} ms"
-               if "library" in t else "")
-        if on_path:
-            for k in ("kernel", "plain", "library"):
-                path[on_path][k] += t[k]
-            path[on_path]["bytes"] += nbytes
-        print(f"phase 3 kernel maxpool_pyramid {str(dtype)[6:]} "
-              f"{tuple(shape)} L={levels}: equal to plain (max-abs 0, NaN "
+        measured[case] = {**t, "bytes": nbytes}
+        lib = ("F.max_pool2d" if pool else
+               f"{levels} F.max_pool2d calls, one per level")
+        print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
               f"kept); device time kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms{lib}, bound {_bound_ms(nbytes):.4f} ms "
-              f"({nbytes} B at 3.35 TB/s); one call on an idle card kernel "
-              f"{calls['kernel']:.4f} ms, plain {calls['plain']:.4f} ms "
-              f"(CUDA events, L2 flushed, medians of {REPS})", flush=True)
-    for name, n in (("serve", BATCH), ("train", TRAIN_BATCH)):
-        q = path[name]
-        print(f"phase 3 kernels: the {name} path's four pools per batch of "
-              f"{n}, device time: kernel {q['kernel']:.4f} ms, plain "
-              f"{q['plain']:.4f} ms, library {q['library']:.4f} ms, bound "
-              f"{_bound_ms(q['bytes']):.4f} ms", flush=True)
-    return {p: _path_row(
+              f"{t['plain']:.4f} ms, library {lib} {t['library']:.4f} ms, "
+              f"bound {_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s); "
+              f"one call on an idle card kernel {calls['kernel']:.4f} ms, "
+              f"plain {calls['plain']:.4f} ms (CUDA events, L2 flushed, "
+              f"medians of {REPS})", flush=True)
+    _print_paths("pyramid", FWD_PATHS, measured)
+    return {p: _kernel_row(
         "maxpool_pyramid", p,
         "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pyramid.cu",
         "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/pallas/pyramid.py:49",
-        max_err, path[p], path[p]["bytes"]) for p in path}
+        max_err, cases, measured) for p, cases in FWD_PATHS.items()}
 
 
 def phase_pool_backward() -> dict:
-    """maxpool2x2_backward against its plain version, bit for bit, at the
-    train path's four pools and at edge cases, with planted plateaus
-    (post-ReLU zeros, so ties decide the routing) and a planted NaN."""
+    """maxpool_backward against its plain version, bit for bit, at every
+    call each training path makes and at edge cases, with planted
+    plateaus (post-ReLU zeros, so ties decide the routing) and a planted
+    NaN; returns {path: JSON row}."""
     import torch
-    import torch.nn.functional as F
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pool_backward)
 
-    cases = [  # (dtype, NHWC shape, on the train path)
-        (torch.bfloat16, (TRAIN_BATCH, 256, 256, 32), True),
-        (torch.bfloat16, (TRAIN_BATCH, 128, 128, 64), True),
-        (torch.bfloat16, (TRAIN_BATCH, 64, 64, 128), True),
-        (torch.bfloat16, (TRAIN_BATCH, 32, 32, 256), True),
-        (torch.float32, (4, 64, 64, 32), False),    # f32, vector path
-        (torch.bfloat16, (2, 37, 53, 16), False),   # ragged, vector path
-        (torch.float32, (2, 37, 53, 3), False),     # ragged, C % 4 != 0
-        (torch.bfloat16, (2, 16, 16, 12), False),   # C % 8 != 0
-        (torch.bfloat16, (1, 1, 1, 8), False),      # nothing pooled
-    ]
+    on_path = list(dict.fromkeys(c for cs in BWD_PATHS.values() for c in cs))
     gen = torch.Generator().manual_seed(SEED + 2)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    max_err = 0.0
-    path = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
-    path_bytes = 0
-    for dtype, shape, on_path in cases:
-        x = torch.randn(shape, generator=gen)
-        x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ReLU plateaus
-        x.view(-1)[x.numel() // 3] = float("nan")
-        x = x.to("cuda", dtype).permute(0, 3, 1, 2)
+    max_err, measured = 0.0, {}
+    for case in on_path + BWD_EDGES:
+        dtype, shape, f = case
+        x = _case_input(dtype, shape, gen, plateaus=True)
         b, c, h, w = x.shape
-        g = torch.randn((b, h // 2, w // 2, c), generator=gen).to(
-            "cuda", dtype).permute(0, 3, 1, 2)
+        g = torch.randn((b, h // f, w // f, c), generator=gen).to(
+            "cuda", x.dtype).permute(0, 3, 1, 2)
         before = pool_backward.launches.value
-        got = pool_backward.maxpool2x2_backward(x, g)
-        want = pool_backward.maxpool2x2_backward_plain(x, g)
+        got = pool_backward.maxpool_backward(x, g, f)
+        want = pool_backward.maxpool_backward_plain(x, g, f)
         torch.cuda.synchronize()
         _check(pool_backward.launches.value == before + 1,
-               f"pool backward {shape}: not one launch")
+               f"pool backward {shape} f={f}: not one launch")
         _check(got.shape == want.shape and got.dtype == want.dtype and
                got.is_contiguous(memory_format=torch.channels_last),
-               f"pool backward {shape}: {got.shape} {got.dtype}")
+               f"pool backward {shape} f={f}: {got.shape} {got.dtype}")
         err = float((got.float() - want.float()).abs().max())
         _check(torch.equal(got, want),
-               f"pool backward {shape}: max-abs {err}")
+               f"pool backward {shape} f={f}: max-abs {err}")
         max_err = max(max_err, err)
-        if not on_path:
-            print(f"phase 3 kernel maxpool2x2_backward {str(dtype)[6:]} "
-                  f"{tuple(shape)}: equal to plain (max-abs 0)", flush=True)
+        what = f"maxpool_backward {dtype} {tuple(shape)} f={f}"
+        if case not in on_path:
+            print(f"phase 3 kernel {what}: equal to plain (max-abs 0)",
+                  flush=True)
             continue
-        _, idx = F.max_pool2d(x, 2, return_indices=True)
+        _, idx = torch.nn.functional.max_pool2d(x, f, return_indices=True)
         fns = {
-            "plain": lambda: pool_backward.maxpool2x2_backward_plain(x, g),
-            "kernel": lambda: pool_backward.maxpool2x2_backward(x, g),
+            "plain": lambda: pool_backward.maxpool_backward_plain(x, g, f),
+            "kernel": lambda: pool_backward.maxpool_backward(x, g, f),
             # the yardstick, given the indices its forward saved
             "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
-                g, x, [2, 2], [2, 2], [0, 0], [1, 1], False, idx),
+                g, x, [f, f], [f, f], [0, 0], [1, 1], False, idx),
         }
         t = _in_turns(fns, flush)
         nbytes = _bytes(x, g, got)
-        for k in path:
-            path[k] += t[k]
-        path_bytes += nbytes
-        print(f"phase 3 kernel maxpool2x2_backward {str(dtype)[6:]} "
-              f"{tuple(shape)}: equal to plain (max-abs 0, plateaus and a "
-              f"NaN); device time kernel {t['kernel']:.4f} ms, plain "
+        measured[case] = {**t, "bytes": nbytes}
+        print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
+              f"and a NaN); device time kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library max_pool2d_with_indices_"
               f"backward {t['library']:.4f} ms, bound "
               f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s) (CUDA "
               f"events, L2 flushed, medians of {REPS})", flush=True)
-    print(f"phase 3 kernels: the train path's four pool backwards per step "
-          f"of {TRAIN_BATCH}, device time: kernel {path['kernel']:.4f} ms, "
-          f"plain {path['plain']:.4f} ms, library {path['library']:.4f} ms, "
-          f"bound {_bound_ms(path_bytes):.4f} ms", flush=True)
-    return _path_row(
-        "maxpool2x2_backward", "train",
+    _print_paths("pool-backward", BWD_PATHS, measured)
+    return {p: _kernel_row(
+        "maxpool_backward", p,
         "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pool_backward.cu",
         "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py:467",
-        max_err, path, path_bytes)
+        max_err, cases, measured) for p, cases in BWD_PATHS.items()}
 
 
 def _png(img: np.ndarray) -> bytes:
@@ -446,8 +512,8 @@ def phase_serve(tmp: str) -> dict:
     decoded = np.stack([_decode_request(b, (SIZE, SIZE), "rgb", 255.0)
                         for b in bodies])
     before = pyramid.launches.value
-    with mock.patch.object(pyramid, "maxpool_pyramid",
-                           pyramid.maxpool_pyramid_plain):
+    with mock.patch.object(pyramid, "maxpool_level",
+                           pyramid.maxpool_level_plain):
         probs = predictor(decoded)
     _check(pyramid.launches.value == before, "plain-pool run launched the kernel")
     _check(probs.shape == (N_REQUESTS, SIZE, SIZE, 1)
@@ -550,26 +616,25 @@ def _serve_one_png(cfg, fold_dir: str) -> int:
     return status
 
 
-def phase_train(tmp: str) -> dict:
-    """The train verb's fold loop on the card, then a fixed-batch loop
-    that times the train step."""
-    import torch
-
-    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+def _write_image_folders(tmp: str) -> None:
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
         synthetic_images, write_image_folder)
-    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
-        pool_backward, pyramid)
-    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
-    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
-        TrainConfig)
 
     t0 = time.perf_counter()
     for name, n, seed in (("Train", N_TRAIN, SEED), ("Val", N_VAL, SEED + 1)):
         write_image_folder(os.path.join(tmp, "Data", name),
                            *synthetic_images(n, SIZE, seed=seed))
-    # the flagship, __graft_entry__.py:26-29 and bench.py:60-84
-    cfg = TrainConfig(
+    print(f"phase 6 train: {N_TRAIN} train and {N_VAL} val {SIZE}x{SIZE} "
+          f"PNGs written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _train_config(tmp: str, results: str, **kw):
+    """The flagship's training INI (__graft_entry__.py:26-29 and
+    bench.py:60-84) on the synthetic folders, with ``kw`` replaced."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TrainConfig)
+
+    base = dict(
         train_dir=os.path.join(tmp, "Data", "Train"),
         val_dir=os.path.join(tmp, "Data", "Val"), imlength=SIZE,
         imwidth=SIZE, num_channels=3, encoder_mode="from_scratch",
@@ -578,11 +643,21 @@ def phase_train(tmp: str) -> dict:
         compute_dtype="bfloat16", loss_function="BCEDiceLoss",
         optimizer_function="Adam", metric_list=("BinaryAccuracy",),
         batch_size=TRAIN_BATCH, num_epochs=TRAIN_EPOCHS, seed=SEED,
-        save_dir=os.path.join(tmp, "Results"), load_weights=False)
-    print(f"phase 6 train: {N_TRAIN} train and {N_VAL} val {SIZE}x{SIZE} "
-          f"PNGs written in {time.perf_counter() - t0:.2f} s; W32/D4 UNet++ "
-          f"bf16, BCEDice, Adam lr {cfg.learning_rate}, batch "
-          f"{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs", flush=True)
+        save_dir=os.path.join(tmp, results), load_weights=False)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def _run_train_verb(phase: str, cfg, path: str) -> dict:
+    """The train verb's fold loop on the card, the counts set to 0 just
+    before it and read just after: ``path``'s pyramid calls per train step
+    and validation batch, and its pool-backward calls per train step
+    (FWD_PATHS, BWD_PATHS).  Then best.pt is served."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
 
     pyramid.launches.reset()  # the main path's run starts here
     pool_backward.launches.reset()
@@ -593,89 +668,202 @@ def phase_train(tmp: str) -> dict:
     train_s = time.perf_counter() - t0
     fwd, bwd, copies = (pyramid.launches.value, pool_backward.launches.value,
                         pool_backward.g_copies.value)  # ... and ends here
-    steps = TRAIN_EPOCHS * -(-N_TRAIN // TRAIN_BATCH)
-    val_batches = TRAIN_EPOCHS * -(-N_VAL // TRAIN_BATCH)
+    steps = cfg.num_epochs * -(-N_TRAIN // cfg.batch_size)
+    val_batches = cfg.num_epochs * -(-N_VAL // cfg.batch_size)
+    n_fwd, n_bwd = len(FWD_PATHS[path]), len(BWD_PATHS[path])
     losses = hist["loss"] + hist["val_loss"]
     _check(all(np.isfinite(losses)), f"non-finite losses {hist}")
-    _check(bwd == 4 * steps,
-           f"maxpool2x2_backward launched {bwd}x, not 4 x {steps} steps")
-    _check(fwd == 4 * steps + 4 * val_batches,
-           f"maxpool_pyramid launched {fwd}x, not 4 x ({steps} steps + "
-           f"{val_batches} val batches)")
-    print(f"phase 6 train: drivers.train in {train_s:.2f} s; loss "
-          f"{hist['loss']}, val_loss {hist['val_loss']}, steps/s "
-          f"{hist['steps_per_sec']}", flush=True)
-    print(f"phase 6 train: maxpool2x2_backward.launches = {bwd} = 4 x "
-          f"{steps} steps; maxpool_pyramid.launches = {fwd} = 4 x {steps} "
-          f"steps + 4 x {val_batches} val batches; gradient layout copies "
+    _check(bwd == n_bwd * steps,
+           f"maxpool_backward launched {bwd}x, not {n_bwd} x {steps} steps")
+    _check(fwd == n_fwd * (steps + val_batches),
+           f"maxpool_pyramid launched {fwd}x, not {n_fwd} x ({steps} steps "
+           f"+ {val_batches} val batches)")
+    print(f"{phase}: drivers.train in {train_s:.2f} s; loss {hist['loss']}, "
+          f"val_loss {hist['val_loss']}, steps/s {hist['steps_per_sec']}",
+          flush=True)
+    print(f"{phase}: maxpool_backward.launches = {bwd} = {n_bwd} x {steps} "
+          f"steps; maxpool_pyramid.launches = {fwd} = {n_fwd} x ({steps} "
+          f"steps + {val_batches} val batches); gradient layout copies "
           f"{copies}", flush=True)
     fold = os.path.join(cfg.save_dir, "Fold_1")
     _check(os.path.exists(os.path.join(fold, drivers.BEST_WEIGHTS)),
            "best.pt not written")
     status = _serve_one_png(cfg, fold)
     _check(status == 200, f"serving best.pt answered {status}")
-    print(f"phase 6 train: {drivers.BEST_WEIGHTS} written; make_server "
-          f"loaded it and answered a PNG request with {status}", flush=True)
+    print(f"{phase}: {drivers.BEST_WEIGHTS} written; make_server loaded it "
+          f"and answered a PNG request with {status}", flush=True)
+    return {"hist": hist, "pyramid": fwd, "backward": bwd}
 
-    # fixed batch: the loss must fall; the step's time and memory
-    model = drivers._build_model(
-        cfg, generator=torch.Generator().manual_seed(SEED))
-    trainer = Trainer(model, loss=cfg.loss_function,
-                      optimizer=cfg.optimizer_function,
-                      learning_rate=cfg.learning_rate, device="cuda")
-    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 2)
-    x, y = trainer.to_device(x), trainer.to_device(y)
+
+def _fixed_batch(phase: str, trainer, x, y, steps: int = FIXED_STEPS,
+                 must_fall: bool = True) -> float:
+    """``steps`` train steps on one batch already on the card (the targets
+    built from the mask ``y`` at every step, as the verb does); prints the
+    p50 step over all but the first 5 (host clock, synchronized), img/s
+    and peak memory; returns the p50 in seconds.  With ``must_fall`` the
+    mean loss of the last 5 steps must be below that of the first 5."""
+    import torch
+
+    prepare = trainer.prepare_targets or (lambda t: t)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_losses, step_s = [], []
-    for _ in range(FIXED_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss, _ = trainer.train_step(x, y)
+        loss, _ = trainer.train_step(x, prepare(y))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         step_losses.append(float(loss))
     peak = torch.cuda.max_memory_allocated()
     first, last = (statistics.mean(step_losses[:5]),
                    statistics.mean(step_losses[-5:]))
-    _check(all(np.isfinite(step_losses)) and last < first,
+    _check(all(np.isfinite(step_losses)), f"non-finite loss: {step_losses}")
+    _check(last < first or not must_fall,
            f"fixed-batch loss did not fall: {step_losses}")
     p50 = statistics.median(step_s[5:])
-    print(f"phase 6 train: {FIXED_STEPS} steps on one batch of "
-          f"{TRAIN_BATCH}: mean loss of the first 5 {first:.5f}, of the "
-          f"last 5 {last:.5f}; p50 train step {p50 * 1e3:.3f} ms over the "
-          f"last {FIXED_STEPS - 5} (host clock, synchronized), "
-          f"{TRAIN_BATCH / p50:.1f} img/s; max_memory_allocated "
+    b = x.shape[0]
+    print(f"{phase}: {steps} steps on one batch of {b}: mean loss of the "
+          f"first 5 {first:.5f}, of the last 5 {last:.5f}; p50 train step "
+          f"{p50 * 1e3:.3f} ms over the last {steps - 5} (host clock, "
+          f"synchronized), {b / p50:.1f} img/s; max_memory_allocated "
           f"{peak} B ({peak / 2 ** 30:.3f} GiB)", flush=True)
+    return p50
+
+
+def _print_verb_rate(phase: str, hist: dict, p50: float) -> None:
     # the verb's own rate: its loader (PNG decode) and host-to-device
     # copies included, which the fixed batch leaves out
     verb_ms = 1e3 / hist["steps_per_sec"][-1]
-    print(f"phase 6 train: the train verb's last epoch {verb_ms:.3f} ms a "
-          f"step ({hist['steps_per_sec'][-1]:.3f} steps/s, "
+    print(f"{phase}: the train verb's last epoch {verb_ms:.3f} ms a step "
+          f"({hist['steps_per_sec'][-1]:.3f} steps/s, "
           f"{TRAIN_BATCH * hist['steps_per_sec'][-1]:.1f} img/s, "
-          f"{-(-N_TRAIN // TRAIN_BATCH)} steps, loader and copies "
-          f"included), {verb_ms / (p50 * 1e3):.3f}x the fixed batch's p50",
+          f"{-(-N_TRAIN // TRAIN_BATCH)} steps, loader and copies included), "
+          f"{verb_ms / (p50 * 1e3):.3f}x the fixed batch's p50", flush=True)
+
+
+def _trainer_for(cfg):
+    """A fresh model from SEED and the Trainer the verb would build."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+
+    model = drivers._build_model(
+        cfg, generator=torch.Generator().manual_seed(SEED))
+    return drivers._make_trainer(cfg, model, "cuda")
+
+
+def phase_train(tmp: str) -> dict:
+    """The train verb's fold loop on the flagship, then a fixed-batch loop
+    that times the train step."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+
+    cfg = _train_config(tmp, "Results")
+    print(f"phase 6 train: W32/D4 UNet++ bf16, BCEDice, Adam lr "
+          f"{cfg.learning_rate}, batch {TRAIN_BATCH}, {TRAIN_EPOCHS} epochs",
           flush=True)
-    return {"pyramid": fwd, "backward": bwd}
+    run = _run_train_verb("phase 6 train", cfg, "train")
+    trainer = _trainer_for(cfg)
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 2)
+    p50 = _fixed_batch("phase 6 train", trainer, trainer.to_device(x),
+                       trainer.to_device(y))
+    _print_verb_rate("phase 6 train", run["hist"], p50)
+    return run
 
 
-def phase_train_reference() -> None:
-    """One float32 train step of a W8/D3 UNet++ on the card (the kernels,
-    cuDNN without TF32, deterministic) against the same step on the CPU
-    (the plain versions) from the same weights, batch and Adam state."""
-    import copy
+def phase_train_ds(tmp: str) -> dict:
+    """Path (a) of the deep-supervision slice: the train verb on UNet3+
+    W32/D4 with ``d_s = 1``, ds_type ``UNet`` (the targets from one
+    pyramid launch per batch), on phase 6's folders; then a fixed batch."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
 
+    cfg = _train_config(tmp, "ResultsDS", decoder_name="UNet3P", d_s=1,
+                        ds_type="UNet", num_epochs=DS_EPOCHS)
+    print(f"phase 8 train ds: W32/D4 UNet3+ bf16, d_s 1, ds_type UNet, "
+          f"BCEDice on out and level1-4 (default_ds_weights(4)), Adam lr "
+          f"{cfg.learning_rate}, batch {TRAIN_BATCH}, {DS_EPOCHS} epochs",
+          flush=True)
+    run = _run_train_verb("phase 8 train ds", cfg, "train_ds")
+    trainer = _trainer_for(cfg)
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 2)
+    p50 = _fixed_batch("phase 8 train ds", trainer, trainer.to_device(x),
+                       trainer.to_device(y))
+    _print_verb_rate("phase 8 train ds", run["hist"], p50)
+    return run
+
+
+def phase_config3() -> dict:
+    """Path (b): BASELINE config 3's fixed-batch train step as the JAX
+    package measures it (benchmarks/zoo_bench.py:83-99): W32/D4 UNet++ and
+    UNet3+ with ``ds=1``, 4 classes, softmax, CategoricalCrossentropy on
+    ``out`` only, default_ds_weights(4), Adam lr 1e-4, bf16, batch 16, on
+    normal inputs and one-hot targets from SEED.  The counts are set to 0
+    just before the counted steps and read just after."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pool_backward, pyramid)
     from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        Trainer, default_ds_weights)
+
+    rng = np.random.default_rng(SEED + 6)
+    x = rng.normal(size=(TRAIN_BATCH, SIZE, SIZE, 3)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, (TRAIN_BATCH, SIZE,
+                                                        SIZE))]
+    counts = {}
+    for dec in ("UNetPP", "UNet3P"):
+        path = f"config3_{dec}"
+        model = SegModel(dec, 32, 4, output_nums=4, ds=1,
+                         final_activation="softmax", dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED))
+        trainer = Trainer(model, loss="CategoricalCrossentropy",
+                          optimizer="Adam", learning_rate=1e-4,
+                          loss_weights=default_ds_weights(4), device="cuda")
+        xt = trainer.to_device(x)
+        targets = {"out": trainer.to_device(y)}
+        trainer.train_step(xt, targets)  # the first step picks algorithms
+        pyramid.launches.reset()  # the main path's run starts here
+        pool_backward.launches.reset()
+        pool_backward.g_copies.reset()
+        p50 = _fixed_batch(f"phase 9 {path}", trainer, xt, targets,
+                           steps=CONFIG3_STEPS, must_fall=False)
+        fwd, bwd, copies = (pyramid.launches.value,
+                            pool_backward.launches.value,
+                            pool_backward.g_copies.value)  # ... and ends here
+        n_fwd, n_bwd = len(FWD_PATHS[path]), len(BWD_PATHS[path])
+        _check((fwd, bwd) == (n_fwd * CONFIG3_STEPS, n_bwd * CONFIG3_STEPS),
+               f"{path}: launched pyramid {fwd}x, backward {bwd}x, not "
+               f"{n_fwd} and {n_bwd} x {CONFIG3_STEPS} steps")
+        print(f"phase 9 {path}: maxpool_pyramid.launches = {fwd} = {n_fwd} "
+              f"x {CONFIG3_STEPS} steps; maxpool_backward.launches = {bwd} "
+              f"= {n_bwd} x {CONFIG3_STEPS}; gradient layout copies "
+              f"{copies}; p50 {p50 * 1e3:.3f} ms", flush=True)
+        counts[path] = {"pyramid": fwd, "backward": bwd}
+        del model, trainer
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _train_reference(phase: str, what: str, cpu, targets, weights,
+                     want_launches: tuple) -> None:
+    """One float32 train step of ``cpu`` on the card (the kernels, cuDNN
+    without TF32, deterministic) against the same step on the CPU (the
+    plain versions) from the same weights, batch and Adam state.
+    ``targets(y)`` builds the step's targets from the mask on its
+    device."""
+    import copy
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
         bce_dice_loss, make_optimizer, make_train_step)
 
     lr = 1e-3
-    cpu = SegModel("UNetPP", 8, 3, generator=torch.Generator().manual_seed(
-        SEED + 3))
     gpu = copy.deepcopy(cpu).cuda()
     rng = np.random.default_rng(SEED + 4)
     x = torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32))
@@ -691,12 +879,12 @@ def phase_train_reference() -> None:
         counts = (pyramid.launches.value, pool_backward.launches.value)
         loss_c, _ = make_train_step(
             cpu, make_optimizer("Adam", cpu.parameters(), lr),
-            bce_dice_loss)(x, y)
+            bce_dice_loss, weights)(x, targets(y))
         _check((pyramid.launches.value, pool_backward.launches.value) == counts,
                "the CPU step launched a kernel")
         loss_g, _ = make_train_step(
             gpu, make_optimizer("Adam", gpu.parameters(), lr),
-            bce_dice_loss)(x.cuda(), y.cuda())
+            bce_dice_loss, weights)(x.cuda(), targets(y.cuda()))
         torch.cuda.synchronize()
         launched = (pyramid.launches.value - counts[0],
                     pool_backward.launches.value - counts[1])
@@ -704,7 +892,7 @@ def phase_train_reference() -> None:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
-    _check(launched == (3, 3), f"the card's step launched {launched}")
+    _check(launched == want_launches, f"the card's step launched {launched}")
     gp = dict(gpu.named_parameters())
     grad_err = max(float((p.grad - gp[k].grad.cpu()).abs().max())
                    for k, p in cpu.named_parameters())
@@ -721,13 +909,53 @@ def phase_train_reference() -> None:
            and float((diffs > 1e-5).float().mean()) <= 1e-3,
            f"float32 train step card vs CPU: loss {loss_err}, grads "
            f"{grad_err}, stats {stat_err}, params max {float(diffs.max())}")
-    print(f"phase 7 reference: float32 train step of a W8/D3 UNet++ on "
-          f"(2, 64, 64, 3), card (kernels 3+3 launches, cuDNN without TF32, "
-          f"deterministic) vs CPU (plain versions): loss {loss_err:.3g} <= "
-          f"1e-5, grads max-abs {grad_err:.3g} <= 1e-4, running stats "
-          f"{stat_err:.3g} <= 1e-5, params max-abs {float(diffs.max()):.3g} "
-          f"<= 2 lr with {float((diffs > 1e-5).float().mean()):.3g} of them "
-          f"beyond 1e-5 (<= 1e-3)", flush=True)
+    print(f"{phase}: float32 train step of a {what} on (2, 64, 64, 3), card "
+          f"(kernels {launched[0]}+{launched[1]} launches, cuDNN without "
+          f"TF32, deterministic) vs CPU (plain versions): loss "
+          f"{loss_err:.3g} <= 1e-5, grads max-abs {grad_err:.3g} <= 1e-4, "
+          f"running stats {stat_err:.3g} <= 1e-5, params max-abs "
+          f"{float(diffs.max()):.3g} <= 2 lr with "
+          f"{float((diffs > 1e-5).float().mean()):.3g} of them beyond 1e-5 "
+          f"(<= 1e-3)", flush=True)
+
+
+def phase_train_reference() -> None:
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    cpu = SegModel("UNetPP", 8, 3, generator=torch.Generator().manual_seed(
+        SEED + 3))
+    _train_reference("phase 7 reference", "W8/D3 UNet++", cpu,
+                     lambda y: y, None, (3, 3))
+
+
+def phase_train_ds_reference() -> None:
+    """Phase 7's check on a W8/D3 UNet3+ with ``ds=1``: BCEDice on every
+    head, default_ds_weights(3), ds_type UNet targets (one pyramid launch
+    on the card).  The heads have no activation, and where a raw head
+    value lands near 0 the BCEDice gradient amplifies rounding without
+    bound; the heads are scaled to give values near 0.5, where the
+    comparison measures the kernels and not that amplification."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights)
+
+    cpu = SegModel("UNet3P", 8, 3, ds=1,
+                   generator=torch.Generator().manual_seed(SEED + 5))
+    with torch.no_grad():
+        for k in (1, 2, 3):
+            head = getattr(cpu.FullScaleDecoder_0, f"level{k}")
+            head.weight.mul_(0.01)
+            head.bias.fill_(0.5)
+    # 3 encoder and 3 decoder pools (and their backwards), 1 target pyramid
+    _train_reference("phase 10 ds reference", "W8/D3 UNet3+ with ds=1", cpu,
+                     lambda y: prepare_train_dict(y, 3, "UNet"),
+                     default_ds_weights(3), (7, 6))
 
 
 def main() -> int:
@@ -746,14 +974,20 @@ def main() -> int:
         served = phase_serve(tmp)
     phase_reference(served["model"])
     with tempfile.TemporaryDirectory() as tmp:
-        trained = phase_train(tmp)
-    phase_train_reference()
+        _write_image_folders(tmp)
+        trained = {"train": phase_train(tmp)}
+        phase_train_reference()
+        trained["train_ds"] = phase_train_ds(tmp)
+    trained.update(phase_config3())
+    phase_train_ds_reference()
     pyr["serve"]["launches"] = served["launches"]
-    pyr["train"]["launches"] = trained["pyramid"]
-    bwd["launches"] = trained["backward"]
-    rows = [pyr["serve"], pyr["train"], bwd]
-    keys = ("name", "path", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for path, run in trained.items():
+        pyr[path]["launches"] = run["pyramid"]
+        bwd[path]["launches"] = run["backward"]
+    rows = list(pyr.values()) + list(bwd.values())
+    keys = ("name", "path", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

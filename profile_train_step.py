@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
-    python3 profile_train_step.py [--out DIR]
+    python3 profile_train_step.py [--model flagship|unet3p_ds] [--out DIR]
 
-The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam) takes
+The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam), or with
+``--model unet3p_ds`` UNet3+ W32/D4 with deep supervision (its targets
+built from the mask at every step, one pyramid launch, and
+``default_ds_weights(4)``: the train verb's step with ``d_s = 1``), takes
 10 train steps on one synthetic batch of 16, then 10 more under
 ``torch.profiler``.  Prints the card's name and power limit, the
 host time per step with and without the profiler, the device time per
@@ -22,7 +25,9 @@ import time
 WARMUP, STEPS, BATCH = 10, 10, 16  # warm-up steps, profiled steps, batch
 
 GROUPS = (  # (layer, substrings of a device kernel's name), first match wins
-    ("pool kernels (hand-written)", ("pool2x2", "pyramid")),
+    ("pool kernels (hand-written)", ("pool_vec", "pool_backward",
+                                     "pyramid")),
+    ("bilinear upsample (UNet3+)", ("upsample",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "sm90_xmma", "wgrad", "dgrad",
                               "implicit_gemm", "cutlass", "gemm")),
     ("optimizer (Adam)", ("adam", "foreach", "multi_tensor")),
@@ -44,6 +49,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("flagship", "unet3p_ds"),
+                    default="flagship")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "profile_train_step"))
     args = ap.parse_args(argv)
@@ -53,18 +60,25 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
-        synthetic_images)
+        prepare_train_dict, synthetic_images)
     from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
-    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        Trainer, default_ds_weights)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    model = SegModel("UNetPP", 32, 4, dtype=torch.bfloat16,
+    ds = args.model == "unet3p_ds"
+    model = SegModel("UNet3P" if ds else "UNetPP", 32, 4, ds=int(ds),
+                     dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(model, loss="BCEDiceLoss", learning_rate=2e-4,
-                      device="cuda")
+    trainer = Trainer(
+        model, loss="BCEDiceLoss", learning_rate=2e-4,
+        loss_weights=default_ds_weights(4) if ds else None, device="cuda",
+        prepare_targets=(lambda y: prepare_train_dict(y, 4, "UNet"))
+        if ds else None)
+    prepare = trainer.prepare_targets or (lambda y: y)
     x, y = synthetic_images(BATCH, 256, seed=0)
     x, y = trainer.to_device(x), trainer.to_device(y)
 
@@ -72,7 +86,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(n):
-            trainer.train_step(x, y)
+            trainer.train_step(x, prepare(y))
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / n * 1e3
 
@@ -102,7 +116,7 @@ def main(argv=None) -> int:
     busy = sum(r[0] for r in rows)
     # the profiler slows the host, not the kernels: the idle share of a
     # step is read against the step without it
-    print(f"batch {BATCH}: host time per step {plain_ms:.3f} ms without "
+    print(f"{args.model}, batch {BATCH}: host time per step {plain_ms:.3f} ms without "
           f"the profiler, {prof_ms:.3f} ms with it (mean of {STEPS} "
           f"steps after {WARMUP} warm-up); device busy {busy:.3f} ms "
           f"per step, idle share of a step without the profiler "

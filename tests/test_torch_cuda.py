@@ -131,11 +131,47 @@ def test_cuda_pool_backward_equals_plain_version(dtype, shape):
     g = torch.randn((b, h // 2, w // 2, c), generator=g0).to(
         "cuda", dtype).permute(0, 3, 1, 2)
     before = pool_backward.launches.value
-    got = pool_backward.maxpool2x2_backward(x, g)
+    got = pool_backward.maxpool_backward(x, g, 2)
     torch.cuda.synchronize()
     assert pool_backward.launches.value == before + 1
     assert got.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(got, pool_backward.maxpool2x2_backward_plain(x, g))
+    assert torch.equal(got, pool_backward.maxpool_backward_plain(x, g, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,factor", [
+    (torch.bfloat16, (16, 256, 256, 32), 8),  # UNet3+'s decoder pools
+    (torch.bfloat16, (16, 128, 128, 64), 4),
+    (torch.bfloat16, (2, 37, 53, 16), 8),     # ragged, vector path
+    (torch.float32, (2, 19, 23, 3), 4),       # ragged, one channel a thread
+    (torch.float32, (2, 33, 17, 4), 16),
+    (torch.bfloat16, (1, 3, 3, 8), 4),        # nothing pooled: all zeros
+])
+def test_cuda_pool_backward_by_factor_equals_plain_version(dtype, shape,
+                                                           factor):
+    """The backward kernel with a 2**m window: one launch, equal to the
+    plain version bit for bit on plateaus with a NaN; the pool's forward
+    (level m alone) equals the plain pyramid's level m."""
+    _need_cuda()
+    g0 = torch.Generator().manual_seed(2)
+    x = torch.randn(shape, generator=g0)
+    x = torch.where(x < 0.3, torch.zeros_like(x), x)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    x = x.to("cuda", dtype).permute(0, 3, 1, 2)
+    b, c, h, w = x.shape
+    g = torch.randn((b, h // factor, w // factor, c), generator=g0).to(
+        "cuda", dtype).permute(0, 3, 1, 2)
+    before = pool_backward.launches.value
+    got = pool_backward.maxpool_backward(x, g, factor)
+    torch.cuda.synchronize()
+    assert pool_backward.launches.value == before + 1
+    assert torch.equal(got, pool_backward.maxpool_backward_plain(x, g,
+                                                                 factor))
+    level = factor.bit_length() - 1
+    y = pyramid.maxpool_level(x, level)
+    want = pyramid.maxpool_pyramid_plain(x, level)[-1]
+    assert torch.equal(y.isnan(), want.isnan())
+    assert torch.equal(y.nan_to_num(7.0), want.nan_to_num(7.0))
 
 
 @pytest.mark.cuda
@@ -147,16 +183,16 @@ def test_cuda_pool_backward_refuses_what_the_kernel_does_not_take():
     x = torch.randn(2, 8, 6, 6, device="cuda").contiguous(memory_format=cl)
     g = torch.randn(2, 8, 3, 3, device="cuda")  # NCHW-contiguous
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        pool_backward.maxpool2x2_backward(x.half(), g.half())
+        pool_backward.maxpool_backward(x.half(), g.half(), 2)
     with pytest.raises(ValueError, match="channels_last"):
-        pool_backward.maxpool2x2_backward(x.contiguous(), g)
+        pool_backward.maxpool_backward(x.contiguous(), g, 2)
     with pytest.raises(TypeError):
-        pool_backward.maxpool2x2_backward(x, g.double())
+        pool_backward.maxpool_backward(x, g.double(), 2)
     copies, launches = pool_backward.g_copies.value, pool_backward.launches.value
-    got = pool_backward.maxpool2x2_backward(x, g)
+    got = pool_backward.maxpool_backward(x, g, 2)
     assert (pool_backward.g_copies.value, pool_backward.launches.value) == (
         copies + 1, launches + 1)
-    assert torch.equal(got, pool_backward.maxpool2x2_backward_plain(x, g))
+    assert torch.equal(got, pool_backward.maxpool_backward_plain(x, g, 2))
 
 
 @pytest.mark.cuda

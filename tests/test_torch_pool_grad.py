@@ -1,5 +1,5 @@
-"""The port's 2x2 max pool gradient (``pyramid.maxpool2x2``, backward
-``pool_backward.maxpool2x2_backward``) against ``jax.vjp`` of the JAX
+"""The port's 2x2 max pool gradient (``pyramid.maxpool(x, 2)``, backward
+``pool_backward.maxpool_backward``) against ``jax.vjp`` of the JAX
 package's ``downsample_pool`` (lax.reduce_window; XLA's select_and_scatter
 routes each gradient to the first maximum of its window).  Exact: the
 gradient is a routing of the upstream values, so both sides must agree
@@ -79,7 +79,7 @@ def test_tied_window_routes_to_the_first_element():
     """A 2x2 window of zeros with an upstream gradient of 1: XLA gives
     [1, 0, 0, 0]; ``amax``'s autograd would give [0.25] * 4."""
     x = torch.zeros(1, 1, 2, 2, requires_grad=True)
-    pyramid.maxpool2x2(x).sum().backward()
+    pyramid.maxpool(x, 2).sum().backward()
     assert x.grad.flatten().tolist() == [1.0, 0.0, 0.0, 0.0]
     _, dx_j = _jax_pool_and_grad(np.zeros((1, 2, 2, 1), np.float32),
                                  np.ones((1, 1, 1, 1), np.float32),
@@ -106,7 +106,7 @@ def test_gradcheck_on_tie_free_input():
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.permutation(2 * 3 * 5 * 7).reshape(2, 3, 5, 7)
                          .astype(np.float64) / 10.0).requires_grad_()
-    assert torch.autograd.gradcheck(pyramid.maxpool2x2, (x,))
+    assert torch.autograd.gradcheck(lambda t: pyramid.maxpool(t, 2), (x,))
 
 
 def test_plain_backward_takes_any_layout_and_dtype_pair():
@@ -114,20 +114,20 @@ def test_plain_backward_takes_any_layout_and_dtype_pair():
     channels_last; a gradient of another dtype or shape is refused."""
     x = torch.randn(2, 4, 6, 6).contiguous(memory_format=torch.channels_last)
     g = torch.randn(2, 4, 3, 3)
-    dx = pool_backward.maxpool2x2_backward(x, g)
+    dx = pool_backward.maxpool_backward(x, g, 2)
     assert dx.is_contiguous(memory_format=torch.channels_last)
-    assert torch.equal(dx, pool_backward.maxpool2x2_backward_plain(
-        x.contiguous(), g))
+    assert torch.equal(dx, pool_backward.maxpool_backward_plain(
+        x.contiguous(), g, 2))
     # each window's gradient lands on exactly one element
     assert torch.equal(dx.reshape(2, 4, 3, 2, 3, 2).sum(dim=(3, 5)), g)
     with pytest.raises(TypeError):
-        pool_backward.maxpool2x2_backward(x, g.double())
+        pool_backward.maxpool_backward(x, g.double(), 2)
     with pytest.raises(ValueError):
-        pool_backward.maxpool2x2_backward(x, g[:, :, :2])
+        pool_backward.maxpool_backward(x, g[:, :, :2], 2)
 
 
 def test_cpu_pool_launches_no_kernel():
     before = (pyramid.launches.value, pool_backward.launches.value)
     x = torch.randn(1, 2, 4, 4, requires_grad=True)
-    pyramid.maxpool2x2(x).sum().backward()
+    pyramid.maxpool(x, 2).sum().backward()
     assert (pyramid.launches.value, pool_backward.launches.value) == before

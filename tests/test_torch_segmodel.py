@@ -85,11 +85,11 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 
 
 def test_unported_configurations_raise():
-    for kw in ({"ds": 1}, {"ag": 1}, {"lstm": 1}, {"ae": 1},
+    for kw in ({"genre": "FPN"}, {"ag": 1}, {"lstm": 1}, {"ae": 1},
                {"is_transconv": False}, {"train_mode": "pretrained_encoder"}):
         with pytest.raises(NotImplementedError):
             SegModel("UNetPP", 4, 2, **kw)
-    for name in ("UNet", "UNet3P", "MultiResUNet", "SelfUNetPP"):
+    for name in ("UNet", "UNet4P", "MultiResUNet", "SelfUNetPP"):
         with pytest.raises(NotImplementedError):
             SegModel(name, 4, 2)
 
@@ -104,13 +104,13 @@ def test_batch_of_one_from_numpy_reaches_the_pool_channels_last(monkeypatch):
         pyramid)
 
     seen = []
-    plain = pyramid.maxpool_pyramid
+    plain = pyramid.maxpool_level
 
-    def spy(x, levels):
+    def spy(x, level):
         seen.append(x.is_contiguous(memory_format=torch.channels_last))
-        return plain(x, levels)
+        return plain(x, level)
 
-    monkeypatch.setattr(pyramid, "maxpool_pyramid", spy)
+    monkeypatch.setattr(pyramid, "maxpool_level", spy)
     x = np.random.default_rng(3).uniform(size=(16, 16, 3)).astype(
         np.float32)[None]
     assert x.strides[0] == 0

@@ -140,13 +140,13 @@ def test_train_verb_resumes_from_best(trained, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("d_s", 1), ("augment", True), ("augment_device", True),
+    ("a_g", 1), ("augment", True), ("augment_device", True),
     ("patchify", True), ("accumulation_steps", 2), ("remat", "dots"),
     ("ema_decay", 0.9), ("model_parallel", 2), ("spatial_parallel", 2),
     ("pipeline_parallel", 2), ("zero1", True), ("exact_resume", True),
     ("tensorboard_dir", "tb"), ("clipnorm", 1.0),
     ("loss_function", "FocalLoss"), ("optimizer_function", "SGD"),
-    ("metric_list", ("AUC",)), ("decoder_name", "UNet3P"),
+    ("metric_list", ("AUC",)), ("decoder_name", "UNet4P"),
 ])
 def test_unported_settings_raise_before_anything_is_written(tmp_path, key,
                                                             value):

@@ -9,10 +9,12 @@
 // input plus the writes of every level, about 1/4 + 1/16 + ... < 1/3 of
 // the read.  Two kernels, chosen by the launcher from the call's shape:
 //
-// - pool2x2_vec_kernel, L == 1 with C a multiple of 16 bytes of channels
-//   (every encoder pool of the UNet family): one thread per output pixel
-//   and 16-byte channel group, four 16-byte loads and one 16-byte store.
-//   This is the serving path's kernel.
+// - pool_vec_kernel, level L alone (L == 1, or every level below L
+//   null) for L <= 4, with C a multiple of 16 bytes of channels (every
+//   encoder pool of the UNet family, and UNet3+'s pools by 4 and 8): one
+//   thread per output pixel and 16-byte channel group, one 16-byte load
+//   per pixel of its 2^L x 2^L window and one 16-byte store.  This is the
+//   serving path's kernel.
 // - pyramid_kernel, any L, any C: one thread owns one 2^L x 2^L patch of
 //   one channel, reads it once, folds every level from the level below it
 //   in registers (Morton order), and writes each level as soon as a cell
@@ -28,6 +30,10 @@
 // every level; a cell inside its level's bounds has all four children
 // inside theirs, so a cell is written only when it is in bounds and only
 // in-bounds cells are folded into their parents.
+//
+// A caller that wants only some levels passes a null pointer for the
+// others, and their stores are skipped (a pool by 8 writes level 3
+// only).
 //
 // Max propagates NaN, as XLA's max and torch.amax do (fmaxf drops it).
 
@@ -95,7 +101,7 @@ __global__ void pyramid_kernel(const T* __restrict__ x, OutPtrs outs, int H,
       const float v = max_nan(max_nan(load_f(p), load_f(p + C)),
                               max_nan(load_f(p + row), load_f(p + row + C)));
       T* o = static_cast<T*>(outs.p[0]);
-      store_f(o + ((b * h1 + y1) * w1 + x1) * C + c, v);
+      if (o) store_f(o + ((b * h1 + y1) * w1 + x1) * C + c, v);
       acc[1] = max_nan(acc[1], v);
     }
 #pragma unroll
@@ -107,62 +113,86 @@ __global__ void pyramid_kernel(const T* __restrict__ x, OutPtrs outs, int H,
       acc[l - 1] = -INFINITY;
       if (yl < hl && xl < wl) {
         T* o = static_cast<T*>(outs.p[l - 1]);
-        store_f(o + ((b * hl + yl) * wl + xl) * C + c, m);
+        if (o) store_f(o + ((b * hl + yl) * wl + xl) * C + c, m);
         if (l < L) acc[l] = max_nan(acc[l], m);
       }
     }
   }
 }
 
-// L == 1 with C a multiple of V = 16 / sizeof(T): each thread owns V
-// channels of one output pixel and moves them as one 16-byte load per
-// input pixel and one 16-byte store, the widest access a thread has.
 template <typename T, int V>
-__global__ void pool2x2_vec_kernel(const T* __restrict__ x,
-                                   T* __restrict__ out, int H, int W, int C) {
+struct alignas(16) Pack {
+  T v[V];
+};
+
+// Level L alone with C a multiple of V = 16 / sizeof(T): each thread owns
+// V channels of one output pixel, an F x F window (F = 2^L), and moves
+// them as one 16-byte load per input pixel and one 16-byte store, the
+// widest access a thread has.  The window's rows are unrolled 4 at a time.
+template <typename T, int V, int F>
+__global__ void pool_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                int H, int W, int C) {
+  using P = Pack<T, V>;
   const int groups = C / V;
-  const int w1 = W >> 1;
+  const int wf = W / F;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= w1 * groups) return;
+  if (t >= wf * groups) return;
   const int g = t % groups;
-  const int x1 = t / groups;
-  const int y1 = blockIdx.y;
+  const int xo = t / groups;
+  const int yo = blockIdx.y;
   const int64_t b = blockIdx.z;
   const int64_t row = (int64_t)W * C;
-  const T* p = x + ((b * H + 2 * y1) * W + 2 * x1) * C + (int64_t)g * V;
-  uint4 q[4], r;
-  q[0] = *reinterpret_cast<const uint4*>(p);
-  q[1] = *reinterpret_cast<const uint4*>(p + C);
-  q[2] = *reinterpret_cast<const uint4*>(p + row);
-  q[3] = *reinterpret_cast<const uint4*>(p + row + C);
-  const T* e0 = reinterpret_cast<const T*>(&q[0]);
-  const T* e1 = reinterpret_cast<const T*>(&q[1]);
-  const T* e2 = reinterpret_cast<const T*>(&q[2]);
-  const T* e3 = reinterpret_cast<const T*>(&q[3]);
-  T* er = reinterpret_cast<T*>(&r);
+  const T* p = x + ((b * H + (int64_t)F * yo) * W + (int64_t)F * xo) * C +
+               (int64_t)g * V;
+  float m[V];
 #pragma unroll
-  for (int k = 0; k < V; ++k) {
-    const float m = max_nan(max_nan(load_f(e0 + k), load_f(e1 + k)),
-                            max_nan(load_f(e2 + k), load_f(e3 + k)));
-    store_f(er + k, m);
+  for (int k = 0; k < V; ++k) m[k] = -INFINITY;
+#pragma unroll 4
+  for (int i = 0; i < F; ++i) {
+#pragma unroll
+    for (int j = 0; j < F; ++j) {
+      const P q = *reinterpret_cast<const P*>(p + i * row + (int64_t)j * C);
+#pragma unroll
+      for (int k = 0; k < V; ++k) m[k] = max_nan(m[k], load_f(&q.v[k]));
+    }
   }
-  *reinterpret_cast<uint4*>(out + ((b * (H >> 1) + y1) * w1 + x1) * C +
-                            (int64_t)g * V) = r;
+  P r;
+#pragma unroll
+  for (int k = 0; k < V; ++k) store_f(&r.v[k], m[k]);
+  *reinterpret_cast<P*>(out + ((b * (H / F) + yo) * wf + xo) * C +
+                        (int64_t)g * V) = r;
 }
 
+// Launches pool_vec_kernel for level L into `out` when the shape allows
+// (L <= 4, C a multiple of 16 bytes, 16-byte aligned pointers); false if
+// it does not.
 template <typename T>
 bool launch_vec(const void* x, void* out, int64_t B, int H, int W, int C,
-                cudaStream_t s) {
+                int L, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  if (C % V || (reinterpret_cast<uintptr_t>(x) & 15) ||
+  if (L > 4 || C % V || (reinterpret_cast<uintptr_t>(x) & 15) ||
       (reinterpret_cast<uintptr_t>(out) & 15))
     return false;
+  if ((H >> L) == 0 || (W >> L) == 0) return true;  // nothing to store
   const int threads = 256;
-  const int64_t n = (int64_t)(W >> 1) * (C / V);
-  const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)(H >> 1),
+  const int64_t n = (int64_t)(W >> L) * (C / V);
+  const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)(H >> L),
                   (unsigned)B);
-  pool2x2_vec_kernel<T, V><<<grid, threads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), H, W, C);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  switch (L) {
+    case 1:
+      pool_vec_kernel<T, V, 2><<<grid, threads, 0, s>>>(xt, ot, H, W, C);
+      break;
+    case 2:
+      pool_vec_kernel<T, V, 4><<<grid, threads, 0, s>>>(xt, ot, H, W, C);
+      break;
+    case 3:
+      pool_vec_kernel<T, V, 8><<<grid, threads, 0, s>>>(xt, ot, H, W, C);
+      break;
+    default:
+      pool_vec_kernel<T, V, 16><<<grid, threads, 0, s>>>(xt, ot, H, W, C);
+  }
   return true;
 }
 
@@ -171,7 +201,8 @@ bool launch_vec(const void* x, void* out, int64_t B, int H, int W, int C,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  out_ptrs: host array of L device
-// pointers, level 1 first, each an NHWC buffer of (B, H>>l, W>>l, C).
+// pointers, level 1 first, each an NHWC buffer of (B, H>>l, W>>l, C), or
+// null for a level below L the caller does not want.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
                            int64_t B, int H, int W, int C, int L,
@@ -192,10 +223,13 @@ int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
   const dim3 grid((unsigned)(((int64_t)tiles_w * C + threads - 1) / threads),
                   (unsigned)tiles_h, (unsigned)B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L == 1) {
+  bool last_only = outs.p[L - 1] != nullptr;
+  for (int l = 0; l < L - 1; ++l) last_only = last_only && !outs.p[l];
+  if (last_only) {
+    void* out = outs.p[L - 1];
     const bool done =
-        dtype == 0 ? launch_vec<float>(x, outs.p[0], B, H, W, C, s)
-                   : launch_vec<__nv_bfloat16>(x, outs.p[0], B, H, W, C, s);
+        dtype == 0 ? launch_vec<float>(x, out, B, H, W, C, L, s)
+                   : launch_vec<__nv_bfloat16>(x, out, B, H, W, C, L, s);
     if (done) return (int)cudaGetLastError();
   }
   if (dtype == 0) {

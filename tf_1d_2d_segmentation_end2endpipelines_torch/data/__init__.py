@@ -6,4 +6,5 @@ from .generators import (  # noqa: F401
     load_image,
     split_dataset,
 )
+from .pyramid import DS_TYPES, prepare_train_dict  # noqa: F401
 from .synthetic import synthetic_images, write_image_folder  # noqa: F401

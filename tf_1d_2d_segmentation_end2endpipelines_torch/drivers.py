@@ -10,16 +10,19 @@ port's model, which ``train`` writes and ``serve`` loads
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import typing as tp
 
 import torch
 
-from .data import PrefetchLoader, SegmentationFolderDataset, split_dataset
+from .data import (DS_TYPES, PrefetchLoader, SegmentationFolderDataset,
+                   prepare_train_dict, split_dataset)
 from .models import model_selector
 from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
-                    Trainer, get_loss, make_metric, make_optimizer)
+                    Trainer, default_ds_weights, get_loss, make_metric,
+                    make_optimizer)
 from .train.checkpoint import weights_file
 from .utils.config import (TrainConfig, load_train_config, save_train_config,
                            unported_train_keys)
@@ -115,11 +118,31 @@ def _check_train_config(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "the port's train verb does not take these settings yet: "
             + ", ".join(bad))
+    if cfg.d_s and cfg.ds_type not in DS_TYPES:
+        raise ValueError(f"Unknown ds_type {cfg.ds_type!r}")
     get_loss(cfg.loss_function)
     for name in cfg.metric_list:
         make_metric(name)
     make_optimizer(cfg.optimizer_function,
                    [torch.zeros(1, requires_grad=True)], cfg.learning_rate)
+
+
+def _make_trainer(cfg: TrainConfig, model: torch.nn.Module,
+                  device: tp.Union[str, torch.device]) -> Trainer:
+    """The verb's ``Trainer`` for ``cfg``.  With ``d_s = 1`` each mask
+    batch becomes its deep-supervision targets on the device, after the
+    copy (the JAX driver's ``_wrap_targets``, drivers.py:183; one pyramid
+    launch for ds_type ``UNet``), and the heads' losses are weighted by
+    ``default_ds_weights`` (:314-315)."""
+    ds = cfg.d_s == 1
+    return Trainer(
+        model, loss=cfg.loss_function, optimizer=cfg.optimizer_function,
+        learning_rate=cfg.learning_rate, metrics=tuple(cfg.metric_list),
+        loss_weights=default_ds_weights(cfg.model_depth) if ds else None,
+        device=device,
+        prepare_targets=functools.partial(
+            prepare_train_dict, model_depth=cfg.model_depth,
+            ds_type=cfg.ds_type) if ds else None)
 
 
 def train(config_path: str = "Train_Configs.ini",
@@ -177,10 +200,7 @@ def train(config_path: str = "Train_Configs.ini",
             val_loader = PrefetchLoader(dataset(cfg.val_dir, fold),
                                         cfg.batch_size, shuffle=False,
                                         cache=cfg.cache_data)
-        trainer = Trainer(model, loss=cfg.loss_function,
-                          optimizer=cfg.optimizer_function,
-                          learning_rate=cfg.learning_rate,
-                          metrics=tuple(cfg.metric_list), device=device)
+        trainer = _make_trainer(cfg, model, device)
         ckpt_dir = _fold_dir(cfg, fold)
         ckpt = CheckpointManager(ckpt_dir)
         if cfg.load_weights and ckpt.exists("best"):  # Train.py:361-369

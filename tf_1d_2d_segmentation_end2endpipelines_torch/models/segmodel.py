@@ -1,9 +1,9 @@
 """Top-level segmentation model of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
 
-Ported: the from-scratch UNet genre without deep supervision, autoencoder
-mode, attention gates or ConvLSTM fusion, with any decoder that
-``decoders.build_decoder`` has (UNet++ so far).
+Ported: the from-scratch UNet genre, with or without deep supervision,
+without autoencoder mode, with any decoder that ``decoders.build_decoder``
+has (UNet++ and UNet3+ so far).
 """
 from __future__ import annotations
 
@@ -12,8 +12,7 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import apply_activation
-from ..ops.blocks import lecun_normal_
+from ..ops import HeadConv, apply_activation
 from .decoders import build_decoder
 from .encoders import LatentLayer, ScratchEncoder
 
@@ -22,8 +21,10 @@ class SegModel(nn.Module):
     """Config-driven segmentation network (JAX ``SegModel``).
 
     ``forward`` takes an NHWC batch, as the JAX module does, casts it to
-    ``dtype`` and returns ``{"out": NHWC tensor}`` in ``dtype``.  Parameters
-    are float32 and drawn from ``generator`` (a CPU ``torch.Generator``).
+    ``dtype`` and returns ``{"out": NHWC tensor}`` in ``dtype``, plus
+    ``level1`` .. ``levelD`` (the deep-supervision heads, no activation)
+    when ``ds == 1``.  Parameters are float32 and drawn from
+    ``generator`` (a CPU ``torch.Generator``).
     In training mode BatchNorm uses the batch statistics, as the JAX
     module's ``__call__(train=True)`` does; the head's activation runs in
     ``dtype`` (bf16 under bf16), and a caller casts the outputs to float32
@@ -60,10 +61,8 @@ class SegModel(nn.Module):
                                 generator=generator)
         self.add_module(f"{type(decoder).__name__}_0", decoder)
         self._decoder_name = f"{type(decoder).__name__}_0"
-        self.out = nn.Conv2d(W, output_nums, 1)
-        with torch.no_grad():  # flax nn.Conv defaults
-            lecun_normal_(self.out.weight, W, generator)
-            self.out.bias.zero_()
+        self.out = HeadConv(decoder.out_features, output_nums, dtype=dtype,
+                            generator=generator)
 
     def forward(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
         # a fresh channels_last copy in the compute dtype: a batch of one
@@ -76,11 +75,13 @@ class SegModel(nn.Module):
         taps, bottom = self.ScratchEncoder_0(x)
         conv = self.LatentLayer_0(bottom)
         skips = taps[:self.model_depth] + [conv]
-        deconv, _ = getattr(self, self._decoder_name)(skips)
-        out = nn.functional.conv2d(deconv, self.out.weight.to(self.dtype))
-        out = out + self.out.bias.to(self.dtype).view(1, -1, 1, 1)
-        out = apply_activation(out, self.final_activation)
-        return {"out": out.permute(0, 2, 3, 1)}
+        deconv, levels = getattr(self, self._decoder_name)(skips)
+        out = apply_activation(self.out(deconv), self.final_activation)
+        outputs = {"out": out.permute(0, 2, 3, 1)}
+        # the reference's order: out, then levelD .. level1
+        for idx, lvl in enumerate(levels):
+            outputs[f"level{self.model_depth - idx}"] = lvl.permute(0, 2, 3, 1)
+        return outputs
 
 
 def model_selector(

@@ -4,9 +4,11 @@ from .blocks import (  # noqa: F401
     BatchNorm,
     ConvBlock,
     DenseBlock,
+    HeadConv,
     TransConv,
     apply_activation,
     concat,
     downsample_pool,
     get_activation,
+    upsample,
 )

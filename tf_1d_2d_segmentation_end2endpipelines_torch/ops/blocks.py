@@ -1,4 +1,4 @@
-"""Block library of the port: the 2D blocks the flagship UNet++ runs,
+"""Block library of the port: the 2D blocks the UNet++ and UNet3+ run,
 ported from tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
 
 Layout: modules and block functions take and return (B, C, H, W) tensors
@@ -38,11 +38,17 @@ def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, x * _SLOPES[x.dtype])
 
 
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    # over the channels: the last axis of the JAX package's NHWC arrays
+    return torch.softmax(x, dim=1)
+
+
 _ACTIVATIONS: tp.Dict[str, tp.Optional[tp.Callable]] = {
     "relu": torch.relu,
     "leakyrelu": _leaky_relu,
     "leaky_relu": _leaky_relu,
     "sigmoid": torch.sigmoid,
+    "softmax": _softmax,
     "linear": None,
     "none": None,
 }
@@ -193,25 +199,55 @@ class TransConv(nn.Module):
         return _leaky_relu(x + ct.bias.to(self.dtype).view(1, -1, 1, 1))
 
 
+class HeadConv(nn.Conv2d):
+    """flax ``nn.Conv`` with a 1x1 kernel, bias and ``strides``: the model's
+    ``out`` head and the decoders' deep-supervision heads (JAX
+    ``_DecoderBase._ds_head``, decoders.py:153).  SAME padding of a 1x1
+    kernel pads nothing, so a stride of 2 samples rows and columns 0, 2,
+    4, ...  Init as flax's: lecun_normal kernel, zero bias."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__(in_features, features, 1, stride=stride)
+        self.dtype = dtype
+        with torch.no_grad():
+            lecun_normal_(self.weight, in_features, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # flax casts input, kernel and bias to the compute dtype and adds
+        # the bias after the convolution
+        x = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
+                     stride=self.stride)
+        return x + self.bias.to(self.dtype).view(1, -1, 1, 1)
+
+
+def upsample(x: torch.Tensor, factor: int = 2,
+             method: str = "bilinear") -> torch.Tensor:
+    """Bilinear upsampling by ``factor`` with half-pixel centers (JAX
+    ``upsample``, blocks.py:389, ``jax.image.resize``): the same sample
+    positions and weights as ``F.interpolate(align_corners=False)``, which
+    keeps channels_last memory.  In float32 the two agree to rounding;
+    in bf16 to one bf16 ulp (tests/test_torch_ds_blocks.py)."""
+    if method != "bilinear":
+        raise NotImplementedError(
+            f"upsample method {method!r} is not ported yet (ported: "
+            "bilinear, the 2D dialect's)")
+    return F.interpolate(x, scale_factor=factor, mode="bilinear",
+                         align_corners=False)
+
+
 def downsample_pool(x: torch.Tensor, factor: int = 2,
                     op: str = "max") -> torch.Tensor:
     """Pool with window == stride == ``factor``, VALID (Keras semantics).
 
-    Max pooling by ``2**m`` is level m of the max-pool pyramid, so it runs
-    the pyramid kernel on a CUDA tensor (JAX: ``lax.reduce_window``).  By
-    2 it is differentiable, with XLA's first-max gradient
-    (``pyramid.maxpool2x2``); larger factors are forward only."""
+    Max pooling by ``2**m`` (m = 1..4) is level m of the max-pool pyramid,
+    so it runs the pyramid kernel on a CUDA tensor (JAX:
+    ``lax.reduce_window``), with XLA's first-max gradient
+    (``pyramid.maxpool``: the pool-backward kernel on a CUDA tensor)."""
     if op == "max":
-        levels = int(factor).bit_length() - 1
-        if factor < 2 or factor != 1 << levels:
-            raise NotImplementedError(
-                f"max pool by {factor}: only powers of two are ported")
-        if levels == 1:
-            return pyramid.maxpool2x2(x)
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                f"max pool by {factor} has no gradient yet (only by 2)")
-        return pyramid.maxpool_pyramid(x, levels)[-1]
+        return pyramid.maxpool(x, factor)
     if op == "avg":
         return F.avg_pool2d(x, factor, factor)
     raise ValueError(f"Unknown pool op {op!r}")

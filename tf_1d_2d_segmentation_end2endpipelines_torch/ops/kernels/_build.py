@@ -112,9 +112,9 @@ def load_library() -> ctypes.CDLL:
         lib.tpuseg_maxpool_pyramid.argtypes = [vp, vp, i32, i64, i32, i32,
                                                i32, i32, vp]
         lib.tpuseg_maxpool_pyramid.restype = i32
-        lib.tpuseg_maxpool2x2_backward.argtypes = [vp, vp, vp, i32, i64, i32,
-                                                   i32, i32, vp]
-        lib.tpuseg_maxpool2x2_backward.restype = i32
+        lib.tpuseg_maxpool_backward.argtypes = [vp, vp, vp, i32, i64, i32,
+                                                i32, i32, i32, vp]
+        lib.tpuseg_maxpool_backward.restype = i32
         lib.tpuseg_cuda_error_string.argtypes = [i32]
         lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,24 +1,26 @@
-"""Gradient of the 2x2 max pool (window = stride = 2, VALID floor
-truncation): each output gradient goes to one element of its window,
-chosen by XLA's ``select_and_scatter`` rule under the pool's VJP (the
-JAX package's ``downsample_pool``, ops/blocks.py; pinned there by
-tests/test_pool_impl.py):
+"""Gradient of the max pool with window = stride = ``factor`` = 2**m,
+m = 1..4 (VALID floor truncation): each output gradient goes to one
+element of its window, chosen by XLA's ``select_and_scatter`` rule under
+the pool's VJP (the JAX package's ``downsample_pool``, ops/blocks.py;
+pinned there by tests/test_pool_impl.py):
 
-walk the window in row-major order keeping a selected element, and move
-to the next element ``e`` whenever ``not (selected >= e)``.
+walk the whole window in row-major order keeping a selected element, and
+move to the next element ``e`` whenever ``not (selected >= e)``.
 
-For finite values that is the first maximum, so a plateau of tied values
-(the zeros after a ReLU) sends the whole gradient to its first element,
-where ``amax``'s autograd would split it evenly.  Rows and columns the
+For finite values that is the first maximum in row-major order, so a
+plateau of tied values (the zeros after a ReLU) sends the whole gradient
+to its first element, where ``amax``'s autograd would split it evenly.
+A 4x4 window is not two nested 2x2 pools: with ones at (0, 2) and (1, 0)
+the walk picks (0, 2), nested 2x2 walks (1, 0).  Rows and columns the
 floor cuts off get a zero gradient.
 
 The CUDA kernel is ``csrc/pool_backward.cu``; its header says what bounds
 it and what its design does about it.
 
-- :func:`maxpool2x2_backward` is the wrapper.  On a CPU tensor it runs
-  :func:`maxpool2x2_backward_plain`; on a CUDA tensor it launches the
-  kernel or raises.  Each launch adds one to :data:`launches`; each copy
-  of ``g`` into channels_last memory adds one to :data:`g_copies`.
+- :func:`maxpool_backward` is the wrapper.  On a CPU tensor it runs
+  :func:`maxpool_backward_plain`; on a CUDA tensor it launches the kernel
+  or raises.  Each launch adds one to :data:`launches`; each copy of ``g``
+  into channels_last memory adds one to :data:`g_copies`.
 """
 from __future__ import annotations
 
@@ -32,56 +34,63 @@ launches = Counter()
 #: path (autograd may hand ``g`` in another layout)
 g_copies = Counter()
 
+#: the window sides the kernel takes
+FACTORS = (2, 4, 8, 16)
 
-def _check_shapes(x: torch.Tensor, g: torch.Tensor) -> None:
+
+def _check_shapes(x: torch.Tensor, g: torch.Tensor, factor: int) -> None:
+    if factor not in FACTORS:
+        raise ValueError(f"pool factor must be one of {FACTORS}, got "
+                         f"{factor}")
     if x.dim() != 4:
         raise ValueError(f"expected a 4-D (B, C, H, W) input, got shape "
                          f"{tuple(x.shape)}")
     b, c, h, w = x.shape
-    if tuple(g.shape) != (b, c, h >> 1, w >> 1):
+    if tuple(g.shape) != (b, c, h // factor, w // factor):
         raise ValueError(f"gradient shape {tuple(g.shape)} does not match "
-                         f"the pool of {tuple(x.shape)}")
+                         f"the pool by {factor} of {tuple(x.shape)}")
     if g.dtype != x.dtype:
         raise TypeError(f"gradient dtype {g.dtype} != input dtype {x.dtype}")
 
 
-def maxpool2x2_backward_plain(x: torch.Tensor, g: torch.Tensor
-                              ) -> torch.Tensor:
+def maxpool_backward_plain(x: torch.Tensor, g: torch.Tensor, factor: int
+                           ) -> torch.Tensor:
     """Plain PyTorch version.  ``x`` is the pool's (B, C, H, W) input,
-    ``g`` the gradient of its (B, C, H >> 1, W >> 1) output; returns dx
-    like ``x``, in channels_last memory."""
-    _check_shapes(x, g)
+    ``g`` the gradient of its (B, C, H // factor, W // factor) output;
+    returns dx like ``x``, in channels_last memory."""
+    _check_shapes(x, g, factor)
+    f, n = factor, factor * factor
     b, c, h, w = x.shape
-    h1, w1 = h >> 1, w >> 1
-    xn = x.permute(0, 2, 3, 1)[:, :2 * h1, :2 * w1]  # NHWC view
-    # (b, h1, w1, 4, c): the window's elements in row-major order
-    win = xn.reshape(b, h1, 2, w1, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(
-        b, h1, w1, 4, c)
+    hf, wf = h // f, w // f
+    xn = x.permute(0, 2, 3, 1)[:, :hf * f, :wf * f]  # NHWC view
+    # (b, hf, wf, f*f, c): the window's elements in row-major order
+    win = xn.reshape(b, hf, f, wf, f, c).permute(0, 1, 3, 2, 4, 5).reshape(
+        b, hf, wf, n, c)
     sel_val = win[:, :, :, 0]
-    sel = torch.zeros_like(sel_val, dtype=torch.int8)
-    for j in range(1, 4):
+    sel = torch.zeros_like(sel_val, dtype=torch.int16)
+    for j in range(1, n):
         take = ~(sel_val >= win[:, :, :, j])
         sel_val = torch.where(take, win[:, :, :, j], sel_val)
         sel = torch.where(take, torch.full_like(sel, j), sel)
     gn = g.permute(0, 2, 3, 1)
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
-    parts = torch.stack([torch.where(sel == j, gn, zero) for j in range(4)],
+    parts = torch.stack([torch.where(sel == j, gn, zero) for j in range(n)],
                         dim=3)
     dx = torch.zeros((b, h, w, c), dtype=x.dtype, device=x.device)
-    dx[:, :2 * h1, :2 * w1] = parts.reshape(b, h1, w1, 2, 2, c).permute(
-        0, 1, 3, 2, 4, 5).reshape(b, 2 * h1, 2 * w1, c)
+    dx[:, :hf * f, :wf * f] = parts.reshape(b, hf, wf, f, f, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, hf * f, wf * f, c)
     return dx.permute(0, 3, 1, 2)
 
 
-def _maxpool2x2_backward_cuda(x: torch.Tensor, g: torch.Tensor
-                              ) -> torch.Tensor:
+def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
+                           ) -> torch.Tensor:
     from ._build import check, load_library
 
     if x.dtype not in DTYPE_CODES:
-        raise TypeError(f"maxpool2x2_backward kernel takes float32 or "
+        raise TypeError(f"maxpool_backward kernel takes float32 or "
                         f"bfloat16, got {x.dtype}")
     if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("maxpool2x2_backward kernel needs a channels_last "
+        raise ValueError("maxpool_backward kernel needs a channels_last "
                          "contiguous input (NHWC memory)")
     if g.device != x.device:
         raise ValueError(f"gradient on {g.device}, input on {x.device}")
@@ -95,23 +104,25 @@ def _maxpool2x2_backward_cuda(x: torch.Tensor, g: torch.Tensor
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool2x2_backward(
+        code = lib.tpuseg_maxpool_backward(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), DTYPE_CODES[x.dtype],
-            b, h, w, c, stream)
-    check(lib, code, "maxpool2x2_backward")
+            b, h, w, c, factor, stream)
+    check(lib, code, "maxpool_backward")
     launches.add()
     return dx
 
 
-def maxpool2x2_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """dx of the 2x2 max pool of ``x`` (B, C, H, W) for the output
-    gradient ``g``.  On a CUDA tensor ``x`` must be float32 or bfloat16 in
-    channels_last memory, and ``g`` of the same dtype (copied into
-    channels_last if it is not); one launch of the kernel.  A CPU tensor
-    goes through :func:`maxpool2x2_backward_plain`.  dx is channels_last."""
-    _check_shapes(x, g)
+def maxpool_backward(x: torch.Tensor, g: torch.Tensor, factor: int
+                     ) -> torch.Tensor:
+    """dx of the max pool by ``factor`` (2, 4, 8 or 16) of ``x`` (B, C, H,
+    W) for the output gradient ``g``.  On a CUDA tensor ``x`` must be
+    float32 or bfloat16 in channels_last memory, and ``g`` of the same
+    dtype (copied into channels_last if it is not); one launch of the
+    kernel.  A CPU tensor goes through :func:`maxpool_backward_plain`.  dx
+    is channels_last."""
+    _check_shapes(x, g, factor)
     if x.device.type == "cuda":
-        return _maxpool2x2_backward_cuda(x, g)
+        return _maxpool_backward_cuda(x, g, factor)
     if x.device.type == "cpu":
-        return maxpool2x2_backward_plain(x, g)
-    raise ValueError(f"maxpool2x2_backward: unsupported device {x.device}")
+        return maxpool_backward_plain(x, g, factor)
+    raise ValueError(f"maxpool_backward: unsupported device {x.device}")

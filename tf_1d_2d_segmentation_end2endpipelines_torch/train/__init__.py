@@ -11,6 +11,7 @@ from .checkpoint import CheckpointManager  # noqa: F401
 from .losses import (  # noqa: F401
     bce_dice_loss,
     binary_crossentropy,
+    categorical_crossentropy,
     deep_supervision_loss,
     default_ds_weights,
     dice_loss,

@@ -1,10 +1,10 @@
 """Losses of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/train/losses.py).
 
-Ported: ``BinaryCrossentropy`` (:31), ``DiceLoss`` (:146) and
-``BCEDiceLoss`` (:154), with the Keras reduction (mean over every leading
-axis of the per-element loss) and the Keras clip of probabilities to
-[1e-7, 1 - 1e-7].  The dice terms sum over the last axis, as the
+Ported: ``BinaryCrossentropy`` (:31), ``CategoricalCrossentropy``
+(:52), ``DiceLoss`` (:146) and ``BCEDiceLoss`` (:154), with the Keras
+reduction (mean over every leading axis of the per-element loss) and the
+Keras clip of probabilities to [1e-7, 1 - 1e-7].  The dice terms sum over the last axis, as the
 reference's do: with one output channel the dice is per pixel.  That is
 the reference's formula, copied as it is.
 """
@@ -47,6 +47,15 @@ def binary_crossentropy(y_true: torch.Tensor,
     return _bce(y_true, _clip(y_pred)).mean()
 
 
+def categorical_crossentropy(y_true: torch.Tensor,
+                             y_pred: torch.Tensor) -> torch.Tensor:
+    """Keras's on probabilities: normalized by their sum over the last
+    (channel) axis, clipped, and the negative channel sum of
+    ``y_true * log(p)`` averaged."""
+    p = _clip(y_pred / y_pred.sum(dim=-1, keepdim=True))
+    return (-(y_true * torch.log(p)).sum(dim=-1)).mean()
+
+
 def _abs(v: torch.Tensor) -> torch.Tensor:
     # jnp.abs's gradient at 0 is +1 (select(v >= 0, g, -g)); torch.abs's
     # is 0, and v = y_true * y_pred is exactly 0 wherever the target is
@@ -73,6 +82,7 @@ def bce_dice_loss(y_true: torch.Tensor, y_pred: torch.Tensor,
 
 LOSSES: tp.Dict[str, LossFn] = {
     "BinaryCrossentropy": binary_crossentropy,
+    "CategoricalCrossentropy": categorical_crossentropy,
     "DiceLoss": dice_loss,
     "BCEDiceLoss": bce_dice_loss,
 }

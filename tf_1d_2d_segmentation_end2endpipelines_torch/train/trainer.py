@@ -2,9 +2,10 @@
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/train/trainer.py,
 ``Trainer.__init__`` :71 and ``fit`` :198).
 
-One device.  Per step: host batch to the device, one train step; the
-losses and metric states stay on the device until the epoch ends, when
-one read brings the epoch's scalars to the host.  Callbacks
+One device.  Per step: host batch to the device, the targets built from
+the mask there (``prepare_targets``: the deep-supervision pyramid), one
+train step; the losses and metric states stay on the device until the
+epoch ends, when one read brings the epoch's scalars to the host.  Callbacks
 (EarlyStopping, ReduceLROnPlateau, the best checkpoint) run between
 epochs, as in the JAX package.  Not ported yet: exact resume and
 TensorBoard scalars (the INI keys that ask for them are refused by
@@ -24,7 +25,7 @@ from .checkpoint import CheckpointManager
 from .losses import get_loss
 from .metrics import Metric, make_metric
 from .optimizers import get_learning_rate, make_optimizer, set_learning_rate
-from .state import make_eval_step, make_train_step
+from .state import Targets, make_eval_step, make_train_step
 
 BatchIter = tp.Callable[[], tp.Iterable[tp.Tuple[np.ndarray, np.ndarray]]]
 
@@ -39,10 +40,15 @@ class Trainer:
         metrics: tp.Sequence[str] = (),
         loss_weights: tp.Optional[tp.Dict[str, float]] = None,
         device: tp.Union[str, torch.device] = "cuda",
+        prepare_targets: tp.Optional[
+            tp.Callable[[torch.Tensor], Targets]] = None,
     ):
         """``model`` is moved to ``device``; the optimizer is built over
-        its parameters there."""
+        its parameters there.  ``prepare_targets`` maps a mask batch, on
+        the device, to the step's targets (default: the mask is the
+        ``out`` target)."""
         self.device = torch.device(device)
+        self.prepare_targets = prepare_targets
         self.model = model.to(self.device)
         self.loss_fn = get_loss(loss)
         self.optimizer = make_optimizer(optimizer, self.model.parameters(),
@@ -57,6 +63,13 @@ class Trainer:
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _batch(self, x: np.ndarray, y: np.ndarray
+               ) -> tp.Tuple[torch.Tensor, Targets]:
+        x, y = self.to_device(x), self.to_device(y)
+        if self.prepare_targets is not None:
+            y = self.prepare_targets(y)
+        return x, y
 
     def _metric_init(self) -> tp.Tuple:
         return tuple(m.init(self.device) for m in self.metric_defs)
@@ -96,8 +109,7 @@ class Trainer:
             mstates = self._metric_init()
             losses = []
             for x, y in train_data():
-                loss, mstates = self.train_step(self.to_device(x),
-                                                self.to_device(y), mstates)
+                loss, mstates = self.train_step(*self._batch(x, y), mstates)
                 losses.append(loss)
             logs: tp.Dict[str, float] = {}
             if losses:
@@ -110,8 +122,8 @@ class Trainer:
                 vstates = self._metric_init()
                 vlosses = []
                 for x, y in val_data():
-                    vloss, _, vstates = self.eval_step(
-                        self.to_device(x), self.to_device(y), vstates)
+                    vloss, _, vstates = self.eval_step(*self._batch(x, y),
+                                                       vstates)
                     vlosses.append(vloss)
                 if vlosses:
                     logs["val_loss"] = float(torch.stack(vlosses).mean())

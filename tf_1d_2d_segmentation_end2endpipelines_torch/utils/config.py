@@ -144,7 +144,6 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
     """The INI settings of ``cfg`` the port's ``train`` verb does not take
     yet, as ``key = value`` strings (empty when it takes them all)."""
     checks = (
-        ("d_s", cfg.d_s != 0),
         ("augment", cfg.augment),
         ("augment_device", cfg.augment_device),
         ("patchify", cfg.patchify),
