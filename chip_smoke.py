@@ -15,12 +15,15 @@ Phases, each printing lines:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
 3. kernels: each kernel against its plain PyTorch version at every call
-   each path makes (the pyramid at every level, or one level alone for a
-   pool by 2**m; the pool backward with windows 2, 4 and 8) and at edge
-   cases (bit-exact: max and its gradient routing are exact), with
-   CUDA-event device times of the kernel, the plain version and the
-   PyTorch library call that computes the same function (a yardstick the
-   port never calls), and the bound: bytes moved at 3.35 TB/s
+   each path makes (the pyramid storing every level, some levels or one
+   level alone for a pool by 2**m; the pool backward with windows 2, 4
+   and 8) and at edge cases (bit-exact: max and its gradient routing are
+   exact), with CUDA-event device times of the kernel, the plain version
+   and the PyTorch library call that computes the same function (a
+   yardstick the port never calls), and the bound: bytes moved at 3.35
+   TB/s; beside each pooled UNet3+ skip, the earlier design of the same call
+   (one single-level launch per level); beside the DS targets' row, the
+   floor: the same kernel's time on a (1, 2, 2, 1) mask
 4. serve: 16/16 answered 200 with a 256x256 mask; masks equal to
    ``label_from_pred`` of the same model run with the plain pool, away
    from the threshold; the pyramid kernel launched exactly 4 times (one
@@ -35,11 +38,12 @@ Phases, each printing lines:
 7. train reference: one float32 train step on the card against the CPU,
    loss, gradients, running statistics and parameters within stated
    tolerances
-8. train ds: phase 6 for UNet3+ with ``d_s = 1``: 11 pyramid launches
-   per train step and validation batch (4 encoder pools, 6 decoder pools,
-   1 target pyramid) and 10 pool-backward launches per step
+8. train ds: phase 6 for UNet3+ with ``d_s = 1``: 8 pyramid launches per
+   train step and validation batch (4 encoder pools, 3 decoder pyramids,
+   one per pooled skip, 1 target pyramid) and 10 pool-backward launches
+   per step (one per pooled tap)
 9. config 3: 20 counted steps each of UNet++ (4 + 4 launches a step) and
-   UNet3+ (10 + 10), finite ``out`` loss, p50 step, img/s, peak memory
+   UNet3+ (7 + 10), finite ``out`` loss, p50 step, img/s, peak memory
 10. ds reference: phase 7 for a W8/D3 UNet3+ with ``ds=1`` and its
     deep-supervision targets and loss weights
 
@@ -50,6 +54,12 @@ run in phase 4, 6, 8 or 9, and the device times and bound of the calls
 that path makes per batch or step; the last is ``{"ok": true, "device":
 {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
+
+    python3 chip_smoke.py --ds-mask
+
+runs phases 1 and 2 and then only the DS targets' pyramid call, checked
+and timed as in phase 3 (see ``phase_ds_mask``), and prints no result
+line.
 """
 from __future__ import annotations
 
@@ -84,6 +94,11 @@ FIXED_STEPS = 30
 DS_EPOCHS = 2
 CONFIG3_STEPS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+#: bytes zeroed between two timed calls: enough to empty the 50 MB L2 and
+#: to keep the card busy longer than the host takes to enqueue a call
+#: (phase 3 prints both times; 128 MB did not outlast a pyramid call
+#: with four outputs)
+FLUSH_BYTES = 512 * 2 ** 20
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -116,8 +131,8 @@ def _call_ms(fn, flush) -> float:
 def _device_ms(fn, flush, loops: int = 5) -> float:
     """Device time of one ``fn()`` with a cold 50 MB L2: events around REPS
     (flush, fn) pairs minus events around REPS flushes alone, per call;
-    median over ``loops``.  Zeroing 128 MB keeps the card busy longer than
-    the host takes to enqueue ``fn``, so host overhead drops out."""
+    median over ``loops``.  Zeroing FLUSH_BYTES keeps the card busy longer
+    than the host takes to enqueue ``fn``, so host overhead drops out."""
     def pairs():
         for _ in range(REPS):
             flush.zero_()
@@ -130,6 +145,19 @@ def _device_ms(fn, flush, loops: int = 5) -> float:
     return statistics.median(
         (_events_ms(pairs) - _events_ms(flushes)) / REPS
         for _ in range(loops))
+
+
+def _host_ms(fn, reps: int = 20) -> float:
+    """Host time to enqueue one ``fn()`` (no synchronize inside)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
 
 
 def phase_device() -> None:
@@ -183,32 +211,45 @@ def _in_turns(fns: dict, flush) -> dict:
 _BF16, _F32 = "bfloat16", "float32"
 _ENC = [(TRAIN_BATCH, 256, 256, 32), (TRAIN_BATCH, 128, 128, 64),
         (TRAIN_BATCH, 64, 64, 128), (TRAIN_BATCH, 32, 32, 256)]
-#: UNet3+ W32/D4's decoder pools per forward, in call order: (NHWC shape,
-#: factor) for decoder step j and tap k, factor 2**((D - j) - k - 1)
-#: (tf_1d_2d_segmentation_end2endpipelines_tpu/models/decoders.py:353-356)
+#: UNet3+ W32/D4's pooled decoder taps per forward: (NHWC shape, factor)
+#: for decoder step j and tap k, factor 2**((D - j) - k - 1)
+#: (tf_1d_2d_segmentation_end2endpipelines_tpu/models/decoders.py:353-356);
+#: each has its own backward launch
 _DEC_3P = [(_ENC[0], 8), (_ENC[1], 4), (_ENC[2], 2),
            (_ENC[0], 4), (_ENC[1], 2), (_ENC[0], 2)]
-_DS_MASK = (_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 4, False)
+
+
+def _all(levels: int) -> tuple:
+    return tuple(range(1, levels + 1))
+
+
+_DS_MASK = (_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 4, _all(4))
 
 # pyramid calls per batch or step of each path: (dtype, NHWC shape,
-# levels, pool), ``pool`` = level ``levels`` alone (``maxpool_level``, the
-# model's pools), else every level (``maxpool_pyramid``, the DS targets)
-_FWD_ENC_TRAIN = [(_BF16, s, 1, True) for s in _ENC]
-_FWD_DEC_3P = [(_BF16, s, f.bit_length() - 1, True) for s, f in _DEC_3P]
+# levels, wanted), ``wanted`` the levels stored: (levels,) for a pool by
+# 2**levels (``maxpool_level``, the encoder's pools), every level for
+# UNet3+'s pooled skips (``maxpool_levels``: skip k to levels 1..3-k, its
+# taps, in one launch) and for the DS targets (``fused_maxpool_pyramid``)
+_FWD_ENC_TRAIN = [(_BF16, s, 1, (1,)) for s in _ENC]
+_FWD_DEC_3P = [(_BF16, _ENC[k], 3 - k, _all(3 - k)) for k in range(3)]
 FWD_PATHS = {
-    "serve": [(_BF16, (BATCH,) + s[1:], 1, True) for s in _ENC],
+    "serve": [(_BF16, (BATCH,) + s[1:], 1, (1,)) for s in _ENC],
     "train": _FWD_ENC_TRAIN,
     "train_ds": _FWD_ENC_TRAIN + _FWD_DEC_3P + [_DS_MASK],
     "config3_UNetPP": _FWD_ENC_TRAIN,
     "config3_UNet3P": _FWD_ENC_TRAIN + _FWD_DEC_3P,
 }
 FWD_EDGES = [
-    (_F32, (2, 37, 53, 3), 2, False),       # ragged edges, every level
-    (_BF16, (2, 37, 53, 16), 1, True),      # ragged, 16-byte vector
-    (_BF16, (2, 16, 16, 3), 1, True),       # C % 8 != 0
-    (_BF16, (2, 37, 53, 16), 3, True),      # ragged, level 3 alone
-    (_F32, (2, 19, 23, 3), 2, True),        # one channel a thread
-    (_F32, (2, 33, 17, 4), 4, True),        # ragged, 16-byte, level 4
+    (_F32, (2, 37, 53, 3), 2, _all(2)),     # ragged edges, every level
+    (_BF16, (2, 37, 53, 16), 1, (1,)),      # ragged, 16-byte vector
+    (_BF16, (2, 16, 16, 3), 1, (1,)),       # C % 8 != 0
+    (_BF16, (2, 37, 53, 16), 3, (3,)),      # ragged, level 3 alone
+    (_F32, (2, 19, 23, 3), 2, (2,)),        # one channel a thread
+    (_F32, (2, 33, 17, 4), 4, (4,)),        # ragged, 16-byte, level 4
+    (_F32, (3, 37, 53, 1), 3, _all(3)),     # C=1: ragged, unaligned rows
+    (_BF16, (2, 64, 64, 1), 4, _all(4)),    # C=1 bf16: 3 levels a thread
+    (_BF16, (2, 37, 53, 16), 3, _all(3)),   # several levels, 16-byte
+    (_BF16, (2, 37, 53, 16), 3, (1, 3)),    # levels 1 and 3 only
 ]
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
@@ -269,9 +310,9 @@ def _case_input(dtype: str, shape: tuple, gen, plateaus: bool):
 
 
 def phase_kernels() -> dict:
-    """maxpool_pyramid (every level, or one level alone) against its plain
-    version at every call each path makes and at edge cases; returns
-    {path: JSON row}."""
+    """maxpool_pyramid (every level, some levels or one level alone)
+    against its plain version at every call each path makes and at edge
+    cases; returns {path: JSON row}."""
     import torch
     import torch.nn.functional as F
 
@@ -280,64 +321,119 @@ def phase_kernels() -> dict:
 
     on_path = list(dict.fromkeys(c for cs in FWD_PATHS.values() for c in cs))
     gen = torch.Generator().manual_seed(SEED)
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush.zero_()
+    small = flush[:128 * 2 ** 20]
+    zero = {n: _events_ms(lambda: [b.zero_() for _ in range(REPS)]) / REPS
+            for n, b in ((FLUSH_BYTES >> 20, flush), (128, small))}
+    print(f"phase 3 timing: zeroing the {FLUSH_BYTES >> 20} MB flush takes "
+          f"{zero[FLUSH_BYTES >> 20]:.4f} ms on the card, 128 MB "
+          f"{zero[128]:.4f} ms; each kernel line gives the host's enqueue "
+          f"time of that call", flush=True)
     max_err, measured = 0.0, {}
     for case in on_path + FWD_EDGES:
-        dtype, shape, levels, pool = case
+        dtype, shape, levels, wanted = case
         x = _case_input(dtype, shape, gen, plateaus=False)
-        if pool:
-            fns = {"plain": lambda: pyramid.maxpool_level_plain(x, levels),
-                   "kernel": lambda: pyramid.maxpool_level(x, levels),
-                   # the yardstick: PyTorch's own pool
-                   "library": lambda: F.max_pool2d(x, 1 << levels)}
-        else:
-            fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels),
-                   "kernel": lambda: pyramid.maxpool_pyramid(x, levels),
-                   "library": lambda: [F.max_pool2d(x, 1 << lvl)
-                                       for lvl in range(1, levels + 1)]}
+        fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels,
+                                                              wanted),
+               "kernel": lambda: pyramid.maxpool_pyramid(x, levels, wanted),
+               # the yardstick: PyTorch's own pool, one call per level
+               "library": lambda: [F.max_pool2d(x, 1 << lvl)
+                                   for lvl in wanted]}
         before = pyramid.launches.value
         got, want = fns["kernel"](), fns["plain"]()
         torch.cuda.synchronize()
         _check(pyramid.launches.value == before + 1,
-               f"pyramid {shape} L{levels}: not one launch")
-        got, want = ([got], [want]) if pool else (got, want)
+               f"pyramid {shape} {wanted}: not one launch")
         for k, p in zip(got, want):
             _check(k.shape == p.shape and k.dtype == p.dtype,
-                   f"pyramid {shape} L{levels}: {k.shape} vs {p.shape}")
+                   f"pyramid {shape} {wanted}: {k.shape} vs {p.shape}")
             _check(torch.equal(k.isnan(), p.isnan()),
-                   f"pyramid {shape} L{levels}: NaN positions differ")
+                   f"pyramid {shape} {wanted}: NaN positions differ")
             fin = ~p.isnan()
             err = float((k[fin].float() - p[fin].float()).abs().max()) \
                 if bool(fin.any()) else 0.0
-            _check(err == 0.0, f"pyramid {shape} L{levels}: max-abs {err}")
+            _check(err == 0.0, f"pyramid {shape} {wanted}: max-abs {err}")
             max_err = max(max_err, err)
         what = (f"maxpool_level {dtype} {tuple(shape)} L={levels} (pool by "
-                f"{1 << levels})" if pool else
-                f"maxpool_pyramid {dtype} {tuple(shape)} L={levels}")
+                f"{1 << levels})" if wanted == (levels,) else
+                f"maxpool_pyramid {dtype} {tuple(shape)} levels "
+                f"{list(wanted)}")
         if case not in on_path:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
                   f"kept)", flush=True)
             continue
+        if len(wanted) > 1 and shape[-1] > 1:
+            # the earlier design of the same call: one launch per level
+            fns["per_level"] = lambda: [pyramid.maxpool_level(x, lvl)
+                                        for lvl in wanted]
         t = _in_turns(fns, flush)
         calls = {name: _call_ms(fns[name], flush)
                  for name in ("kernel", "plain")}
+        host = _host_ms(fns["kernel"])
         nbytes = _bytes(x, *got)
         measured[case] = {**t, "bytes": nbytes}
-        lib = ("F.max_pool2d" if pool else
-               f"{levels} F.max_pool2d calls, one per level")
+        lib = (f"{len(wanted)} F.max_pool2d call(s), one per level, "
+               f"{t['library']:.4f} ms")
+        if "per_level" in t:
+            lib += (f"; {len(wanted)} single-level launches "
+                    f"{t['per_level']:.4f} ms")
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
               f"kept); device time kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms, library {lib} {t['library']:.4f} ms, "
+              f"{t['plain']:.4f} ms, library {lib}, "
               f"bound {_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s); "
               f"one call on an idle card kernel {calls['kernel']:.4f} ms, "
               f"plain {calls['plain']:.4f} ms (CUDA events, L2 flushed, "
-              f"medians of {REPS})", flush=True)
+              f"medians of {REPS}); host enqueue of the kernel call "
+              f"{host:.4f} ms", flush=True)
+        if case == _DS_MASK:
+            # a launch of the same kernel with next to nothing to move:
+            # what the card takes for any launch, measured the same way
+            tiny = _case_input(dtype, (1, 2, 2, 1), gen, plateaus=False)
+            floor = _in_turns({"floor": lambda: pyramid.maxpool_pyramid(
+                tiny, levels)}, flush)["floor"]
+            print(f"phase 3 kernel {what}: floor {floor:.4f} ms, the same "
+                  f"kernel on a (1, 2, 2, 1) mask (device time as above); "
+                  f"kernel {t['kernel']:.4f} ms", flush=True)
     _print_paths("pyramid", FWD_PATHS, measured)
     return {p: _kernel_row(
         "maxpool_pyramid", p,
         "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pyramid.cu",
         "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/pallas/pyramid.py:49",
         max_err, cases, measured) for p, cases in FWD_PATHS.items()}
+
+
+def phase_ds_mask() -> None:
+    """The DS targets' pyramid call alone, checked and timed as phase 3
+    does, with the port package beside this script.  Copied over the
+    script of an unpacked older checkout (one whose ``maxpool_pyramid``
+    takes ``(x, levels)``: all of them), ``--ds-mask`` times that commit's
+    kernel with this flush, in the same chip call as this one's."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+
+    dtype, shape, levels, _ = _DS_MASK
+    gen = torch.Generator().manual_seed(SEED)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    x = _case_input(dtype, shape, gen, plateaus=False)
+    tiny = _case_input(dtype, (1, 2, 2, 1), gen, plateaus=False)
+    got = pyramid.maxpool_pyramid(x, levels)
+    for k, p in zip(got, pyramid.maxpool_pyramid_plain(x, levels)):
+        _check(torch.equal(k.isnan(), p.isnan())
+               and torch.equal(k.nan_to_num(), p.nan_to_num()),
+               f"DS mask: kernel differs from plain at {tuple(p.shape)}")
+    t = _in_turns({"kernel": lambda: pyramid.maxpool_pyramid(x, levels),
+                   "floor": lambda: pyramid.maxpool_pyramid(tiny, levels)},
+                  flush)
+    nbytes = _bytes(x, *got)
+    print(f"ds mask {dtype} {shape} L={levels}: equal to plain (NaN kept); "
+          f"device time kernel {t['kernel']:.4f} ms, floor (the same call "
+          f"on (1, 2, 2, 1)) {t['floor']:.4f} ms, bound "
+          f"{_bound_ms(nbytes):.4f} ms; host enqueue "
+          f"{_host_ms(lambda: pyramid.maxpool_pyramid(x, levels)):.4f} ms; "
+          f"{FLUSH_BYTES >> 20} MB flush", flush=True)
 
 
 def phase_pool_backward() -> dict:
@@ -352,7 +448,7 @@ def phase_pool_backward() -> dict:
 
     on_path = list(dict.fromkeys(c for cs in BWD_PATHS.values() for c in cs))
     gen = torch.Generator().manual_seed(SEED + 2)
-    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     max_err, measured = 0.0, {}
     for case in on_path + BWD_EDGES:
         dtype, shape, f = case
@@ -512,8 +608,8 @@ def phase_serve(tmp: str) -> dict:
     decoded = np.stack([_decode_request(b, (SIZE, SIZE), "rgb", 255.0)
                         for b in bodies])
     before = pyramid.launches.value
-    with mock.patch.object(pyramid, "maxpool_level",
-                           pyramid.maxpool_level_plain):
+    with mock.patch.object(pyramid, "maxpool_pyramid",
+                           pyramid.maxpool_pyramid_plain):
         probs = predictor(decoded)
     _check(pyramid.launches.value == before, "plain-pool run launched the kernel")
     _check(probs.shape == (N_REQUESTS, SIZE, SIZE, 1)
@@ -952,10 +1048,11 @@ def phase_train_ds_reference() -> None:
             head = getattr(cpu.FullScaleDecoder_0, f"level{k}")
             head.weight.mul_(0.01)
             head.bias.fill_(0.5)
-    # 3 encoder and 3 decoder pools (and their backwards), 1 target pyramid
+    # 3 encoder pools, 2 decoder pyramids (skip 0 to levels 1-2, skip 1 to
+    # level 1) and 1 target pyramid; 3 + 3 backward pools
     _train_reference("phase 10 ds reference", "W8/D3 UNet3+ with ds=1", cpu,
                      lambda y: prepare_train_dict(y, 3, "UNet"),
-                     default_ds_weights(3), (7, 6))
+                     default_ds_weights(3), (6, 6))
 
 
 def main() -> int:
@@ -965,10 +1062,16 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; the port does not run on "
               "the CPU here", file=sys.stderr)
         return 1
+    if sys.argv[1:] not in ([], ["--ds-mask"]):
+        print("usage: python3 chip_smoke.py [--ds-mask]", file=sys.stderr)
+        return 2
     # fails here, before any phase, outside a checkout of the repo
     import tf_1d_2d_segmentation_end2endpipelines_torch  # noqa: F401
     phase_device()
     phase_build()
+    if sys.argv[1:] == ["--ds-mask"]:
+        phase_ds_mask()
+        return 0
     pyr, bwd = phase_kernels(), phase_pool_backward()
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(tmp)

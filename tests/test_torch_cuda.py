@@ -49,6 +49,92 @@ def _need_cuda():
         pytest.skip("needs an NVIDIA GPU")
 
 
+def _assert_same(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,levels,wanted", [
+    (torch.float32, (16, 256, 256, 1), 4, None),   # the DS mask, C=1 kernel
+    (torch.float32, (3, 37, 53, 1), 3, None),      # ragged, unaligned rows
+    (torch.bfloat16, (2, 64, 64, 1), 4, None),     # levels 1-3 in a thread
+    (torch.float32, (2, 19, 130, 1), 5, (2, 5)),   # some levels, L=5
+    (torch.bfloat16, (2, 37, 53, 16), 3, None),    # several levels, 16-byte
+    (torch.bfloat16, (2, 37, 53, 16), 3, (1, 3)),  # levels 1 and 3 only
+    (torch.float32, (2, 40, 70, 4), 4, None),
+    (torch.bfloat16, (16, 256, 256, 32), 3, None),  # UNet3+'s skip 0
+])
+def test_cuda_c1_and_multilevel_kernels_equal_plain_version(dtype, shape,
+                                                            levels, wanted):
+    """The C=1 kernel and the 16-byte kernel for several levels launch
+    once and equal the plain version bit for bit, NaN positions kept."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=g)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    x = x.to("cuda", dtype).permute(0, 3, 1, 2)
+    before = pyramid.launches.value
+    got = pyramid.maxpool_pyramid(x, levels, wanted)
+    torch.cuda.synchronize()
+    assert pyramid.launches.value == before + 1
+    want = pyramid.maxpool_pyramid_plain(x, levels, wanted)
+    assert len(got) == len(want)
+    for k, w in zip(got, want):
+        _assert_same(k, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_c1_kernel_on_an_offset_view(dtype):
+    """A C=1 view one element into its storage: no row starts on 16 bytes,
+    and the kernel reads every row element by element."""
+    _need_cuda()
+    b, h, w = 2, 32, 40
+    flat = torch.randn(1 + b * h * w, generator=torch.Generator()
+                       .manual_seed(4)).to("cuda", dtype)
+    x = flat[1:].view(b, h, w, 1).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16
+    for k, w_ in zip(pyramid.maxpool_pyramid(x, 3),
+                     pyramid.maxpool_pyramid_plain(x, 3)):
+        _assert_same(k, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_maxpool_levels_gradient_equals_cpu(dtype):
+    """``maxpool_levels`` on the card (one pyramid launch, one backward
+    launch per level with a gradient) equals the CPU's plain versions,
+    forward and gradient, on plateaus with a NaN."""
+    _need_cuda()
+    g0 = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 37, 53, 16, generator=g0)
+    x = torch.where(x < 0.3, torch.zeros_like(x), x)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    x = x.to(dtype).permute(0, 3, 1, 2)
+    cots = [torch.randn(2, 37 >> lvl, 53 >> lvl, 16, generator=g0).to(
+        dtype).permute(0, 3, 1, 2) for lvl in (1, 2, 3)]
+    grads = []
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev).detach().requires_grad_()
+        ys = pyramid.maxpool_levels(xd, 3)
+        counts = (pyramid.launches.value, pool_backward.launches.value)
+        torch.autograd.backward([ys[0], ys[2]], [cots[0].to(dev),
+                                                 cots[2].to(dev)])
+        grads.append((ys, xd.grad))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (pyramid.launches.value, pool_backward.launches.value) \
+                == (counts[0], counts[1] + 2)
+    (ys_c, dx_c), (ys_g, dx_g) = grads
+    for c, k in zip(ys_c, ys_g):
+        _assert_same(k.detach().cpu(), c.detach())
+    assert torch.equal(dx_g.cpu(), dx_c)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     """A CUDA tensor launches the kernel or raises: never the plain path."""

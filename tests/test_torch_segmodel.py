@@ -104,13 +104,13 @@ def test_batch_of_one_from_numpy_reaches_the_pool_channels_last(monkeypatch):
         pyramid)
 
     seen = []
-    plain = pyramid.maxpool_level
+    plain = pyramid.maxpool_pyramid
 
-    def spy(x, level):
+    def spy(x, levels, wanted=None):
         seen.append(x.is_contiguous(memory_format=torch.channels_last))
-        return plain(x, level)
+        return plain(x, levels, wanted)
 
-    monkeypatch.setattr(pyramid, "maxpool_level", spy)
+    monkeypatch.setattr(pyramid, "maxpool_pyramid", spy)
     x = np.random.default_rng(3).uniform(size=(16, 16, 3)).astype(
         np.float32)[None]
     assert x.strides[0] == 0

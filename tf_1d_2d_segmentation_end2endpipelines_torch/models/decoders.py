@@ -18,8 +18,8 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import (ConvBlock, HeadConv, TransConv, concat, downsample_pool,
-                   upsample)
+from ..ops import ConvBlock, HeadConv, TransConv, concat, upsample
+from ..ops.kernels import pyramid
 
 
 class _DecoderBase(nn.Module):
@@ -170,11 +170,17 @@ class FullScaleDecoder(_DecoderBase):
         levels: tp.List[torch.Tensor] = []
         deconv = skips[-1]
         deconvs: tp.List[torch.Tensor] = []
+        # skip k's taps are its max pools by 2**((D - j) - k - 1), one per
+        # later step j (JAX: downsample_pool per tap, tf_1d_2d_segmentation_
+        # end2endpipelines_tpu/models/decoders.py:353-356); all of them come
+        # from one pyramid launch, one read of the skip.  Max is exact, so
+        # each tap equals that pool, forward and gradient.
+        pooled = [pyramid.maxpool_levels(skips[k], D - 1 - k)
+                  for k in range(D - 1)]
         for j in range(D):
             sc_all = node(skips[D - j - 1])
             for k in range(0, D - j - 1):
-                sc = downsample_pool(skips[k], 2 ** ((D - j) - k - 1),
-                                     op="max")
+                sc = pooled[k][(D - j) - k - 2]  # level (D - j) - k - 1
                 sc_all = concat(sc_all, node(sc))
             tot = concat(sc_all, torch.sigmoid(self._resize(node(deconv), 2)))
             for m in range(j):

@@ -12,13 +12,18 @@ W and channel count; float32 and bfloat16.
 - :func:`maxpool_pyramid` is the wrapper.  On a CPU tensor it runs
   :func:`maxpool_pyramid_plain`; on a CUDA tensor it launches the kernel
   or raises.  Each launch adds one to :data:`launches` (its ``value``).
+  ``wanted`` picks the levels it stores (the kernel skips the others'
+  stores).
 - :func:`maxpool_level` is level m alone: one launch that stores level
-  m only (the kernel skips the stores of the levels below it).
-- :func:`maxpool` is the pool by 2**m (m = 1..4) as a differentiable op:
-  its forward is ``maxpool_level(x, m)``, its backward ``pool_backward.
-  maxpool_backward`` with window 2**m (the CUDA kernel
-  ``csrc/pool_backward.cu`` on a CUDA tensor), which routes each gradient
-  to the first maximum of its window in row-major order, as XLA does.
+  m only.
+- :func:`maxpool_levels` is the pools by 2, 4, .., 2**m of one tensor
+  (or the ``wanted`` ones) as one differentiable op: its forward is one
+  pyramid launch, its backward one ``pool_backward.maxpool_backward`` per
+  level that received a gradient (the CUDA kernel ``csrc/
+  pool_backward.cu`` on a CUDA tensor), which routes each gradient to the
+  first maximum of its window in row-major order, as XLA does.
+- :func:`maxpool` is the pool by 2**m (m = 1..4): ``maxpool_levels``
+  storing level m only.
 - :func:`fused_maxpool_pyramid` is the JAX package's NHWC entry point.
 """
 from __future__ import annotations
@@ -43,6 +48,17 @@ def _check_levels(x: torch.Tensor, levels: int) -> None:
         raise ValueError(f"levels must be in 1..16, got {levels}")
 
 
+def _wanted(levels: int, wanted: tp.Optional[tp.Sequence[int]]
+            ) -> tp.List[int]:
+    if wanted is None:
+        return list(range(1, levels + 1))
+    out = sorted(set(int(lvl) for lvl in wanted))
+    if not out or out[0] < 1 or out[-1] > levels:
+        raise ValueError(f"wanted levels {wanted} not a non-empty subset "
+                         f"of 1..{levels}")
+    return out
+
+
 def maxpool_level_plain(x: torch.Tensor, level: int) -> torch.Tensor:
     """Plain version of :func:`maxpool_level`: ``amax`` over a reshaped
     NHWC view of the (B, C, H, W) input; the output is channels_last."""
@@ -55,18 +71,18 @@ def maxpool_level_plain(x: torch.Tensor, level: int) -> torch.Tensor:
     return win.amax(dim=(2, 4)).permute(0, 3, 1, 2)
 
 
-def maxpool_pyramid_plain(x: torch.Tensor, levels: int
+def maxpool_pyramid_plain(x: torch.Tensor, levels: int,
+                          wanted: tp.Optional[tp.Sequence[int]] = None
                           ) -> tp.List[torch.Tensor]:
     """Plain PyTorch version: ``amax`` over a reshaped NHWC view, one level
     at a time from the input.  ``x`` is (B, C, H, W); so are the outputs,
     in channels_last memory."""
     _check_levels(x, levels)
-    return [maxpool_level_plain(x, lvl) for lvl in range(1, levels + 1)]
+    return [maxpool_level_plain(x, lvl) for lvl in _wanted(levels, wanted)]
 
 
 def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
-                          last_only: bool = False
-                          ) -> tp.List[torch.Tensor]:
+                          wanted: tp.List[int]) -> tp.List[torch.Tensor]:
     from ._build import check, load_library
 
     if x.dtype not in DTYPE_CODES:
@@ -76,15 +92,15 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
         raise ValueError("maxpool_pyramid kernel needs a channels_last "
                          "contiguous tensor (NHWC memory)")
     b, c, h, w = x.shape
-    wanted = [levels] if last_only else range(1, levels + 1)
     outs = [torch.empty((b, c, h >> l, w >> l), dtype=x.dtype,
                         device=x.device, memory_format=torch.channels_last)
             for l in wanted]
     if outs[0].numel() == 0:  # nothing to store: no launch
         return outs
     lib = load_library()
-    ptrs = (ctypes.c_uint64 * levels)(*(0,) * (levels - len(outs)),
-                                      *(o.data_ptr() for o in outs))
+    ptrs = (ctypes.c_uint64 * levels)()  # null for a level not wanted
+    for lvl, o in zip(wanted, outs):
+        ptrs[lvl - 1] = o.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.tpuseg_maxpool_pyramid(
@@ -95,20 +111,23 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
     return outs
 
 
-def maxpool_pyramid(x: torch.Tensor, levels: int) -> tp.List[torch.Tensor]:
-    """``[maxpool(x, 2**l) for l in 1..levels]`` of a (B, C, H, W) tensor.
+def maxpool_pyramid(x: torch.Tensor, levels: int,
+                    wanted: tp.Optional[tp.Sequence[int]] = None
+                    ) -> tp.List[torch.Tensor]:
+    """``[maxpool(x, 2**l) for l in wanted]`` of a (B, C, H, W) tensor,
+    ``wanted`` a subset of 1..levels (default: all of them).
 
     A CUDA tensor must be float32 or bfloat16 in channels_last memory; it
-    goes through one launch of the CUDA kernel (one read of ``x``; for
-    ``levels == 1`` the launcher picks the 16-byte-vector kernel when the
-    channels allow, as it does for :func:`maxpool_level` up to level 4).
-    A CPU tensor goes through
-    :func:`maxpool_pyramid_plain`.  Outputs are channels_last."""
+    goes through one launch of the CUDA kernel (one read of ``x``; the
+    launcher picks the kernel from C and the levels stored, csrc/
+    pyramid.cu).  A CPU tensor goes through :func:`maxpool_pyramid_plain`.
+    Outputs are channels_last."""
     _check_levels(x, levels)
+    wanted = _wanted(levels, wanted)
     if x.device.type == "cuda":
-        return _maxpool_pyramid_cuda(x, levels)
+        return _maxpool_pyramid_cuda(x, levels, wanted)
     if x.device.type == "cpu":
-        return maxpool_pyramid_plain(x, levels)
+        return maxpool_pyramid_plain(x, levels, wanted)
     raise ValueError(f"maxpool_pyramid: unsupported device {x.device}")
 
 
@@ -117,37 +136,65 @@ def maxpool_level(x: torch.Tensor, level: int) -> torch.Tensor:
     of the pyramid alone.  A CUDA tensor goes through one launch that
     stores that level only; a CPU tensor through the plain version's
     ``amax`` (:func:`maxpool_level_plain`).  The output is channels_last."""
-    _check_levels(x, level)
-    if x.device.type == "cuda":
-        return _maxpool_pyramid_cuda(x, level, last_only=True)[0]
-    if x.device.type == "cpu":
-        return maxpool_level_plain(x, level)
-    raise ValueError(f"maxpool_level: unsupported device {x.device}")
+    return maxpool_pyramid(x, level, (level,))[0]
 
 
-class MaxPool(torch.autograd.Function):
-    """The max pool by 2**level (window = stride, VALID floor truncation)
-    of a (B, C, H, W) tensor, with the gradient of XLA's max pool."""
+class MaxPoolLevels(torch.autograd.Function):
+    """The max pools by 2**l, l in ``wanted`` (a subset of 1..levels), of
+    a (B, C, H, W) tensor from one read of it, each with the gradient of
+    XLA's max pool.
+
+    A pool by 2**l routes each gradient over its whole window in row-major
+    order, which is not l nested 2x2 pools, so the backward keeps one
+    ``maxpool_backward`` per level and sums them.  A level whose output
+    received no gradient launches nothing: with
+    ``set_materialize_grads(False)`` its gradient arrives as None."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, level: int) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, levels: int,
+                wanted: tp.Optional[tp.Sequence[int]]):
+        ctx.set_materialize_grads(False)
         ctx.save_for_backward(x)
-        ctx.level = level
-        return maxpool_level(x, level)
+        ctx.wanted = _wanted(levels, wanted)
+        return tuple(maxpool_pyramid(x, levels, ctx.wanted))
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
+    def backward(ctx, *grads):
         (x,) = ctx.saved_tensors
-        return maxpool_backward(x, g, 1 << ctx.level), None
+        dx = None
+        # highest level first: the order in which jax.vjp of the separate
+        # pools adds their cotangents (the transpose visits them last
+        # to first)
+        for level, g in reversed(list(zip(ctx.wanted, grads))):
+            if g is None:
+                continue
+            d = maxpool_backward(x, g, 1 << level)
+            dx = d if dx is None else dx.add_(d)
+        return dx, None, None
+
+
+def maxpool_levels(x: torch.Tensor, levels: int,
+                   wanted: tp.Optional[tp.Sequence[int]] = None
+                   ) -> tp.List[torch.Tensor]:
+    """``[maxpool(x, 2**l) for l in wanted]`` (default: l in 1..levels,
+    levels 1..4) of a (B, C, H, W) tensor from one pyramid launch,
+    differentiable (see :class:`MaxPoolLevels`)."""
+    if levels not in range(1, len(FACTORS) + 1):
+        raise NotImplementedError(
+            f"max pools to level {levels}: only pools by {FACTORS} are "
+            "ported")
+    return list(MaxPoolLevels.apply(x, levels, wanted))
 
 
 def maxpool(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Differentiable max pool by ``factor`` (2, 4, 8 or 16) of a (B, C,
-    H, W) tensor (see :class:`MaxPool`)."""
+    H, W) tensor: :func:`maxpool_levels` storing level log2(factor) only
+    (window = stride, VALID floor truncation; XLA's gradient)."""
     if factor not in FACTORS:
         raise NotImplementedError(
             f"max pool by {factor}: only {FACTORS} are ported")
-    return MaxPool.apply(x, factor.bit_length() - 1)
+    level = factor.bit_length() - 1
+    return maxpool_levels(x, level, (level,))[0]
 
 
 def fused_maxpool_pyramid(mask: torch.Tensor, levels: int
