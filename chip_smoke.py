@@ -8,9 +8,11 @@ serving the flagship W32/D4 UNet++ on 256x256x3 in bf16 (``make_server``
 with dynamic batching answering 16 PNG requests from 4 client threads);
 training it (the ``train`` verb's fold loop on a synthetic PNG folder,
 batch 16, 2 epochs); training UNet3+ W32/D4 with deep supervision through
-the same verb (``train_ds``); and BASELINE config 3's fixed-batch train
-step for UNet++ and UNet3+ (``config3_UNetPP``, ``config3_UNet3P``).
-Phases, each printing lines:
+the same verb (``train_ds``); BASELINE config 3's fixed-batch train step
+for UNet++ and UNet3+ (``config3_UNetPP``, ``config3_UNet3P``); config 2's
+for UNet, UNetE and UNetP (``config2_UNet``, ``config2_UNetE``,
+``config2_UNetP``); and the ``test`` verb on the trained flagship fold
+(``test``).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
@@ -46,13 +48,27 @@ Phases, each printing lines:
    UNet3+ (7 + 10), finite ``out`` loss, p50 step, img/s, peak memory
 10. ds reference: phase 7 for a W8/D3 UNet3+ with ``ds=1`` and its
     deep-supervision targets and loss weights
+11. config 2: 20 counted steps each of UNet, UNetE and UNetP (W32/D4,
+    transposed convs, no deep supervision, BCEDice, Adam 1e-4, batch 16):
+    the loss falls, 4 + 4 launches a step, p50 step, img/s, peak memory
+12. test: the ``test`` verb on phase 6's fold over 16 fresh PNGs in
+    batches of 8: the checkpoint restored, every pixel counted, the
+    confusion matrix equal to the plain-pool forward's away from the
+    threshold, 4 pyramid launches per batch with and without two
+    test-time views (stacked into the batch); the kernels' probabilities
+    within 1e-3 of the plain pool's; img/s, decode included, and p50 of
+    its ``predict`` call on a warm batch with and without the views
+13. config 2 reference: phase 7 for W8/D3 UNet with ``ds=1`` (its
+    low-resolution heads and the targets pyramid), UNetE without and UNetP
+    with deep supervision
 
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
-``config3_UNetPP`` or ``config3_UNet3P``): the launches of that path's
-run in phase 4, 6, 8 or 9, and the device times and bound of the calls
-that path makes per batch or step; the last is ``{"ok": true, "device":
-{...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
+``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
+``config2_UNetE``, ``config2_UNetP`` or ``test``): the launches of that
+path's run in phase 4, 6, 8, 9, 11 or 12, and the device times and bound
+of the calls that path makes per batch or step; the last is ``{"ok":
+true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
 
     python3 chip_smoke.py --ds-mask
@@ -63,6 +79,7 @@ line.
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
@@ -85,6 +102,9 @@ N_REQUESTS = 16
 N_CLIENTS = 4
 THRESHOLD = 0.5
 NEAR_THRESHOLD = 1e-2
+#: phase 12: labels may differ from the plain-pool forward's only nearer
+#: than this to the threshold
+NEAR_TEST = 1e-3
 REPS = 30
 TRAIN_BATCH = 16
 N_TRAIN = 128
@@ -93,6 +113,11 @@ TRAIN_EPOCHS = 2
 FIXED_STEPS = 30
 DS_EPOCHS = 2
 CONFIG3_STEPS = 20
+CONFIG2_STEPS = 20
+N_TEST = 16
+TEST_BATCH = 8
+#: views of phase 12's second test run
+TEST_TTA = "hflip,vflip"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 #: bytes zeroed between two timed calls: enough to empty the 50 MB L2 and
 #: to keep the card busy longer than the host takes to enqueue a call
@@ -231,13 +256,18 @@ _DS_MASK = (_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 4, _all(4))
 # UNet3+'s pooled skips (``maxpool_levels``: skip k to levels 1..3-k, its
 # taps, in one launch) and for the DS targets (``fused_maxpool_pyramid``)
 _FWD_ENC_TRAIN = [(_BF16, s, 1, (1,)) for s in _ENC]
+_FWD_ENC_8 = [(_BF16, (BATCH,) + s[1:], 1, (1,)) for s in _ENC]
 _FWD_DEC_3P = [(_BF16, _ENC[k], 3 - k, _all(3 - k)) for k in range(3)]
+CONFIG2 = ("UNet", "UNetE", "UNetP")
 FWD_PATHS = {
-    "serve": [(_BF16, (BATCH,) + s[1:], 1, (1,)) for s in _ENC],
+    "serve": _FWD_ENC_8,
     "train": _FWD_ENC_TRAIN,
     "train_ds": _FWD_ENC_TRAIN + _FWD_DEC_3P + [_DS_MASK],
     "config3_UNetPP": _FWD_ENC_TRAIN,
     "config3_UNet3P": _FWD_ENC_TRAIN + _FWD_DEC_3P,
+    **{f"config2_{dec}": _FWD_ENC_TRAIN for dec in CONFIG2},
+    # a padded batch of TEST_BATCH (== BATCH) images, as served
+    "test": _FWD_ENC_8,
 }
 FWD_EDGES = [
     (_F32, (2, 37, 53, 3), 2, _all(2)),     # ragged edges, every level
@@ -259,6 +289,7 @@ BWD_PATHS = {
     "train_ds": _BWD_ENC + _BWD_DEC_3P,
     "config3_UNetPP": _BWD_ENC,
     "config3_UNet3P": _BWD_ENC + _BWD_DEC_3P,
+    **{f"config2_{dec}": _BWD_ENC for dec in CONFIG2},
 }
 BWD_EDGES = [
     (_F32, (4, 64, 64, 32), 2),      # f32, vector path
@@ -890,18 +921,44 @@ def phase_train_ds(tmp: str) -> dict:
     return run
 
 
+def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
+                   must_fall: bool) -> dict:
+    """One step that picks cuDNN's algorithms, then ``steps`` counted
+    fixed-batch steps (``_fixed_batch``), the counts set to 0 just before
+    them and read just after: exactly ``path``'s pyramid and pool-backward
+    calls (FWD_PATHS, BWD_PATHS) per step."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+
+    trainer.train_step(x, targets)  # the first step picks algorithms
+    pyramid.launches.reset()  # the main path's run starts here
+    pool_backward.launches.reset()
+    pool_backward.g_copies.reset()
+    p50 = _fixed_batch(f"{phase} {path}", trainer, x, targets, steps=steps,
+                       must_fall=must_fall)
+    fwd, bwd, copies = (pyramid.launches.value,
+                        pool_backward.launches.value,
+                        pool_backward.g_copies.value)  # ... and ends here
+    n_fwd, n_bwd = len(FWD_PATHS[path]), len(BWD_PATHS[path])
+    _check((fwd, bwd) == (n_fwd * steps, n_bwd * steps),
+           f"{path}: launched pyramid {fwd}x, backward {bwd}x, not "
+           f"{n_fwd} and {n_bwd} x {steps} steps")
+    print(f"{phase} {path}: maxpool_pyramid.launches = {fwd} = {n_fwd} x "
+          f"{steps} steps; maxpool_backward.launches = {bwd} = {n_bwd} x "
+          f"{steps}; gradient layout copies {copies}; p50 "
+          f"{p50 * 1e3:.3f} ms", flush=True)
+    return {"pyramid": fwd, "backward": bwd}
+
+
 def phase_config3() -> dict:
     """Path (b): BASELINE config 3's fixed-batch train step as the JAX
     package measures it (benchmarks/zoo_bench.py:83-99): W32/D4 UNet++ and
     UNet3+ with ``ds=1``, 4 classes, softmax, CategoricalCrossentropy on
     ``out`` only, default_ds_weights(4), Adam lr 1e-4, bf16, batch 16, on
-    normal inputs and one-hot targets from SEED.  The counts are set to 0
-    just before the counted steps and read just after."""
+    normal inputs and one-hot targets from SEED."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
-    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
-        pool_backward, pyramid)
     from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
         Trainer, default_ds_weights)
 
@@ -918,29 +975,167 @@ def phase_config3() -> dict:
         trainer = Trainer(model, loss="CategoricalCrossentropy",
                           optimizer="Adam", learning_rate=1e-4,
                           loss_weights=default_ds_weights(4), device="cuda")
-        xt = trainer.to_device(x)
-        targets = {"out": trainer.to_device(y)}
-        trainer.train_step(xt, targets)  # the first step picks algorithms
-        pyramid.launches.reset()  # the main path's run starts here
-        pool_backward.launches.reset()
-        pool_backward.g_copies.reset()
-        p50 = _fixed_batch(f"phase 9 {path}", trainer, xt, targets,
-                           steps=CONFIG3_STEPS, must_fall=False)
-        fwd, bwd, copies = (pyramid.launches.value,
-                            pool_backward.launches.value,
-                            pool_backward.g_copies.value)  # ... and ends here
-        n_fwd, n_bwd = len(FWD_PATHS[path]), len(BWD_PATHS[path])
-        _check((fwd, bwd) == (n_fwd * CONFIG3_STEPS, n_bwd * CONFIG3_STEPS),
-               f"{path}: launched pyramid {fwd}x, backward {bwd}x, not "
-               f"{n_fwd} and {n_bwd} x {CONFIG3_STEPS} steps")
-        print(f"phase 9 {path}: maxpool_pyramid.launches = {fwd} = {n_fwd} "
-              f"x {CONFIG3_STEPS} steps; maxpool_backward.launches = {bwd} "
-              f"= {n_bwd} x {CONFIG3_STEPS}; gradient layout copies "
-              f"{copies}; p50 {p50 * 1e3:.3f} ms", flush=True)
-        counts[path] = {"pyramid": fwd, "backward": bwd}
+        counts[path] = _counted_steps(
+            "phase 9", path, trainer, trainer.to_device(x),
+            {"out": trainer.to_device(y)}, CONFIG3_STEPS, must_fall=False)
         del model, trainer
         torch.cuda.empty_cache()
     return counts
+
+
+def phase_config2() -> dict:
+    """BASELINE config 2's fixed-batch train step (the JAX package's
+    benchmarks/zoo_bench.py:73-80): W32/D4 UNet, UNetE and UNetP, binary,
+    transposed-conv decoders, no deep supervision, sigmoid, BCEDice, Adam
+    lr 1e-4, bf16, batch 16 of synthetic images and blob masks from a
+    seed (a batch whose loss can fall in 20 steps)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    counts = {}
+    for dec in CONFIG2:
+        path = f"config2_{dec}"
+        model = SegModel(dec, 32, 4, output_nums=1, ds=0,
+                         final_activation="sigmoid", dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED))
+        print(f"phase 11 {path}: W32/D4 {dec} {SIZE}x{SIZE}x3 bf16, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"BCEDice, Adam lr 1e-4, batch {TRAIN_BATCH}", flush=True)
+        trainer = Trainer(model, loss="BCEDiceLoss", optimizer="Adam",
+                          learning_rate=1e-4, device="cuda")
+        counts[path] = _counted_steps(
+            "phase 11", path, trainer, trainer.to_device(x),
+            trainer.to_device(y), CONFIG2_STEPS, must_fall=True)
+        del model, trainer
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_test_verb(tmp: str, train_cfg) -> dict:
+    """The ``test`` verb on phase 6's trained fold (``train_cfg``'s
+    save_dir) over N_TEST fresh PNGs in batches of TEST_BATCH, the counts
+    set to 0 just before it and read just after, then the verb with
+    TEST_TTA's views stacked into each batch; then its confusion matrix
+    against the plain-pool forward's, and the p50 of ``Trainer.predict``
+    on a warm batch with and without the views."""
+    import torch
+    from PIL import Image
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        SegmentationFolderDataset, synthetic_images, write_image_folder)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.eval import (
+        confusion_matrix_update, init_confusion_matrix, label_from_pred)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig)
+
+    test_dir = os.path.join(tmp, "Data", "Test")
+    write_image_folder(test_dir, *synthetic_images(N_TEST, SIZE,
+                                                   seed=SEED + 7))
+    cfg = TestConfig(test_dir=test_dir, imheight=SIZE, imwidth=SIZE,
+                     batch_size=TEST_BATCH, threshold=THRESHOLD,
+                     save_dir=train_cfg.save_dir)
+    batches = -(-N_TEST // TEST_BATCH)
+    runs = {}
+    for views in ("", TEST_TTA):
+        pyramid.launches.reset()  # the main path's run starts here
+        t0 = time.perf_counter()
+        rep = drivers.test(config=dataclasses.replace(cfg, tta=views),
+                           device="cuda")[1]
+        verb_s = time.perf_counter() - t0
+        launches = pyramid.launches.value  # ... and ends here
+        cm = rep["confusion_matrix"]
+        _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+        _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
+               f"confusion matrix counts {int(cm.sum())} pixels")
+        _check(launches == 4 * batches,
+               f"test verb (views {views!r}) launched the pyramid "
+               f"{launches}x, not 4 x {batches} batches")
+        print(f"phase 12 test (views {views or 'none'}): drivers.test in "
+              f"{verb_s:.2f} s (model build and restore, reports included); "
+              f"prediction loop {rep['images_per_sec']:.1f} img/s (decode, "
+              f"predict, labels, mask PNGs; the first batch of each shape "
+              f"included); maxpool_pyramid.launches = {launches} = 4 x "
+              f"{batches} batches; overall accuracy "
+              f"{rep['overall_accuracy']}%", flush=True)
+        runs[views] = {"report": rep, "launches": launches, "masks": np.stack(
+            [np.asarray(Image.open(os.path.join(
+                cfg.save_dir, "test_results", "fold_1", "masks",
+                f"pred_{i}.png"))) // 255 for i in range(N_TEST)])}
+
+    # the same weights and decode with the plain pool on the card
+    ds = SegmentationFolderDataset(test_dir, (SIZE, SIZE))
+    x = np.stack([ds.load_pair(i)[0] for i in range(len(ds))])
+    msk = np.stack([ds.load_pair(i)[1] for i in range(len(ds))])
+    model = drivers._restore_model(
+        drivers._test_train_config(cfg), os.path.join(cfg.save_dir,
+                                                      "Fold_1"),
+        "evaluating", "cuda")
+    trainer = Trainer(model, device="cuda")
+    before = pyramid.launches.value
+    with mock.patch.object(pyramid, "maxpool_pyramid",
+                           pyramid.maxpool_pyramid_plain):
+        probs = np.concatenate([trainer.predict(x[i:i + TEST_BATCH])["out"]
+                                for i in range(0, len(x), TEST_BATCH)])
+    _check(pyramid.launches.value == before, "plain-pool run launched")
+    labels = label_from_pred(probs, 1, THRESHOLD)
+    cm_plain = confusion_matrix_update(
+        init_confusion_matrix(2),
+        (msk[..., 0] > THRESHOLD).astype(np.int32), labels)
+    near = np.abs(probs[..., 0] - THRESHOLD) < NEAR_TEST
+    differ = runs[""]["masks"] != labels
+    cm = runs[""]["report"]["confusion_matrix"]
+    off = float(np.abs(cm - cm_plain).sum())
+    _check(not bool((differ & ~near).any()) and off <= 2 * int(differ.sum()),
+           f"{int((differ & ~near).sum())} mask pixels differ from the "
+           f"plain-pool forward's labels away from the threshold; confusion "
+           f"matrix {cm.tolist()} vs {cm_plain.tolist()}")
+    tta_differ = runs[TEST_TTA]["masks"] != labels
+    # the kernels' forward against the plain pool's, probability for
+    # probability (the pool is exact: the rest of the forward sees the
+    # same tensors)
+    kprobs = np.concatenate([trainer.predict(x[i:i + TEST_BATCH])["out"]
+                             for i in range(0, len(x), TEST_BATCH)])
+    err = float(np.abs(kprobs - probs).max())
+    _check(err <= NEAR_TEST, f"test forward differs from the plain pool's "
+           f"by {err}")
+    print(f"phase 12 test: labels equal the plain-pool forward's at all "
+          f"{int((~near).sum())} pixels farther than {NEAR_TEST} from the "
+          f"threshold; {int(near.sum())} are nearer, {int(differ.sum())} of "
+          f"them differ; confusion matrix {cm.astype(np.int64).tolist()}, "
+          f"plain {cm_plain.tolist()}; probabilities in "
+          f"[{float(probs.min()):.4g}, {float(probs.max()):.4g}], the "
+          f"kernels' within {err:.3g} of the plain pool's (<= {NEAR_TEST}); "
+          f"with views {TEST_TTA} {int(tta_differ.sum())} of "
+          f"{tta_differ.size} labels differ from the plain forward's "
+          f"without views", flush=True)
+    # predict's own time on a warm batch shape (each verb run above makes
+    # one call per batch, the first at a new shape)
+    xb = x[:TEST_BATCH]
+    for views in ((), tuple(TEST_TTA.split(","))):
+        trainer.predict(xb, views)
+        times = []
+        for _ in range(REPS):
+            t = time.perf_counter()
+            trainer.predict(xb, views)  # returns host arrays: synchronized
+            times.append(time.perf_counter() - t)
+        print(f"phase 12 test: p50 predict of a batch of {TEST_BATCH}, views "
+              f"{','.join(views) or 'none'} ({(1 + len(views)) * TEST_BATCH} "
+              f"images in one forward): "
+              f"{statistics.median(times) * 1e3:.3f} ms over {REPS} calls "
+              f"after one warm-up (host clock, copies to and from the card "
+              f"included)", flush=True)
+    del model, trainer
+    torch.cuda.empty_cache()
+    return {"pyramid": runs[""]["launches"]}
 
 
 def _train_reference(phase: str, what: str, cpu, targets, weights,
@@ -1055,6 +1250,43 @@ def phase_train_ds_reference() -> None:
                      default_ds_weights(3), (6, 6))
 
 
+def phase_config2_reference() -> None:
+    """Phase 7's check on W8/D3 models of config 2: UNet with ``ds=1`` and
+    ds_type UNet (its heads at 1 / 2**k before each upsampling, its
+    targets from one pyramid launch), UNetE without deep supervision (the
+    pruned grid) and UNetP with ``ds=1`` and ds_type UNetPP (full-resolution
+    heads and targets), BCEDice on every head weighted by
+    default_ds_weights(3).  Heads scaled as in phase 10."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights)
+
+    # (decoder, ds_type or None without ds, launches: 3 encoder pools (+1
+    # target pyramid for ds_type UNet), 3 backward pools)
+    for dec, ds_type, want in (("UNet", "UNet", (4, 3)),
+                               ("UNetE", None, (3, 3)),
+                               ("UNetP", "UNetPP", (3, 3))):
+        ds = int(ds_type is not None)
+        cpu = SegModel(dec, 8, 3, ds=ds,
+                       generator=torch.Generator().manual_seed(SEED + 9))
+        decoder = getattr(cpu, cpu._decoder_name)
+        with torch.no_grad():
+            for k in range(1, 4) if ds else ():
+                head = getattr(decoder, f"level{k}")
+                head.weight.mul_(0.01)
+                head.bias.fill_(0.5)
+        _train_reference(
+            "phase 13 config 2 reference",
+            f"W8/D3 {dec} " + (f"with ds=1, ds_type {ds_type}" if ds
+                               else "without ds"),
+            cpu, (lambda y, t=ds_type: prepare_train_dict(y, 3, t)) if ds
+            else (lambda y: y), default_ds_weights(3) if ds else None, want)
+
+
 def main() -> int:
     import torch
 
@@ -1081,9 +1313,13 @@ def main() -> int:
         trained = {"train": phase_train(tmp)}
         phase_train_reference()
         trained["train_ds"] = phase_train_ds(tmp)
+        tested = phase_test_verb(tmp, _train_config(tmp, "Results"))
     trained.update(phase_config3())
     phase_train_ds_reference()
+    trained.update(phase_config2())
+    phase_config2_reference()
     pyr["serve"]["launches"] = served["launches"]
+    pyr["test"]["launches"] = tested["pyramid"]
     for path, run in trained.items():
         pyr[path]["launches"] = run["pyramid"]
         bwd[path]["launches"] = run["backward"]

@@ -1,0 +1,162 @@
+"""BASELINE config 2's decoders (UNet, UNetE, UNetP) against the JAX
+``SegModel`` with converted weights, with and without deep supervision
+and with and without transposed convs: the converter maps every flax leaf
+and leaves no torch key unfilled, every head matches in eval mode, and
+one float32 training step gives JAX's ``make_train_step`` loss, gradients
+and BatchNorm statistics."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import optax  # noqa: E402
+from test_torch_blocks import random_variables  # noqa: E402
+
+from tf_1d_2d_segmentation_end2endpipelines_tpu.data.pyramid import (  # noqa: E402
+    prepare_train_dict as jax_prepare_train_dict)
+from tf_1d_2d_segmentation_end2endpipelines_tpu.models import (  # noqa: E402
+    SegModel as JaxSegModel)
+from tf_1d_2d_segmentation_end2endpipelines_tpu.train import (  # noqa: E402
+    losses as jlosses, state as jstate)
+from tf_1d_2d_segmentation_end2endpipelines_torch.data import (  # noqa: E402
+    prepare_train_dict)
+from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel  # noqa: E402
+from tf_1d_2d_segmentation_end2endpipelines_torch.train import (  # noqa: E402
+    bce_dice_loss, default_ds_weights, make_optimizer, make_train_step)
+from tf_1d_2d_segmentation_end2endpipelines_torch.utils.flax_to_torch import (  # noqa: E402
+    flax_to_state_dict)
+
+W, D, SIZE = 4, 3, 32
+#: the decoder module's flax name and the ds_type whose targets fit its
+#: heads: the chain's level k sits at SIZE / 2**k, the grids' at SIZE
+DECODERS = {"UNet": ("ChainDecoder_0", "UNet"),
+            "UNetE": ("GridDecoder_0", "UNetPP"),
+            "UNetP": ("GridDecoder_0", "UNetPP"),
+            "UNetPP": ("GridDecoder_0", "UNetPP")}
+CASES = [(name, ds, tc) for name in ("UNet", "UNetE", "UNetP")
+         for ds in (0, 1) for tc in (1, 0)] + [("UNetPP", 0, 0)]
+
+
+def _grad_capture() -> optax.GradientTransformation:
+    """An optax transformation whose state is the last gradient and whose
+    update is zero: ``make_train_step`` then hands back its own gradient
+    in ``opt_state``."""
+    return optax.GradientTransformation(
+        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda g, state, params=None: (jax.tree.map(jnp.zeros_like, g), g))
+
+
+def _models(name, ds, tc):
+    jm = JaxSegModel(decoder_name=name, model_width=W, model_depth=D,
+                     output_nums=1, ds=ds, is_transconv=bool(tc),
+                     final_activation="sigmoid")
+    tm = SegModel(name, W, D, in_channels=3, output_nums=1, ds=ds,
+                  is_transconv=bool(tc), final_activation="sigmoid")
+    return jm, tm
+
+
+@pytest.mark.parametrize("name,ds,tc", CASES,
+                         ids=[f"{n}-ds{d}-tc{t}" for n, d, t in CASES])
+def test_config2_model_float32_matches_jax(name, ds, tc):
+    """W4/D3 on (2, 32, 32, 3) with random parameters and BN statistics:
+    the converter fills every torch key from a flax leaf and the
+    parameter counts agree; in eval mode ``out`` and every ``level{k}``
+    within 1e-4; one training step (BCEDice on every head, weighted by
+    ``default_ds_weights``, the targets of the decoder's ds_type) gives
+    the loss and every gradient within 1e-4 and the new BatchNorm
+    statistics within 1e-5.  The DS heads are scaled into (0.05, 0.95),
+    as tests/test_torch_ds_models.py explains, and checked there."""
+    jm, tm = _models(name, ds, tc)
+    module, ds_type = DECODERS[name]
+    rng = np.random.default_rng(5)
+    x = rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
+    y = (rng.uniform(size=(2, SIZE, SIZE, 1)) > 0.6).astype(np.float32)
+    variables = random_variables(jm, jnp.asarray(x), seed=3)
+    for k in range(1, D + 1) if ds else ():
+        head = variables["params"][module][f"level{k}"]
+        head["kernel"] = head["kernel"] * np.float32(0.01)
+        head["bias"] = np.full_like(head["bias"], 0.5)
+    sd = flax_to_state_dict(variables, tm.state_dict())
+    assert sorted(sd) == sorted(tm.state_dict())
+    assert sum(v.size for v in jax.tree.leaves(variables["params"])) == sum(
+        p.numel() for p in tm.parameters())
+    tm.load_state_dict(sd)
+
+    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
+        variables, jnp.asarray(x))
+    with torch.inference_mode():
+        got = tm.eval()(torch.from_numpy(x))
+    assert sorted(got) == sorted(want)
+    assert len(got) == 1 + D * ds
+    for k, w in want.items():
+        w = np.asarray(w)
+        assert got[k].shape == w.shape, k
+        assert float(np.abs(got[k].numpy() - w).max()) <= 1e-4, k
+    assert float(np.asarray(want["out"]).std()) > 1e-3  # a real signal
+
+    weights = default_ds_weights(D) if ds else None
+    jy = (jax_prepare_train_dict(jnp.asarray(y), D, ds_type) if ds
+          else jnp.asarray(y))
+    state = jstate.create_train_state(jm, jax.random.PRNGKey(0),
+                                      jnp.asarray(x), _grad_capture(),
+                                      variables=variables)
+    step = jstate.make_train_step(jm, _grad_capture(), jlosses.bce_dice_loss,
+                                  loss_weights=weights)
+    state, jloss, _ = jax.jit(step)(state, jnp.asarray(x), jy)
+
+    if ds:
+        with torch.no_grad():
+            heads = tm.train()(torch.from_numpy(x))
+        tm.load_state_dict(sd)  # undo that forward's BN update
+        for k in range(1, D + 1):
+            h = heads[f"level{k}"]
+            assert bool(((h > 0.05) & (h < 0.95)).all()), k
+    ty = (prepare_train_dict(torch.from_numpy(y), D, ds_type) if ds
+          else torch.from_numpy(y))
+    names = dict(tm.named_parameters())
+    tloss, _ = make_train_step(tm, make_optimizer("Adam", names.values(),
+                                                  1e-3),
+                               bce_dice_loss, weights)(torch.from_numpy(x), ty)
+    assert np.isfinite(float(tloss))
+    assert abs(float(jloss) - float(tloss)) <= 1e-4
+    jg = flax_to_state_dict({"params": state.opt_state}, names)
+    assert max(float(v.abs().max()) for v in jg.values()) > 1e-3
+    for k, p in names.items():
+        assert float((jg[k] - p.grad).abs().max()) <= 1e-4, k
+    stats = {k: v for k, v in tm.state_dict().items() if "running" in k}
+    js = flax_to_state_dict({"batch_stats": state.batch_stats}, stats)
+    for k, v in stats.items():
+        assert float((js[k] - v).abs().max()) <= 1e-5, k
+
+
+def test_unet_e_without_ds_builds_only_the_last_diagonal():
+    """UNetE with ``d_s = 0`` builds the nodes with i + j == D only, and
+    the flax auto-names count those: W4/D3 has nodes (1, 2), (2, 1) and
+    (3, 0) as ``TransConv_0..2`` and ``ConvBlock_0..2``, each upsampling
+    the one before (the bottleneck first), and no others.  With
+    ``d_s = 1`` all six nodes are built."""
+    jm, tm = _models("UNetE", 0, 1)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, SIZE, SIZE, 3)))["params"]
+    dec = shapes["GridDecoder_0"]
+    assert sorted(dec) == [f"{kind}_{n}" for kind in ("ConvBlock",
+                                                      "TransConv")
+                           for n in range(3)]
+    # (C_in, C_out) of each upsampling and node: widths 16, 8, 4
+    want = {0: (32, 16), 1: (16, 8), 2: (8, 4)}
+    for n, (cin, cout) in want.items():
+        assert dec[f"TransConv_{n}"]["ConvTranspose_0"]["kernel"].shape == (
+            4, 4, cout, cin)
+        assert dec[f"ConvBlock_{n}"]["Conv_0"]["kernel"].shape == (
+            3, 3, 2 * cout, cout)
+        assert tuple(tm.GridDecoder_0.get_submodule(
+            f"TransConv_{n}.ConvTranspose_0").weight.shape) == (cin, cout, 4, 4)
+        assert tuple(tm.GridDecoder_0.get_submodule(
+            f"ConvBlock_{n}.Conv_0").weight.shape) == (cout, 2 * cout, 3, 3)
+    assert sorted(n for n, _ in tm.GridDecoder_0.named_children()) == sorted(
+        dec)
+    _, tm_ds = _models("UNetE", 1, 1)
+    assert sum(n.startswith("ConvBlock_")
+               for n, _ in tm_ds.GridDecoder_0.named_children()) == 6

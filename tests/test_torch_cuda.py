@@ -320,3 +320,66 @@ def test_cuda_train_step_float32_matches_cpu():
     gp = dict(gpu.named_parameters())
     for k, p in cpu.named_parameters():
         assert float((p.grad - gp[k].grad.cpu()).abs().max()) <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoder,ds", [("UNet", 1), ("UNetE", 0),
+                                        ("UNetP", 1)])
+def test_cuda_config2_forward_equals_plain_pool(decoder, ds):
+    """A W8/D3 model of BASELINE config 2 in bf16 on the card: one kernel
+    launch per encoder pool, and every head equal to the same model's
+    forward with the plain pool on the card (the pool is exact, so the
+    rest of the forward sees the same tensors)."""
+    _need_cuda()
+    from unittest import mock
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    model = SegModel(decoder, 8, 3, ds=ds, dtype=torch.bfloat16,
+                     generator=torch.Generator().manual_seed(0)).cuda().eval()
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    before = pyramid.launches.value
+    with torch.inference_mode():
+        got = model(x.cuda())
+        torch.cuda.synchronize()
+        assert pyramid.launches.value == before + 3
+        with mock.patch.object(pyramid, "maxpool_pyramid",
+                               pyramid.maxpool_pyramid_plain):
+            want = model(x.cuda())
+    assert pyramid.launches.value == before + 3
+    assert sorted(got) == sorted(want) and len(got) == 1 + 3 * ds
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_test_verb_runs_end_to_end(tmp_path):
+    """The ``test`` verb on the card over 3 PNGs in batches of 2 (one
+    padded), with two views stacked into each batch: the model's 3 pools
+    launch once per batch, every pixel is counted, the masks and tables
+    are written."""
+    _need_cuda()
+    import os
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images, write_image_folder)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig as EvalConfig, TrainConfig)
+
+    write_image_folder(str(tmp_path / "Test"), *synthetic_images(3, 32))
+    tcfg = TrainConfig(imlength=32, imwidth=32, decoder_name="UNetP",
+                       model_width=4, model_depth=3,
+                       save_dir=str(tmp_path / "R"))
+    cfg = EvalConfig(test_dir=str(tmp_path / "Test"), imheight=32,
+                     imwidth=32, batch_size=2, tta="hflip,rot90",
+                     save_dir=tcfg.save_dir)
+    before = pyramid.launches.value
+    rep = drivers.test(config=cfg, train_config=tcfg)
+    assert pyramid.launches.value == before + 3 * 2
+    assert rep[1]["checkpoint_restored"] is False
+    assert int(rep[1]["confusion_matrix"].sum()) == 3 * 32 * 32
+    results = tmp_path / "R" / "test_results" / "fold_1"
+    assert sorted(os.listdir(results / "masks")) == [
+        f"pred_{i}.png" for i in range(3)]
+    assert (results / "results_confusion_matrix.csv").exists()

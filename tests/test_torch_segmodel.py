@@ -86,10 +86,10 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 
 def test_unported_configurations_raise():
     for kw in ({"genre": "FPN"}, {"ag": 1}, {"lstm": 1}, {"ae": 1},
-               {"is_transconv": False}, {"train_mode": "pretrained_encoder"}):
+               {"train_mode": "pretrained_encoder"}):
         with pytest.raises(NotImplementedError):
             SegModel("UNetPP", 4, 2, **kw)
-    for name in ("UNet", "UNet4P", "MultiResUNet", "SelfUNetPP"):
+    for name in ("FPN", "UNet4P", "MultiResUNet", "SelfUNetPP"):
         with pytest.raises(NotImplementedError):
             SegModel(name, 4, 2)
 

@@ -112,6 +112,30 @@ def test_train_verb_writes_best_weights_that_serve_answers_with(trained):
     assert not t.is_alive()
 
 
+def test_test_verb_evaluates_the_trained_fold(trained, capsys):
+    """``test Test_Configs.ini --device cpu`` on the fold the verb wrote:
+    it restores ``best.pt`` (no warning) and scores every pixel of the
+    validation folder."""
+    import configparser
+
+    tmp, cfg, _ = trained
+    ini = os.path.join(tmp, "Test_Configs.ini")
+    parser = configparser.ConfigParser()
+    parser["TEST"] = {"test_dir": cfg.val_dir, "imheight": str(SIZE),
+                      "imwidth": str(SIZE), "batch_size": "2",
+                      "save_dir": cfg.save_dir}
+    with open(ini, "w") as f:
+        parser.write(f)
+    cli_main(["test", ini, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "no 'best' checkpoint" not in out
+    assert "Fold 1: overall accuracy" in out
+    cm = np.loadtxt(os.path.join(cfg.save_dir, "test_results", "fold_1",
+                                 "results_confusion_matrix.csv"),
+                    delimiter=",", skiprows=1, usecols=(1, 2))
+    assert cm.sum() == 2 * SIZE * SIZE
+
+
 def test_history_keys_equal_the_jax_drivers(trained, tmp_path):
     """The JAX driver on the same INI (its own save_dir) gives the same
     history keys in the same order."""

@@ -1,5 +1,6 @@
-"""``python -m tf_1d_2d_segmentation_end2endpipelines_torch train|serve
-...``: the port's command line (JAX: drivers.py:936-946, :1067-1071)."""
+"""``python -m tf_1d_2d_segmentation_end2endpipelines_torch
+train|test|serve ...``: the port's command line (JAX: drivers.py:895-900,
+:936-946, :1067-1071)."""
 from __future__ import annotations
 
 import argparse
@@ -19,6 +20,12 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
                       help="torch device to train on (default: cuda)")
     p_tr.add_argument("--seed", type=int, default=None,
                       help="replaces the INI seed (weights, shuffle, split)")
+    p_te = sub.add_parser(
+        "test", help="fold-loop evaluation from a Test_Configs.ini: masks, "
+        "metrics and reports under <save_dir>/test_results/fold_<fold>")
+    p_te.add_argument("config", nargs="?", default="Test_Configs.ini")
+    p_te.add_argument("--device", default="cuda",
+                      help="torch device to evaluate on (default: cuda)")
     p_srv = sub.add_parser(
         "serve", help="HTTP serving of a trained fold (POST an image, get "
         "a PNG mask); weights from <save_dir>/Fold_<fold>/best.pt")
@@ -39,6 +46,9 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     if args.cmd == "train":
         from .drivers import train
         train(args.config, device=args.device, seed=args.seed)
+    elif args.cmd == "test":
+        from .drivers import test
+        test(args.config, device=args.device)
     elif args.cmd == "serve":
         from .serve import serve
         serve(args.config, host=args.host, port=args.port, fold=args.fold,

@@ -1,10 +1,10 @@
-"""The port's verbs: the ``train`` fold loop, and the model building and
-weight restore that ``serve`` uses
-(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/drivers.py:54-138 and
-``train`` :197-403).
+"""The port's verbs: the ``train`` and ``test`` fold loops, and the model
+building and weight restore that ``serve`` uses
+(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/drivers.py:54-138,
+``train`` :197-403 and ``test`` :406-570).
 
 Weights live in ``<save_dir>/Fold_<fold>/best.pt``: a ``state_dict`` of the
-port's model, which ``train`` writes and ``serve`` loads
+port's model, which ``train`` writes and ``serve`` and ``test`` load
 (``utils/flax_to_torch.py`` makes one from a flax tree).
 """
 from __future__ import annotations
@@ -13,19 +13,24 @@ import dataclasses
 import functools
 import json
 import os
+import time
 import typing as tp
 
+import numpy as np
 import torch
 
+from . import eval as ev
 from .data import (DS_TYPES, PrefetchLoader, SegmentationFolderDataset,
                    prepare_train_dict, split_dataset)
+from .data.patch import create_patches, unpatchify
 from .models import model_selector
 from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
                     Trainer, default_ds_weights, get_loss, make_metric,
                     make_optimizer)
 from .train.checkpoint import weights_file
-from .utils.config import (TrainConfig, load_train_config, save_train_config,
-                           unported_train_keys)
+from .utils.config import (TestConfig, TrainConfig, load_test_config,
+                           load_train_config, save_train_config,
+                           unported_test_keys, unported_train_keys)
 
 #: file name of a fold's serving weights under its checkpoint directory
 BEST_WEIGHTS = weights_file("best")
@@ -226,3 +231,163 @@ def train(config_path: str = "Train_Configs.ini",
             with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
                 json.dump(history, f)
     return histories
+
+
+def _test_train_config(cfg: TestConfig) -> TrainConfig:
+    """The architecture the ``test`` verb rebuilds: ``<save_dir>/
+    Train_Configs.ini`` as ``train`` wrote it, with the TEST config's
+    ``save_dir`` (where the folds are), else the TEST config's model keys
+    (JAX drivers.py:413-429)."""
+    saved = os.path.join(cfg.save_dir or ".", "Train_Configs.ini")
+    if os.path.exists(saved):
+        return dataclasses.replace(load_train_config(saved),
+                                   save_dir=cfg.save_dir)
+    return TrainConfig(
+        imlength=cfg.imheight, imwidth=cfg.imwidth,
+        num_channels=cfg.num_channels, encoder_mode=cfg.encoder_mode,
+        encoder_name=cfg.encoder_name, decoder_name=cfg.decoder_name,
+        d_s=cfg.d_s, output_nums=max(cfg.class_number, 1),
+        save_dir=cfg.save_dir)
+
+
+_FIGURES = ("confusion_matrix.png", "roc.png", "prc.png",
+            "prediction_distributions.png", "sample_grid.png")
+
+
+def test(config_path: str = "Test_Configs.ini",
+         config: tp.Optional[TestConfig] = None,
+         train_config: tp.Optional[TrainConfig] = None,
+         device: tp.Union[str, torch.device] = "cuda",
+         ) -> tp.Dict[tp.Union[int, str], tp.Dict[str, tp.Any]]:
+    """Fold-loop evaluation (reference Test.py).  Per fold: the model of
+    ``train_config`` (default: ``_test_train_config``) with the weights of
+    ``Fold_<k>/best.pt`` (a WARNING and ``checkpoint_restored: False``
+    when it is absent), predictions over ``<test_dir>/fold_<k>`` (or
+    ``test_dir``) in batches padded to ``batch_size`` (patchify: all
+    patches of an image in one batch), averaged over the ``tta`` views;
+    label maps by ``label_from_pred``; the report's ``images_per_sec`` is
+    the rate of that loop, PNG decode included; then, under ``<save_dir>/
+    test_results/fold_<k>/``, ``masks/pred_<i>.png``, the results and
+    confusion-matrix CSVs and, where matplotlib is installed, the figures
+    (otherwise one line names those not drawn).  Returns ``{fold:
+    report, "cumulative": report}`` (``eval.evaluation_table``).
+
+    ``device`` defaults to the GPU and never falls back to the CPU."""
+    from PIL import Image
+
+    cfg = config if config is not None else load_test_config(config_path)
+    tcfg = train_config if train_config is not None else _test_train_config(
+        cfg)
+    device = resolve_device(device)
+    bad = unported_test_keys(tcfg)
+    if bad:
+        raise NotImplementedError(
+            "the port's test verb does not build these settings yet: "
+            + ", ".join(bad))
+    square = ((cfg.patch_width == cfg.patch_height) if cfg.patchify
+              else (cfg.imheight == cfg.imwidth))
+    tta = ev.parse_tta(cfg.tta, square=square)
+    labels = list(cfg.labels) or [f"class_{i}"
+                                  for i in range(cfg.class_number + 1)]
+    n_classes = len(labels)
+    draw = ev.have_matplotlib()
+    reports: tp.Dict[tp.Union[int, str], tp.Dict[str, tp.Any]] = {}
+    cm_total = ev.init_confusion_matrix(n_classes)
+    for fold in range(cfg.start_fold, cfg.end_fold + 1):
+        fold_dir = _fold_dir(tcfg, fold)
+        restored = os.path.exists(os.path.join(fold_dir, BEST_WEIGHTS))
+        # an unported architecture raises here, before anything is written
+        model = _restore_model(tcfg, fold_dir, "evaluating", device)
+        trainer = Trainer(model, device=device)
+        ds = SegmentationFolderDataset(
+            _fold_data_dir(cfg.test_dir, fold), (cfg.imheight, cfg.imwidth),
+            cfg.image_color_mode, cfg.mask_color_mode,
+            cfg.normalizing_factor_img, cfg.normalizing_factor_msk)
+        results_dir = os.path.join(tcfg.save_dir or ".", "test_results",
+                                   f"fold_{fold}")
+        os.makedirs(os.path.join(results_dir, "masks"), exist_ok=True)
+
+        def predictions() -> tp.Iterator[tp.Tuple[int, np.ndarray,
+                                                  np.ndarray, np.ndarray]]:
+            """(index, image, prediction, mask) per test image."""
+            if cfg.patchify:
+                for idx in range(len(ds)):
+                    img, msk = ds.load_pair(idx)
+                    patches, _ = create_patches(
+                        img, (cfg.patch_width, cfg.patch_height),
+                        cfg.overlap_ratio)
+                    pred = unpatchify(trainer.predict(patches, tta)["out"],
+                                      (cfg.imheight, cfg.imwidth),
+                                      cfg.overlap_ratio)
+                    yield idx, img, pred, msk
+                return
+            bs = max(cfg.batch_size, 1)
+            for start in range(0, len(ds), bs):
+                idxs = range(start, min(start + bs, len(ds)))
+                pairs = [ds.load_pair(i) for i in idxs]
+                batch = np.stack([p[0] for p in pairs])
+                if len(pairs) < bs:  # one batch shape: cuDNN keeps its plans
+                    batch = np.concatenate([batch, np.zeros(
+                        (bs - len(pairs), *batch.shape[1:]), batch.dtype)])
+                preds = trainer.predict(batch, tta)["out"]
+                for k, i in enumerate(idxs):
+                    yield i, pairs[k][0], preds[k], pairs[k][1]
+
+        cm = ev.init_confusion_matrix(n_classes)
+        y_true, y_pred, y_score, samples = [], [], [], []
+        t0 = time.perf_counter()
+        for idx, img, pred, msk in predictions():
+            pred_lbl = ev.label_from_pred(pred, cfg.class_number,
+                                          cfg.threshold)
+            if cfg.class_number <= 1:
+                true_lbl = (msk[..., 0] > cfg.threshold).astype(np.int32)
+            else:
+                true_lbl = msk[..., 0].astype(np.int32)
+            cm = ev.confusion_matrix_update(
+                cm, torch.from_numpy(true_lbl).to(device),
+                torch.from_numpy(pred_lbl).to(device))
+            y_true.append(true_lbl.ravel())
+            y_pred.append(pred_lbl.ravel())
+            if cfg.roc_from_scores:
+                # foreground channels 0..class_number-1 score classes
+                # 1..class_number; the background scores 1 - their max
+                p = np.asarray(pred, np.float32).reshape(-1, pred.shape[-1])
+                fg = p[:, :max(cfg.class_number, 1)]
+                y_score.append(np.concatenate(
+                    [1.0 - fg.max(axis=1, keepdims=True), fg], axis=1))
+            if len(samples) < 4:
+                samples.append((img, msk, pred_lbl))
+            Image.fromarray((pred_lbl * (255 // max(n_classes - 1, 1))
+                             ).astype(np.uint8)).save(
+                os.path.join(results_dir, "masks", f"pred_{idx}.png"))
+        loop_s = time.perf_counter() - t0
+        cm_total += cm
+        report = ev.evaluation_table(cm, labels)
+        report["checkpoint_restored"] = restored
+        report["images_per_sec"] = len(ds) / max(loop_s, 1e-9)
+        reports[fold] = report
+        ev.export_results_sheet(report,
+                                os.path.join(results_dir, "results.xlsx"))
+        if draw:
+            yt, yp = np.concatenate(y_true), np.concatenate(y_pred)
+            ys = np.concatenate(y_score) if y_score else None
+            path = functools.partial(os.path.join, results_dir)
+            ev.plot_conf_mat(cm, labels, path("confusion_matrix.png"))
+            ev.plot_multiclass_roc(yt, yp, n_classes, path("roc.png"),
+                                   y_score=ys)
+            ev.plot_multiclass_precision_recall_curves(
+                yt, yp, n_classes, path("prc.png"), y_score=ys)
+            ev.plot_prediction_distributions(
+                yt, yp, path("prediction_distributions.png"))
+            if samples:
+                ev.plot_sample_grid(*zip(*samples),
+                                    path("sample_grid.png"))
+        else:
+            print(f"Fold {fold}: matplotlib is not installed; figures not "
+                  f"drawn: {', '.join(_FIGURES)}", flush=True)
+        print(f"Fold {fold}: overall accuracy "
+              f"{report['overall_accuracy']:.2f}%; {len(ds)} images at "
+              f"{report['images_per_sec']:.1f} img/s (decode included)",
+              flush=True)
+    reports["cumulative"] = ev.evaluation_table(cm_total, labels)
+    return reports

@@ -1,4 +1,10 @@
-"""Model zoo of the port (the flagship UNet++ so far)."""
-from .decoders import GridDecoder, build_decoder  # noqa: F401
+"""Model zoo of the port: the from-scratch UNet, UNetE, UNetP, UNet++ and
+UNet3+."""
+from .decoders import (  # noqa: F401
+    ChainDecoder,
+    FullScaleDecoder,
+    GridDecoder,
+    build_decoder,
+)
 from .encoders import LatentLayer, ScratchEncoder  # noqa: F401
 from .segmodel import SegModel, model_selector  # noqa: F401

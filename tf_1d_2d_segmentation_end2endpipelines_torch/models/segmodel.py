@@ -3,7 +3,7 @@
 
 Ported: the from-scratch UNet genre, with or without deep supervision,
 without autoencoder mode, with any decoder that ``decoders.build_decoder``
-has (UNet++ and UNet3+ so far).
+has (UNet, UNetE, UNetP, UNet++ and UNet3+ so far).
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Trainer of the port: the replacement for Keras ``compile``/``fit``
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/train/trainer.py,
-``Trainer.__init__`` :71 and ``fit`` :198).
+``Trainer.__init__`` :71, ``fit`` :198, ``evaluate`` :467 and ``predict``
+:481).
 
 One device.  Per step: host batch to the device, the targets built from
 the mask there (``prepare_targets``: the deep-supervision pyramid), one
@@ -20,12 +21,14 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..eval.tta import make_tta_fn
 from .callbacks import BestTracker, EarlyStopping, ReduceLROnPlateau
 from .checkpoint import CheckpointManager
 from .losses import get_loss
 from .metrics import Metric, make_metric
 from .optimizers import get_learning_rate, make_optimizer, set_learning_rate
-from .state import Targets, make_eval_step, make_train_step
+from .state import (Targets, make_eval_step, make_predict_step,
+                    make_train_step)
 
 BatchIter = tp.Callable[[], tp.Iterable[tp.Tuple[np.ndarray, np.ndarray]]]
 
@@ -59,6 +62,7 @@ class Trainer:
                                           self.metric_defs)
         self.eval_step = make_eval_step(self.model, self.loss_fn,
                                         loss_weights, self.metric_defs)
+        self.predict_step = make_predict_step(self.model)
         self.history: tp.Dict[str, tp.List[float]] = {}
 
     def to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -74,8 +78,8 @@ class Trainer:
     def _metric_init(self) -> tp.Tuple:
         return tuple(m.init(self.device) for m in self.metric_defs)
 
-    def _metric_results(self, states, prefix: str = "") -> tp.Dict[str, float]:
-        return {prefix + m.name: float(m.result(s))
+    def _metric_results(self, states) -> tp.Dict[str, float]:
+        return {m.name: float(m.result(s))
                 for m, s in zip(self.metric_defs, states)}
 
     def fit(
@@ -119,15 +123,8 @@ class Trainer:
             logs.update(self._metric_results(mstates))
             # -------- validation epoch --------
             if val_data is not None:
-                vstates = self._metric_init()
-                vlosses = []
-                for x, y in val_data():
-                    vloss, _, vstates = self.eval_step(*self._batch(x, y),
-                                                       vstates)
-                    vlosses.append(vloss)
-                if vlosses:
-                    logs["val_loss"] = float(torch.stack(vlosses).mean())
-                logs.update(self._metric_results(vstates, prefix="val_"))
+                logs.update({f"val_{k}": v
+                             for k, v in self.evaluate(val_data).items()})
             logs["lr"] = get_learning_rate(self.optimizer)
             logs["epoch_time"] = time.time() - t0
             for k, v in logs.items():
@@ -151,3 +148,26 @@ class Trainer:
                               flush=True)
                     break
         return self.history
+
+    def evaluate(self, data: BatchIter) -> tp.Dict[str, float]:
+        """The eval-mode loss (mean over the batches) and metrics of
+        ``data``."""
+        mstates = self._metric_init()
+        losses = []
+        for x, y in data():
+            loss, _, mstates = self.eval_step(*self._batch(x, y), mstates)
+            losses.append(loss)
+        logs = {"loss": float(torch.stack(losses).mean())} if losses else {}
+        logs.update(self._metric_results(mstates))
+        return logs
+
+    def predict(self, x: np.ndarray, tta: tp.Sequence[str] = ()
+                ) -> tp.Dict[str, np.ndarray]:
+        """Every head of the eval-mode forward of the NHWC batch ``x`` on
+        the trainer's device, as float32 numpy arrays.  ``tta`` names views
+        (eval.tta.TTA_2D) to average over; all views of the batch run as
+        one forward."""
+        step = make_tta_fn(self.predict_step, tta)
+        with torch.inference_mode():
+            out = step(self.to_device(x))
+            return {k: v.float().cpu().numpy() for k, v in out.items()}

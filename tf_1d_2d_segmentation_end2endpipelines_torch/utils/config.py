@@ -1,7 +1,9 @@
-"""The typed training config and its INI loader, with the schema of
-tf_1d_2d_segmentation_end2endpipelines_tpu/utils/config.py (``TrainConfig``
-:20, ``load_train_config`` :333): a reference Train_Configs.ini loads
-unchanged.  The field comments live in the JAX package.
+"""The typed training and test configs and their INI loaders, with the
+schema of tf_1d_2d_segmentation_end2endpipelines_tpu/utils/config.py
+(``TrainConfig`` :20, ``TestConfig`` :187, ``load_train_config`` :333,
+``load_test_config`` :341): a reference Train_Configs.ini or
+Test_Configs.ini loads unchanged.  The field comments live in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -94,6 +96,35 @@ class TrainConfig:
                 == "pretrained_encoder" else "from_scratch")
 
 
+@dc.dataclass
+class TestConfig:
+    test_dir: str = "Data/Test"
+    imheight: int = 512
+    imwidth: int = 512
+    image_color_mode: str = "rgb"
+    mask_color_mode: str = "grayscale"
+    num_channels: int = 3
+    class_number: int = 1
+    labels: tp.Tuple[str, ...] = ()
+    encoder_mode: str = "from_scratch"
+    encoder_name: str = "ResNet50"
+    decoder_name: str = "UNetPP"
+    batch_size: int = 4
+    normalizing_factor_img: float = 255.0
+    normalizing_factor_msk: float = 255.0
+    start_fold: int = 1
+    end_fold: int = 1
+    threshold: float = 0.5
+    save_dir: str = "Results"
+    patchify: bool = False
+    patch_width: int = 64
+    patch_height: int = 64
+    overlap_ratio: float = 0.0
+    d_s: int = 0
+    roc_from_scores: bool = False
+    tta: str = ""
+
+
 _T = tp.TypeVar("_T")
 
 
@@ -129,6 +160,14 @@ def load_train_config(path: str) -> TrainConfig:
     return _load_section(TrainConfig, parser["TRAIN"])
 
 
+def load_test_config(path: str) -> TestConfig:
+    """Load a reference-format Test_Configs.ini (section [TEST])."""
+    parser = configparser.ConfigParser()
+    with open(path) as f:
+        parser.read_file(f)
+    return _load_section(TestConfig, parser["TEST"])
+
+
 def save_train_config(cfg: TrainConfig, path: str) -> None:
     """Write ``cfg`` as an INI that ``load_train_config`` (here and in the
     JAX package) reads back."""
@@ -161,3 +200,18 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
         ("global_clipnorm", cfg.global_clipnorm != 0),
     )
     return [f"{key} = {getattr(cfg, key)!r}" for key, bad in checks if bad]
+
+
+def unported_test_keys(train: TrainConfig) -> tp.List[str]:
+    """The settings of the architecture the ``test`` verb rebuilds
+    (``train``: the fold's Train_Configs.ini, or the TEST config's model
+    keys) that the port does not build yet, as ``key = value`` strings.
+    Decoder families the port lacks raise when the model is built."""
+    checks = (
+        ("model_genre", train.model_genre != "UNet"),
+        ("encoder_mode", train.train_mode != "from_scratch"),
+        ("a_e", bool(train.a_e)),
+        ("a_g", bool(train.a_g)),
+        ("lstm", bool(train.lstm)),
+    )
+    return [f"{key} = {getattr(train, key)!r}" for key, bad in checks if bad]
