@@ -11,8 +11,12 @@ batch 16, 2 epochs); training UNet3+ W32/D4 with deep supervision through
 the same verb (``train_ds``); BASELINE config 3's fixed-batch train step
 for UNet++ and UNet3+ (``config3_UNetPP``, ``config3_UNet3P``); config 2's
 for UNet, UNetE and UNetP (``config2_UNet``, ``config2_UNetE``,
-``config2_UNetP``); and the ``test`` verb on the trained flagship fold
-(``test``).  Phases, each printing lines:
+``config2_UNetP``); the ``test`` verb on the trained flagship fold
+(``test``); config 4's, MultiResUNet and UNet with attention gates
+(``config4_MultiResUNet``, ``config4_UNet_AG``), and the rest of the
+MultiRes family's, MultiResUNet3+ and KSSNet (``MultiResUNet3P``,
+``KSSNet``); and the train, serve and test verbs on a MultiResUNet fold
+with ``alpha = 1.67`` (``train_multires``).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
@@ -61,13 +65,31 @@ for UNet, UNetE and UNetP (``config2_UNet``, ``config2_UNetE``,
 13. config 2 reference: phase 7 for W8/D3 UNet with ``ds=1`` (its
     low-resolution heads and the targets pyramid), UNetE without and UNetP
     with deep supervision
+14. config 4: 20 counted steps each of MultiResUNet (alpha 1; its encoder
+    pools 31, 63, 127 and 255 channels, the kernels' one-channel-a-thread
+    paths) and UNet with ``ag=1``, as phase 11: the loss falls, 4 + 4
+    launches a step, p50 step, img/s, peak memory
+15. family: phase 14 for MultiResUNet3+ (7 + 10 launches a step, as
+    UNet3+) and KSSNet (8 + 14: 4 encoder pools and one pyramid per
+    encoder tap; 4 backward pools and one per level of each tap pyramid,
+    4 + 3 + 2 + 1)
+16. verbs: phase 6's train verb for one epoch on MultiResUNet with
+    ``alpha = 1.67`` (4 + 4 launches a step), best.pt served, alpha read
+    back from the fold's Train_Configs.ini, then the test verb on the fold
+    over phase 12's PNGs (4 launches a batch, every pixel counted)
+17. multires reference: phase 7 for W8/D3 MultiResUNet with ``ds=1``,
+    UNet with ``ag=1`` and ``ds=1``, UNet++ with ``ag=1``, MultiResUNet3+
+    and KSSNet
 
+Phase 16 runs after phase 12, on its PNGs; the others run in their order.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
-``config2_UNetE``, ``config2_UNetP`` or ``test``): the launches of that
-path's run in phase 4, 6, 8, 9, 11 or 12, and the device times and bound
-of the calls that path makes per batch or step; the last is ``{"ok":
+``config2_UNetE``, ``config2_UNetP``, ``test``, ``config4_MultiResUNet``,
+``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet`` or
+``train_multires``): the launches of that path's run in phase 4, 6, 8, 9,
+11, 12, 14, 15 or 16, and the device times and bound of the calls that
+path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
 
@@ -114,6 +136,7 @@ FIXED_STEPS = 30
 DS_EPOCHS = 2
 CONFIG3_STEPS = 20
 CONFIG2_STEPS = 20
+CONFIG4_STEPS = 20
 N_TEST = 16
 TEST_BATCH = 8
 #: views of phase 12's second test run
@@ -258,7 +281,24 @@ _DS_MASK = (_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 4, _all(4))
 _FWD_ENC_TRAIN = [(_BF16, s, 1, (1,)) for s in _ENC]
 _FWD_ENC_8 = [(_BF16, (BATCH,) + s[1:], 1, (1,)) for s in _ENC]
 _FWD_DEC_3P = [(_BF16, _ENC[k], 3 - k, _all(3 - k)) for k in range(3)]
+#: MultiResBlock widths of the W32/D4 encoder's pooled levels: alpha 1 (the
+#: branches truncate, tf_1d_2d_segmentation_end2endpipelines_tpu/ops/
+#: blocks.py:748-749) and alpha 1.67 (phase 16); phases 14 and 16 check
+#: them against the models
+MRB_WIDTHS = {1.0: (31, 63, 127, 255), 1.67: (51, 105, 212, 426)}
+_ENC_MRB = {a: [s[:3] + (c,) for s, c in zip(_ENC, widths)]
+            for a, widths in MRB_WIDTHS.items()}
+_FWD_ENC_MRB = {a: [(_BF16, s, 1, (1,)) for s in shapes]
+                for a, shapes in _ENC_MRB.items()}
+#: KSSNet W32/D4: encoder tap k (a ResPath, W * 2**k wide) pooled to levels
+#: 1 .. 4 - k in one launch (its gated inputs to the deeper levels,
+#: tf_1d_2d_segmentation_end2endpipelines_tpu/models/encoders.py:71-84)
+_FWD_TAPS_KSS = [(_BF16, _ENC[k], 4 - k, _all(4 - k)) for k in range(4)]
 CONFIG2 = ("UNet", "UNetE", "UNetP")
+#: phases 14 and 15: path -> (decoder, ag)
+CONFIG4 = {"config4_MultiResUNet": ("MultiResUNet", 0),
+           "config4_UNet_AG": ("UNet", 1)}
+FAMILY = {"MultiResUNet3P": ("MultiResUNet3P", 0), "KSSNet": ("KSSNet", 0)}
 FWD_PATHS = {
     "serve": _FWD_ENC_8,
     "train": _FWD_ENC_TRAIN,
@@ -268,6 +308,11 @@ FWD_PATHS = {
     **{f"config2_{dec}": _FWD_ENC_TRAIN for dec in CONFIG2},
     # a padded batch of TEST_BATCH (== BATCH) images, as served
     "test": _FWD_ENC_8,
+    "config4_MultiResUNet": _FWD_ENC_MRB[1.0],
+    "config4_UNet_AG": _FWD_ENC_TRAIN,
+    "MultiResUNet3P": _FWD_ENC_MRB[1.0] + _FWD_DEC_3P,
+    "KSSNet": _FWD_ENC_MRB[1.0] + _FWD_TAPS_KSS,
+    "train_multires": _FWD_ENC_MRB[1.67],
 }
 FWD_EDGES = [
     (_F32, (2, 37, 53, 3), 2, _all(2)),     # ragged edges, every level
@@ -284,12 +329,22 @@ FWD_EDGES = [
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
 _BWD_DEC_3P = [(_BF16, s, f) for s, f in _DEC_3P]
+_BWD_ENC_MRB = {a: [(_BF16, s, 2) for s in shapes]
+                for a, shapes in _ENC_MRB.items()}
+# KSSNet: one backward launch per level of each tap pyramid
+_BWD_TAPS_KSS = [(_BF16, _ENC[k], 1 << lvl) for k in range(4)
+                 for lvl in range(1, 5 - k)]
 BWD_PATHS = {
     "train": _BWD_ENC,
     "train_ds": _BWD_ENC + _BWD_DEC_3P,
     "config3_UNetPP": _BWD_ENC,
     "config3_UNet3P": _BWD_ENC + _BWD_DEC_3P,
     **{f"config2_{dec}": _BWD_ENC for dec in CONFIG2},
+    "config4_MultiResUNet": _BWD_ENC_MRB[1.0],
+    "config4_UNet_AG": _BWD_ENC,
+    "MultiResUNet3P": _BWD_ENC_MRB[1.0] + _BWD_DEC_3P,
+    "KSSNet": _BWD_ENC_MRB[1.0] + _BWD_TAPS_KSS,
+    "train_multires": _BWD_ENC_MRB[1.67],
 }
 BWD_EDGES = [
     (_F32, (4, 64, 64, 32), 2),      # f32, vector path
@@ -1016,6 +1071,118 @@ def phase_config2() -> dict:
     return counts
 
 
+def _check_mrb_widths(model, alpha: float) -> None:
+    """The encoder's pooled MultiResBlock widths are MRB_WIDTHS[alpha],
+    the channels of the pool calls phase 3 timed for this path."""
+    enc = model.ScratchEncoder_0
+    widths = tuple(getattr(enc, f"MultiResBlock_{i}").out_features
+                   for i in range(4))
+    _check(widths == MRB_WIDTHS[alpha],
+           f"MultiResBlock widths {widths} != {MRB_WIDTHS[alpha]}")
+
+
+def _phase_steps(phase: str, paths: dict) -> dict:
+    """20 counted fixed-batch steps (CONFIG4_STEPS) of each W32/D4 model of
+    ``paths`` (path -> (decoder, ag)): binary, transposed convs, no deep
+    supervision, sigmoid, BCEDice, Adam lr 1e-4, bf16, batch 16 of phase
+    11's synthetic images and blob masks; the loss must fall."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    counts = {}
+    for path, (dec, ag) in paths.items():
+        model = SegModel(dec, 32, 4, output_nums=1, ds=0, ag=ag,
+                         final_activation="sigmoid", dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED))
+        if dec != "UNet":
+            _check_mrb_widths(model, 1.0)
+        print(f"{phase} {path}: W32/D4 {dec}{' ag=1' if ag else ''} "
+              f"{SIZE}x{SIZE}x3 bf16, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"BCEDice, Adam lr 1e-4, batch {TRAIN_BATCH}", flush=True)
+        trainer = Trainer(model, loss="BCEDiceLoss", optimizer="Adam",
+                          learning_rate=1e-4, device="cuda")
+        counts[path] = _counted_steps(
+            phase, path, trainer, trainer.to_device(x), trainer.to_device(y),
+            CONFIG4_STEPS, must_fall=True)
+        del model, trainer
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_config4() -> dict:
+    """BASELINE config 4's fixed-batch train step (the JAX package's
+    benchmarks/zoo_bench.py:101-110): W32/D4 MultiResUNet (alpha 1) and
+    UNet with attention gates, as phase 11 runs config 2."""
+    return _phase_steps("phase 14", CONFIG4)
+
+
+def phase_family() -> dict:
+    """The rest of the MultiRes family, MultiResUNet3+ and KSSNet, as
+    phase 14: its decoder pyramids (MultiResUNet3+'s pooled skips, as
+    UNet3+'s) and KSSNet's encoder tap pyramids, one launch per tap."""
+    return _phase_steps("phase 15", FAMILY)
+
+
+def phase_multires_verbs(tmp: str) -> dict:
+    """The train verb on phase 6's folders for one epoch with
+    ``decoder_name = MultiResUNet`` and ``alpha = 1.67`` (branch widths 8,
+    17, 26 at W = 32), best.pt served (``_run_train_verb``), then the test
+    verb on its fold over phase 12's PNGs: alpha read back from the fold's
+    Train_Configs.ini, best.pt restored into the rebuilt model, 4 pyramid
+    launches a batch, every pixel counted."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig, load_train_config)
+
+    cfg = _train_config(tmp, "ResultsMR", decoder_name="MultiResUNet",
+                        alpha=1.67, num_epochs=1)
+    print(f"phase 16 verbs: W32/D4 MultiResUNet alpha {cfg.alpha} bf16, "
+          f"BCEDice, Adam lr {cfg.learning_rate}, batch {TRAIN_BATCH}, 1 "
+          f"epoch", flush=True)
+    run = _run_train_verb("phase 16 verbs", cfg, "train_multires")
+    saved = load_train_config(os.path.join(cfg.save_dir, "Train_Configs.ini"))
+    _check(saved.alpha == 1.67 and saved.decoder_name == "MultiResUNet",
+           f"Train_Configs.ini has alpha {saved.alpha}, decoder "
+           f"{saved.decoder_name}")
+    test = TestConfig(test_dir=os.path.join(tmp, "Data", "Test"),
+                      imheight=SIZE, imwidth=SIZE, batch_size=TEST_BATCH,
+                      threshold=THRESHOLD, save_dir=cfg.save_dir)
+    model = drivers._restore_model(
+        drivers._test_train_config(test), os.path.join(cfg.save_dir,
+                                                       "Fold_1"),
+        "evaluating", "cuda")
+    _check_mrb_widths(model, 1.67)
+    del model
+    batches = -(-N_TEST // TEST_BATCH)
+    pyramid.launches.reset()  # the main path's run starts here
+    t0 = time.perf_counter()
+    rep = drivers.test(config=test, device="cuda")[1]
+    verb_s = time.perf_counter() - t0
+    launches = pyramid.launches.value  # ... and ends here
+    cm = rep["confusion_matrix"]
+    _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+    _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
+           f"confusion matrix counts {int(cm.sum())} pixels")
+    _check(launches == 4 * batches, f"test verb launched the pyramid "
+           f"{launches}x, not 4 x {batches} batches")
+    print(f"phase 16 verbs: Train_Configs.ini keeps alpha {saved.alpha}; "
+          f"best.pt restored into the rebuilt model (encoder widths "
+          f"{MRB_WIDTHS[1.67]}); drivers.test in {verb_s:.2f} s, "
+          f"{rep['images_per_sec']:.1f} img/s, maxpool_pyramid.launches = "
+          f"{launches} = 4 x {batches} batches, confusion matrix "
+          f"{cm.astype(np.int64).tolist()} ({int(cm.sum())} pixels)",
+          flush=True)
+    return run
+
+
 def phase_test_verb(tmp: str, train_cfg) -> dict:
     """The ``test`` verb on phase 6's trained fold (``train_cfg``'s
     save_dir) over N_TEST fresh PNGs in batches of TEST_BATCH, the counts
@@ -1138,13 +1305,80 @@ def phase_test_verb(tmp: str, train_cfg) -> dict:
     return {"pyramid": runs[""]["launches"]}
 
 
+def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
+                      skip_zero_grads: bool = False) -> dict:
+    """How the card's step (``gpu``, ``loss_g``) differs from a CPU step
+    (``ref``, ``loss_r``), and whether that is within phase 7's
+    tolerances: loss 1e-5, gradients 1e-4, running statistics 1e-5, every
+    parameter within 2 lr after Adam's first update (about lr * sign(g):
+    a gradient that rounding puts on the other side of 0 moves its
+    parameter by up to 2 lr), and at most 1e-3 of them beyond 1e-5.
+    With ``skip_zero_grads`` (phase 17 only), a parameter whose gradient
+    in the CPU step is 0 to within 1e-12 of the largest is held to 2 lr
+    and left out of that share: in float64 these are the biases of
+    convolutions that feed a training-mode BatchNorm, whose exact gradient
+    is 0 (the batch mean takes the bias out again), and where the card's
+    float32 step computes rounding, which Adam's first update scales up to
+    about lr."""
+    import torch
+
+    gp = dict(gpu.named_parameters())
+    gs = gpu.state_dict()
+    per_param = {k: (p.detach() - gp[k].detach().cpu()).abs().flatten()
+                 for k, p in ref.named_parameters()}
+    diffs = torch.cat(list(per_param.values()))
+    counted = {k: (p.grad.double().abs() > 1e-12 * max(
+        float(p.grad.abs().max()), 1.0)).flatten() if skip_zero_grads
+        else torch.ones_like(per_param[k], dtype=torch.bool)
+        for k, p in ref.named_parameters()}
+    live = torch.cat(list(counted.values()))
+    e = {"loss": abs(float(loss_r) - float(loss_g)),
+         "grads": max(float((p.grad - gp[k].grad.cpu()).abs().max())
+                      for k, p in ref.named_parameters()),
+         "stats": max(float((v - gs[k].cpu()).abs().max())
+                      for k, v in ref.state_dict().items() if "running" in k),
+         "params": float(diffs.max()),
+         "share": float((diffs[live] > 1e-5).float().mean()),
+         "no_grad": int((~live).sum())}
+    e["ok"] = (e["loss"] <= 1e-5 and e["grads"] <= 1e-4
+               and e["stats"] <= 1e-5 and e["params"] <= 2 * lr
+               and e["share"] <= 1e-3)
+    e["text"] = (
+        f"loss {e['loss']:.3g} <= 1e-5, grads max-abs {e['grads']:.3g} <= "
+        f"1e-4, running stats {e['stats']:.3g} <= 1e-5, params max-abs "
+        f"{e['params']:.3g} <= 2 lr with {e['share']:.3g} of them beyond "
+        f"1e-5 (<= 1e-3")
+    e["text"] += (f"; {e['no_grad']} without a gradient left out)"
+                  if skip_zero_grads else ")")
+    if not e["ok"]:
+        worst = sorted(per_param, key=lambda k: -int(
+            (per_param[k][counted[k]] > 1e-5).sum()))
+        e["text"] += "; the most of those beyond 1e-5 in " + "; ".join(
+            f"{k} ({int((per_param[k][counted[k]] > 1e-5).sum())} of "
+            f"{per_param[k].numel()})" for k in worst[:3])
+    return e
+
+
 def _train_reference(phase: str, what: str, cpu, targets, weights,
-                     want_launches: tuple) -> None:
+                     want_launches: tuple, cpu64=None) -> None:
     """One float32 train step of ``cpu`` on the card (the kernels, cuDNN
     without TF32, deterministic) against the same step on the CPU (the
-    plain versions) from the same weights, batch and Adam state.
-    ``targets(y)`` builds the step's targets from the mask on its
-    device."""
+    plain versions) from the same weights, batch and Adam state, within
+    phase 7's tolerances (``_reference_errors``, every parameter counted).
+    ``targets(y)`` builds the step's targets from the mask on its device.
+
+    ``cpu64`` (phase 17 only) is the same model built with
+    ``dtype=torch.float64``: parameters, loss and Adam stay float32 and
+    every block computes in float64; the model code's float64 support
+    (BatchNorm promotes to at least float32, ``_SLOPES`` has a float64
+    slope) exists for this step alone.  A float32 step is defined only
+    up to the side of a ReLU on which a pre-activation within float32
+    rounding of zero lands, and the card and the CPU may land apart, or
+    both apart from the float64 step; either side moves gradients by up
+    to 1e-4 and, through Adam's first update, parameters with small
+    gradients by up to 2 lr.  With ``cpu64`` the card's step passes when
+    it is within the tolerances of either CPU step, parameters without a
+    gradient left out of the share; both readings are printed."""
     import copy
 
     import torch
@@ -1156,6 +1390,7 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
 
     lr = 1e-3
     gpu = copy.deepcopy(cpu).cuda()
+    refs = (cpu,) if cpu64 is None else (cpu, cpu64)
     rng = np.random.default_rng(SEED + 4)
     x = torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32))
     y = torch.from_numpy((rng.uniform(size=(2, 64, 64, 1)) > 0.7).astype(
@@ -1168,9 +1403,9 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     torch.backends.cudnn.deterministic = True
     try:
         counts = (pyramid.launches.value, pool_backward.launches.value)
-        loss_c, _ = make_train_step(
-            cpu, make_optimizer("Adam", cpu.parameters(), lr),
-            bce_dice_loss, weights)(x, targets(y))
+        loss_c = [make_train_step(
+            ref, make_optimizer("Adam", ref.parameters(), lr),
+            bce_dice_loss, weights)(x, targets(y))[0] for ref in refs]
         _check((pyramid.launches.value, pool_backward.launches.value) == counts,
                "the CPU step launched a kernel")
         loss_g, _ = make_train_step(
@@ -1184,30 +1419,18 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
     _check(launched == want_launches, f"the card's step launched {launched}")
-    gp = dict(gpu.named_parameters())
-    grad_err = max(float((p.grad - gp[k].grad.cpu()).abs().max())
-                   for k, p in cpu.named_parameters())
-    gs = gpu.state_dict()
-    stat_err = max(float((v - gs[k].cpu()).abs().max())
-                   for k, v in cpu.state_dict().items() if "running" in k)
-    diffs = torch.cat([(p.detach() - gp[k].detach().cpu()).abs().flatten()
-                       for k, p in cpu.named_parameters()])
-    loss_err = abs(float(loss_c) - float(loss_g))
-    # Adam's first update is about lr * sign(g): a gradient that rounding
-    # puts on the other side of 0 moves its parameter by up to 2 * lr
-    _check(loss_err <= 1e-5 and grad_err <= 1e-4 and stat_err <= 1e-5
-           and float(diffs.max()) <= 2 * lr
-           and float((diffs > 1e-5).float().mean()) <= 1e-3,
-           f"float32 train step card vs CPU: loss {loss_err}, grads "
-           f"{grad_err}, stats {stat_err}, params max {float(diffs.max())}")
+    errs = [_reference_errors(ref, loss, gpu, loss_g, lr,
+                              skip_zero_grads=cpu64 is not None)
+            for ref, loss in zip(refs, loss_c)]
+    readings = [f"vs CPU (plain versions) in {name}: {e['text']}"
+                + ("" if e["ok"] else " (not met)")
+                for name, e in zip(("float32", "float64"), errs)]
+    _check(any(e["ok"] for e in errs),
+           f"float32 train step of a {what}, card vs CPU: "
+           + "; ".join(readings))
     print(f"{phase}: float32 train step of a {what} on (2, 64, 64, 3), card "
           f"(kernels {launched[0]}+{launched[1]} launches, cuDNN without "
-          f"TF32, deterministic) vs CPU (plain versions): loss "
-          f"{loss_err:.3g} <= 1e-5, grads max-abs {grad_err:.3g} <= 1e-4, "
-          f"running stats {stat_err:.3g} <= 1e-5, params max-abs "
-          f"{float(diffs.max()):.3g} <= 2 lr with "
-          f"{float((diffs > 1e-5).float().mean()):.3g} of them beyond 1e-5 "
-          f"(<= 1e-3)", flush=True)
+          f"TF32, deterministic) " + "; ".join(readings), flush=True)
 
 
 def phase_train_reference() -> None:
@@ -1250,13 +1473,12 @@ def phase_train_ds_reference() -> None:
                      default_ds_weights(3), (6, 6))
 
 
-def phase_config2_reference() -> None:
-    """Phase 7's check on W8/D3 models of config 2: UNet with ``ds=1`` and
-    ds_type UNet (its heads at 1 / 2**k before each upsampling, its
-    targets from one pyramid launch), UNetE without deep supervision (the
-    pruned grid) and UNetP with ``ds=1`` and ds_type UNetPP (full-resolution
-    heads and targets), BCEDice on every head weighted by
-    default_ds_weights(3).  Heads scaled as in phase 10."""
+def _references(phase: str, cases: tuple, float64: bool = False) -> None:
+    """Phase 7's check on W8/D3 models, weights from SEED + 9: ``cases``
+    are (decoder, ag, ds_type or None without deep supervision, the
+    launches a step on the card), BCEDice on every head weighted by
+    default_ds_weights(3), the heads scaled as in phase 10.  ``float64``
+    adds the float64 CPU step of ``_train_reference``."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
@@ -1265,13 +1487,9 @@ def phase_config2_reference() -> None:
     from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
         default_ds_weights)
 
-    # (decoder, ds_type or None without ds, launches: 3 encoder pools (+1
-    # target pyramid for ds_type UNet), 3 backward pools)
-    for dec, ds_type, want in (("UNet", "UNet", (4, 3)),
-                               ("UNetE", None, (3, 3)),
-                               ("UNetP", "UNetPP", (3, 3))):
+    for dec, ag, ds_type, want in cases:
         ds = int(ds_type is not None)
-        cpu = SegModel(dec, 8, 3, ds=ds,
+        cpu = SegModel(dec, 8, 3, ds=ds, ag=ag,
                        generator=torch.Generator().manual_seed(SEED + 9))
         decoder = getattr(cpu, cpu._decoder_name)
         with torch.no_grad():
@@ -1279,12 +1497,49 @@ def phase_config2_reference() -> None:
                 head = getattr(decoder, f"level{k}")
                 head.weight.mul_(0.01)
                 head.bias.fill_(0.5)
+        cpu64 = None
+        if float64:
+            cpu64 = SegModel(dec, 8, 3, ds=ds, ag=ag, dtype=torch.float64)
+            cpu64.load_state_dict(cpu.state_dict())
         _train_reference(
-            "phase 13 config 2 reference",
-            f"W8/D3 {dec} " + (f"with ds=1, ds_type {ds_type}" if ds
-                               else "without ds"),
+            phase, f"W8/D3 {dec}" + (" with ag=1" if ag else "")
+            + (f" with ds=1, ds_type {ds_type}" if ds else " without ds"),
             cpu, (lambda y, t=ds_type: prepare_train_dict(y, 3, t)) if ds
-            else (lambda y: y), default_ds_weights(3) if ds else None, want)
+            else (lambda y: y), default_ds_weights(3) if ds else None, want,
+            cpu64)
+
+
+def phase_config2_reference() -> None:
+    """Phase 7's check on W8/D3 models of config 2: UNet with ``ds=1`` and
+    ds_type UNet (its heads at 1 / 2**k before each upsampling, its
+    targets from one pyramid launch), UNetE without deep supervision (the
+    pruned grid) and UNetP with ``ds=1`` and ds_type UNetPP (full-resolution
+    heads and targets)."""
+    # launches: 3 encoder pools (+1 target pyramid for ds_type UNet), 3
+    # backward pools
+    _references("phase 13 config 2 reference",
+                (("UNet", 0, "UNet", (4, 3)), ("UNetE", 0, None, (3, 3)),
+                 ("UNetP", 0, "UNetPP", (3, 3))))
+
+
+def phase_multires_reference() -> None:
+    """Phase 7's check on W8/D3 models of the MultiRes family and the
+    gates: MultiResUNet with ``ds=1`` (ds_type UNet), UNet with ``ag=1``
+    and ``ds=1``, UNet++ with ``ag=1`` (the gates on the dense terms),
+    MultiResUNet3+ and KSSNet.  The only phase with the float64 CPU step:
+    the gated UNet's float32 card step lands apart from the float32 CPU
+    step on more than 1e-3 of its parameters, MultiResUNet's with ``ds=1``
+    beyond 1e-4 of the float64 step's gradients, and each is within the
+    tolerances of the other CPU step (ReLU pre-activations within float32
+    rounding of 0, PERF.md section 6)."""
+    # launches: 3 encoder pools (+1 target pyramid with ds); MultiResUNet3+
+    # 2 decoder pyramids, KSSNet 3 tap pyramids; 3 backward pools,
+    # MultiResUNet3+ + 2 + 1, KSSNet + 3 + 2 + 1
+    _references("phase 17 multires reference",
+                (("MultiResUNet", 0, "UNet", (4, 3)),
+                 ("UNet", 1, "UNet", (4, 3)), ("UNetPP", 1, None, (3, 3)),
+                 ("MultiResUNet3P", 0, None, (5, 6)),
+                 ("KSSNet", 0, None, (6, 9))), float64=True)
 
 
 def main() -> int:
@@ -1314,10 +1569,14 @@ def main() -> int:
         phase_train_reference()
         trained["train_ds"] = phase_train_ds(tmp)
         tested = phase_test_verb(tmp, _train_config(tmp, "Results"))
+        trained["train_multires"] = phase_multires_verbs(tmp)
     trained.update(phase_config3())
     phase_train_ds_reference()
     trained.update(phase_config2())
     phase_config2_reference()
+    trained.update(phase_config4())
+    trained.update(phase_family())
+    phase_multires_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     for path, run in trained.items():

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
-    python3 profile_train_step.py [--model flagship|unet3p_ds] [--out DIR]
+    python3 profile_train_step.py [--out DIR]
+        [--model flagship|unet3p_ds|multiresunet|unet_ag]
 
 The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam), or with
 ``--model unet3p_ds`` UNet3+ W32/D4 with deep supervision (its targets
 built from the mask at every step, one pyramid launch, and
-``default_ds_weights(4)``: the train verb's step with ``d_s = 1``), takes
-10 train steps on one synthetic batch of 16, then 10 more under
+``default_ds_weights(4)``: the train verb's step with ``d_s = 1``), or with
+``--model multiresunet`` config 4's MultiResUNet W32/D4 (alpha 1: odd
+channel counts), or with ``--model unet_ag`` config 4's UNet W32/D4 with
+attention gates, takes 10 train steps on one synthetic batch of 16, then
+10 more under
 ``torch.profiler``.  Prints the card's name and power limit, the
 host time per step with and without the profiler, the device time per
 step by kernel (the profiler's CUDA rows), grouped into the layers of
@@ -35,6 +39,9 @@ GROUPS = (  # (layer, substrings of a device kernel's name), first match wins
     ("reductions (BN statistics, loss sums)", ("reduce", "sum", "mean")),
 )
 OTHER = "elementwise (BN apply, bias, activations, casts, loss) and other"
+#: --model -> (decoder, deep supervision, attention gates)
+MODELS = {"flagship": ("UNetPP", 0, 0), "unet3p_ds": ("UNet3P", 1, 0),
+          "multiresunet": ("MultiResUNet", 0, 0), "unet_ag": ("UNet", 0, 1)}
 
 
 def _group(name: str) -> str:
@@ -49,8 +56,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("flagship", "unet3p_ds"),
-                    default="flagship")
+    ap.add_argument("--model", choices=tuple(MODELS), default="flagship")
     ap.add_argument("--out", default=os.path.join("build",
                                                   "profile_train_step"))
     args = ap.parse_args(argv)
@@ -69,9 +75,8 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    ds = args.model == "unet3p_ds"
-    model = SegModel("UNet3P" if ds else "UNetPP", 32, 4, ds=int(ds),
-                     dtype=torch.bfloat16,
+    decoder, ds, ag = MODELS[args.model]
+    model = SegModel(decoder, 32, 4, ds=ds, ag=ag, dtype=torch.bfloat16,
                      generator=torch.Generator().manual_seed(0))
     trainer = Trainer(
         model, loss="BCEDiceLoss", learning_rate=2e-4,

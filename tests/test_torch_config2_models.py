@@ -57,24 +57,25 @@ def _models(name, ds, tc):
     return jm, tm
 
 
-@pytest.mark.parametrize("name,ds,tc", CASES,
-                         ids=[f"{n}-ds{d}-tc{t}" for n, d, t in CASES])
-def test_config2_model_float32_matches_jax(name, ds, tc):
-    """W4/D3 on (2, 32, 32, 3) with random parameters and BN statistics:
-    the converter fills every torch key from a flax leaf and the
-    parameter counts agree; in eval mode ``out`` and every ``level{k}``
-    within 1e-4; one training step (BCEDice on every head, weighted by
-    ``default_ds_weights``, the targets of the decoder's ds_type) gives
-    the loss and every gradient within 1e-4 and the new BatchNorm
-    statistics within 1e-5.  The DS heads are scaled into (0.05, 0.95),
-    as tests/test_torch_ds_models.py explains, and checked there."""
-    jm, tm = _models(name, ds, tc)
-    module, ds_type = DECODERS[name]
+def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
+                             size=SIZE, step_dtype=jnp.float32):
+    """The bar every ported model is held to: ``jm`` (JAX ``SegModel``)
+    and ``tm`` (the port's) on (2, size, size, 3) with random parameters
+    and BN statistics: the converter fills every torch key from a flax
+    leaf and the parameter counts agree; in eval mode ``out`` and every
+    ``level{k}`` within 1e-4; one float32 training step of the port
+    (BCEDice on every head, weighted by ``default_ds_weights``, the
+    targets of ``ds_type``, the decoder ``module``'s heads scaled into
+    (0.05, 0.95), as tests/test_torch_ds_models.py explains) gives the
+    loss and every gradient of JAX's ``make_train_step`` within 1e-4 and
+    its new BatchNorm statistics within 1e-5.  JAX's step computes in
+    ``step_dtype``: float64 (under ``jax.enable_x64``) where JAX's own
+    float32 step is off the exact one by more than the bar."""
     rng = np.random.default_rng(5)
-    x = rng.uniform(size=(2, SIZE, SIZE, 3)).astype(np.float32)
-    y = (rng.uniform(size=(2, SIZE, SIZE, 1)) > 0.6).astype(np.float32)
+    x = rng.uniform(size=(2, size, size, 3)).astype(np.float32)
+    y = (rng.uniform(size=(2, size, size, 1)) > 0.6).astype(np.float32)
     variables = random_variables(jm, jnp.asarray(x), seed=3)
-    for k in range(1, D + 1) if ds else ():
+    for k in range(1, depth + 1) if ds else ():
         head = variables["params"][module][f"level{k}"]
         head["kernel"] = head["kernel"] * np.float32(0.01)
         head["bias"] = np.full_like(head["bias"], 0.5)
@@ -89,31 +90,39 @@ def test_config2_model_float32_matches_jax(name, ds, tc):
     with torch.inference_mode():
         got = tm.eval()(torch.from_numpy(x))
     assert sorted(got) == sorted(want)
-    assert len(got) == 1 + D * ds
+    assert len(got) == 1 + depth * ds
     for k, w in want.items():
         w = np.asarray(w)
         assert got[k].shape == w.shape, k
         assert float(np.abs(got[k].numpy() - w).max()) <= 1e-4, k
     assert float(np.asarray(want["out"]).std()) > 1e-3  # a real signal
 
-    weights = default_ds_weights(D) if ds else None
-    jy = (jax_prepare_train_dict(jnp.asarray(y), D, ds_type) if ds
-          else jnp.asarray(y))
-    state = jstate.create_train_state(jm, jax.random.PRNGKey(0),
-                                      jnp.asarray(x), _grad_capture(),
-                                      variables=variables)
-    step = jstate.make_train_step(jm, _grad_capture(), jlosses.bce_dice_loss,
-                                  loss_weights=weights)
-    state, jloss, _ = jax.jit(step)(state, jnp.asarray(x), jy)
+    weights = default_ds_weights(depth) if ds else None
+    with jax.enable_x64(step_dtype == jnp.float64):
+        def cast(tree):
+            return jax.tree.map(lambda a: jnp.asarray(a, step_dtype), tree)
+
+        jy = (jax_prepare_train_dict(jnp.asarray(y), depth, ds_type) if ds
+              else jnp.asarray(y))
+        step_model = jm.clone(dtype=step_dtype)
+        state = jstate.create_train_state(step_model, jax.random.PRNGKey(0),
+                                          cast(x), _grad_capture(),
+                                          variables=cast(variables))
+        step = jstate.make_train_step(step_model, _grad_capture(),
+                                      jlosses.bce_dice_loss,
+                                      loss_weights=weights)
+        state, jloss, _ = jax.jit(step)(state, cast(x), cast(jy))
+        jloss = float(jloss)
+        state = jax.tree.map(lambda a: np.asarray(a, np.float32), state)
 
     if ds:
         with torch.no_grad():
             heads = tm.train()(torch.from_numpy(x))
         tm.load_state_dict(sd)  # undo that forward's BN update
-        for k in range(1, D + 1):
+        for k in range(1, depth + 1):
             h = heads[f"level{k}"]
             assert bool(((h > 0.05) & (h < 0.95)).all()), k
-    ty = (prepare_train_dict(torch.from_numpy(y), D, ds_type) if ds
+    ty = (prepare_train_dict(torch.from_numpy(y), depth, ds_type) if ds
           else torch.from_numpy(y))
     names = dict(tm.named_parameters())
     tloss, _ = make_train_step(tm, make_optimizer("Adam", names.values(),
@@ -129,6 +138,15 @@ def test_config2_model_float32_matches_jax(name, ds, tc):
     js = flax_to_state_dict({"batch_stats": state.batch_stats}, stats)
     for k, v in stats.items():
         assert float((js[k] - v).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.parametrize("name,ds,tc", CASES,
+                         ids=[f"{n}-ds{d}-tc{t}" for n, d, t in CASES])
+def test_config2_model_float32_matches_jax(name, ds, tc):
+    """W4/D3 UNet, UNetE, UNetP and UNet++ on (2, 32, 32, 3), with and
+    without transposed convs, held to ``assert_model_matches_jax``."""
+    jm, tm = _models(name, ds, tc)
+    assert_model_matches_jax(jm, tm, ds, *DECODERS[name])
 
 
 def test_unet_e_without_ds_builds_only_the_last_diagonal():

@@ -85,11 +85,11 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 
 
 def test_unported_configurations_raise():
-    for kw in ({"genre": "FPN"}, {"ag": 1}, {"lstm": 1}, {"ae": 1},
-               {"train_mode": "pretrained_encoder"}):
+    for kw in ({"genre": "FPN"}, {"ag": 1, "lstm": 1}, {"lstm": 1},
+               {"ae": 1}, {"train_mode": "pretrained_encoder"}):
         with pytest.raises(NotImplementedError):
             SegModel("UNetPP", 4, 2, **kw)
-    for name in ("FPN", "UNet4P", "MultiResUNet", "SelfUNetPP"):
+    for name in ("FPN", "UNet4P", "AHNet", "SelfUNetPP"):
         with pytest.raises(NotImplementedError):
             SegModel(name, 4, 2)
 

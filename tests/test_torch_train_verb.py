@@ -164,7 +164,7 @@ def test_train_verb_resumes_from_best(trained, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("a_g", 1), ("augment", True), ("augment_device", True),
+    ("a_e", 1), ("augment", True), ("augment_device", True),
     ("patchify", True), ("accumulation_steps", 2), ("remat", "dots"),
     ("ema_decay", 0.9), ("model_parallel", 2), ("spatial_parallel", 2),
     ("pipeline_parallel", 2), ("zero1", True), ("exact_resume", True),

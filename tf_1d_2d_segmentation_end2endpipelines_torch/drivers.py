@@ -66,6 +66,7 @@ def _build_model(cfg: TrainConfig, dtype: tp.Optional[torch.dtype] = None,
         ds=cfg.d_s, ae=cfg.a_e, ag=cfg.a_g, lstm=cfg.lstm,
         dense_loop=cfg.dense_loop,
         is_transconv=cfg.is_transconv,
+        alpha=cfg.alpha,
         final_activation=cfg.final_activation,
         train_mode=cfg.train_mode,
         dtype=_resolve_dtype(cfg, dtype),

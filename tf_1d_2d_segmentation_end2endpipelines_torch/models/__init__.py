@@ -1,5 +1,5 @@
-"""Model zoo of the port: the from-scratch UNet, UNetE, UNetP, UNet++ and
-UNet3+."""
+"""Model zoo of the port: the from-scratch UNet, UNetE, UNetP, UNet++,
+UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet."""
 from .decoders import (  # noqa: F401
     ChainDecoder,
     FullScaleDecoder,

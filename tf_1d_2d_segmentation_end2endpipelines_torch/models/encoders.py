@@ -1,8 +1,9 @@
 """From-scratch encoder and latent layer of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/encoders.py).
 
-Only the default families' branches are ported: the ConvBlock encoder
-(encoders.py:103-107) and the DenseBlock latent (:136-137).
+Ported: the ConvBlock encoder (encoders.py:103-107), the MultiRes encoder
+of MultiResUNet and MultiResUNet3+ (:59-70) and KSSNet's (:71-84); the
+DenseBlock latent (:136-137) and the MultiResBlock latent (:130-132).
 """
 from __future__ import annotations
 
@@ -11,11 +12,14 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import ConvBlock, DenseBlock, downsample_pool
+from ..ops import (ConvBlock, DenseBlock, MultiResBlock, ResPath, concat,
+                   downsample_pool, multires_features)
+from ..ops.kernels import pyramid
 
-# families whose encoder or latent is a different branch in the JAX package
-_OTHER_BRANCHES = ("MultiResUNet", "MultiResUNet3P", "KSSNet", "UNet4P",
-                   "UNet4PV2", "AHNet")
+#: families whose encoder and latent are MultiRes blocks
+MULTIRES_FAMILIES = ("MultiResUNet", "MultiResUNet3P", "KSSNet")
+# families whose encoder or latent is a branch not ported yet
+_OTHER_BRANCHES = ("UNet4P", "UNet4PV2", "AHNet")
 
 
 def _check_family(decoder_name: str, what: str) -> None:
@@ -25,47 +29,101 @@ def _check_family(decoder_name: str, what: str) -> None:
 
 
 class ScratchEncoder(nn.Module):
-    """``model_depth + 1`` levels of ConvBlock, each but the last followed
-    by a 2x2 max pool.  Returns (taps, bottom) as the JAX module does.
+    """``model_depth + 1`` levels, each but the last followed by a 2x2 max
+    pool.  Returns (taps, bottom) as the JAX module does.
+
+    - The UNet genre: a ConvBlock of width W * 2**(i-1) at level i; the
+      taps are the blocks' outputs.
+    - MultiResUNet and MultiResUNet3+: ``MultiResBlock_<i-1>`` at level i;
+      tap i (i <= D) is ``ResPath_<i-1>`` of length D - i + 1 over it,
+      tap D + 1 the block's own output (its ResPath is dangling in the
+      reference's graph and is not built).
+    - KSSNet: as the MultiRes encoder, and before block i the pool is
+      concatenated, for k = 1 .. i-1, with the sigmoid of tap k max-pooled
+      by 2**(i-k).  Each tap's pools come from one pyramid launch when the
+      tap exists (``pyramid.maxpool_levels``: levels 1 .. D + 1 - k),
+      whose gradient is that of the separate pools.
 
     The JAX module also pools the deepest level; nothing reads that pool,
-    so XLA drops it, and here it is not computed: D pools per forward."""
+    so XLA drops it, and here it is not computed: D encoder pools per
+    forward."""
 
     def __init__(self, decoder_name: str, in_features: int, model_width: int,
-                 model_depth: int, dtype: torch.dtype = torch.float32,
+                 model_depth: int, alpha: float = 1.0,
+                 dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         _check_family(decoder_name, "ScratchEncoder")
         self.depth = model_depth
-        for i in range(model_depth + 1):
-            cin = in_features if i == 0 else model_width * 2 ** (i - 1)
-            self.add_module(f"ConvBlock_{i}", ConvBlock(
-                cin, model_width * 2 ** i, 3, dtype=dtype,
-                generator=generator))
+        self.multires = decoder_name in MULTIRES_FAMILIES
+        self.kssnet = decoder_name == "KSSNet"
+        W, D = model_width, model_depth
+        cin = in_features
+        for i in range(D + 1):
+            width = W * 2 ** i
+            if not self.multires:
+                self.add_module(f"ConvBlock_{i}", ConvBlock(
+                    cin, width, 3, dtype=dtype, generator=generator))
+                cin = width
+                continue
+            if self.kssnet:  # the gated taps 1 .. i concatenated to the pool
+                cin += sum(W * 2 ** k for k in range(i))
+            block = MultiResBlock(cin, width, 3, alpha=alpha, dtype=dtype,
+                                  generator=generator)
+            self.add_module(f"MultiResBlock_{i}", block)
+            cin = block.out_features
+            if i < D:
+                self.add_module(f"ResPath_{i}", ResPath(
+                    cin, D - i, width, 3, dtype=dtype, generator=generator))
 
     def forward(self, x: torch.Tensor
                 ) -> tp.Tuple[tp.List[torch.Tensor], torch.Tensor]:
+        D = self.depth
         taps: tp.List[torch.Tensor] = []
+        # KSSNet: tap_pools[k][l - 1] is tap k max-pooled by 2**l
+        tap_pools: tp.List[tp.List[torch.Tensor]] = []
         conv = x
-        for i in range(self.depth + 1):
+        for i in range(D + 1):
             if i:
                 x = downsample_pool(conv, 2, op="max")
-            conv = getattr(self, f"ConvBlock_{i}")(x)
-            taps.append(conv)
+            if not self.multires:
+                conv = getattr(self, f"ConvBlock_{i}")(x)
+                taps.append(conv)
+                continue
+            if self.kssnet:
+                x = concat(x, *[torch.sigmoid(tap_pools[k][i - k - 1])
+                                for k in range(i)])
+            conv = getattr(self, f"MultiResBlock_{i}")(x)
+            if i == D:
+                taps.append(conv)
+                break
+            taps.append(getattr(self, f"ResPath_{i}")(conv))
+            if self.kssnet:
+                tap_pools.append(pyramid.maxpool_levels(taps[i], D - i))
         return taps, conv
 
 
 class LatentLayer(nn.Module):
-    """Bottleneck of the UNet genre: a DenseBlock of width W * 2**D."""
+    """Bottleneck of width W * 2**D: a DenseBlock for the UNet genre, a
+    ``MultiResBlock`` (its truncated width) for the MultiRes families."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
-                 dense_loop: int = 1, dtype: torch.dtype = torch.float32,
+                 dense_loop: int = 1, alpha: float = 1.0,
+                 dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         _check_family(decoder_name, "LatentLayer")
         feats = model_width * 2 ** model_depth
-        self.DenseBlock_0 = DenseBlock(feats, feats, 3, num_layers=dense_loop,
-                                       dtype=dtype, generator=generator)
+        if decoder_name in MULTIRES_FAMILIES:
+            self.MultiResBlock_0 = MultiResBlock(
+                multires_features(feats, alpha), feats, 3, alpha=alpha,
+                dtype=dtype, generator=generator)
+            self._block = "MultiResBlock_0"
+        else:
+            self.DenseBlock_0 = DenseBlock(feats, feats, 3,
+                                           num_layers=dense_loop,
+                                           dtype=dtype, generator=generator)
+            self._block = "DenseBlock_0"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.DenseBlock_0(x)
+        return getattr(self, self._block)(x)

@@ -3,7 +3,8 @@
 
 Ported: the from-scratch UNet genre, with or without deep supervision,
 without autoencoder mode, with any decoder that ``decoders.build_decoder``
-has (UNet, UNetE, UNetP, UNet++ and UNet3+ so far).
+has (UNet, UNetE, UNetP, UNet++, UNet3+, MultiResUNet, MultiResUNet3+ and
+KSSNet so far), attention gates on the chains and grids.
 """
 from __future__ import annotations
 
@@ -28,12 +29,13 @@ class SegModel(nn.Module):
     In training mode BatchNorm uses the batch statistics, as the JAX
     module's ``__call__(train=True)`` does; the head's activation runs in
     ``dtype`` (bf16 under bf16), and a caller casts the outputs to float32
-    before the loss (JAX: train/state.py:157)."""
+    before the loss (JAX: train/state.py:157).  ``alpha`` scales the
+    MultiRes blocks' widths."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
                  in_channels: int = 3, output_nums: int = 1, ds: int = 0,
                  ae: int = 0, ag: int = 0, lstm: int = 0, dense_loop: int = 1,
-                 is_transconv: bool = True,
+                 is_transconv: bool = True, alpha: float = 1.0,
                  final_activation: tp.Optional[str] = "sigmoid",
                  genre: str = "UNet", train_mode: str = "from_scratch",
                  dtype: torch.dtype = torch.float32,
@@ -52,13 +54,15 @@ class SegModel(nn.Module):
         self.final_activation = final_activation
         self.dtype = dtype
         self.ScratchEncoder_0 = ScratchEncoder(
-            decoder_name, in_channels, W, D, dtype=dtype, generator=generator)
+            decoder_name, in_channels, W, D, alpha=alpha, dtype=dtype,
+            generator=generator)
         self.LatentLayer_0 = LatentLayer(decoder_name, W, D, dense_loop,
-                                         dtype=dtype, generator=generator)
+                                         alpha=alpha, dtype=dtype,
+                                         generator=generator)
         decoder = build_decoder(decoder_name, model_width=W, model_depth=D,
                                 D_S=ds, A_G=ag, LSTM=lstm,
-                                is_transconv=is_transconv, dtype=dtype,
-                                generator=generator)
+                                is_transconv=is_transconv, alpha=alpha,
+                                dtype=dtype, generator=generator)
         self.add_module(f"{type(decoder).__name__}_0", decoder)
         self._decoder_name = f"{type(decoder).__name__}_0"
         self.out = HeadConv(decoder.out_features, output_nums, dtype=dtype,
@@ -100,6 +104,7 @@ def model_selector(
     lstm: int = 0,
     dense_loop: int = 1,
     is_transconv: bool = True,
+    alpha: float = 1.0,
     final_activation: str = "sigmoid",
     train_mode: str = "from_scratch",
     dtype: torch.dtype = torch.float32,
@@ -115,6 +120,6 @@ def model_selector(
         decoder_name=decoder_name, model_width=model_width,
         model_depth=model_depth, in_channels=num_channels,
         output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,
-        dense_loop=dense_loop, is_transconv=is_transconv,
+        dense_loop=dense_loop, is_transconv=is_transconv, alpha=alpha,
         final_activation=final_activation, genre=model_genre,
         train_mode=train_mode, dtype=dtype, generator=generator)

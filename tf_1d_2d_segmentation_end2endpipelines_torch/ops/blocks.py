@@ -1,5 +1,6 @@
-"""Block library of the port: the 2D blocks the UNet++ and UNet3+ run,
-ported from tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
+"""Block library of the port: the 2D blocks the UNet genre, the MultiRes
+family and the attention gates run, ported from
+tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
 
 Layout: modules and block functions take and return (B, C, H, W) tensors
 in ``torch.channels_last`` memory, i.e. the JAX package's NHWC buffers
@@ -10,8 +11,9 @@ the JAX outputs and, through autograd, the JAX gradients (BatchNorm in
 training mode uses the batch statistics, as flax's does).
 
 Submodules carry the flax auto-names (``Conv_0``, ``BatchNorm_0``,
-``ConvTranspose_0``, ``ConvBlock_<k>``), so a flax parameter path maps to
-a ``state_dict`` key by a plain table (utils/flax_to_torch.py).
+``ConvTranspose_0``, ``ConvBlock_<k>``, ``TransConv_0``), so a flax
+parameter path maps to a ``state_dict`` key by a plain table
+(utils/flax_to_torch.py).
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ LEAKY_SLOPE = 0.3
 
 
 # JAX multiplies by the slope rounded to the activation dtype (a weak
-# python scalar), where F.leaky_relu would keep 0.3 in float32.
+# python scalar), where F.leaky_relu would keep 0.3 in float32.  float64
+# serves the CPU reference step of chip_smoke.py's phase 17 alone.
 _SLOPES = {dt: float(torch.tensor(LEAKY_SLOPE, dtype=dt))
-           for dt in (torch.float32, torch.bfloat16)}
+           for dt in (torch.float32, torch.bfloat16, torch.float64)}
 
 
 def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -91,16 +94,16 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 class BatchNorm(nn.Module):
     """flax ``BatchNorm`` (JAX: ConvBlock's ``nn.BatchNorm``, blocks.py:224).
 
-    Matches flax's order of operations: the input is promoted to float32,
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and only the result
-    is cast back to the activation dtype.
+    Matches flax's order of operations: the input is promoted to at least
+    float32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, and only
+    the result is cast back to the activation dtype.
 
     Eval mode normalizes with the running statistics.  Training mode
     normalizes with the batch's: the mean and the biased variance over
-    N, H, W in float32, the variance as ``E[x**2] - E[x]**2`` clamped at 0
-    (flax's ``use_fast_variance``), and advances the running statistics
-    with flax's ``momentum`` (the weight of the old value, 0.99), biased
-    variance included.  ``F.batch_norm`` is not used: it would store the
+    N, H, W in that promoted dtype, the variance as ``E[x**2] - E[x]**2``
+    clamped at 0 (flax's ``use_fast_variance``), and advances the running
+    statistics with flax's ``momentum`` (the weight of the old value,
+    0.99), biased variance included.  ``F.batch_norm`` is not used: it would store the
     unbiased variance."""
 
     def __init__(self, features: int, momentum: float = 0.99,
@@ -115,7 +118,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min(
@@ -277,3 +280,122 @@ class DenseBlock(nn.Module):
         for k in range(1, self.num_layers + 1):
             x = x + getattr(self, f"ConvBlock_{k}")(x)
         return x
+
+
+def multires_widths(model_width: int, alpha: float = 1.0
+                    ) -> tp.Tuple[int, int, int]:
+    """The three branch widths of a 2D ``MultiResBlock``:
+    ``max(int(alpha * W * f), 1)`` for f in 0.167, 0.333, 0.5 (the
+    reference truncates; the clamp lets tiny test widths build)."""
+    w = alpha * model_width
+    return (max(int(w * 0.167), 1), max(int(w * 0.333), 1),
+            max(int(w * 0.5), 1))
+
+
+def multires_features(model_width: int, alpha: float = 1.0) -> int:
+    """The output width of a ``MultiResBlock``: its three branches'
+    (31 for W = 32 at alpha 1, 63 for 64, ...)."""
+    return sum(multires_widths(model_width, alpha))
+
+
+class MultiResBlock(nn.Module):
+    """MultiRes block, 2D (JAX ``MultiResBlock``, blocks.py:717, its
+    unpacked branch :748-765): three chained ConvBlocks of
+    ``multires_widths`` channels (``ConvBlock_1..3``), concatenated, then
+    ``BatchNorm_0``; the 1x1 ConvBlock shortcut (``ConvBlock_0``, created
+    first) is added in the activation dtype, then ReLU and
+    ``BatchNorm_1``."""
+
+    def __init__(self, in_features: int, model_width: int, kernel: int = 3,
+                 alpha: float = 1.0, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        f1, f2, f3 = multires_widths(model_width, alpha)
+        self.out_features = f1 + f2 + f3
+        self.ConvBlock_0 = ConvBlock(in_features, self.out_features, 1,
+                                     dtype=dtype, generator=generator)
+        self.ConvBlock_1 = ConvBlock(in_features, f1, kernel, dtype=dtype,
+                                     generator=generator)
+        self.ConvBlock_2 = ConvBlock(f1, f2, kernel, dtype=dtype,
+                                     generator=generator)
+        self.ConvBlock_3 = ConvBlock(f2, f3, kernel, dtype=dtype,
+                                     generator=generator)
+        self.BatchNorm_0 = BatchNorm(self.out_features)
+        self.BatchNorm_1 = BatchNorm(self.out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shortcut = self.ConvBlock_0(x)
+        c3 = self.ConvBlock_1(x)
+        c5 = self.ConvBlock_2(c3)
+        c7 = self.ConvBlock_3(c5)
+        out = self.BatchNorm_0(concat(c3, c5, c7))
+        return self.BatchNorm_1(torch.relu(shortcut + out))
+
+
+class ResPath(nn.Module):
+    """``max(length, 1)`` residual units (JAX ``ResPath``, blocks.py:794):
+    unit i adds a 1x1 ConvBlock (``ConvBlock_<2i>``) and a kxk one
+    (``ConvBlock_<2i+1>``) of the same input, then ReLU and
+    ``BatchNorm_<i>``.  Every unit is ``model_width`` wide."""
+
+    def __init__(self, in_features: int, length: int, model_width: int,
+                 kernel: int = 3, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        self.length = max(length, 1)
+        for i in range(self.length):
+            cin = in_features if i == 0 else model_width
+            self.add_module(f"ConvBlock_{2 * i}", ConvBlock(
+                cin, model_width, 1, dtype=dtype, generator=generator))
+            self.add_module(f"ConvBlock_{2 * i + 1}", ConvBlock(
+                cin, model_width, kernel, dtype=dtype, generator=generator))
+            self.add_module(f"BatchNorm_{i}", BatchNorm(model_width))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.length):
+            shortcut = getattr(self, f"ConvBlock_{2 * i}")(x)
+            main = getattr(self, f"ConvBlock_{2 * i + 1}")(x)
+            x = getattr(self, f"BatchNorm_{i}")(torch.relu(shortcut + main))
+        return x
+
+
+class AttentionGate(nn.Module):
+    """Additive attention gate over a skip, 2D dialect (JAX
+    ``AttentionGate``, blocks.py:537): ``Conv_0`` (1x1, stride 2: rows and
+    columns 0, 2, 4, .., ceil(H / 2) of them as flax's SAME) and
+    ``BatchNorm_0`` on the skip,
+    ``Conv_1`` and ``BatchNorm_1`` on the gating signal (at half the
+    skip's resolution), ReLU of their sum, ``Conv_2`` to one channel,
+    ``BatchNorm_2``, sigmoid; that map upsampled by 2 twice, bilinear and
+    by ``TransConv_0``, and the skip multiplied by the sum of the two.
+
+    The stride of ``Conv_0`` is taken by slicing the skip, which is the
+    same conv: PyTorch's CPU build (oneDNN, torch 2.13) crashes in the
+    weight gradient of a strided channels_last 1x1 conv.
+
+    The output keeps the skip's channels and its channels_last layout:
+    the one-channel map has the same memory in either layout and
+    broadcasts over the channels with stride 0, so whichever strides cuDNN
+    gives it, the product is laid out as the skip
+    (tests/test_torch_multires_blocks.py)."""
+
+    def __init__(self, skip_features: int, gate_features: int,
+                 features: int, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        self.Conv_0 = HeadConv(skip_features, features, dtype=dtype,
+                               generator=generator)
+        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_1 = HeadConv(gate_features, features, dtype=dtype,
+                               generator=generator)
+        self.BatchNorm_1 = BatchNorm(features)
+        self.Conv_2 = HeadConv(features, 1, dtype=dtype, generator=generator)
+        self.BatchNorm_2 = BatchNorm(1)
+        self.TransConv_0 = TransConv(1, 1, dtype=dtype, generator=generator)
+
+    def forward(self, skip: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+        a = self.BatchNorm_0(self.Conv_0(skip[:, :, ::2, ::2]))
+        b = self.BatchNorm_1(self.Conv_1(gate))
+        c = torch.sigmoid(self.BatchNorm_2(self.Conv_2(torch.relu(a + b))))
+        r = upsample(c, 2, method="bilinear") + self.TransConv_0(c)
+        return skip * r

@@ -206,12 +206,11 @@ def unported_test_keys(train: TrainConfig) -> tp.List[str]:
     """The settings of the architecture the ``test`` verb rebuilds
     (``train``: the fold's Train_Configs.ini, or the TEST config's model
     keys) that the port does not build yet, as ``key = value`` strings.
-    Decoder families the port lacks raise when the model is built."""
+    Decoder families the port lacks, and the decoders that do not build
+    ``a_g`` or ``lstm``, raise when the model is built."""
     checks = (
         ("model_genre", train.model_genre != "UNet"),
         ("encoder_mode", train.train_mode != "from_scratch"),
         ("a_e", bool(train.a_e)),
-        ("a_g", bool(train.a_g)),
-        ("lstm", bool(train.lstm)),
     )
     return [f"{key} = {getattr(train, key)!r}" for key, bad in checks if bad]
