@@ -22,9 +22,14 @@ with ``alpha = 1.67`` (``train_multires``).  Phases, each printing lines:
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
 3. kernels: each kernel against its plain PyTorch version at every call
    each path makes (the pyramid storing every level, some levels or one
-   level alone for a pool by 2**m; the pool backward with windows 2, 4
-   and 8) and at edge cases (bit-exact: max and its gradient routing are
-   exact), with CUDA-event device times of the kernel, the plain version
+   level alone for a pool by 2**m; the pool backward with windows 2, 4,
+   8 and 16) and at edge cases (bit-exact: max and its gradient routing are
+   exact), each line naming the kernel the launcher picked (it must be
+   ``pool_rows_kernel`` for every MultiRes encoder pool and
+   ``pool_backward_rows_kernel`` for every backward by 4, 8 or 16 on a
+   path, and is held to the kernel named in ``FWD_ROUTES`` and
+   ``BWD_ROUTES`` at the edge cases), with CUDA-event device times of the
+   kernel (and the difference between its two turns), the plain version
    and the PyTorch library call that computes the same function (a
    yardstick the port never calls), and the bound: bytes moved at 3.35
    TB/s; beside each pooled UNet3+ skip, the earlier design of the same call
@@ -66,8 +71,9 @@ with ``alpha = 1.67`` (``train_multires``).  Phases, each printing lines:
     low-resolution heads and the targets pyramid), UNetE without and UNetP
     with deep supervision
 14. config 4: 20 counted steps each of MultiResUNet (alpha 1; its encoder
-    pools 31, 63, 127 and 255 channels, the kernels' one-channel-a-thread
-    paths) and UNet with ``ag=1``, as phase 11: the loss falls, 4 + 4
+    pools 31, 63, 127 and 255 channels: the pyramid's row kernel, the
+    backward one channel a thread) and UNet with ``ag=1``, as phase 11:
+    the loss falls, 4 + 4
     launches a step, p50 step, img/s, peak memory
 15. family: phase 14 for MultiResUNet3+ (7 + 10 launches a step, as
     UNet3+) and KSSNet (8 + 14: 4 encoder pools and one pyramid per
@@ -247,12 +253,15 @@ def _bound_ms(nbytes: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def _in_turns(fns: dict, flush) -> dict:
+def _in_turns(fns: dict, flush, spreads: "dict | None" = None) -> dict:
     """Device time of each of ``fns`` (name -> callable), measured in
-    turns (order, reversed order) and averaged."""
+    turns (order, reversed order) and averaged; ``spreads``, if given,
+    receives each name's difference between its two turns."""
     t = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         t[name].append(_device_ms(fns[name], flush))
+    if spreads is not None:
+        spreads.update({name: max(v) - min(v) for name, v in t.items()})
     return {name: statistics.mean(v) for name, v in t.items()}
 
 
@@ -314,10 +323,21 @@ FWD_PATHS = {
     "KSSNet": _FWD_ENC_MRB[1.0] + _FWD_TAPS_KSS,
     "train_multires": _FWD_ENC_MRB[1.67],
 }
+#: the MultiRes encoder pools' kernel (csrc/pyramid.cu): one level at a C
+#: that is not a multiple of 16 bytes, rows starting on 16 bytes
+POOL_ROWS = "pool_rows_kernel"
+#: the pool backward's kernel for windows of 4 and more (csrc/
+#: pool_backward.cu), 16 bytes of channels a thread
+BWD_ROWS = "pool_backward_rows_kernel"
+#: an offset channels_last view of the same shape: elements of storage
+#: before the view's first (1: no row starts on 16 bytes; 8 bf16: all do)
+_OFFSET_1 = (_BF16, (2, 8, 64, 31), 1, (1,))
+_OFFSET_8 = (_BF16, (2, 8, 128, 31), 1, (1,))
+OFFSETS = {_OFFSET_1: 1, _OFFSET_8: 8}
 FWD_EDGES = [
     (_F32, (2, 37, 53, 3), 2, _all(2)),     # ragged edges, every level
     (_BF16, (2, 37, 53, 16), 1, (1,)),      # ragged, 16-byte vector
-    (_BF16, (2, 16, 16, 3), 1, (1,)),       # C % 8 != 0
+    (_BF16, (2, 16, 16, 3), 1, (1,)),       # C % 8 != 0, 16-byte rows
     (_BF16, (2, 37, 53, 16), 3, (3,)),      # ragged, level 3 alone
     (_F32, (2, 19, 23, 3), 2, (2,)),        # one channel a thread
     (_F32, (2, 33, 17, 4), 4, (4,)),        # ragged, 16-byte, level 4
@@ -325,7 +345,22 @@ FWD_EDGES = [
     (_BF16, (2, 64, 64, 1), 4, _all(4)),    # C=1 bf16: 3 levels a thread
     (_BF16, (2, 37, 53, 16), 3, _all(3)),   # several levels, 16-byte
     (_BF16, (2, 37, 53, 16), 3, (1, 3)),    # levels 1 and 3 only
+    (_BF16, (2, 37, 53, 3), 1, (1,)),       # odd C, rows not on 16 bytes
+    (_BF16, (2, 37, 64, 51), 1, (1,)),      # odd C, ragged H, 16-byte rows
+    (_BF16, (2, 4, 1024, 51), 1, (1,)),     # a row wider than one span
+    (_F32, (2, 64, 64, 7), 1, (1,)),        # f32 odd C (the W8 references)
+    _OFFSET_1, _OFFSET_8,
 ]
+#: the kernel a call must reach, where phase 3 holds the launcher to it
+FWD_ROUTES = {
+    **{c: POOL_ROWS for cs in _FWD_ENC_MRB.values() for c in cs},
+    (_BF16, (2, 37, 53, 3), 1, (1,)): "pyramid_kernel",
+    (_BF16, (2, 37, 64, 51), 1, (1,)): POOL_ROWS,
+    (_BF16, (2, 4, 1024, 51), 1, (1,)): POOL_ROWS,
+    (_F32, (2, 64, 64, 7), 1, (1,)): POOL_ROWS,
+    _OFFSET_1: "pyramid_kernel",
+    _OFFSET_8: POOL_ROWS,
+}
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
 _BWD_DEC_3P = [(_BF16, s, f) for s, f in _DEC_3P]
@@ -356,7 +391,22 @@ BWD_EDGES = [
     (_BF16, (2, 37, 53, 16), 8),     # ragged, vector path
     (_F32, (2, 33, 17, 4), 16),
     (_BF16, (1, 3, 3, 8), 4),        # nothing pooled
+    (_BF16, (2, 32, 32, 32), 16),    # NaN first, last and twice a window
 ]
+#: values planted in an input (NHWC index -> value) besides its NaN: for
+#: windows of 16, a NaN at window (0, 0)'s first element, at window (0,
+#: 1)'s last, and twice in batch 1's window (0, 0), the second one
+#: followed in its row by -5s, so that the row's walk ends below the rows
+#: above it and only the NaN decides the choice
+PLANTS = {(_BF16, (2, 32, 32, 32), 16): [
+    ((0, 0, 0, 1), float("nan")), ((0, 15, 31, 2), float("nan")),
+    ((1, 3, 4, 3), float("nan")), ((1, 9, 12, 3), float("nan")),
+    ((1, 9, slice(13, 16), 3), -5.0)]}
+BWD_ROUTES = {
+    **{c: BWD_ROWS for c in _BWD_DEC_3P + _BWD_TAPS_KSS if c[2] >= 4},
+    (_BF16, (2, 32, 32, 32), 16): BWD_ROWS,
+    (_BF16, (2, 37, 53, 16), 8): BWD_ROWS,
+}
 
 
 def _kernel_row(name: str, path: str, source: str, replaces: str,
@@ -385,14 +435,28 @@ def _print_paths(what: str, paths: dict, measured: dict) -> None:
               flush=True)
 
 
-def _case_input(dtype: str, shape: tuple, gen, plateaus: bool):
+def _case_input(dtype: str, shape: tuple, gen, plateaus: bool,
+                offset: int = 0, plants: tuple = ()):
+    """An NHWC input from ``gen`` with a NaN, as a (B, C, H, W)
+    channels_last tensor on the card: ``plants`` (index, value) set too;
+    ``offset`` elements of storage before it."""
     import torch
 
     x = torch.randn(shape, generator=gen)
     if plateaus:
         x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ReLU plateaus
     x.view(-1)[x.numel() // 3] = float("nan")  # must propagate / route
-    return x.to("cuda", getattr(torch, dtype)).permute(0, 3, 1, 2)
+    for idx, value in plants:
+        x[idx] = value
+    flat = torch.zeros(offset + x.numel(), dtype=getattr(torch, dtype),
+                       device="cuda")
+    flat[offset:] = x.reshape(-1).to(flat)
+    return flat[offset:].view(shape).permute(0, 3, 1, 2)
+
+
+def _check_route(what: str, got: str, want: "str | None") -> None:
+    _check(want is None or got == want,
+           f"{what}: the launcher picked {got}, not {want}")
 
 
 def phase_kernels() -> dict:
@@ -419,7 +483,8 @@ def phase_kernels() -> dict:
     max_err, measured = 0.0, {}
     for case in on_path + FWD_EDGES:
         dtype, shape, levels, wanted = case
-        x = _case_input(dtype, shape, gen, plateaus=False)
+        x = _case_input(dtype, shape, gen, plateaus=False,
+                        offset=OFFSETS.get(case, 0))
         fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels,
                                                               wanted),
                "kernel": lambda: pyramid.maxpool_pyramid(x, levels, wanted),
@@ -445,6 +510,11 @@ def phase_kernels() -> dict:
                 f"{1 << levels})" if wanted == (levels,) else
                 f"maxpool_pyramid {dtype} {tuple(shape)} levels "
                 f"{list(wanted)}")
+        if case in OFFSETS:
+            what += f", view {OFFSETS[case]} element(s) into its storage"
+        kernel = pyramid.route(x, levels, wanted)
+        _check_route(what, kernel, FWD_ROUTES.get(case))
+        what += f" [{kernel}]"
         if case not in on_path:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
                   f"kept)", flush=True)
@@ -453,7 +523,8 @@ def phase_kernels() -> dict:
             # the earlier design of the same call: one launch per level
             fns["per_level"] = lambda: [pyramid.maxpool_level(x, lvl)
                                         for lvl in wanted]
-        t = _in_turns(fns, flush)
+        spread = {}
+        t = _in_turns(fns, flush, spread)
         calls = {name: _call_ms(fns[name], flush)
                  for name in ("kernel", "plain")}
         host = _host_ms(fns["kernel"])
@@ -465,7 +536,8 @@ def phase_kernels() -> dict:
             lib += (f"; {len(wanted)} single-level launches "
                     f"{t['per_level']:.4f} ms")
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
-              f"kept); device time kernel {t['kernel']:.4f} ms, plain "
+              f"kept); device time kernel {t['kernel']:.4f} ms (turns "
+              f"differ by {spread['kernel']:.4f}), plain "
               f"{t['plain']:.4f} ms, library {lib}, "
               f"bound {_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s); "
               f"one call on an idle card kernel {calls['kernel']:.4f} ms, "
@@ -538,7 +610,8 @@ def phase_pool_backward() -> dict:
     max_err, measured = 0.0, {}
     for case in on_path + BWD_EDGES:
         dtype, shape, f = case
-        x = _case_input(dtype, shape, gen, plateaus=True)
+        x = _case_input(dtype, shape, gen, plateaus=True,
+                        plants=PLANTS.get(case, ()))
         b, c, h, w = x.shape
         g = torch.randn((b, h // f, w // f, c), generator=gen).to(
             "cuda", x.dtype).permute(0, 3, 1, 2)
@@ -555,7 +628,12 @@ def phase_pool_backward() -> dict:
         _check(torch.equal(got, want),
                f"pool backward {shape} f={f}: max-abs {err}")
         max_err = max(max_err, err)
+        kernel = pool_backward.route(x, g, f)
         what = f"maxpool_backward {dtype} {tuple(shape)} f={f}"
+        _check_route(what, kernel, BWD_ROUTES.get(case))
+        what += f" [{kernel}]"
+        if case in PLANTS:
+            what += " (NaN first, last and twice in a window)"
         if case not in on_path:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0)",
                   flush=True)
@@ -568,11 +646,13 @@ def phase_pool_backward() -> dict:
             "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 g, x, [f, f], [f, f], [0, 0], [1, 1], False, idx),
         }
-        t = _in_turns(fns, flush)
+        spread = {}
+        t = _in_turns(fns, flush, spread)
         nbytes = _bytes(x, g, got)
         measured[case] = {**t, "bytes": nbytes}
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
-              f"and a NaN); device time kernel {t['kernel']:.4f} ms, plain "
+              f"and a NaN); device time kernel {t['kernel']:.4f} ms (turns "
+              f"differ by {spread['kernel']:.4f}), plain "
               f"{t['plain']:.4f} ms, library max_pool2d_with_indices_"
               f"backward {t['library']:.4f} ms, bound "
               f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s) (CUDA "

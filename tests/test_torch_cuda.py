@@ -282,6 +282,75 @@ def test_cuda_pool_backward_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,offset,kernel", [
+    (torch.bfloat16, (16, 256, 256, 31), 0, "pool_rows_kernel"),
+    (torch.bfloat16, (16, 32, 32, 426), 0, "pool_rows_kernel"),
+    (torch.bfloat16, (2, 4, 1024, 51), 0, "pool_rows_kernel"),  # 7 spans
+    (torch.bfloat16, (2, 37, 64, 51), 0, "pool_rows_kernel"),   # ragged H
+    (torch.float32, (2, 64, 64, 7), 0, "pool_rows_kernel"),
+    (torch.bfloat16, (2, 8, 128, 31), 8, "pool_rows_kernel"),   # 16 bytes in
+    (torch.bfloat16, (2, 8, 64, 31), 1, "pyramid_kernel"),      # rows unaligned
+    (torch.bfloat16, (2, 37, 53, 3), 0, "pyramid_kernel"),      # ragged W
+])
+def test_cuda_odd_channel_pool_routes_and_equals_plain_version(
+        dtype, shape, offset, kernel):
+    """A pool by 2 at a C that is not a multiple of 16 bytes takes the row
+    kernel when every row starts on 16 bytes, else the one-channel-a-thread
+    kernel; either equals the plain version bit for bit, NaN kept."""
+    _need_cuda()
+    g0 = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=g0)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    flat = torch.zeros(offset + x.numel(), dtype=dtype, device="cuda")
+    flat[offset:] = x.reshape(-1).to(flat)
+    x = flat[offset:].view(shape).permute(0, 3, 1, 2)
+    assert pyramid.route(x, 1) == kernel
+    before = pyramid.launches.value
+    got = pyramid.maxpool_level(x, 1)
+    torch.cuda.synchronize()
+    assert pyramid.launches.value == before + 1
+    _assert_same(got, pyramid.maxpool_pyramid_plain(x, 1)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,factor,kernel", [
+    (torch.bfloat16, (16, 256, 256, 32), 16, "pool_backward_rows_kernel"),
+    (torch.bfloat16, (2, 32, 32, 32), 16, "pool_backward_rows_kernel"),
+    (torch.bfloat16, (2, 37, 53, 16), 8, "pool_backward_rows_kernel"),
+    (torch.float32, (2, 19, 23, 3), 4, "pool_backward_rows_kernel<V=1>"),
+    (torch.bfloat16, (16, 256, 256, 32), 2, "pool_backward_kernel"),
+    (torch.bfloat16, (2, 37, 53, 3), 2, "pool_backward_kernel<V=1>"),
+])
+def test_cuda_pool_backward_routes_and_equals_plain_version(dtype, shape,
+                                                            factor, kernel):
+    """Windows of 4 and more take the row-split kernel, windows of 2 the
+    whole-window walk; the gradient equals the plain version bit for bit
+    on plateaus with NaNs at a window's first and last elements and twice
+    in one window."""
+    _need_cuda()
+    g0 = torch.Generator().manual_seed(7)
+    x = torch.randn(shape, generator=g0)
+    x = torch.where(x < 0.3, torch.zeros_like(x), x)
+    f = factor
+    if shape[1] >= f and shape[2] >= 2 * f:
+        x[0, 0, 0, 0] = float("nan")                # window (0, 0), first
+        x[0, f - 1, 2 * f - 1, 0] = float("nan")    # window (0, 1), last
+        x[-1, 1, 1, -1] = float("nan")              # twice in window (0, 0)
+        x[-1, f - 2, 0, -1] = float("nan")
+        x[-1, f - 2, 1:f, -1] = -5.0
+    x = x.to("cuda", dtype).permute(0, 3, 1, 2)
+    b, c, h, w = x.shape
+    g = torch.randn((b, h // f, w // f, c), generator=g0).to(
+        "cuda", dtype).permute(0, 3, 1, 2)
+    assert pool_backward.route(x, g, f) == kernel
+    before = pool_backward.launches.value
+    got = pool_backward.maxpool_backward(x, g, f)
+    torch.cuda.synchronize()
+    assert pool_backward.launches.value == before + 1
+    assert torch.equal(got, pool_backward.maxpool_backward_plain(x, g, f))
+
+
+@pytest.mark.cuda
 def test_cuda_train_step_float32_matches_cpu():
     """One float32 train step of a small UNet++ on the card (TF32 off,
     deterministic cuDNN) against the CPU from the same weights: loss

@@ -9,7 +9,7 @@
 // input plus the writes of every level, about 1/4 + 1/16 + ... < 1/3 of
 // the read.  Every kernel below reads each input element exactly once.
 // The TPU kernel's in-VMEM transposes have no counterpart: a thread
-// addresses its pixels directly.  Four kernels, chosen by the launcher
+// addresses its pixels directly.  Five kernels, chosen by the launcher
 // from the call's shape:
 //
 // - pyramid_c1_kernel, C = 1 (the deep-supervision mask, the TPU kernel's
@@ -27,18 +27,36 @@
 //   encoder pool of the UNet family): one thread per output pixel and
 //   16-byte channel group, one 16-byte load per pixel of its 2^L x 2^L
 //   window and one 16-byte store.  This is the serving path's kernel.
+// - pool_rows_kernel, level L alone for L <= 4 with C not a multiple of
+//   16 bytes (the MultiRes encoder pools: 31 .. 255 and 51 .. 426
+//   channels) when every input and output row starts on 16 bytes (W * C
+//   and (W >> L) * C elements multiples of 16 bytes, aligned pointers).
+//   Its floor is the same: one read of the input, one write of the
+//   output.  pyramid_kernel took these calls before, one 2-byte load per
+//   thread and instruction with a 32-bit division each, and was bound by
+//   its load and store instructions, not by bytes (20% of the bound,
+//   slower than F.max_pool2d).  This kernel works on the contiguous NHWC
+//   row instead of the channel: a block reads a band of 2^L rows over a
+//   span of output pixels with 16-byte loads, folds the rows in registers
+//   into shared memory and writes 16 bytes of consecutive output elements
+//   a thread, one division per 16 bytes.
 // - pyramid_vec_kernel, several levels stored, C a multiple of 16 bytes,
 //   2 <= L <= 4 (UNet3+'s decoder pools each skip to every level it
 //   needs in one launch): one thread owns one 16-byte channel group of a
 //   2^L x 2^L patch, reads it a level-2 cell (4 x 4 pixels, 16 loads) at
 //   a time, folds the levels in registers in Morton order, V channels
 //   wide, and writes each stored cell with one 16-byte store.
-// - pyramid_kernel, any L, any C (the rest): one thread owns one 2^L x
-//   2^L patch of one channel, reads it once, folds every level from the
-//   level below it in registers (Morton order), and writes each level as
-//   soon as a cell of it is complete.  Neighbouring threads take
-//   neighbouring channels, so a warp's accesses are contiguous runs of
-//   NHWC memory.
+// - pyramid_kernel, any L, any C (the rest: several levels stored at a C
+//   that is not a multiple of 16 bytes, rows that do not start on 16
+//   bytes, L > 4): one thread owns one 2^L x 2^L patch of one channel,
+//   reads it once, folds every level from the level below it in
+//   registers (Morton order), and writes each level as soon as a cell of
+//   it is complete.  Neighbouring threads take neighbouring channels, so
+//   a warp's accesses are contiguous runs of NHWC memory.
+//
+// The launcher picks one from the shape, the levels stored and the
+// pointers' alignment (`route`; tpuseg_maxpool_pyramid_route names it);
+// nothing falls back at run time.
 //
 // Ragged edges: level l has H >> l rows (floor(floor(H/2)/2) == H >> 2,
 // so one pass gives the reduce_window chain's answer).  The grids cover
@@ -436,21 +454,222 @@ __global__ void pool_vec_kernel(const T* __restrict__ x, T* __restrict__ out,
                         (int64_t)g * V) = r;
 }
 
+// Max of two values of T in T, NaN first: bf16 natively (HMNMX2), no
+// conversion to float and back.
+__device__ __forceinline__ float vmax(float a, float b) {
+  return max_nan(a, b);
+}
+__device__ __forceinline__ __nv_bfloat16 vmax(__nv_bfloat16 a,
+                                              __nv_bfloat16 b) {
+  return __hmax_nan(a, b);
+}
+
+// r = max(r, q), 16 bytes element by element (bf16 two at a time).
+__device__ __forceinline__ void vmax16(Pack<float, 4>& r,
+                                       const Pack<float, 4>& q) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r.v[k] = max_nan(r.v[k], q.v[k]);
+}
+__device__ __forceinline__ void vmax16(Pack<__nv_bfloat16, 8>& r,
+                                       const Pack<__nv_bfloat16, 8>& q) {
+  __nv_bfloat162* a = reinterpret_cast<__nv_bfloat162*>(r.v);
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(q.v);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) a[k] = __hmax2_nan(a[k], b[k]);
+}
+
+// Level L alone (F = 2^L) with C not a multiple of 16 bytes but every input
+// and output row starting on 16 bytes (W * C and (W / F) * C elements are
+// multiples of 16 bytes, both pointers aligned).  A row of NHWC memory is
+// one contiguous run of W * C elements whatever C is, so the kernel works
+// on rows, not channels.  A block owns one band of F input rows of one
+// image over a span of `span` output pixels (a multiple of 8, so every
+// span, and the last one cut by the row's end, starts and ends on 16
+// bytes), in three steps with a barrier between them:
+// 1. vertical fold: each thread reads 16 bytes of the span in each of the
+//    F rows (at most 8 16-byte loads in flight a thread, so registers stay
+//    under 64 and four blocks share an SM), folds them in registers and
+//    writes the folded row to shared memory;
+// 2. horizontal fold: output element e (pixel px = e / C, channel c) is
+//    the max over j < F of row[e + (F - 1) * px * C + j * C].  Neighbouring
+//    lanes take neighbouring elements, so their shared-memory reads fall
+//    on neighbouring 2- or 4-byte words (no bank conflicts); a thread
+//    steps (px, c) by whole blocks with no division in the loop.  The
+//    results go to a second buffer in shared memory;
+// 3. the span's output leaves with one 16-byte store a thread.
+// Max stays in T (bf16's own max instructions): converting each element
+// to float and back made an earlier version of this kernel bound by its
+// conversion instructions, not by bytes.  The order of
+// comparisons (rows, then columns) is not pyramid_kernel's: no NaN-free
+// maximum changes, NaN still wins, and only which of +0.0 and -0.0 comes
+// out of a window holding both may.
+template <typename T, int F>
+__global__ void __launch_bounds__(256, 4)
+    pool_rows_kernel(const T* __restrict__ x, T* __restrict__ out, int H,
+                     int W, int C, int span) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int G = F < 8 ? F : 8;  // rows loaded together
+  constexpr int U = 8 / G;          // 16-byte columns folded together
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wo = W / F;
+  const int x0 = blockIdx.x * span;  // the span's first output pixel
+  const int n = min(span, wo - x0);
+  const int yo = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int64_t in_row = (int64_t)W * C;
+  const T* src = x + ((b * H + (int64_t)F * yo) * W + (int64_t)F * x0) * C;
+  T* dst = out + ((b * (H / F) + yo) * wo + x0) * (int64_t)C;
+  T* row = reinterpret_cast<T*>(smem);  // the band folded over its rows
+  T* folded = row + F * n * C;          // the span's output (16-byte start)
+  const int n_out = n * C;
+  const int nv_in = F * n_out / V;      // 16-byte columns of the band
+  const int step = blockDim.x;
+  for (int v0 = threadIdx.x; v0 < nv_in; v0 += U * step) {
+    P r[U];
+#pragma unroll
+    for (int g = 0; g < F; g += G) {
+      P q[U][G];
+      const T* p0 = src + (int64_t)g * in_row + (int64_t)v0 * V;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v0 + u * step < nv_in)
+#pragma unroll
+          for (int i = 0; i < G; ++i)
+            q[u][i] = *reinterpret_cast<const P*>(p0 + i * in_row +
+                                                  (int64_t)u * step * V);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (g == 0) r[u] = q[u][0];
+#pragma unroll
+        for (int i = g == 0 ? 1 : 0; i < G; ++i) vmax16(r[u], q[u][i]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v0 + u * step < nv_in)
+        *reinterpret_cast<P*>(row + (v0 + u * step) * V) = r[u];
+  }
+  __syncthreads();
+  int px = threadIdx.x / C, c = threadIdx.x - px * C;
+  const int dpx = step / C, dc = step - dpx * C;
+  for (int e = threadIdx.x; e < n_out; e += step) {
+    const T* p = row + e + (F - 1) * px * C;
+    T m = p[0];
+#pragma unroll
+    for (int j = 1; j < F; ++j) m = vmax(m, p[j * C]);
+    folded[e] = m;
+    px += dpx;
+    c += dc;
+    if (c >= C) {
+      c -= C;
+      ++px;
+    }
+  }
+  __syncthreads();
+  for (int ov = threadIdx.x; ov < n_out / V; ov += step)
+    *reinterpret_cast<P*>(dst + ov * V) =
+        *reinterpret_cast<const P*>(folded + ov * V);
+}
+
+// Shared memory pool_rows_kernel may give one span (the folded row and
+// the output), and what a span aims at: about 128 pixels at 31 channels,
+// where four blocks share an SM.
+constexpr int kRowsSmemMax = 48 * 1024;
+constexpr int kRowsSmemAim = 24 * 1024;
+
+// Output pixels of one pool_rows_kernel span: the row cut into as few
+// spans as keep each near kRowsSmemAim bytes, of equal widths rounded up
+// to a multiple of 8 (not 88 + 40 pixels, which leave the second block
+// half idle); 0 if 8 pixels pass kRowsSmemMax.
+template <typename T>
+int rows_span(int W, int C, int L) {
+  // an output pixel's share: F pixels of the folded row and itself
+  const int64_t px_bytes = (((int64_t)C << L) + C) * sizeof(T);
+  if (8 * px_bytes > kRowsSmemMax) return 0;
+  int most = (int)(kRowsSmemAim / px_bytes) / 8 * 8;
+  if (most < 8) most = 8;
+  const int wo = W >> L;
+  const int spans = (wo + most - 1) / most;
+  return ((wo + spans - 1) / spans + 7) / 8 * 8;
+}
+
 // Threads for n work items in blocks of at most 256: whole warps, no more
 // than the items need.
 int block_for(int64_t n) {
   return n >= 256 ? 256 : (int)((n + 31) / 32 * 32);
 }
 
-// Launches pool_vec_kernel for level L into `out` when the shape allows
-// (L <= 4, C a multiple of 16 bytes, 16-byte aligned pointers); false if
-// it does not.
+// The kernel the launcher picks for a call.
+enum Route {
+  kNone,        // nothing to store: no launch
+  kC1,          // pyramid_c1_kernel
+  kVec,         // pool_vec_kernel
+  kRows,        // pool_rows_kernel
+  kVecPyramid,  // pyramid_vec_kernel
+  kScalar,      // pyramid_kernel
+};
+
+const char* const kRouteNames[] = {"none", "pyramid_c1_kernel",
+                                   "pool_vec_kernel", "pool_rows_kernel",
+                                   "pyramid_vec_kernel", "pyramid_kernel"};
+
+// The launcher's choice, from the shape, the levels stored and the
+// pointers' alignment; tiles_h and tiles_w cover level 1.
 template <typename T>
-bool launch_vec(const void* x, void* out, int64_t B, int H, int W, int C,
+Route route(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
+            int C, int L, int tiles_h, int tiles_w) {
+  constexpr int V = 16 / sizeof(T);
+  if (B == 0 || tiles_h == 0 || tiles_w == 0) return kNone;
+  int stored = 0;
+  for (int l = 0; l < L; ++l) stored += outs.p[l] != nullptr;
+  if (C == 1) return L <= 5 ? kC1 : kScalar;
+  if (stored == 1 && outs.p[L - 1]) {  // level L alone
+    if ((H >> L) == 0 || (W >> L) == 0) return kNone;
+    if (L > 4 || !aligned16(x) || !aligned16(outs.p[L - 1])) return kScalar;
+    if (C % V == 0) return kVec;
+    const int64_t row_in = (int64_t)W * C * sizeof(T);
+    const int64_t row_out = (int64_t)(W >> L) * C * sizeof(T);
+    if (row_in % 16 == 0 && row_out % 16 == 0 && rows_span<T>(W, C, L) > 0)
+      return kRows;
+    return kScalar;
+  }
+  if (L < 2 || L > 4 || C % V || !aligned16(x)) return kScalar;
+  for (int l = 0; l < L; ++l)
+    if (!aligned16(outs.p[l])) return kScalar;
+  return kVecPyramid;
+}
+
+template <typename T>
+void launch_rows(const void* x, void* out, int64_t B, int H, int W, int C,
+                 int L, cudaStream_t s) {
+  const int span = rows_span<T>(W, C, L);
+  const int smem = (int)((((int64_t)span * C << L) + (int64_t)span * C) *
+                         sizeof(T));
+  const dim3 grid((unsigned)(((W >> L) + span - 1) / span),
+                  (unsigned)(H >> L), (unsigned)B);
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  switch (L) {
+    case 1:
+      pool_rows_kernel<T, 2><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      break;
+    case 2:
+      pool_rows_kernel<T, 4><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      break;
+    case 3:
+      pool_rows_kernel<T, 8><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      break;
+    default:
+      pool_rows_kernel<T, 16><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+  }
+}
+
+// pool_vec_kernel for level L into `out`.
+template <typename T>
+void launch_vec(const void* x, void* out, int64_t B, int H, int W, int C,
                 int L, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  if (L > 4 || C % V || !aligned16(x) || !aligned16(out)) return false;
-  if ((H >> L) == 0 || (W >> L) == 0) return true;  // nothing to store
   const int threads = 256;
   const int64_t n = (int64_t)(W >> L) * (C / V);
   const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)(H >> L),
@@ -470,15 +689,13 @@ bool launch_vec(const void* x, void* out, int64_t B, int H, int W, int C,
     default:
       pool_vec_kernel<T, V, 16><<<grid, threads, 0, s>>>(xt, ot, H, W, C);
   }
-  return true;
 }
 
-// Launches pyramid_c1_kernel (C == 1) when L <= 5; false if L is larger.
+// pyramid_c1_kernel (C == 1, L <= 5).
 template <typename T>
-bool launch_c1(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
+void launch_c1(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
                int L, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  if (L > 5) return false;
   // vectors that cover the columns level 1 reads, 2 * (W >> 1)
   const int64_t n = ((int64_t)(W >> 1) * 2 + V - 1) / V;
   const int threads = block_for(n);
@@ -502,19 +719,15 @@ bool launch_c1(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
     default:
       pyramid_c1_kernel<T, 5><<<grid, threads, 0, s>>>(xt, outs, H, W);
   }
-  return true;
 }
 
-// Launches pyramid_vec_kernel when 2 <= L <= 4, C is a multiple of 16
-// bytes and every pointer is 16-byte aligned; false if not.
+// pyramid_vec_kernel (2 <= L <= 4, C a multiple of 16 bytes, every
+// pointer 16-byte aligned).
 template <typename T>
-bool launch_vec_pyramid(const void* x, const OutPtrs& outs, int64_t B, int H,
+void launch_vec_pyramid(const void* x, const OutPtrs& outs, int64_t B, int H,
                         int W, int C, int L, int tiles_h, int tiles_w,
                         cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  if (L < 2 || L > 4 || C % V || !aligned16(x)) return false;
-  for (int l = 0; l < L; ++l)
-    if (!aligned16(outs.p[l])) return false;
   const int64_t n = (int64_t)tiles_w * (C / V);
   const int threads = block_for(n);
   const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)tiles_h,
@@ -533,28 +746,65 @@ bool launch_vec_pyramid(const void* x, const OutPtrs& outs, int64_t B, int H,
       pyramid_vec_kernel<T, V, 4><<<grid, threads, 0, s>>>(xt, outs, H, W, C,
                                                            tiles_w);
   }
-  return true;
 }
 
 template <typename T>
-void launch(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
-            int C, int L, int tiles_h, int tiles_w, cudaStream_t s) {
-  int stored = 0;
-  for (int l = 0; l < L; ++l) stored += outs.p[l] != nullptr;
-  const bool last_only = stored == 1 && outs.p[L - 1];
-  if (C == 1) {
-    if (launch_c1<T>(x, outs, B, H, W, L, s)) return;
-  } else if (last_only) {
-    if (launch_vec<T>(x, outs.p[L - 1], B, H, W, C, L, s)) return;
-  } else if (launch_vec_pyramid<T>(x, outs, B, H, W, C, L, tiles_h, tiles_w,
-                                   s)) {
-    return;
+void launch(Route r, const void* x, const OutPtrs& outs, int64_t B, int H,
+            int W, int C, int L, int tiles_h, int tiles_w, cudaStream_t s) {
+  switch (r) {
+    case kNone:
+      return;
+    case kC1:
+      launch_c1<T>(x, outs, B, H, W, L, s);
+      return;
+    case kVec:
+      launch_vec<T>(x, outs.p[L - 1], B, H, W, C, L, s);
+      return;
+    case kRows:
+      launch_rows<T>(x, outs.p[L - 1], B, H, W, C, L, s);
+      return;
+    case kVecPyramid:
+      launch_vec_pyramid<T>(x, outs, B, H, W, C, L, tiles_h, tiles_w, s);
+      return;
+    case kScalar: {
+      const int threads = 256;
+      const dim3 grid(
+          (unsigned)(((int64_t)tiles_w * C + threads - 1) / threads),
+          (unsigned)tiles_h, (unsigned)B);
+      pyramid_kernel<T><<<grid, threads, 0, s>>>(static_cast<const T*>(x),
+                                                 outs, H, W, C, L, tiles_w);
+    }
   }
-  const int threads = 256;
-  const dim3 grid((unsigned)(((int64_t)tiles_w * C + threads - 1) / threads),
-                  (unsigned)tiles_h, (unsigned)B);
-  pyramid_kernel<T><<<grid, threads, 0, s>>>(static_cast<const T*>(x), outs,
-                                             H, W, C, L, tiles_w);
+}
+
+// The arguments of tpuseg_maxpool_pyramid, checked, and the route they
+// take; returns a CUDA error code (0 if they are valid).
+struct Call {
+  OutPtrs outs = {};
+  int tiles_h = 0, tiles_w = 0;
+  Route route = kNone;
+};
+
+int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
+            int W, int C, int L, Call* call) {
+  if (L < 1 || L > kMaxLevels || B < 0 || H < 0 || W < 0 || C < 1 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const uint64_t* ptrs = static_cast<const uint64_t*>(out_ptrs);
+  for (int l = 0; l < L; ++l)
+    call->outs.p[l] = reinterpret_cast<void*>(ptrs[l]);
+  const int side1 = 1 << (L - 1);
+  call->tiles_h = ((H >> 1) + side1 - 1) / side1;
+  call->tiles_w = ((W >> 1) + side1 - 1) / side1;
+  if ((int64_t)call->tiles_w * C > 0x7fffffffLL || call->tiles_h > 65535 ||
+      B > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  call->route = dtype == 0
+      ? route<float>(x, call->outs, B, H, W, C, L, call->tiles_h,
+                     call->tiles_w)
+      : route<__nv_bfloat16>(x, call->outs, B, H, W, C, L, call->tiles_h,
+                             call->tiles_w);
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -568,24 +818,26 @@ extern "C" {
 int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
                            int64_t B, int H, int W, int C, int L,
                            void* stream) {
-  if (L < 1 || L > kMaxLevels || B < 0 || H < 0 || W < 0 || C < 1 ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  OutPtrs outs = {};
-  const uint64_t* ptrs = static_cast<const uint64_t*>(out_ptrs);
-  for (int l = 0; l < L; ++l) outs.p[l] = reinterpret_cast<void*>(ptrs[l]);
-  const int side1 = 1 << (L - 1);
-  const int tiles_h = ((H >> 1) + side1 - 1) / side1;
-  const int tiles_w = ((W >> 1) + side1 - 1) / side1;
-  if (B == 0 || tiles_h == 0 || tiles_w == 0) return (int)cudaSuccess;
-  if ((int64_t)tiles_w * C > 0x7fffffffLL || tiles_h > 65535 || B > 65535)
-    return (int)cudaErrorInvalidConfiguration;
+  Call c;
+  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, &c);
+  if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    launch<float>(x, outs, B, H, W, C, L, tiles_h, tiles_w, s);
+    launch<float>(c.route, x, c.outs, B, H, W, C, L, c.tiles_h, c.tiles_w, s);
   else
-    launch<__nv_bfloat16>(x, outs, B, H, W, C, L, tiles_h, tiles_w, s);
+    launch<__nv_bfloat16>(c.route, x, c.outs, B, H, W, C, L, c.tiles_h,
+                          c.tiles_w, s);
   return (int)cudaGetLastError();
+}
+
+// The kernel tpuseg_maxpool_pyramid launches for the same arguments
+// ("none" if it launches nothing), or null if it refuses them.
+const char* tpuseg_maxpool_pyramid_route(const void* x, const void* out_ptrs,
+                                         int dtype, int64_t B, int H, int W,
+                                         int C, int L) {
+  Call c;
+  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, &c)) return nullptr;
+  return kRouteNames[c.route];
 }
 
 const char* tpuseg_cuda_error_string(int code) {

@@ -115,10 +115,23 @@ def load_library() -> ctypes.CDLL:
         lib.tpuseg_maxpool_backward.argtypes = [vp, vp, vp, i32, i64, i32,
                                                 i32, i32, i32, vp]
         lib.tpuseg_maxpool_backward.restype = i32
+        lib.tpuseg_maxpool_pyramid_route.argtypes = [vp, vp, i32, i64, i32,
+                                                     i32, i32, i32]
+        lib.tpuseg_maxpool_pyramid_route.restype = ctypes.c_char_p
+        lib.tpuseg_maxpool_backward_route.argtypes = [vp, vp, vp, i32, i64,
+                                                      i32, i32, i32, i32]
+        lib.tpuseg_maxpool_backward_route.restype = ctypes.c_char_p
         lib.tpuseg_cuda_error_string.argtypes = [i32]
         lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
+
+
+def route_name(name: "bytes | None", what: str) -> str:
+    """The kernel a route query named; raise if it refused the call."""
+    if name is None:
+        raise ValueError(f"{what}: the kernel refuses these arguments")
+    return name.decode()
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -21,6 +21,7 @@ it and what its design does about it.
   :func:`maxpool_backward_plain`; on a CUDA tensor it launches the kernel
   or raises.  Each launch adds one to :data:`launches`; each copy of ``g``
   into channels_last memory adds one to :data:`g_copies`.
+- :func:`route` names the kernel a CUDA call launches.
 """
 from __future__ import annotations
 
@@ -82,10 +83,9 @@ def maxpool_backward_plain(x: torch.Tensor, g: torch.Tensor, factor: int
     return dx.permute(0, 3, 1, 2)
 
 
-def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
-                           ) -> torch.Tensor:
-    from ._build import check, load_library
-
+def _check_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Check a CUDA call's tensors; returns ``g`` in channels_last memory
+    (copied, and counted, if it was not)."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"maxpool_backward kernel takes float32 or "
                         f"bfloat16, got {x.dtype}")
@@ -97,19 +97,54 @@ def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
     if not g.is_contiguous(memory_format=torch.channels_last):
         g = g.contiguous(memory_format=torch.channels_last)
         g_copies.add()
+    return g
+
+
+def _args(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor, factor: int
+          ) -> tuple:
     b, c, h, w = x.shape
+    return (x.data_ptr(), g.data_ptr(), dx.data_ptr(), DTYPE_CODES[x.dtype],
+            b, h, w, c, factor)
+
+
+def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
+                           ) -> torch.Tensor:
+    from ._build import check, load_library
+
+    g = _check_cuda(x, g)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
     if dx.numel() == 0:  # nothing to route: no launch
         return dx
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool_backward(
-            x.data_ptr(), g.data_ptr(), dx.data_ptr(), DTYPE_CODES[x.dtype],
-            b, h, w, c, factor, stream)
+        code = lib.tpuseg_maxpool_backward(*_args(x, g, dx, factor), stream)
     check(lib, code, "maxpool_backward")
     launches.add()
     return dx
+
+
+def route(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
+    """The name of the kernel that :func:`maxpool_backward` launches for
+    the same CUDA tensors and factor: ``pool_backward_kernel`` (F = 2) or
+    ``pool_backward_rows_kernel`` (F >= 4), with ``<V=1>`` where it takes
+    one channel a thread; "none" for an empty ``x``.  Launches nothing and
+    counts no copy (a ``g`` the wrapper would copy is judged as its
+    copy, which is aligned)."""
+    from ._build import load_library, route_name
+
+    _check_shapes(x, g, factor)
+    if x.device.type != "cuda":
+        raise ValueError(f"route: the kernels run on CUDA tensors, got "
+                         f"{x.device}")
+    if not g.is_contiguous(memory_format=torch.channels_last):
+        g = g.contiguous(memory_format=torch.channels_last)
+    _check_cuda(x, g)
+    if x.numel() == 0:
+        return "none"
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    return route_name(load_library().tpuseg_maxpool_backward_route(
+        *_args(x, g, dx, factor)), "maxpool_backward")
 
 
 def maxpool_backward(x: torch.Tensor, g: torch.Tensor, factor: int

@@ -25,6 +25,7 @@ W and channel count; float32 and bfloat16.
 - :func:`maxpool` is the pool by 2**m (m = 1..4): ``maxpool_levels``
   storing level m only.
 - :func:`fused_maxpool_pyramid` is the JAX package's NHWC entry point.
+- :func:`route` names the kernel a CUDA call launches.
 """
 from __future__ import annotations
 
@@ -81,10 +82,8 @@ def maxpool_pyramid_plain(x: torch.Tensor, levels: int,
     return [maxpool_level_plain(x, lvl) for lvl in _wanted(levels, wanted)]
 
 
-def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
-                          wanted: tp.List[int]) -> tp.List[torch.Tensor]:
-    from ._build import check, load_library
-
+def _cuda_args(x: torch.Tensor, levels: int, wanted: tp.List[int]):
+    """The outputs and the C entry points' arguments for a CUDA call."""
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"maxpool_pyramid kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
@@ -95,20 +94,47 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
     outs = [torch.empty((b, c, h >> l, w >> l), dtype=x.dtype,
                         device=x.device, memory_format=torch.channels_last)
             for l in wanted]
-    if outs[0].numel() == 0:  # nothing to store: no launch
-        return outs
-    lib = load_library()
     ptrs = (ctypes.c_uint64 * levels)()  # null for a level not wanted
     for lvl, o in zip(wanted, outs):
         ptrs[lvl - 1] = o.data_ptr()
+    return outs, ptrs, (x.data_ptr(), ctypes.addressof(ptrs),
+                        DTYPE_CODES[x.dtype], b, h, w, c, levels)
+
+
+def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
+                          wanted: tp.List[int]) -> tp.List[torch.Tensor]:
+    from ._build import check, load_library
+
+    outs, ptrs, args = _cuda_args(x, levels, wanted)
+    if outs[0].numel() == 0:  # nothing to store: no launch
+        return outs
+    lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool_pyramid(
-            x.data_ptr(), ctypes.addressof(ptrs), DTYPE_CODES[x.dtype],
-            b, h, w, c, levels, stream)
+        code = lib.tpuseg_maxpool_pyramid(*args, stream)
     check(lib, code, "maxpool_pyramid")
     launches.add()
     return outs
+
+
+def route(x: torch.Tensor, levels: int,
+          wanted: tp.Optional[tp.Sequence[int]] = None) -> str:
+    """The name of the kernel that :func:`maxpool_pyramid` launches for the
+    same CUDA tensor and levels (csrc/pyramid.cu's launcher picks it from
+    the shape, the levels stored and the pointers' alignment; "none" when
+    there is nothing to store).  Launches nothing."""
+    from ._build import load_library, route_name
+
+    _check_levels(x, levels)
+    if x.device.type != "cuda":
+        raise ValueError(f"route: the kernels run on CUDA tensors, got "
+                         f"{x.device}")
+    wanted = _wanted(levels, wanted)
+    outs, ptrs, args = _cuda_args(x, levels, wanted)
+    if outs[0].numel() == 0:
+        return "none"
+    return route_name(load_library().tpuseg_maxpool_pyramid_route(*args),
+                      "maxpool_pyramid")
 
 
 def maxpool_pyramid(x: torch.Tensor, levels: int,
