@@ -15,8 +15,12 @@ for UNet, UNetE and UNetP (``config2_UNet``, ``config2_UNetE``,
 (``test``); config 4's, MultiResUNet and UNet with attention gates
 (``config4_MultiResUNet``, ``config4_UNet_AG``), and the rest of the
 MultiRes family's, MultiResUNet3+ and KSSNet (``MultiResUNet3P``,
-``KSSNet``); and the train, serve and test verbs on a MultiResUNet fold
-with ``alpha = 1.67`` (``train_multires``).  Phases, each printing lines:
+``KSSNet``); the train, serve and test verbs on a MultiResUNet fold
+with ``alpha = 1.67`` (``train_multires``); the flagship's train step
+under each optimizer of the registry with the gradient clips, and a train
+verb fold with FocalLoss, Nadam, the clips and the IoU and threshold
+metrics (``registries``); and the ``predict`` verb with every view on the
+trained flagship fold (``predict``).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
@@ -86,16 +90,38 @@ with ``alpha = 1.67`` (``train_multires``).  Phases, each printing lines:
 17. multires reference: phase 7 for W8/D3 MultiResUNet with ``ds=1``,
     UNet with ``ag=1`` and ``ds=1``, UNet++ with ``ag=1``, MultiResUNet3+
     and KSSNet
+18. registries: 20 counted steps of the flagship under each of the 8
+    optimizers with ``global_clipnorm``, ``clipnorm`` and ``clipvalue``
+    each biting on the first gradient (printed): 4 + 4 launches a
+    step, finite losses, p50 step; the p50 of each optimizer update (the
+    clips included) and of the verb's 7 metric updates, with their shares
+    of the step; the bucketize AUC counts equal to the broadcast counts
+    on one card batch; a train verb fold (``class_number = 2``,
+    FocalLoss, Nadam, the clips, MeanIoU, OneHotMeanIoU, AUC, Precision,
+    Recall, BinaryAccuracy, tf.keras.metrics.TruePositives): every metric
+    finite in history.json under the JAX key; and per optimizer 3 float32
+    steps of a W8/D3 UNet++ with the clips on the card against the CPU,
+    each from the CPU's weights and optimizer state (phase 7's
+    tolerances), after one CPU step from a fresh state
+19. predict: the ``predict`` verb through the command line (the GPU by
+    default) on phase 6's fold over 64 fresh PNGs, ``--batch 8 --tta
+    all`` at the plain forward's median probability as ``--threshold``:
+    64 masks, equal to ``label_from_pred`` of the plain-pool forward with
+    the same views away from the threshold, the kernels' probabilities
+    within 1e-3 of it, 4 pyramid launches a device batch of 8 x 7 images;
+    img/s and the p50 device batch with and without the views
 
-Phase 16 runs after phase 12, on its PNGs; the others run in their order.
+Phase 16 runs after phase 12, on its PNGs; phases 18 and 19 run last,
+on phase 6's folders and fold; the others run in their order.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
 ``config2_UNetE``, ``config2_UNetP``, ``test``, ``config4_MultiResUNet``,
-``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet`` or
-``train_multires``): the launches of that path's run in phase 4, 6, 8, 9,
-11, 12, 14, 15 or 16, and the device times and bound of the calls that
-path makes per batch or step; the last is ``{"ok":
+``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
+``registries`` or ``predict``): the launches of that path's run in phase
+4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted runs and the verb's) or
+19, and the device times and bound of the calls that path makes per batch
+or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
 
@@ -147,6 +173,18 @@ N_TEST = 16
 TEST_BATCH = 8
 #: views of phase 12's second test run
 TEST_TTA = "hflip,vflip"
+#: phase 18: counted fixed-batch steps of the flagship per optimizer
+REG_STEPS = 20
+#: phase 18's train verb fold: its metrics, by the JAX package's names
+REG_METRICS = ("MeanIoU", "OneHotMeanIoU", "AUC", "Precision", "Recall",
+               "BinaryAccuracy", "tf.keras.metrics.TruePositives")
+#: phase 18: card-against-CPU steps per optimizer
+REG_REF_STEPS = 3
+#: phase 19: fresh PNGs, the verb's --batch and its views (all 6 on a
+#: square input: 7 images a picture in one forward)
+N_PREDICT = 64
+PREDICT_BATCH = 8
+PREDICT_VIEWS = 6
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 #: bytes zeroed between two timed calls: enough to empty the 50 MB L2 and
 #: to keep the card busy longer than the host takes to enqueue a call
@@ -322,6 +360,11 @@ FWD_PATHS = {
     "MultiResUNet3P": _FWD_ENC_MRB[1.0] + _FWD_DEC_3P,
     "KSSNet": _FWD_ENC_MRB[1.0] + _FWD_TAPS_KSS,
     "train_multires": _FWD_ENC_MRB[1.67],
+    "registries": _FWD_ENC_TRAIN,
+    # a device batch of the predict verb: PREDICT_BATCH images and each of
+    # their views in one forward
+    "predict": [(_BF16, (PREDICT_BATCH * (1 + PREDICT_VIEWS),) + s[1:], 1,
+                 (1,)) for s in _ENC],
 }
 #: the MultiRes encoder pools' kernel (csrc/pyramid.cu): one level at a C
 #: that is not a multiple of 16 bytes, rows starting on 16 bytes
@@ -380,6 +423,7 @@ BWD_PATHS = {
     "MultiResUNet3P": _BWD_ENC_MRB[1.0] + _BWD_DEC_3P,
     "KSSNet": _BWD_ENC_MRB[1.0] + _BWD_TAPS_KSS,
     "train_multires": _BWD_ENC_MRB[1.67],
+    "registries": _BWD_ENC,
 }
 BWD_EDGES = [
     (_F32, (4, 64, 64, 32), 2),      # f32, vector path
@@ -1082,7 +1126,7 @@ def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
           f"{steps} steps; maxpool_backward.launches = {bwd} = {n_bwd} x "
           f"{steps}; gradient layout copies {copies}; p50 "
           f"{p50 * 1e3:.3f} ms", flush=True)
-    return {"pyramid": fwd, "backward": bwd}
+    return {"pyramid": fwd, "backward": bwd, "p50": p50}
 
 
 def phase_config3() -> dict:
@@ -1622,6 +1666,327 @@ def phase_multires_reference() -> None:
                  ("KSSNet", 0, None, (6, 9))), float64=True)
 
 
+def _clip_values(model, loss_fn, x, y) -> dict:
+    """Clips that each bite on ``model``'s first gradient of ``loss_fn``
+    on (x, y), in the order they apply: ``global_clipnorm`` half its
+    global norm; ``clipnorm`` the median per-parameter norm of what that
+    leaves; ``clipvalue`` the 99th percentile of the absolute elements of
+    what both leave.  (One forward and backward, outside any count.)"""
+    import torch
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss_fn(y, model(x)["out"].float()).backward()
+    grads = [0.5 * p.grad for p in model.parameters()]
+    clips = {"global_clipnorm": float(torch.stack(
+        [g.norm() for g in grads]).norm())}
+    norms = torch.stack([g.norm() for g in grads])
+    clips["clipnorm"] = float(norms.median())
+    flat = torch.cat([(g * torch.clamp_max(clips["clipnorm"] / n, 1.0))
+                      .flatten() for g, n in zip(grads, norms)]).abs()
+    clips["clipvalue"] = float(torch.kthvalue(
+        flat.float().cpu(), int(0.99 * flat.numel())).values)
+    model.zero_grad(set_to_none=True)
+    return clips
+
+
+def _p50_ms(fn, reps: int = REPS) -> float:
+    """Median host time of ``fn()`` up to a synchronize, after one call."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3
+
+
+def phase_registries(tmp: str) -> dict:
+    """Phase 18: the flagship's train step under each of the 8 optimizers
+    with the three gradient clips biting (REG_STEPS counted fixed-batch
+    steps each, 4 + 4 launches a step, finite losses), the p50 of each
+    optimizer update (clips included) and of the verb's metric updates
+    with their shares of the step, the bucketize threshold counts against
+    the broadcast on one card batch, one train verb fold (class_number 2,
+    FocalLoss, Nadam, the clips, REG_METRICS), and a float32 card-against-
+    CPU reference per optimizer with the clips on."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        OPTIMIZER_NAMES, clip_gradients, make_metric)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train.metrics import (
+        _keras_thresholds, conf_counts, conf_counts_broadcast)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 2)
+    base = _train_config(tmp, "ResultsReg")
+    probe = _trainer_for(base)
+    xd, yd = probe.to_device(x), probe.to_device(y)
+    clips = _clip_values(probe.model, probe.loss_fn, xd, yd)
+    del probe
+    print(f"phase 18 registries: W32/D4 UNet++ bf16, BCEDice, lr "
+          f"{base.learning_rate}, batch {TRAIN_BATCH}, clips that each bite "
+          f"on the first gradient: global_clipnorm "
+          f"{clips['global_clipnorm']:.6g} (half its global norm), clipnorm "
+          f"{clips['clipnorm']:.6g} (the median parameter norm after it), "
+          f"clipvalue {clips['clipvalue']:.6g} (the 99th percentile of the "
+          f"absolute elements after both)", flush=True)
+    counts = {"pyramid": 0, "backward": 0}
+    step_ms = {}
+    for name in OPTIMIZER_NAMES:
+        trainer = _trainer_for(_train_config(
+            tmp, "ResultsReg", optimizer_function=name, **clips))
+        run = _counted_steps(f"phase 18 {name}", "registries", trainer, xd,
+                             yd, REG_STEPS, must_fall=False)
+        for k in counts:
+            counts[k] += run[k]
+        step_ms[name] = run["p50"] * 1e3
+        # the gradients of the last step are still on the parameters
+        update = _p50_ms(trainer.optimizer.step)
+        print(f"phase 18 {name}: p50 optimizer update (the clips "
+              f"included) {update:.3f} ms, {update / step_ms[name]:.2%} of "
+              f"its p50 step {step_ms[name]:.3f} ms (host clock, "
+              f"synchronized, {REPS} updates)", flush=True)
+        if name == "SGD":
+            params = list(trainer.model.parameters())
+            clip = _p50_ms(lambda: clip_gradients(params, **clips))
+            print(f"phase 18 clips: p50 of the three clips alone "
+                  f"(clip_gradients, {len(params)} parameters) {clip:.3f} "
+                  f"ms, {clip / step_ms[name]:.2%} of SGD's p50 step",
+                  flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+    # the verb's metrics on one batch of the flagship's outputs
+    trainer = _trainer_for(_train_config(tmp, "ResultsReg"))
+    with torch.inference_mode():
+        out = trainer.model(xd)["out"].float()
+        defs = [make_metric(n, num_classes=3) for n in REG_METRICS]
+        states = [m.init(xd.device) for m in defs]
+        upd = _p50_ms(lambda: [m.update(st, yd, out)
+                               for m, st in zip(defs, states)])
+        th = torch.tensor(_keras_thresholds(200), device=xd.device)
+        got, want = conf_counts(yd, out, th), conf_counts_broadcast(yd, out,
+                                                                    th)
+    _check(all(torch.equal(got[k], want[k]) for k in want),
+           "bucketize threshold counts differ from the broadcast counts")
+    print(f"phase 18 metrics: p50 update of the {len(defs)} metrics "
+          f"{', '.join(REG_METRICS)} on one batch of {TRAIN_BATCH} outputs "
+          f"{upd:.3f} ms, {upd / step_ms['Nadam']:.2%} of Nadam's p50 step "
+          f"(host clock, synchronized); the AUC's bucketize counts equal the "
+          f"broadcast's at all 200 thresholds over {out.numel()} pixels "
+          f"(tp at 0.5: {int(got['tp'][100])})", flush=True)
+    del trainer, out
+    torch.cuda.empty_cache()
+
+    cfg = _train_config(tmp, "ResultsReg", class_number=2,
+                        loss_function="FocalLoss", optimizer_function="Nadam",
+                        metric_list=REG_METRICS, num_epochs=1, **clips)
+    run = _run_train_verb("phase 18 registries verb", cfg, "registries")
+    for k in counts:
+        counts[k] += run[k]
+    with open(os.path.join(cfg.save_dir, "Fold_1", "history.json")) as f:
+        hist = json.load(f)
+    for key in REG_METRICS + tuple(f"val_{m}" for m in REG_METRICS):
+        _check(key in hist and all(np.isfinite(hist[key])),
+               f"history.json: {key} missing or not finite: {hist.get(key)}")
+    print("phase 18 registries verb: history.json "
+          + ", ".join(f"{k} {hist[k][-1]:.6g}" for k in REG_METRICS
+                      + tuple(f"val_{m}" for m in REG_METRICS)), flush=True)
+    for name in OPTIMIZER_NAMES:
+        _optimizer_reference(name)
+    return counts
+
+
+def _optimizer_reference(name: str) -> None:
+    """Phase 18's float32 check of one optimizer with the clips biting
+    (from the CPU model's first gradient): a W8/D3 UNet++ takes one CPU
+    step from a fresh state; then, REG_REF_STEPS times, the CPU's weights
+    and optimizer state go to the card and both take one step on the same
+    batch, held to phase 7's tolerances (``_reference_errors``).  Each
+    step starts from the CPU's state: float32 trajectories drift apart
+    over unsynced steps wherever a ReLU pre-activation lies within
+    rounding of zero (PERF.md section 6), which would hide the
+    optimizer's own error."""
+    import copy
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        bce_dice_loss, make_optimizer, make_train_step)
+
+    lr = 1e-3
+    cpu = SegModel("UNetPP", 8, 3, generator=torch.Generator().manual_seed(
+        SEED + 3))
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32))
+    y = torch.from_numpy((rng.uniform(size=(2, 64, 64, 1)) > 0.7).astype(
+        np.float32))
+    clips = _clip_values(cpu, bce_dice_loss, x, y)
+    opt_c = make_optimizer(name, cpu.parameters(), lr, **clips)
+    step_c = make_train_step(cpu, opt_c, bce_dice_loss)
+    step_c(x, y)
+    gpu = copy.deepcopy(cpu).cuda()
+    opt_g = make_optimizer(name, gpu.parameters(), lr, **clips)
+    step_g = make_train_step(gpu, opt_g, bce_dice_loss)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    texts = []
+    try:
+        for i in range(REG_REF_STEPS):
+            gpu.load_state_dict(cpu.state_dict())
+            opt_g.load_state_dict(copy.deepcopy(opt_c.state_dict()))
+            counts = (pyramid.launches.value, pool_backward.launches.value)
+            loss_c, _ = step_c(x, y)
+            _check((pyramid.launches.value, pool_backward.launches.value)
+                   == counts, "the CPU step launched a kernel")
+            loss_g, _ = step_g(x.cuda(), y.cuda())
+            torch.cuda.synchronize()
+            launched = (pyramid.launches.value - counts[0],
+                        pool_backward.launches.value - counts[1])
+            _check(launched == (3, 3),
+                   f"{name}: the card's step launched {launched}")
+            e = _reference_errors(cpu, loss_c, gpu, loss_g, lr)
+            _check(e["ok"], f"float32 {name} step {i + 2} with clips, card "
+                   f"vs CPU: {e['text']}")
+            texts.append(f"step {i + 2}: {e['text']}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    print(f"phase 18 reference {name}: float32 steps 2-{REG_REF_STEPS + 1} "
+          f"of a W8/D3 UNet++ with clips (global_clipnorm "
+          f"{clips['global_clipnorm']:.4g}, clipnorm {clips['clipnorm']:.4g}, "
+          f"clipvalue {clips['clipvalue']:.4g}), each from the CPU's weights "
+          f"and optimizer state, card (kernels 3+3 launches a step) vs CPU: "
+          + "; ".join(texts), flush=True)
+
+
+def phase_predict(tmp: str, train_cfg) -> dict:
+    """Phase 19: the ``predict`` verb through the command line (the GPU by
+    default) on phase 6's trained fold (``train_cfg``'s save_dir) over
+    N_PREDICT fresh PNGs with ``--batch PREDICT_BATCH --tta all``, the
+    counts set to 0 just before it and read just after: a mask per PNG, 4
+    pyramid launches a device batch of PREDICT_BATCH x (1 + 6 views) (the
+    Predictor's warm-up is one), and the masks equal to ``label_from_pred``
+    of the plain-pool forward with the same views away from the
+    threshold.  The fold's probabilities crowd above 0.5 (phase 12), so
+    the verb runs at ``--threshold`` the plain forward's median
+    probability, where the masks split.  Then the kernels' probabilities
+    against the plain pool's and the p50 device batch with and without
+    the views."""
+    import torch
+    from PIL import Image
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.__main__ import (
+        main as cli)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images, write_image_folder)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data.generators import (
+        load_image)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.eval import (
+        label_from_pred, parse_tta)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.serve import Predictor
+
+    src = os.path.join(tmp, "Data", "Predict")
+    write_image_folder(src, *synthetic_images(N_PREDICT, SIZE,
+                                              seed=SEED + 10))
+    images = os.path.join(src, "images")
+    paths = sorted(os.path.join(images, f) for f in os.listdir(images))
+    views = parse_tta("all")
+    _check(len(views) == PREDICT_VIEWS, f"'all' names {views}")
+
+    # the same weights, decode and views with the plain pool on the card
+    model = drivers._restore_model(train_cfg, os.path.join(
+        train_cfg.save_dir, "Fold_1"), "predicting with", "cuda")
+    with_views = Predictor(model, (SIZE, SIZE, 3), max_batch=PREDICT_BATCH,
+                           tta=views)
+    x = np.stack([load_image(p, (SIZE, SIZE), "rgb", "lanczos", 255.0)
+                  for p in paths])
+    before = pyramid.launches.value
+    with mock.patch.object(pyramid, "maxpool_pyramid",
+                           pyramid.maxpool_pyramid_plain):
+        probs = with_views(x)
+    _check(pyramid.launches.value == before, "plain-pool run launched")
+    _check(probs.shape == (N_PREDICT, SIZE, SIZE, 1)
+           and bool(np.isfinite(probs).all()),
+           f"plain-pool output {probs.shape} not finite")
+    threshold = float(np.median(probs))
+
+    out = os.path.join(tmp, "PredictMasks")
+    ini = os.path.join(train_cfg.save_dir, "Train_Configs.ini")
+    batches = -(-N_PREDICT // PREDICT_BATCH) + 1  # and the warm-up
+    pyramid.launches.reset()  # the main path's run starts here
+    t0 = time.perf_counter()
+    cli(["predict", ini, "--input", images, "--out", out, "--batch",
+         str(PREDICT_BATCH), "--tta", "all", "--threshold", repr(threshold)])
+    verb_s = time.perf_counter() - t0
+    launches = pyramid.launches.value  # ... and ends here
+    want = [os.path.join(out, os.path.splitext(os.path.basename(p))[0]
+                         + "_mask.png") for p in paths]
+    _check(sorted(os.listdir(out)) == sorted(os.path.basename(w)
+                                             for w in want)
+           and len(want) == N_PREDICT, f"masks written: {os.listdir(out)}")
+    _check(launches == 4 * batches,
+           f"predict verb launched the pyramid {launches}x, not 4 x "
+           f"{batches} device batches")
+    print(f"phase 19 predict: the verb (--batch {PREDICT_BATCH} --tta all "
+          f"--threshold {threshold:.6g}, the plain forward's median) wrote "
+          f"{N_PREDICT} masks in {verb_s:.2f} s, {N_PREDICT / verb_s:.1f} "
+          f"img/s (model build, restore, warm-up, decode and PNG writes "
+          f"included); maxpool_pyramid.launches = {launches} = 4 x "
+          f"{batches} device batches of {PREDICT_BATCH} x "
+          f"{1 + PREDICT_VIEWS} images (the warm-up one of them)",
+          flush=True)
+
+    labels = label_from_pred(probs, 1, threshold)
+    masks = np.stack([np.asarray(Image.open(w)) // 255 for w in want])
+    near = np.abs(probs[..., 0] - threshold) < NEAR_THRESHOLD
+    differ = masks != labels
+    _check(not bool((differ & ~near).any()),
+           f"{int((differ & ~near).sum())} mask pixels differ from the "
+           f"plain-pool forward with the views away from the threshold")
+    kprobs = with_views(x)
+    err = float(np.abs(kprobs - probs).max())
+    _check(err <= NEAR_TEST, f"predict forward differs from the plain "
+           f"pool's by {err}")
+    print(f"phase 19 predict: masks equal label_from_pred of the plain-pool "
+          f"forward with the same views at all {int((~near).sum())} pixels "
+          f"farther than {NEAR_THRESHOLD} from the threshold; "
+          f"{int(near.sum())} are nearer, {int(differ.sum())} of them "
+          f"differ; foreground share {float(labels.mean()):.4f}; "
+          f"probabilities in [{float(probs.min()):.4g}, "
+          f"{float(probs.max()):.4g}], the kernels' within {err:.3g} of the "
+          f"plain pool's (<= {NEAR_TEST})", flush=True)
+    x8 = torch.from_numpy(x[:PREDICT_BATCH]).cuda()
+    no_views = Predictor(model, (SIZE, SIZE, 3), max_batch=PREDICT_BATCH)
+    for what, pred in (("without views", no_views),
+                       (f"with {PREDICT_VIEWS} views", with_views)):
+        ms = _p50_ms(lambda: pred.forward(x8))
+        print(f"phase 19 predict: p50 device batch of {PREDICT_BATCH} "
+              f"{what} ({PREDICT_BATCH * (1 + len(pred.tta))} images in one "
+              f"forward): {ms:.3f} ms (host clock, synchronized, {REPS} "
+              f"runs)", flush=True)
+    del model, with_views, no_views
+    torch.cuda.empty_cache()
+    return {"pyramid": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1650,15 +2015,18 @@ def main() -> int:
         trained["train_ds"] = phase_train_ds(tmp)
         tested = phase_test_verb(tmp, _train_config(tmp, "Results"))
         trained["train_multires"] = phase_multires_verbs(tmp)
-    trained.update(phase_config3())
-    phase_train_ds_reference()
-    trained.update(phase_config2())
-    phase_config2_reference()
-    trained.update(phase_config4())
-    trained.update(phase_family())
-    phase_multires_reference()
+        trained.update(phase_config3())
+        phase_train_ds_reference()
+        trained.update(phase_config2())
+        phase_config2_reference()
+        trained.update(phase_config4())
+        trained.update(phase_family())
+        phase_multires_reference()
+        trained["registries"] = phase_registries(tmp)
+        predicted = phase_predict(tmp, _train_config(tmp, "Results"))
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
+    pyr["predict"]["launches"] = predicted["pyramid"]
     for path, run in trained.items():
         pyr[path]["launches"] = run["pyramid"]
         bwd[path]["launches"] = run["backward"]

@@ -452,3 +452,83 @@ def test_cuda_test_verb_runs_end_to_end(tmp_path):
     assert sorted(os.listdir(results / "masks")) == [
         f"pred_{i}.png" for i in range(3)]
     assert (results / "results_confusion_matrix.csv").exists()
+
+
+@pytest.mark.cuda
+def test_cuda_conf_counts_equal_the_broadcast_counts():
+    """The threshold metrics' ``bucketize`` counts on the card equal the
+    broadcast counts at Keras's 200 thresholds, every threshold value and
+    a NaN among the predictions."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train.metrics import (
+        _keras_thresholds, conf_counts, conf_counts_broadcast)
+
+    th = torch.tensor(_keras_thresholds(200), device="cuda")
+    g = torch.Generator().manual_seed(0)
+    p = torch.cat([th.cpu(), torch.rand(4096, generator=g),
+                   torch.tensor([float("nan"), -1.0, 2.0])]).cuda()
+    t = (torch.rand(p.shape, generator=g) > 0.4).float().cuda()
+    got, want = conf_counts(t, p, th), conf_counts_broadcast(t, p, th)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Adam", "Adadelta", "Adagrad", "Adamax",
+                                  "FTRL", "Nadam", "RMSprop", "SGD"])
+def test_cuda_optimizer_with_clips_matches_cpu(name):
+    """Three updates of each optimizer with the three clips biting, on the
+    card and on the CPU from the same parameters and gradients: the
+    parameters agree within 1e-6 relative or 1e-6 absolute.  (FTRL's
+    sigma subtracts the square roots of two nearly equal accumulators and
+    divides by lr, so one float32 ulp of a root moves its parameters,
+    about 7e-3 here, by up to 2e-7.)"""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        make_optimizer)
+
+    g = torch.Generator().manual_seed(1)
+    shapes = [(16, 8, 3, 3), (16,), (4, 16, 1, 1), (4,)]
+    init = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) * (i + 1) for i, s in
+              enumerate(shapes)] for _ in range(3)]
+    clips = dict(global_clipnorm=5.0, clipnorm=1.0, clipvalue=0.2)
+    out = {}
+    for device in ("cpu", "cuda"):
+        ps = [torch.nn.Parameter(x.clone().to(device)) for x in init]
+        opt = make_optimizer(name, ps, 1e-2, **clips)
+        for step in grads:
+            for p, gr in zip(ps, step):
+                p.grad = gr.clone().to(device)
+            opt.step()
+        out[device] = [p.detach().cpu() for p in ps]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_predict_verb_runs_end_to_end(tmp_path):
+    """The ``predict`` verb on the card (its default device) over 3 PNGs
+    in batches of 2 (one padded) with one view: the model's 3 pools
+    launch once per device batch and once for the warm-up, and a mask is
+    written per image."""
+    _need_cuda()
+    import os
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images, write_image_folder)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TrainConfig)
+
+    write_image_folder(str(tmp_path / "In"), *synthetic_images(3, 32))
+    cfg = TrainConfig(imlength=32, imwidth=32, decoder_name="UNetP",
+                      model_width=4, model_depth=3,
+                      save_dir=str(tmp_path / "R"))
+    before = pyramid.launches.value
+    written = drivers.predict(cfg, input_path=str(tmp_path / "In" / "images"),
+                              out_dir=str(tmp_path / "out"), batch=2,
+                              tta="hflip")
+    assert pyramid.launches.value == before + 3 * (2 + 1)
+    assert sorted(os.listdir(tmp_path / "out")) == sorted(
+        os.path.basename(w) for w in written) and len(written) == 3

@@ -1,6 +1,6 @@
 """``python -m tf_1d_2d_segmentation_end2endpipelines_torch
-train|test|serve ...``: the port's command line (JAX: drivers.py:895-900,
-:936-946, :1067-1071)."""
+train|test|serve|predict ...``: the port's command line (JAX:
+drivers.py:895-900, :936-946, :956-968, :1067-1078)."""
 from __future__ import annotations
 
 import argparse
@@ -42,6 +42,25 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
                        "absent (default: the INI seed)")
     p_srv.add_argument("--int8", action="store_true",
                        help="int8 serving (not ported yet: raises)")
+    p_prd = sub.add_parser(
+        "predict", help="segment unlabeled images (a file or a folder) with "
+        "a trained fold's <save_dir>/Fold_<fold>/best.pt; writes PNG masks")
+    p_prd.add_argument("config", nargs="?", default="Train_Configs.ini")
+    p_prd.add_argument("--input", required=True)
+    p_prd.add_argument("--out", default="predicted_masks")
+    p_prd.add_argument("--fold", type=int, default=1)
+    p_prd.add_argument("--threshold", type=float, default=0.5)
+    p_prd.add_argument("--batch", type=int, default=8)
+    p_prd.add_argument("--tta", default="",
+                       help="test-time augmentation: comma list of "
+                       "invertible views to average (hflip,vflip,hvflip"
+                       "[,rot90,rot180,rot270 if square]; 'all'); every "
+                       "view of a batch runs in one forward")
+    p_prd.add_argument("--device", default="cuda",
+                       help="torch device to predict on (default: cuda)")
+    p_prd.add_argument("--seed", type=int, default=None,
+                       help="seed of the weights used when best.pt is "
+                       "absent (default: the INI seed)")
     args = parser.parse_args(argv)
     if args.cmd == "train":
         from .drivers import train
@@ -54,6 +73,11 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
         serve(args.config, host=args.host, port=args.port, fold=args.fold,
               max_batch=args.max_batch, threshold=args.threshold,
               int8=args.int8, device=args.device, seed=args.seed)
+    elif args.cmd == "predict":
+        from .drivers import predict
+        predict(args.config, input_path=args.input, out_dir=args.out,
+                fold=args.fold, threshold=args.threshold, batch=args.batch,
+                tta=args.tta, device=args.device, seed=args.seed)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""The port's verbs: the ``train`` and ``test`` fold loops, and the model
-building and weight restore that ``serve`` uses
-(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/drivers.py:54-138,
-``train`` :197-403 and ``test`` :406-570).
+"""The port's verbs: the ``train`` and ``test`` fold loops, ``predict``
+on unlabeled images, and the model building and weight restore that
+``serve`` uses (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/
+drivers.py:54-138, ``train`` :197-403, ``test`` :406-570 and ``predict``
+:741-827).
 
 Weights live in ``<save_dir>/Fold_<fold>/best.pt``: a ``state_dict`` of the
 port's model, which ``train`` writes and ``serve`` and ``test`` load
@@ -128,9 +129,15 @@ def _check_train_config(cfg: TrainConfig) -> None:
         raise ValueError(f"Unknown ds_type {cfg.ds_type!r}")
     get_loss(cfg.loss_function)
     for name in cfg.metric_list:
-        make_metric(name)
+        make_metric(name, num_classes=_num_classes(cfg))
     make_optimizer(cfg.optimizer_function,
                    [torch.zeros(1, requires_grad=True)], cfg.learning_rate)
+
+
+def _num_classes(cfg: TrainConfig) -> int:
+    """The IoU metrics' size: the background and ``class_number`` classes,
+    at least 2 (JAX drivers.py:324)."""
+    return max(cfg.class_number + 1, 2)
 
 
 def _make_trainer(cfg: TrainConfig, model: torch.nn.Module,
@@ -139,13 +146,17 @@ def _make_trainer(cfg: TrainConfig, model: torch.nn.Module,
     batch becomes its deep-supervision targets on the device, after the
     copy (the JAX driver's ``_wrap_targets``, drivers.py:183; one pyramid
     launch for ds_type ``UNet``), and the heads' losses are weighted by
-    ``default_ds_weights`` (:314-315)."""
+    ``default_ds_weights`` (:314-315).  The metrics are sized by
+    ``class_number`` and the gradients clipped as the INI says (:324,
+    :331-333)."""
     ds = cfg.d_s == 1
     return Trainer(
         model, loss=cfg.loss_function, optimizer=cfg.optimizer_function,
         learning_rate=cfg.learning_rate, metrics=tuple(cfg.metric_list),
         loss_weights=default_ds_weights(cfg.model_depth) if ds else None,
-        device=device,
+        num_classes=_num_classes(cfg), device=device,
+        clipnorm=cfg.clipnorm, clipvalue=cfg.clipvalue,
+        global_clipnorm=cfg.global_clipnorm,
         prepare_targets=functools.partial(
             prepare_train_dict, model_depth=cfg.model_depth,
             ds_type=cfg.ds_type) if ds else None)
@@ -392,3 +403,104 @@ def test(config_path: str = "Test_Configs.ini",
               flush=True)
     reports["cumulative"] = ev.evaluation_table(cm_total, labels)
     return reports
+
+
+def predict(config_path: tp.Union[str, TrainConfig] = "Train_Configs.ini",
+            input_path: str = ".", out_dir: str = "predicted_masks",
+            fold: int = 1, threshold: float = 0.5, batch: int = 8,
+            tta: str = "", device: tp.Union[str, torch.device] = "cuda",
+            seed: tp.Optional[int] = None) -> tp.List[str]:
+    """Segment the unlabeled images under ``input_path`` (a file or a
+    folder) with the fold's ``Fold_<fold>/best.pt`` (a WARNING and weights
+    drawn from ``seed``, default the INI seed, when it is absent) and
+    write ``<out_dir>/<stem>_mask.png`` label masks (``label_from_pred``
+    at ``threshold``); returns their paths.  ``config_path`` is a
+    Train_Configs.ini or a ``TrainConfig``.
+
+    Without patchify the images run in padded chunks of ``min(batch,
+    images)`` through a ``Predictor`` with the ``tta`` views (one forward
+    a chunk), the next chunk decoded in a second thread while the card
+    runs the current one; with patchify each image's patch grid runs
+    through ``Trainer.predict`` and is reassembled by ``unpatchify``.
+    ``ValueError`` for ``batch < 1``, ``FileNotFoundError`` when there is
+    no image, ``NotImplementedError`` for an architecture the port does
+    not build, all before anything is written.  ``device`` defaults to
+    the GPU and never falls back to the CPU."""
+    import concurrent.futures as cf
+
+    from .data.generators import _list_images, load_image
+    from .serve import Predictor
+
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    cfg = (load_train_config(config_path) if isinstance(config_path, str)
+           else config_path)
+    device = resolve_device(device)
+    bad = unported_test_keys(cfg)
+    if bad:
+        raise NotImplementedError(
+            "the port's predict verb does not build these settings yet: "
+            + ", ".join(bad))
+    size = (cfg.imlength, cfg.imwidth)
+    paths = ([input_path] if os.path.isfile(input_path)
+             else _list_images(input_path))
+    if not paths:
+        raise FileNotFoundError(f"no images under {input_path!r}")
+    square = ((cfg.patch_width == cfg.patch_height) if cfg.patchify
+              else size[0] == size[1])
+    views = ev.parse_tta(tta, square=square)
+    model = _restore_model(cfg, _fold_dir(cfg, fold), "predicting with",
+                           device, seed=seed)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def decode(path: str) -> np.ndarray:
+        return load_image(path, size, cfg.image_color_mode, "lanczos",
+                          cfg.normalizing_factor_img)
+
+    def write(pred: np.ndarray, src: str) -> str:
+        return _write_mask(pred, src, out_dir, cfg.class_number, threshold)
+
+    written = []
+    if cfg.patchify:
+        trainer = Trainer(model, device=device)
+        for p in paths:
+            patches, _ = create_patches(
+                decode(p), (cfg.patch_width, cfg.patch_height),
+                cfg.overlap_ratio)
+            pred = unpatchify(trainer.predict(patches, views)["out"], size,
+                              cfg.overlap_ratio)
+            written.append(write(pred, p))
+    else:
+        predictor = Predictor(model, (*size, cfg.num_channels),
+                              max_batch=min(batch, len(paths)), tta=views)
+        chunks = [paths[s:s + predictor.max_batch]
+                  for s in range(0, len(paths), predictor.max_batch)]
+
+        def stack(chunk: tp.List[str]) -> np.ndarray:
+            return np.stack([decode(p) for p in chunk])
+
+        with cf.ThreadPoolExecutor(max_workers=1) as pool:
+            # decode chunk i + 1 while the card runs chunk i (one ahead)
+            nxt = pool.submit(stack, chunks[0])
+            for i, chunk in enumerate(chunks):
+                x = nxt.result()
+                if i + 1 < len(chunks):
+                    nxt = pool.submit(stack, chunks[i + 1])
+                for p, pred in zip(chunk, predictor(x)):
+                    written.append(write(pred, p))
+    print(f"wrote {len(written)} masks to {out_dir}/", flush=True)
+    return written
+
+
+def _write_mask(pred: np.ndarray, src_path: str, out_dir: str,
+                class_number: int, threshold: float) -> str:
+    """``<out_dir>/<stem of src_path>_mask.png``: the label map of
+    ``pred``, scaled over 0..255 (JAX drivers.py:819-827)."""
+    from .serve import _mask_to_png
+
+    label = ev.label_from_pred(pred, class_number, threshold)
+    dst = os.path.join(out_dir, os.path.splitext(
+        os.path.basename(src_path))[0] + "_mask.png")
+    with open(dst, "wb") as f:
+        f.write(_mask_to_png(label, max(class_number, 1) + 1))
+    return dst

@@ -11,8 +11,8 @@
 
 The HTTP skeleton, batcher and metrics have no framework in them and are
 carried over as they are; the JAX package cannot be imported here, since
-its ``__init__`` imports jax.  AOT export, the 1D server, int8 and TTA
-are not ported yet.
+its ``__init__`` imports jax.  AOT export, the 1D server and int8 are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -36,16 +36,24 @@ class Predictor:
     """Batched inference: requests of any size are padded to a fixed
     ``max_batch`` and run in chunks, so the device always sees one batch
     shape.  ``model`` is an eval-mode module on its device whose forward
-    takes NHWC and returns ``{"out": NHWC}``."""
+    takes NHWC and returns ``{"out": NHWC}``.  ``tta`` names views
+    (``eval.tta.TTA_2D``) averaged per prediction (JAX serve.py:118-154):
+    every view of a padded batch goes through the same one forward, of
+    ``max_batch * (1 + len(tta))`` images."""
 
     def __init__(self, model: torch.nn.Module,
-                 input_size: tp.Tuple[int, ...], max_batch: int = 8):
+                 input_size: tp.Tuple[int, ...], max_batch: int = 8,
+                 tta: tp.Sequence[str] = ()):
+        from .eval.tta import make_tta_fn
+
         self.model = model
         self.max_batch = int(max_batch)
         self.input_size = tuple(input_size)
+        self.tta = tuple(tta)
         self.device = next(model.parameters()).device
-        # warm up once on zeros: builds the kernels and picks conv
-        # algorithms before the first request
+        self._fn = make_tta_fn(model, self.tta)
+        # warm up once on zeros, views included: builds the kernels and
+        # picks conv algorithms before the first request
         warm = torch.zeros((self.max_batch, *self.input_size),
                            device=self.device)
         self.output_shape = tuple(self.forward(warm).shape[1:])
@@ -57,7 +65,7 @@ class Predictor:
         Runs under ``inference_mode`` in the calling thread (grad mode is
         per thread)."""
         with torch.inference_mode():
-            return self.model(x)["out"]
+            return self._fn(x)["out"]
 
     def __call__(self, x: np.ndarray) -> np.ndarray:
         x = np.asarray(x, np.float32)

@@ -1,6 +1,7 @@
 """Training of the port (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/
-train): losses, Adam, the train/eval/predict steps, metrics, callbacks,
-state_dict checkpoints and the ``Trainer``."""
+train): the loss, metric and optimizer registries, gradient clipping, the
+train/eval/predict steps, callbacks, state_dict checkpoints and the
+``Trainer``."""
 from .callbacks import (  # noqa: F401
     BestTracker,
     EarlyStopping,
@@ -9,6 +10,7 @@ from .callbacks import (  # noqa: F401
 )
 from .checkpoint import CheckpointManager  # noqa: F401
 from .losses import (  # noqa: F401
+    LOSSES,
     bce_dice_loss,
     binary_crossentropy,
     categorical_crossentropy,
@@ -17,8 +19,10 @@ from .losses import (  # noqa: F401
     dice_loss,
     get_loss,
 )
-from .metrics import Metric, make_metric  # noqa: F401
+from .metrics import METRIC_NAMES, Metric, make_metric  # noqa: F401
 from .optimizers import (  # noqa: F401
+    OPTIMIZER_NAMES,
+    clip_gradients,
     get_learning_rate,
     make_optimizer,
     set_learning_rate,

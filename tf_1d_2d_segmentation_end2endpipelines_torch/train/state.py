@@ -45,7 +45,9 @@ def make_train_step(
     """``train_step(x, y, metric_states) -> (loss, metric_states)``: the
     forward in training mode (BatchNorm on batch statistics, its running
     statistics advanced once), the float32 loss, the backward and one
-    optimizer update, and the metrics of this forward's outputs.  ``x``
+    optimizer update (which clips the gradients first when
+    ``make_optimizer`` was given clips: its step pre-hook, the JAX
+    chain's place), and the metrics of this forward's outputs.  ``x``
     is an NHWC batch on the model's device, ``y`` its NHWC target (or a
     dict of targets by head); ``loss`` is a 0-d float32 tensor on the
     device."""

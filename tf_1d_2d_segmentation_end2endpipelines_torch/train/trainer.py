@@ -42,21 +42,30 @@ class Trainer:
         learning_rate: float = 3e-4,
         metrics: tp.Sequence[str] = (),
         loss_weights: tp.Optional[tp.Dict[str, float]] = None,
+        num_classes: int = 2,
         device: tp.Union[str, torch.device] = "cuda",
         prepare_targets: tp.Optional[
             tp.Callable[[torch.Tensor], Targets]] = None,
+        clipnorm: float = 0.0,
+        clipvalue: float = 0.0,
+        global_clipnorm: float = 0.0,
     ):
         """``model`` is moved to ``device``; the optimizer is built over
-        its parameters there.  ``prepare_targets`` maps a mask batch, on
-        the device, to the step's targets (default: the mask is the
-        ``out`` target)."""
+        its parameters there, its gradients clipped as ``clipnorm``,
+        ``clipvalue`` and ``global_clipnorm`` say (0 = off).
+        ``num_classes`` sizes the IoU metrics.  ``prepare_targets`` maps a
+        mask batch, on the device, to the step's targets (default: the
+        mask is the ``out`` target)."""
         self.device = torch.device(device)
         self.prepare_targets = prepare_targets
         self.model = model.to(self.device)
         self.loss_fn = get_loss(loss)
-        self.optimizer = make_optimizer(optimizer, self.model.parameters(),
-                                        learning_rate)
-        self.metric_defs: tp.List[Metric] = [make_metric(m) for m in metrics]
+        self.optimizer = make_optimizer(
+            optimizer, self.model.parameters(), learning_rate,
+            clipnorm=clipnorm, clipvalue=clipvalue,
+            global_clipnorm=global_clipnorm)
+        self.metric_defs: tp.List[Metric] = [
+            make_metric(m, num_classes=num_classes) for m in metrics]
         self.train_step = make_train_step(self.model, self.optimizer,
                                           self.loss_fn, loss_weights,
                                           self.metric_defs)

@@ -195,9 +195,6 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
         ("zero1", cfg.zero1),
         ("exact_resume", cfg.exact_resume),
         ("tensorboard_dir", bool(cfg.tensorboard_dir.strip())),
-        ("clipnorm", cfg.clipnorm != 0),
-        ("clipvalue", cfg.clipvalue != 0),
-        ("global_clipnorm", cfg.global_clipnorm != 0),
     )
     return [f"{key} = {getattr(cfg, key)!r}" for key, bad in checks if bad]
 

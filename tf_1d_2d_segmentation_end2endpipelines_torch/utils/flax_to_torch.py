@@ -1,5 +1,7 @@
 """Convert the JAX package's flax variables into the port's ``state_dict``,
-and optax's Adam state into ``torch.optim.Adam``'s (``load_adam_state``).
+and optax's optimizer states into the port's optimizers'
+(``load_optax_state`` for the eight of the registry; ``load_adam_state``
+for a bare Adam state).
 
 The port's modules carry the flax auto-names, so a flax path maps to a
 ``state_dict`` key by joining it with dots and renaming the leaf:
@@ -52,7 +54,9 @@ def flax_to_state_dict(variables: tp.Mapping[str, tp.Mapping],
     onto the keys of ``reference`` (a model's ``state_dict()``).
 
     Raises ``KeyError`` on a flax leaf with no torch key, on a torch key no
-    flax leaf fills, and ``ValueError`` on a shape mismatch."""
+    flax leaf fills or two fill, and ``ValueError`` on a shape mismatch:
+    each flax leaf is one torch tensor and back (the per-variable
+    ``clipnorm`` depends on it)."""
     out: tp.Dict[str, torch.Tensor] = {}
     for (collection, *path), value in _flatten(variables):
         leaf = _LEAVES.get((collection, path[-1]))
@@ -63,6 +67,8 @@ def flax_to_state_dict(variables: tp.Mapping[str, tp.Mapping],
         if key not in reference:
             raise KeyError(f"flax leaf {collection}/{'/'.join(path)} has no "
                            f"torch counterpart {key!r}")
+        if key in out:
+            raise KeyError(f"two flax leaves fill the torch key {key!r}")
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
         if arr.dim() == 4:
             arr = arr.permute(3, 2, 0, 1).contiguous()
@@ -100,3 +106,64 @@ def load_adam_state(optimizer: torch.optim.Optimizer,
             "exp_avg": moments[0][name].to(p.device),
             "exp_avg_sq": moments[1][name].to(p.device),
         }
+
+
+#: per optimizer: the optax state that holds its per-parameter trees (by
+#: the fields that hold them) -> the torch state keys they become
+_OPTAX_TREES = {
+    "Adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+    "Adamax": {"mu": "exp_avg", "nu": "exp_inf"},
+    "Nadam": {"mu": "mu", "nu": "nu"},
+    "Adadelta": {"e_g": "square_avg", "e_x": "acc_delta"},
+    "Adagrad": {"sum_of_squares": "sum_of_squares"},
+    "RMSprop": {"nu": "nu"},
+    "SGD": {},
+}
+#: the torch.optim classes' float32 ``step`` tensor; the port's Nadam
+#: counts in a Python int
+_TENSOR_STEP = ("Adam", "Adamax", "Adadelta")
+
+
+def load_optax_state(optimizer: torch.optim.Optimizer,
+                     model: torch.nn.Module, name: str,
+                     opt_state: tp.Any) -> None:
+    """Carry the JAX ``make_optimizer(name, ...)``'s state into the port's
+    ``make_optimizer(name, ...)`` over the parameters of ``model``: the
+    injected learning rate into ``param_groups``, and the inner state of
+    the optimizer, through the clip chain when there is one (its clips
+    keep no state), into ``optimizer.state``, each tree through the
+    parameters' layout (``flax_to_state_dict``) and onto each parameter's
+    device.  ``opt_state`` is read by its fields (``inner_state``,
+    ``hyperparams``, ``count``, ``mu``, ...), so optax need not be
+    importable here."""
+    params = dict(model.named_parameters())
+    lr = float(np.asarray(opt_state.hyperparams["learning_rate"]))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    count = int(np.asarray(opt_state.count))
+    inner = opt_state.inner_state
+    if (isinstance(inner, tuple) and isinstance(inner[-1], tuple)
+            and not hasattr(inner[-1], "_fields")):
+        inner = inner[-1]  # (clip states..., the optimizer's chain)
+    if name == "FTRL":
+        trees = {"accum": inner[0], "linear": inner[1]}
+    elif name in _OPTAX_TREES:
+        fields = _OPTAX_TREES[name]
+        trees = {}
+        if fields:
+            st = next(s for s in inner
+                      if all(hasattr(s, f) for f in fields))
+            trees = {key: getattr(st, f) for f, key in fields.items()}
+            if "count" in st._fields:
+                count = int(np.asarray(st.count))
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    converted = {key: flax_to_state_dict({"params": tree}, params)
+                 for key, tree in trees.items()}
+    for pname, p in params.items():
+        state = {key: c[pname].to(p.device) for key, c in converted.items()}
+        if name in _TENSOR_STEP:
+            state["step"] = torch.tensor(float(count), dtype=torch.float32)
+        elif name == "Nadam":
+            state["step"] = count
+        optimizer.state[p] = state
