@@ -19,8 +19,11 @@ MultiRes family's, MultiResUNet3+ and KSSNet (``MultiResUNet3P``,
 with ``alpha = 1.67`` (``train_multires``); the flagship's train step
 under each optimizer of the registry with the gradient clips, and a train
 verb fold with FocalLoss, Nadam, the clips and the IoU and threshold
-metrics (``registries``); and the ``predict`` verb with every view on the
-trained flagship fold (``predict``).  Phases, each printing lines:
+metrics (``registries``); the ``predict`` verb with every view on the
+trained flagship fold (``predict``); the train verb with gradient
+accumulation, ``conv_outs`` remat, an EMA shadow, the on-card augment and
+exact resume (``train_options``), and with patchify and host augmentation
+(``train_patchify``).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
@@ -110,18 +113,46 @@ trained flagship fold (``predict``).  Phases, each printing lines:
     the same views away from the threshold, the kernels' probabilities
     within 1e-3 of it, 4 pyramid launches a device batch of 8 x 7 images;
     img/s and the p50 device batch with and without the views
+20. the rest of training: the flagship's fixed batch of 16 under each
+    remat mode and with 4 accumulation steps (launches a step: 4 + 4
+    plain and under ``blocks``, 8 + 4 under ``dots``, ``conv_outs`` and
+    ``full``, whose backward recomputes the forward with its pools, 16 +
+    16 with 4 microbatches; p50 and peak memory), the peak memory of a
+    batch of 64 plain, under ``full`` and ``blocks`` and with 4
+    accumulation steps; float32 card-vs-CPU steps of a
+    W8/D3 UNet++ on (4, 64, 64, 3) with 2 accumulation steps, each remat
+    mode, and ``ema_decay`` 0.9 over 3 steps (the shadow within 2 lr of
+    the CPU's and equal to the EMA rule on the card's parameters; the
+    share of parameters beyond 1e-5 held at step 1 only); the on-card
+    augmentation's p50 on the flagship batch and its share of the plain
+    step, card against CPU on the same draws (images within 1e-5, masks
+    equal, label values kept); the train verb with ``accumulation_steps
+    = 4``, ``remat = conv_outs``, ``ema_decay = 0.999``,
+    ``augment_device`` and ``exact_resume`` for 3 epochs, straight (32 +
+    16 launches a step, 4 a validation batch), then in a fresh folder
+    with a SIGTERM to this process in its second epoch (the sidecar
+    records epoch 1) and the same INI again (it trains 2 epochs; the
+    final weights and shadow within 2 lr a resumed step of the straight
+    run's, cuDNN deterministic); ``test`` and ``predict`` on that fold,
+    their masks equal to the plain-pool labels of best.pt with
+    best_ema.pt over it away from the threshold; and the verb for one
+    epoch with ``patchify`` (patches of 128, all of an image's in its
+    batch) and, where OpenCV imports, ``augment`` (4 + 4 launches a step
+    of 64 patches)
 
-Phase 16 runs after phase 12, on its PNGs; phases 18 and 19 run last,
-on phase 6's folders and fold; the others run in their order.
+Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
+last, on phase 6's folders and fold and phase 12's PNGs; the others run
+in their order.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
 ``config2_UNetE``, ``config2_UNetP``, ``test``, ``config4_MultiResUNet``,
 ``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
-``registries`` or ``predict``): the launches of that path's run in phase
-4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted runs and the verb's) or
-19, and the device times and bound of the calls that path makes per batch
-or step; the last is ``{"ok":
+``registries``, ``predict``, ``train_options`` or ``train_patchify``): the
+launches of that path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18
+(its 8 counted runs and the verb's), 19 or 20 (the straight verb run of
+``train_options``, the patchify verb run), and the device times and bound
+of the calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
 
@@ -133,7 +164,9 @@ line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -185,6 +218,17 @@ REG_REF_STEPS = 3
 N_PREDICT = 64
 PREDICT_BATCH = 8
 PREDICT_VIEWS = 6
+#: phase 20: steps of each option at the fixed batch, the verb's epochs,
+#: accumulation, the patchify verb's patch size, the peak-memory batch
+OPT_STEPS = 12
+OPT_EPOCHS = 3
+OPT_ACCUM = 4
+OPT_PATCH = 128
+OPT_BIG_BATCH = 64
+#: phase 20's remat modes: pyramid launches a flagship step (the recomputed
+#: forward launches the encoder's 4 pools again; ``blocks`` recomputes
+#: inside the blocks, between the pools)
+REMAT_FWD = {"": 4, "dots": 8, "conv_outs": 8, "full": 8, "blocks": 4}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 #: bytes zeroed between two timed calls: enough to empty the 50 MB L2 and
 #: to keep the card busy longer than the host takes to enqueue a call
@@ -346,6 +390,12 @@ CONFIG2 = ("UNet", "UNetE", "UNetP")
 CONFIG4 = {"config4_MultiResUNet": ("MultiResUNet", 0),
            "config4_UNet_AG": ("UNet", 1)}
 FAMILY = {"MultiResUNet3P": ("MultiResUNet3P", 0), "KSSNet": ("KSSNet", 0)}
+#: phase 20's verb run: microbatches of TRAIN_BATCH / OPT_ACCUM, each
+#: forward run twice (conv_outs remat); its patchify run: OPT_PATCH patches,
+#: (SIZE / OPT_PATCH)**2 an image
+_ENC_MB = [(TRAIN_BATCH // OPT_ACCUM,) + s[1:] for s in _ENC]
+_ENC_PATCH = [(TRAIN_BATCH * (SIZE // OPT_PATCH) ** 2, OPT_PATCH >> k,
+               OPT_PATCH >> k, 32 << k) for k in range(4)]
 FWD_PATHS = {
     "serve": _FWD_ENC_8,
     "train": _FWD_ENC_TRAIN,
@@ -365,6 +415,8 @@ FWD_PATHS = {
     # their views in one forward
     "predict": [(_BF16, (PREDICT_BATCH * (1 + PREDICT_VIEWS),) + s[1:], 1,
                  (1,)) for s in _ENC],
+    "train_options": [(_BF16, s, 1, (1,)) for s in _ENC_MB] * (2 * OPT_ACCUM),
+    "train_patchify": [(_BF16, s, 1, (1,)) for s in _ENC_PATCH],
 }
 #: the MultiRes encoder pools' kernel (csrc/pyramid.cu): one level at a C
 #: that is not a multiple of 16 bytes, rows starting on 16 bytes
@@ -424,6 +476,8 @@ BWD_PATHS = {
     "KSSNet": _BWD_ENC_MRB[1.0] + _BWD_TAPS_KSS,
     "train_multires": _BWD_ENC_MRB[1.67],
     "registries": _BWD_ENC,
+    "train_options": [(_BF16, s, 2) for s in _ENC_MB] * OPT_ACCUM,
+    "train_patchify": [(_BF16, s, 2) for s in _ENC_PATCH],
 }
 BWD_EDGES = [
     (_F32, (4, 64, 64, 32), 2),      # f32, vector path
@@ -1987,6 +2041,473 @@ def phase_predict(tmp: str, train_cfg) -> dict:
     return {"pyramid": launches}
 
 
+def _option_steps(label: str, cfg, want: tuple, x, y) -> dict:
+    """Phase 20: OPT_STEPS counted fixed-batch flagship steps under the
+    train step options of ``cfg`` (after one that picks cuDNN's
+    algorithms), the counts set to 0 just before them and read just
+    after: ``want`` (pyramid, backward) launches a step; p50 and peak
+    memory (``_fixed_batch``)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+
+    trainer = _trainer_for(cfg)
+    trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    pyramid.launches.reset()  # this option's run starts here
+    pool_backward.launches.reset()
+    p50 = _fixed_batch(f"phase 20 options {label}", trainer, x, y,
+                       steps=OPT_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    got = (pyramid.launches.value, pool_backward.launches.value)  # ends
+    _check(got == (want[0] * OPT_STEPS, want[1] * OPT_STEPS),
+           f"{label}: launched pyramid {got[0]}x, backward {got[1]}x, not "
+           f"{want[0]} and {want[1]} x {OPT_STEPS} steps")
+    print(f"phase 20 options {label}: maxpool_pyramid.launches = {got[0]} "
+          f"= {want[0]} x {OPT_STEPS} steps; maxpool_backward.launches = "
+          f"{got[1]} = {want[1]} x {OPT_STEPS}; p50 {p50 * 1e3:.3f} ms, "
+          f"peak {peak} B ({peak / 2 ** 30:.3f} GiB)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"p50": p50, "peak": peak}
+
+
+def _peak_bytes(cfg, batch: int) -> int:
+    """Peak memory of 2 flagship steps on a batch of ``batch`` (after one
+    that picks cuDNN's algorithms)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+
+    trainer = _trainer_for(cfg)
+    x, y = (trainer.to_device(a) for a in synthetic_images(
+        batch, SIZE, seed=SEED + 12))
+    trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        loss, _ = trainer.train_step(x, y)
+    _check(bool(torch.isfinite(loss)), f"batch {batch}: loss {loss}")
+    peak = torch.cuda.max_memory_allocated()
+    del trainer, x, y
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _options_reference(label: str, kw: dict, want: tuple,
+                       block_remat: bool = False, steps: int = 1) -> None:
+    """Phase 20's float32 check of one train step option: a W8/D3 UNet++
+    on (4, 64, 64, 3); ``steps`` times the CPU's weights and shadow go to
+    the card and both take one step (``make_train_step(**kw)``) with a
+    fresh Adam.  Step 1 is held to phase 7's tolerances
+    (``_reference_errors``); later steps to the same bounds on the loss,
+    gradients, statistics and parameters (2 lr) but not to the share of
+    parameters beyond 1e-5: once the weights have moved, ReLU
+    pre-activations within rounding of zero land apart on the card and
+    the CPU, and Adam's update turns the gradient's rounding into up to 2
+    lr for parameters with gradients near 0 (0.19% and 0.91% of them
+    beyond 1e-5 at steps 2 and 3 in the card runs of PERF.md).  The shadow
+    is held to 2 lr of the CPU's, and the card's update of it to the EMA
+    rule on its own parameters computed on the CPU, bit for bit."""
+    import copy
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        bce_dice_loss, make_optimizer, make_train_step)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train.state import (
+        ema_shadow, ema_update)
+
+    lr = 1e-3
+    cpu = SegModel("UNetPP", 8, 3, generator=torch.Generator().manual_seed(
+        SEED + 3), block_remat=block_remat)
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(rng.uniform(size=(4, 64, 64, 3)).astype(np.float32))
+    y = torch.from_numpy((rng.uniform(size=(4, 64, 64, 1)) > 0.7).astype(
+        np.float32))
+    ema = {m: ema_shadow(m) if kw.get("ema_decay") else None
+           for m in (cpu, gpu)}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    texts = []
+    try:
+        for i in range(steps):
+            gpu.load_state_dict(cpu.state_dict())
+            if ema[cpu] is not None:
+                for e_g, e_c in zip(ema[gpu], ema[cpu]):
+                    e_g.copy_(e_c)
+            step = {m: make_train_step(
+                m, make_optimizer("Adam", m.parameters(), lr), bce_dice_loss,
+                ema=ema[m], **kw) for m in (cpu, gpu)}
+            counts = (pyramid.launches.value, pool_backward.launches.value)
+            loss_c, _ = step[cpu](x, y)
+            _check((pyramid.launches.value, pool_backward.launches.value)
+                   == counts, "the CPU step launched a kernel")
+            prev = ([e.cpu() for e in ema[gpu]] if ema[gpu] is not None
+                    else None)
+            loss_g, _ = step[gpu](x.cuda(), y.cuda())
+            torch.cuda.synchronize()
+            launched = (pyramid.launches.value - counts[0],
+                        pool_backward.launches.value - counts[1])
+            _check(launched == want, f"{label}: the card's step launched "
+                   f"{launched}, not {want}")
+            e = _reference_errors(cpu, loss_c, gpu, loss_g, lr)
+            text = e["text"]
+            ok = e["ok"] or (i > 0 and e["loss"] <= 1e-5
+                             and e["grads"] <= 1e-4 and e["stats"] <= 1e-5
+                             and e["params"] <= 2 * lr)
+            if i > 0:
+                text += " (share not held after step 1)"
+            if prev is not None:
+                gap = max(float((a - b.cpu()).abs().max())
+                          for a, b in zip(ema[cpu], ema[gpu]))
+                ema_update(prev, [p.detach().cpu()
+                                  for p in gpu.parameters()], kw["ema_decay"])
+                rule = all(torch.equal(a, b.cpu())
+                           for a, b in zip(prev, ema[gpu]))
+                ok = ok and gap <= 2 * lr and rule
+                text += (f", shadow max-abs {gap:.3g} <= 2 lr and equal to "
+                         f"the EMA rule on the card's parameters: {rule}")
+            _check(ok, f"float32 {label} step {i + 1}, card vs CPU: {text}")
+            texts.append(f"step {i + 1}: {text}")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    print(f"phase 20 reference {label}: float32 W8/D3 UNet++ on (4, 64, 64, "
+          f"3), card (kernels {want[0]}+{want[1]} launches a step, cuDNN "
+          f"without TF32, deterministic) vs CPU, each step from the CPU's "
+          f"weights and shadow with a fresh Adam: " + "; ".join(texts),
+          flush=True)
+
+
+def _augment_check(step_ms: float) -> None:
+    """Phase 20's on-card augmentation: the p50 of one flagship image and
+    mask batch and its share of the plain step; the card against the CPU
+    on the same draws (images within 1e-5, masks equal, label values
+    kept), the stream's batch-mode draws and per-sample draws with every
+    warp and jitter coin up."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data.device_augment import (  # noqa: E501
+        apply_augment, augment_stream_key, draw_params, make_device_augment)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 11)
+    xg, yg = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    fn = make_device_augment()
+    p50 = _p50_ms(lambda: fn(augment_stream_key(SEED, 0, 0), xg, yg))
+    print(f"phase 20 augment: p50 of the on-card augmentation of a "
+          f"({TRAIN_BATCH}, {SIZE}, {SIZE}, 3) image batch and its mask "
+          f"batch {p50:.3f} ms (draws on the host included, host clock "
+          f"synchronized), {100 * p50 / step_ms:.2f}% of the plain "
+          f"flagship step's p50 {step_ms:.3f} ms", flush=True)
+    labels = set(np.unique(y).tolist())
+    for what, p in (
+            ("stream (seed, 0, 0), batch warp", draw_params(
+                augment_stream_key(SEED, 0, 0), TRAIN_BATCH)),
+            ("per-sample warps, every coin up", draw_params(
+                torch.Generator().manual_seed(SEED), TRAIN_BATCH,
+                p_flip=0.5, p_warp=1.0, p_jitter=1.0, warp_mode="sample"))):
+        gi, gm = apply_augment(xg, yg, p)
+        ci, cm = apply_augment(torch.from_numpy(x), torch.from_numpy(y), p)
+        err = float((gi.cpu() - ci).abs().max())
+        same = bool(torch.equal(gm.cpu(), cm))
+        kept = set(np.unique(gm.cpu().numpy()).tolist()) <= labels
+        _check(err <= 1e-5 and same and kept,
+               f"augment {what}: images max-abs {err}, masks equal {same}, "
+               f"labels kept {kept}")
+        print(f"phase 20 augment {what}: card vs CPU images max-abs "
+              f"{err:.3g} <= 1e-5, masks equal, mask values within "
+              f"{sorted(labels)}; {int(p['do_warp'].sum())} of "
+              f"{TRAIN_BATCH} warped", flush=True)
+
+
+def _options_config(tmp: str, results: str):
+    return _train_config(tmp, results, num_epochs=OPT_EPOCHS,
+                         accumulation_steps=OPT_ACCUM, remat="conv_outs",
+                         ema_decay=0.999, augment_device=True,
+                         exact_resume=True)
+
+
+def _counted_verb(cfg, loader_call=None) -> tuple:
+    """The train verb on the card, the counts set to 0 just before it and
+    read just after; ``loader_call`` replaces ``PrefetchLoader.__call__``
+    for the run.  Returns (history, pyramid, backward, seconds)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+
+    patch = (mock.patch.object(drivers.PrefetchLoader, "__call__",
+                               loader_call) if loader_call is not None
+             else contextlib.nullcontext())
+    with patch:
+        pyramid.launches.reset()  # the main path's run starts here
+        pool_backward.launches.reset()
+        t0 = time.perf_counter()
+        hist = drivers.train(config=cfg, device="cuda")[1]
+        torch.cuda.synchronize()
+        counts = (pyramid.launches.value, pool_backward.launches.value)
+    return (hist, *counts, time.perf_counter() - t0)  # ... and ends here
+
+
+def _state_gap(a: str, b: str) -> float:
+    import torch
+
+    sa = torch.load(a, map_location="cpu", weights_only=True)
+    sb = torch.load(b, map_location="cpu", weights_only=True)
+    gaps = [float((sa["model"][k].float() - sb["model"][k].float())
+                  .abs().max()) for k in sa["model"]]
+    gaps += [float((sa["ema"][k] - sb["ema"][k]).abs().max())
+             for k in sa["ema"]]
+    return max(gaps)
+
+
+def _shadow_labels(cfg, x: np.ndarray, shadow: bool) -> tuple:
+    """Probabilities and labels of the fold's best.pt with (or without)
+    its EMA shadow loaded over the parameters by hand, plain pool on the
+    card, in batches of TEST_BATCH."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.eval import (
+        label_from_pred)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+
+    fold = os.path.join(cfg.save_dir, "Fold_1")
+    model = drivers._build_model(cfg)
+    model.load_state_dict(torch.load(os.path.join(fold, "best.pt"),
+                                     weights_only=True))
+    if shadow:
+        with open(os.path.join(fold, "best.pt"), "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        saved = torch.load(os.path.join(fold, "best_ema.pt"),
+                           weights_only=True)
+        _check(saved["weights_sha256"] == digest,
+               "best_ema.pt was saved with other weights than best.pt")
+        model.load_state_dict(saved["ema"], strict=False)
+    trainer = Trainer(model, device="cuda")
+    before = pyramid.launches.value
+    with mock.patch.object(pyramid, "maxpool_pyramid",
+                           pyramid.maxpool_pyramid_plain):
+        probs = np.concatenate([trainer.predict(x[i:i + TEST_BATCH])["out"]
+                                for i in range(0, len(x), TEST_BATCH)])
+    _check(pyramid.launches.value == before, "plain-pool run launched")
+    return probs, label_from_pred(probs, 1, THRESHOLD)
+
+
+def _verbs_on_shadow(tmp: str, cfg) -> None:
+    """Phase 20: the ``test`` and ``predict`` verbs on the fold ``cfg``
+    trained with an EMA shadow, over phase 12's PNGs: their masks equal
+    the labels of the plain-pool forward of best.pt with best_ema.pt over
+    it, away from the threshold."""
+    from PIL import Image
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        SegmentationFolderDataset)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig)
+
+    test_dir = os.path.join(tmp, "Data", "Test")
+    ds = SegmentationFolderDataset(test_dir, (SIZE, SIZE))
+    x = np.stack([ds.load_pair(i)[0] for i in range(len(ds))])
+    probs, labels = _shadow_labels(cfg, x, shadow=True)
+    _, raw = _shadow_labels(cfg, x, shadow=False)
+    near = np.abs(probs[..., 0] - THRESHOLD) < NEAR_TEST
+    tcfg = TestConfig(test_dir=test_dir, imheight=SIZE, imwidth=SIZE,
+                      batch_size=TEST_BATCH, threshold=THRESHOLD,
+                      save_dir=cfg.save_dir)
+    rep = drivers.test(config=tcfg, device="cuda")[1]
+    _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+    tested = np.stack([np.asarray(Image.open(os.path.join(
+        cfg.save_dir, "test_results", "fold_1", "masks", f"pred_{i}.png")))
+        // 255 for i in range(len(ds))])
+    out = os.path.join(tmp, "PredictShadow")
+    drivers.predict(os.path.join(cfg.save_dir, "Train_Configs.ini"),
+                    input_path=os.path.join(test_dir, "images"),
+                    out_dir=out, batch=TEST_BATCH, threshold=THRESHOLD,
+                    device="cuda")
+    predicted = np.stack([np.asarray(Image.open(os.path.join(
+        out, os.path.splitext(os.path.basename(p))[0] + "_mask.png"))) // 255
+        for p in ds.image_paths])
+    for verb, masks in (("test", tested), ("predict", predicted)):
+        differ = masks != labels
+        _check(not bool((differ & ~near).any()),
+               f"{verb} verb: {int((differ & ~near).sum())} mask pixels "
+               f"differ from the shadow's plain-pool labels away from the "
+               f"threshold")
+        print(f"phase 20 verbs: the {verb} verb's {len(ds)} masks equal the "
+              f"plain-pool labels of best.pt with best_ema.pt loaded over "
+              f"it at all {int((~near).sum())} pixels farther than "
+              f"{NEAR_TEST} from the threshold ({int(differ.sum())} of "
+              f"{int(near.sum())} nearer ones differ); the raw weights' "
+              f"labels differ from the shadow's at {int((raw != labels).sum())}"
+              f" pixels", flush=True)
+
+
+def phase_train_options(tmp: str) -> dict:
+    """Phase 20: the rest of training on the flagship.  Fixed-batch steps
+    under each remat mode and accumulation (launch counts, p50, peak
+    memory), peak memory at batch 64 plain, under ``full`` and ``blocks``
+    and with accumulation; float32
+    card-vs-CPU steps for each option; the on-card augmentation; the train
+    verb with accumulation, ``conv_outs`` remat, EMA, the on-card augment
+    and exact resume, straight through and again with a SIGTERM in its
+    second epoch and a resume; ``test`` and ``predict`` on the shadow;
+    returns the verb run's counts (the ``train_options`` row)."""
+    import signal
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+
+    base = _train_config(tmp, "ResultsOpt")
+    x, y = (torch.from_numpy(a).cuda() for a in synthetic_images(
+        TRAIN_BATCH, SIZE, seed=SEED + 2))
+    runs = {}
+    for mode, fwd in REMAT_FWD.items():
+        runs[mode or "none"] = _option_steps(
+            f"remat {mode or 'none'}", dataclasses.replace(base, remat=mode),
+            (fwd, 4), x, y)
+    runs["accum"] = _option_steps(
+        f"accumulation_steps {OPT_ACCUM}", dataclasses.replace(
+            base, accumulation_steps=OPT_ACCUM),
+        (4 * OPT_ACCUM, 4 * OPT_ACCUM), x, y)
+    del x, y
+    torch.cuda.empty_cache()
+    big = {f"remat {mode or 'none'}": _peak_bytes(
+        dataclasses.replace(base, remat=mode), OPT_BIG_BATCH)
+        for mode in ("", "full", "blocks")}
+    big[f"accumulation_steps {OPT_ACCUM}"] = _peak_bytes(
+        dataclasses.replace(base, accumulation_steps=OPT_ACCUM),
+        OPT_BIG_BATCH)
+    print(f"phase 20 options: peak memory of a batch of {OPT_BIG_BATCH}: "
+          + "; ".join(f"{k} {v} B ({v / 2 ** 30:.3f} GiB)"
+                      for k, v in big.items()), flush=True)
+    for label, kw, want, blocks, steps in (
+            ("accumulation_steps 2", dict(accum_steps=2), (6, 6), False, 1),
+            ("remat dots", dict(remat="dots"), (6, 3), False, 1),
+            ("remat conv_outs", dict(remat="conv_outs"), (6, 3), False, 1),
+            ("remat full", dict(remat="full"), (6, 3), False, 1),
+            ("remat blocks", {}, (3, 3), True, 1),
+            ("ema_decay 0.9", dict(ema_decay=0.9), (3, 3), False, 3)):
+        _options_reference(label, kw, want, blocks, steps)
+    _augment_check(runs["none"]["p50"] * 1e3)
+
+    # the train verb: straight through, then SIGTERM in epoch 2 and resume
+    steps = N_TRAIN // TRAIN_BATCH  # a partial batch is dropped
+    val_batches = -(-N_VAL // TRAIN_BATCH)
+    fwd_step, bwd_step = (len(FWD_PATHS["train_options"]),
+                          len(BWD_PATHS["train_options"]))
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg_a = _options_config(tmp, "ResultsOptA")
+        hist, fwd, bwd, secs = _counted_verb(cfg_a)
+        _check(len(hist["loss"]) == OPT_EPOCHS
+               and all(np.isfinite(hist["loss"] + hist["val_loss"])),
+               f"non-finite or missing losses {hist}")
+        _check((fwd, bwd) == (
+            OPT_EPOCHS * (fwd_step * steps + 4 * val_batches),
+            OPT_EPOCHS * bwd_step * steps),
+            f"verb launched pyramid {fwd}x, backward {bwd}x")
+        print(f"phase 20 verb: accumulation_steps {OPT_ACCUM}, remat "
+              f"conv_outs, ema_decay 0.999, augment_device, exact_resume, "
+              f"{OPT_EPOCHS} epochs in {secs:.2f} s; maxpool_pyramid."
+              f"launches = {fwd} = {OPT_EPOCHS} x ({fwd_step} x {steps} "
+              f"steps + 4 x {val_batches} val batches); maxpool_backward."
+              f"launches = {bwd} = {OPT_EPOCHS} x {bwd_step} x {steps}; "
+              f"loss {hist['loss']}, val_loss {hist['val_loss']}, steps/s "
+              f"{hist['steps_per_sec']}", flush=True)
+        counts = {"pyramid": fwd, "backward": bwd}
+
+        real = drivers.PrefetchLoader.__call__
+        epochs_seen = {"n": 0}
+
+        def preempting(loader):
+            batches = real(loader)
+            if not loader.shuffle:  # the validation loader
+                return batches
+            epochs_seen["n"] += 1
+            epoch = epochs_seen["n"]
+
+            def gen():
+                for i, b in enumerate(batches):
+                    if epoch == 2 and i == 3:
+                        os.kill(os.getpid(), signal.SIGTERM)
+                    yield b
+            return gen()
+
+        cfg_b = _options_config(tmp, "ResultsOptB")
+        meta_path = os.path.join(cfg_b.save_dir, "Fold_1", "last.meta.json")
+        hist_b, fwd_b, _, _ = _counted_verb(cfg_b, preempting)
+        with open(meta_path) as f:
+            meta = json.load(f)
+        _check(meta["epoch"] == 1 and len(hist_b["loss"]) == 1,
+               f"after the SIGTERM: meta epoch {meta['epoch']}, "
+               f"{len(hist_b['loss'])} epochs in the history")
+        hist_c, fwd_c, bwd_c, _ = _counted_verb(cfg_b)
+        resumed = OPT_EPOCHS - 1
+        _check((fwd_c, bwd_c) == (
+            resumed * (fwd_step * steps + 4 * val_batches),
+            resumed * bwd_step * steps) and len(hist_c["loss"]) == OPT_EPOCHS,
+            f"the resumed run launched {fwd_c} + {bwd_c}, history "
+            f"{len(hist_c['loss'])} epochs: not a resume at epoch 1")
+        gap = _state_gap(
+            os.path.join(cfg_a.save_dir, "Fold_1", "last.pt"),
+            os.path.join(cfg_b.save_dir, "Fold_1", "last.pt"))
+        _check(gap == 0, f"resumed weights or shadow differ from the "
+               f"straight run's by {gap} (cuDNN deterministic: must be 0)")
+        print(f"phase 20 verb: a SIGTERM to this process in epoch 2 (its "
+              f"4th batch) stopped the run after {fwd_b} pyramid launches "
+              f"with last.meta.json epoch {meta['epoch']}; the same INI again "
+              f"resumed at epoch {meta['epoch']} (0-based) and trained "
+              f"{resumed} epochs ({fwd_c} + {bwd_c} launches); its final "
+              f"weights and shadow differ from the straight run's by "
+              f"{gap:.3g} max-abs (must be 0: cuDNN deterministic); "
+              f"val_loss "
+              f"{hist_c['val_loss']} vs {hist['val_loss']}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    _verbs_on_shadow(tmp, cfg_b)
+    return counts
+
+
+def phase_train_patchify(tmp: str) -> dict:
+    """Phase 20: the train verb with ``patchify`` (OPT_PATCH patches, every
+    image's patches in its batch) and, where OpenCV imports, host
+    ``augment``; 4 + 4 launches a step on the patch batches."""
+    import importlib.util
+
+    augment = importlib.util.find_spec("cv2") is not None
+    why = "OpenCV imports" if augment else "no OpenCV on this host"
+    print(f"phase 20 patchify: patches of {OPT_PATCH}, augment = "
+          f"{int(augment)} ({why})", flush=True)
+    cfg = _train_config(tmp, "ResultsPatch", num_epochs=1, patchify=True,
+                        patch_width=OPT_PATCH, patch_height=OPT_PATCH,
+                        augment=augment)
+    run = _run_train_verb("phase 20 patchify", cfg, "train_patchify")
+    return {"pyramid": run["pyramid"], "backward": run["backward"]}
+
+
 def main() -> int:
     import torch
 
@@ -2024,6 +2545,8 @@ def main() -> int:
         phase_multires_reference()
         trained["registries"] = phase_registries(tmp)
         predicted = phase_predict(tmp, _train_config(tmp, "Results"))
+        trained["train_options"] = phase_train_options(tmp)
+        trained["train_patchify"] = phase_train_patchify(tmp)
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

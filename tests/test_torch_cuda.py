@@ -532,3 +532,64 @@ def test_cuda_predict_verb_runs_end_to_end(tmp_path):
     assert pyramid.launches.value == before + 3 * (2 + 1)
     assert sorted(os.listdir(tmp_path / "out")) == sorted(
         os.path.basename(w) for w in written) and len(written) == 3
+
+
+# ---------------------------------------------- the rest of training
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,warp_mode,fast", [
+    (0, "batch", True), (1, "sample", True), (2, "sample", False)])
+def test_cuda_device_augment_equals_the_cpu(seed, warp_mode, fast):
+    """The on-card augmentation of a batch equals the same draws applied
+    on the CPU: images within 1e-5, masks equal, label values kept."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        device_augment as da)
+
+    g = torch.Generator().manual_seed(10 + seed)
+    x = torch.rand((4, 64, 64, 3), generator=g)
+    y = torch.randint(0, 3, (4, 64, 64, 1), generator=g).float() / 2
+    p = da.draw_params(torch.Generator().manual_seed(seed), 4, p_warp=0.8,
+                       p_jitter=0.8, warp_mode=warp_mode)
+    gi, gm = da.apply_augment(x.cuda(), y.cuda(), p, fast_warp=fast)
+    ci, cm = da.apply_augment(x, y, p, fast_warp=fast)
+    assert float((gi.cpu() - ci).abs().max()) <= 1e-5
+    assert torch.equal(gm.cpu(), cm)
+    assert set(gm.unique().tolist()) <= {0.0, 0.5, 1.0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option,want", [
+    ({}, (3, 3)), ({"remat": "dots"}, (6, 3)),
+    ({"remat": "conv_outs"}, (6, 3)), ({"remat": "full"}, (6, 3)),
+    ({"block_remat": True}, (3, 3)), ({"accum_steps": 2}, (6, 6)),
+    ({"accum_steps": 2, "remat": "conv_outs"}, (12, 6))],
+    ids=["plain", "dots", "conv_outs", "full", "blocks", "accum2",
+         "accum2_conv_outs"])
+def test_cuda_launches_per_step_under_remat_and_accumulation(option, want):
+    """A W8/D3 UNet++ step on the card launches the pyramid once per
+    encoder pool and forward (the recomputed forward of dots, conv_outs
+    and full again; blocks recompute between the pools) and the backward
+    once per pool, per microbatch."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        bce_dice_loss, make_optimizer, make_train_step)
+
+    option = dict(option)
+    model = SegModel("UNetPP", 8, 3, dtype=torch.bfloat16,
+                     block_remat=option.pop("block_remat", False),
+                     generator=torch.Generator().manual_seed(0)).cuda()
+    step = make_train_step(model, make_optimizer("Adam", model.parameters(),
+                                                 1e-3), bce_dice_loss,
+                           **option)
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((4, 64, 64, 3), generator=g).cuda()
+    y = (torch.rand((4, 64, 64, 1), generator=g) > 0.5).float().cuda()
+    step(x, y)
+    before = (pyramid.launches.value, pool_backward.launches.value)
+    loss, _ = step(x, y)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert (pyramid.launches.value - before[0],
+            pool_backward.launches.value - before[1]) == want

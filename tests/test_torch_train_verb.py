@@ -27,6 +27,7 @@ from tf_1d_2d_segmentation_end2endpipelines_tpu.train import (  # noqa: E402
 from tf_1d_2d_segmentation_end2endpipelines_tpu.utils import (  # noqa: E402
     config as jconfig)
 from tf_1d_2d_segmentation_end2endpipelines_torch import drivers, serve  # noqa: E402
+from tf_1d_2d_segmentation_end2endpipelines_torch import eval as ev  # noqa: E402
 from tf_1d_2d_segmentation_end2endpipelines_torch.__main__ import (  # noqa: E402
     main as cli_main)
 from tf_1d_2d_segmentation_end2endpipelines_torch.data import (  # noqa: E402
@@ -34,7 +35,7 @@ from tf_1d_2d_segmentation_end2endpipelines_torch.data import (  # noqa: E402
 from tf_1d_2d_segmentation_end2endpipelines_torch.train import (  # noqa: E402
     callbacks, losses, metrics)
 from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (  # noqa: E402
-    TrainConfig, load_train_config, save_train_config)
+    TrainConfig, load_train_config, save_train_config, unported_train_keys)
 
 SIZE = 32
 METRICS = ("BinaryAccuracy", "MeanSquaredError", "BinaryIoU",
@@ -77,8 +78,10 @@ def test_train_verb_writes_best_weights_that_serve_answers_with(trained):
 
     tmp, cfg, _ = trained
     fold = os.path.join(cfg.save_dir, "Fold_1")
-    assert sorted(os.listdir(fold)) == ["best.pt", "best_optimizer.pt",
-                                        "history.json"]
+    want = ["best.pt", "best_optimizer.pt", "history.h5", "history.json"]
+    if ev.have_matplotlib():
+        want.append("history.png")
+    assert sorted(os.listdir(fold)) == want
     with open(os.path.join(fold, "history.json")) as f:
         hist = json.load(f)
     assert len(hist["loss"]) == 2 and all(np.isfinite(hist["loss"]))
@@ -164,16 +167,42 @@ def test_train_verb_resumes_from_best(trained, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("a_e", 1), ("augment", True), ("augment_device", True),
-    ("patchify", True), ("accumulation_steps", 2), ("remat", "dots"),
-    ("ema_decay", 0.9), ("model_parallel", 2), ("spatial_parallel", 2),
-    ("pipeline_parallel", 2), ("zero1", True), ("exact_resume", True),
-    ("tensorboard_dir", "tb"), ("decoder_name", "UNet4P"),
+    ("a_e", 1), ("model_parallel", 2), ("spatial_parallel", 2),
+    ("pipeline_parallel", 2), ("zero1", True), ("decoder_name", "UNet4P"),
 ])
 def test_unported_settings_raise_before_anything_is_written(tmp_path, key,
                                                             value):
     cfg = _cfg(str(tmp_path), **{key: value})
     with pytest.raises(NotImplementedError):
+        drivers.train(config=cfg, device="cpu")
+    assert not os.path.exists(cfg.save_dir)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("augment", True), ("augment_device", True), ("patchify", True),
+    ("accumulation_steps", 2), ("remat", "dots"), ("remat", "blocks"),
+    ("ema_decay", 0.9), ("exact_resume", True), ("tensorboard_dir", "tb"),
+])
+def test_training_settings_pass_the_verbs_check(tmp_path, key, value):
+    """The settings this verb takes since the rest of training was ported
+    pass its check, which writes nothing."""
+    cfg = _cfg(str(tmp_path), **{key: value})
+    assert unported_train_keys(cfg) == []
+    drivers._check_train_config(cfg)
+    assert not os.path.exists(cfg.save_dir)
+
+
+@pytest.mark.parametrize("settings,match", [
+    (dict(augment=True, augment_device=True), "alternatives"),
+    (dict(augment_device=True, patchify=True), "does not compose"),
+    (dict(accumulation_steps=3), "divisible"),
+], ids=["augment_twice", "device_augment_patches", "accumulation"])
+def test_combinations_raise_before_anything_is_written(tmp_path, settings,
+                                                       match):
+    """The JAX verb's guards (drivers.py:207-220, :309-313), before the
+    port's verb writes anything."""
+    cfg = _cfg(str(tmp_path), **settings)
+    with pytest.raises(ValueError, match=match):
         drivers.train(config=cfg, device="cpu")
     assert not os.path.exists(cfg.save_dir)
 
@@ -312,12 +341,15 @@ def test_prefetch_loader_batches_equal_jax(tmp_path, shuffle, drop):
 
 
 def test_loader_refuses_what_is_not_ported(tmp_path):
+    """Nothing of the loader is refused any more: augment and patchify
+    give batches (tests/test_torch_augment.py holds them to JAX's); an
+    epoch without a batch still raises."""
     x, y = synthetic.synthetic_images(2, 8, seed=0)
     synthetic.write_image_folder(str(tmp_path), x, y)
     ds = generators.SegmentationFolderDataset(str(tmp_path), (8, 8))
-    for kw in ({"augment": True}, {"patchify": True}):
-        with pytest.raises(NotImplementedError):
-            generators.PrefetchLoader(ds, 2, **kw)
+    for kw in ({"augment": True}, {"patchify": True,
+                                   "patch_shape": (4, 4)}):
+        assert len(list(generators.PrefetchLoader(ds, 2, **kw)())) == 1
     with pytest.raises(ValueError, match="no batches"):
         generators.PrefetchLoader(ds, 3, drop_remainder=True)()
 

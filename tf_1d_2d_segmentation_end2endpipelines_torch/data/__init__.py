@@ -3,6 +3,7 @@ from .generators import (  # noqa: F401
     PrefetchLoader,
     SegmentationFolderDataset,
     SubsetDataset,
+    augment_pair,
     load_image,
     split_dataset,
 )

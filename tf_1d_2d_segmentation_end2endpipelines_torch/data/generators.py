@@ -3,8 +3,9 @@
 
 Ported: ``load_image`` (the PIL branch, :46-55; the JAX package's native
 decoder is bit-identical to it), ``SegmentationFolderDataset`` (:58),
-``split_dataset`` (:115) and ``PrefetchLoader`` (:125) without on-the-fly
-augmentation or patchify, which raise.
+``split_dataset`` (:115), ``PrefetchLoader`` (:125) with on-the-fly
+augmentation and patchify, and ``augment_pair`` with ``_warp_pair``
+(:261-315; OpenCV imported when a pair is warped).
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import os
 import typing as tp
 
 import numpy as np
+
+from .patch import create_patches
 
 _EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 
@@ -114,16 +117,23 @@ class PrefetchLoader:
     flight ahead of the consumer.  The shuffle of epoch e is
     ``default_rng(seed + e)``, as in the JAX package, so both give the
     same batches in the same order.  ``cache`` keeps decoded pairs in RAM
-    after their first epoch."""
+    after their first epoch.  ``augment`` runs ``augment_pair`` on each
+    decoded pair with ``default_rng((seed, e + 1, index))`` in the epoch
+    shuffled with ``seed + e``, as the JAX loader does; ``patchify``
+    then cuts image and mask into ``patch_shape`` patches
+    (``create_patches``), all of a pair's patches in its batch."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 1, num_workers: int = 4,
                  prefetch_batches: int = 2, drop_remainder: bool = False,
                  cache: bool = False, augment: bool = False,
-                 patchify: bool = False):
-        if augment or patchify:
-            raise NotImplementedError(
-                "PrefetchLoader: augment and patchify are not ported yet")
+                 patchify: bool = False,
+                 patch_shape: tp.Tuple[int, int] = (64, 64),
+                 overlap_ratio: float = 0.0):
+        self.augment = augment
+        self.patchify = patchify
+        self.patch_shape = patch_shape
+        self.overlap_ratio = overlap_ratio
         self.ds = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -135,7 +145,14 @@ class PrefetchLoader:
         self._cached: tp.Dict[int, tp.Tuple[np.ndarray, np.ndarray]] = {}
         self._epoch = 0
 
-    def _load_one(self, i: int) -> tp.Tuple[np.ndarray, np.ndarray]:
+    def set_epoch(self, epoch: int) -> None:
+        """Fast-forward the epoch counter (exact resume): the shuffle and
+        the augmentation are keyed by (seed, epoch), so a resumed run sees
+        the data the uninterrupted run would have seen."""
+        self._epoch = int(epoch)
+
+    def _load_one(self, i: int, epoch: int
+                  ) -> tp.Tuple[np.ndarray, np.ndarray]:
         if self.cache and i in self._cached:
             img, msk = self._cached[i]
         else:
@@ -144,6 +161,14 @@ class PrefetchLoader:
                 # dict writes are atomic under the GIL; two threads may
                 # both decode one index, and either result is right
                 self._cached[i] = (img, msk)
+        if self.augment:
+            img, msk = augment_pair(
+                img, msk, np.random.default_rng((self.seed, epoch, i)))
+        if self.patchify:
+            return (create_patches(img, self.patch_shape,
+                                   self.overlap_ratio)[0],
+                    create_patches(msk, self.patch_shape,
+                                   self.overlap_ratio)[0])
         return img[None], msk[None]
 
     def __call__(self) -> tp.Iterator[tp.Tuple[np.ndarray, np.ndarray]]:
@@ -152,22 +177,29 @@ class PrefetchLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         self._epoch += 1
+        # the JAX loader's decode tasks read the counter after this
+        # increment: the augmentation of the epoch shuffled with
+        # seed + e is keyed by e + 1
+        epoch = self._epoch
         stop = n - (n % self.batch_size) if self.drop_remainder else n
         batches = [idx[s:s + self.batch_size]
                    for s in range(0, stop, self.batch_size)]
         if not batches:
             raise ValueError(
                 f"PrefetchLoader yields no batches: dataset has {n} "
-                f"example(s) and batch_size={self.batch_size}")
-        return self._iterate(batches)
+                f"example(s) and batch_size={self.batch_size}"
+                + (" with drop_remainder=True (accumulation requires "
+                   "full batches); shrink batch_size or add data"
+                   if self.drop_remainder and n else ""))
+        return self._iterate(batches, epoch)
 
-    def _iterate(self, batches: tp.List[np.ndarray]
+    def _iterate(self, batches: tp.List[np.ndarray], epoch: int
                  ) -> tp.Iterator[tp.Tuple[np.ndarray, np.ndarray]]:
         flat = [int(i) for b in batches for i in b]
         window = self.batch_size * self.prefetch_batches
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             futures: tp.Dict[int, cf.Future] = {
-                j: pool.submit(self._load_one, flat[j])
+                j: pool.submit(self._load_one, flat[j], epoch)
                 for j in range(min(window, len(flat)))}
             pos = 0
             for b in batches:
@@ -177,7 +209,62 @@ class PrefetchLoader:
                     nxt = pos + window
                     if nxt < len(flat):
                         futures[nxt] = pool.submit(self._load_one,
-                                                   flat[nxt])
+                                                   flat[nxt], epoch)
                     pos += 1
                 yield (np.concatenate([p[0] for p in parts], 0),
                        np.concatenate([p[1] for p in parts], 0))
+
+
+def _warp_pair(img: np.ndarray, msk: np.ndarray, angle: float,
+               scale: float, tx: float, ty: float
+               ) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """One affine (rotation about the centre, scale, shift as fractions of
+    the canvas) on both arrays: bilinear for the image, nearest for the
+    mask so its label values survive, reflect-101 borders (JAX
+    generators.py:261-280)."""
+    import cv2
+
+    h, w = img.shape[:2]
+    mat = cv2.getRotationMatrix2D((w / 2.0, h / 2.0), angle, scale)
+    mat[0, 2] += tx * w
+    mat[1, 2] += ty * h
+    kw = dict(dsize=(w, h), borderMode=cv2.BORDER_REFLECT_101)
+    img_w = cv2.warpAffine(img, mat, flags=cv2.INTER_LINEAR, **kw)
+    msk_w = cv2.warpAffine(msk, mat, flags=cv2.INTER_NEAREST, **kw)
+    # cv2 drops a singleton channel axis
+    if img_w.ndim == 2:
+        img_w = img_w[..., None]
+    if msk_w.ndim == 2:
+        msk_w = msk_w[..., None]
+    return img_w, msk_w
+
+
+def augment_pair(img: np.ndarray, msk: np.ndarray, rng: np.random.Generator
+                 ) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """Geometric and photometric augmentation of one image/mask pair, with
+    the draws of the JAX package's ``augment_pair`` (generators.py:283)
+    from ``rng`` in the same order: horizontal and vertical flips, rot90
+    on square inputs, shift-scale-rotate (+-30 degrees, scale 0.9-1.1,
+    shift +-6.25%), brightness and contrast on the image only.  The mask
+    takes every geometric op with nearest sampling."""
+    if rng.random() < 0.5:
+        img, msk = img[:, ::-1], msk[:, ::-1]
+    if rng.random() < 0.5:
+        img, msk = img[::-1], msk[::-1]
+    k = int(rng.integers(0, 4))
+    if k and img.shape[0] == img.shape[1]:
+        img, msk = np.rot90(img, k), np.rot90(msk, k)
+    if rng.random() < 0.5:
+        img, msk = _warp_pair(
+            np.ascontiguousarray(img, np.float32),
+            np.ascontiguousarray(msk, np.float32),
+            angle=float(rng.uniform(-30.0, 30.0)),
+            scale=float(rng.uniform(0.9, 1.1)),
+            tx=float(rng.uniform(-0.0625, 0.0625)),
+            ty=float(rng.uniform(-0.0625, 0.0625)))
+    if rng.random() < 0.3:
+        hi = 255.0 if img.max() > 1.0 else 1.0  # raw 0-255 or normalized
+        img = np.clip(img * rng.uniform(0.8, 1.2)
+                      + rng.uniform(-0.05, 0.05) * hi, 0.0, hi)
+    return (np.ascontiguousarray(img, np.float32),
+            np.ascontiguousarray(msk, np.float32))

@@ -25,13 +25,15 @@ from .data import (DS_TYPES, PrefetchLoader, SegmentationFolderDataset,
                    prepare_train_dict, split_dataset)
 from .data.patch import create_patches, unpatchify
 from .models import model_selector
+from .ops.remat import check_policy
 from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
                     Trainer, default_ds_weights, get_loss, make_metric,
                     make_optimizer)
 from .train.checkpoint import weights_file
 from .utils.config import (TestConfig, TrainConfig, load_test_config,
-                           load_train_config, save_train_config,
-                           unported_test_keys, unported_train_keys)
+                           load_train_config, resume_token,
+                           save_train_config, unported_test_keys,
+                           unported_train_keys)
 
 #: file name of a fold's serving weights under its checkpoint directory
 BEST_WEIGHTS = weights_file("best")
@@ -72,6 +74,7 @@ def _build_model(cfg: TrainConfig, dtype: tp.Optional[torch.dtype] = None,
         train_mode=cfg.train_mode,
         dtype=_resolve_dtype(cfg, dtype),
         generator=generator,
+        block_remat=cfg.remat == "blocks",
     )
 
 
@@ -91,14 +94,19 @@ def _restore_model(cfg: TrainConfig, ckpt_dir: str, action: str,
                    seed: tp.Optional[int] = None) -> torch.nn.Module:
     """Build the model with weights drawn from ``seed`` (default: the INI
     ``seed``), load ``<ckpt_dir>/best.pt`` over them when it exists (warn
-    when absent), move it to ``device`` and switch it to eval mode."""
+    when absent) and, when the fold kept an EMA shadow (``best_ema.pt``,
+    saved with this ``best.pt``), the shadow over the parameters: the
+    weights the run validated on
+    (JAX ``eval_params``, serve.py:53-54); move it to ``device`` and
+    switch it to eval mode."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     model = _build_model(cfg, dtype=dtype, generator=gen)
-    path = os.path.join(ckpt_dir, BEST_WEIGHTS)
-    if os.path.exists(path):
-        model.load_state_dict(torch.load(path, map_location="cpu",
-                                         weights_only=True))
+    ckpt = CheckpointManager(ckpt_dir)
+    if ckpt.exists("best"):
+        shadow = ckpt.restore(model, None, "best")
+        if shadow is not None:
+            model.load_state_dict(shadow, strict=False)
     else:
         print(f"WARNING: no 'best' checkpoint under {ckpt_dir}; "
               f"{action} freshly initialized weights", flush=True)
@@ -116,15 +124,49 @@ def _fold_data_dir(directory: str, fold: int) -> str:
 
 
 def _check_train_config(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for whatever setting of ``cfg`` the
-    port cannot train yet, before the verb writes anything (the verb builds
-    its first model before writing, so an unported architecture raises
-    there)."""
+    """Raise before the verb writes anything: ``NotImplementedError`` for
+    whatever setting of ``cfg`` the port cannot train yet, ``ValueError``
+    for settings that do not go together (the JAX verb's guards,
+    drivers.py:207-220 and :309-313) or an unknown name, ``ImportError``
+    naming the host package a setting needs (the verb builds its first
+    model before writing, so an unported architecture raises there)."""
     bad = unported_train_keys(cfg)
     if bad:
         raise NotImplementedError(
             "the port's train verb does not take these settings yet: "
             + ", ".join(bad))
+    if cfg.augment_device and cfg.patchify:
+        # the host path augments the whole image before patchify; patches
+        # of one image augmented apart would not be that
+        raise ValueError(
+            "augment_device does not compose with patchify (patches of one "
+            "image would augment independently); use the host path: "
+            "augment = 1")
+    if cfg.augment_device and cfg.augment:
+        raise ValueError(
+            "augment and augment_device are alternatives (the same op set "
+            "on the host or on the card); both would augment every sample "
+            "twice: pick one")
+    if cfg.accumulation_steps < 1 or (
+            cfg.accumulation_steps > 1
+            and cfg.batch_size % cfg.accumulation_steps):
+        raise ValueError(
+            f"batch_size={cfg.batch_size} must be divisible by "
+            f"accumulation_steps={cfg.accumulation_steps}")
+    if cfg.remat != "blocks":
+        check_policy(cfg.remat.strip() or None)
+    if not 0.0 <= cfg.ema_decay < 1.0:
+        raise ValueError(f"ema_decay must be in [0, 1), got {cfg.ema_decay}")
+    for needed, module, package in (
+            (cfg.augment, "cv2", "opencv-python (augment = 1)"),
+            (bool(cfg.tensorboard_dir), "tensorboard",
+             "tensorboard (tensorboard_dir)")):
+        if needed:
+            try:
+                __import__(module)
+            except ImportError as e:
+                raise ImportError(f"the train verb needs {package}, which "
+                                  "this host does not have") from e
     if cfg.d_s and cfg.ds_type not in DS_TYPES:
         raise ValueError(f"Unknown ds_type {cfg.ds_type!r}")
     get_loss(cfg.loss_function)
@@ -147,9 +189,11 @@ def _make_trainer(cfg: TrainConfig, model: torch.nn.Module,
     copy (the JAX driver's ``_wrap_targets``, drivers.py:183; one pyramid
     launch for ds_type ``UNet``), and the heads' losses are weighted by
     ``default_ds_weights`` (:314-315).  The metrics are sized by
-    ``class_number`` and the gradients clipped as the INI says (:324,
-    :331-333)."""
+    ``class_number``, the gradients clipped as the INI says, and the step
+    takes ``remat`` (``blocks`` remats inside the model, so the step runs
+    plain), ``accumulation_steps`` and ``ema_decay`` (:317-337)."""
     ds = cfg.d_s == 1
+    remat = cfg.remat.strip()
     return Trainer(
         model, loss=cfg.loss_function, optimizer=cfg.optimizer_function,
         learning_rate=cfg.learning_rate, metrics=tuple(cfg.metric_list),
@@ -159,7 +203,9 @@ def _make_trainer(cfg: TrainConfig, model: torch.nn.Module,
         global_clipnorm=cfg.global_clipnorm,
         prepare_targets=functools.partial(
             prepare_train_dict, model_depth=cfg.model_depth,
-            ds_type=cfg.ds_type) if ds else None)
+            ds_type=cfg.ds_type) if ds else None,
+        seed=cfg.seed, remat=remat if remat != "blocks" else None,
+        accum_steps=cfg.accumulation_steps, ema_decay=cfg.ema_decay)
 
 
 def train(config_path: str = "Train_Configs.ini",
@@ -171,11 +217,21 @@ def train(config_path: str = "Train_Configs.ini",
     """Fold-loop training driver (reference Train.py).  Returns
     ``{fold: history}`` and writes, under ``save_dir``, the config as
     trained (``Train_Configs.ini``) and per fold ``Fold_<k>/best.pt`` (the
-    weights of the best epoch by ``monitor_param``), its optimizer state
-    and ``history.json``.
+    weights of the best epoch by ``monitor_param``), its optimizer state,
+    its EMA shadow (``best_ema.pt``, with ``ema_decay``), ``last.pt`` and
+    its sidecar (with ``exact_resume``), and with ``save_history``
+    ``history.json``, ``history.h5`` (where h5py imports) and
+    ``history.png`` (where matplotlib imports; else one line says it was
+    not drawn).  ``augment`` augments on the host, ``augment_device`` on
+    the device keyed by (seed, epoch, step); ``patchify`` trains and
+    validates on patches; ``tensorboard_dir`` writes the scalars under
+    ``<tensorboard_dir>/Fold_<k>``.  After a SIGTERM under
+    ``exact_resume`` the fold loop stops; the same config run again
+    resumes (JAX drivers.py:197-403).
 
     ``device`` defaults to the GPU and never falls back to the CPU;
-    ``seed`` replaces the INI ``seed`` (weights, shuffle, split)."""
+    ``seed`` replaces the INI ``seed`` (weights, shuffle, split,
+    augmentation)."""
     cfg = config if config is not None else load_train_config(config_path)
     if seed is not None:
         cfg = dataclasses.replace(cfg, seed=seed)
@@ -192,6 +248,15 @@ def train(config_path: str = "Train_Configs.ini",
         save_train_config(cfg, os.path.join(cfg.save_dir,
                                             "Train_Configs.ini"))
     size = (cfg.imlength, cfg.imwidth)
+    dev_aug = None
+    if cfg.augment_device:
+        from .data.device_augment import make_device_augment
+        # raw 0-255 inputs keep their range (JAX :229-237)
+        dev_aug = make_device_augment(
+            value_range=255.0 / cfg.normalizing_factor_img)
+    patches = dict(patchify=cfg.patchify,
+                   patch_shape=(cfg.patch_width, cfg.patch_height),
+                   overlap_ratio=cfg.overlap_ratio, cache=cfg.cache_data)
 
     def dataset(directory: str, fold: int) -> SegmentationFolderDataset:
         return SegmentationFolderDataset(
@@ -207,28 +272,34 @@ def train(config_path: str = "Train_Configs.ini",
         if not cfg.independent_val_set and cfg.validation_portion > 0:
             train_ds, split_val_ds = split_dataset(
                 train_ds, cfg.validation_portion, seed=cfg.seed)
+        # accumulation splits each batch into microbatches: a partial last
+        # batch would not divide, so it is dropped (train loader only)
         loader = PrefetchLoader(train_ds, cfg.batch_size, shuffle=True,
-                                seed=cfg.seed, cache=cfg.cache_data)
+                                seed=cfg.seed, augment=cfg.augment,
+                                drop_remainder=cfg.accumulation_steps > 1,
+                                **patches)
         val_loader = None
         if split_val_ds is not None and len(split_val_ds):
             val_loader = PrefetchLoader(split_val_ds, cfg.batch_size,
-                                        shuffle=False, cache=cfg.cache_data)
+                                        shuffle=False, **patches)
         elif cfg.independent_val_set and os.path.isdir(cfg.val_dir):
             val_loader = PrefetchLoader(dataset(cfg.val_dir, fold),
                                         cfg.batch_size, shuffle=False,
-                                        cache=cfg.cache_data)
+                                        **patches)
         trainer = _make_trainer(cfg, model, device)
+        train_iter = _train_batches(loader, dev_aug, cfg.seed, trainer)
         ckpt_dir = _fold_dir(cfg, fold)
         ckpt = CheckpointManager(ckpt_dir)
         if cfg.load_weights and ckpt.exists("best"):  # Train.py:361-369
-            ckpt.restore(trainer.model, trainer.optimizer, "best")
+            ckpt.restore(trainer.model, trainer.optimizer, "best",
+                         ema=trainer.ema)
             print(f"Fold {fold}: resumed from {ckpt.path('best')}",
                   flush=True)
         monitor = cfg.monitor_param
         if monitor.startswith("val_") and val_loader is None:
             monitor = monitor[len("val_"):] or "loss"
         history = trainer.fit(
-            loader, val_data=val_loader, epochs=cfg.num_epochs,
+            train_iter, val_data=val_loader, epochs=cfg.num_epochs,
             callbacks=[
                 EarlyStopping(monitor=monitor, patience=cfg.patience_amount,
                               mode=cfg.patience_mode),
@@ -236,13 +307,68 @@ def train(config_path: str = "Train_Configs.ini",
                                   patience=cfg.patience_amount_rlronp,
                                   mode=cfg.patience_mode),
             ],
-            checkpoint=ckpt, monitor=monitor, verbose=verbose)
+            checkpoint=ckpt, monitor=monitor, verbose=verbose,
+            tensorboard_dir=(os.path.join(cfg.tensorboard_dir,
+                                          f"Fold_{fold}")
+                             if cfg.tensorboard_dir else None),
+            exact_resume=cfg.exact_resume, resume_token=resume_token(cfg))
         histories[fold] = history
         if cfg.save_history:
-            os.makedirs(ckpt_dir, exist_ok=True)
-            with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
-                json.dump(history, f)
+            _save_history(history, ckpt_dir,
+                          cfg.metric_list[0] if cfg.metric_list else None)
+        if trainer.preempted:
+            # the interrupted fold is resumable; another fold would spend
+            # the grace window on work that cannot be saved
+            print(f"Preemption: stopping after fold {fold}; re-run the "
+                  "same config to resume", flush=True)
+            break
     return histories
+
+
+def _train_batches(loader: PrefetchLoader, dev_aug, seed: int,
+                   trainer: Trainer):
+    """The train loader as the trainer's batch source: with the on-card
+    augment, each batch goes to the device and is augmented there under
+    the stream keyed by (seed, epoch, step), the epoch read from the
+    loader's counter before the epoch's first batch, as the JAX verb
+    reads it (drivers.py:293-307).  ``set_epoch`` is the loader's, for
+    exact resume."""
+    if dev_aug is None:
+        return loader
+    from .data.device_augment import augment_stream_key
+
+    def batches():
+        epoch = loader._epoch
+        for i, (x, y) in enumerate(loader()):
+            yield dev_aug(augment_stream_key(seed, epoch, i),
+                          trainer.to_device(x), trainer.to_device(y))
+
+    batches.set_epoch = loader.set_epoch
+    return batches
+
+
+def _save_history(history: tp.Dict[str, tp.List[float]], ckpt_dir: str,
+                  metric: tp.Optional[str]) -> None:
+    """``history.json``; ``history.h5``, one dataset per key, the
+    reference's format (Train.py:425-430), with a warning when it cannot
+    be written; and ``history.png`` where matplotlib imports, else one
+    line saying it was not drawn (JAX drivers.py:377-395)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
+        json.dump(history, f)
+    try:
+        import h5py
+        with h5py.File(os.path.join(ckpt_dir, "history.h5"), "w") as hf:
+            for k, v in history.items():
+                hf.create_dataset(k, data=np.asarray(v))
+    except Exception as e:  # noqa: BLE001 (h5py absent, disk full, ...)
+        print(f"WARNING: could not write history.h5 ({e})", flush=True)
+    if ev.have_matplotlib():
+        ev.plot_history(history, os.path.join(ckpt_dir, "history.png"),
+                        metric_name=metric)
+    else:
+        print(f"{ckpt_dir}: matplotlib is not installed; figure not drawn: "
+              "history.png", flush=True)
 
 
 def _test_train_config(cfg: TestConfig) -> TrainConfig:

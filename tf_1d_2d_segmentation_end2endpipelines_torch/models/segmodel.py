@@ -13,7 +13,7 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import HeadConv, apply_activation
+from ..ops import HeadConv, apply_activation, set_block_remat
 from .decoders import build_decoder
 from .encoders import LatentLayer, ScratchEncoder
 
@@ -30,7 +30,11 @@ class SegModel(nn.Module):
     module's ``__call__(train=True)`` does; the head's activation runs in
     ``dtype`` (bf16 under bf16), and a caller casts the outputs to float32
     before the loss (JAX: train/state.py:157).  ``alpha`` scales the
-    MultiRes blocks' widths."""
+    MultiRes blocks' widths.  ``block_remat`` rematerializes the blocks
+    one by one in training (``remat = blocks``; JAX segmodel.py:67-73),
+    with the same ``state_dict`` keys.  ``init_kwargs`` keeps the
+    constructor's arguments, so ``reinitialized`` can draw a fresh model
+    of the same architecture."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
                  in_channels: int = 3, output_nums: int = 1, ds: int = 0,
@@ -39,8 +43,11 @@ class SegModel(nn.Module):
                  final_activation: tp.Optional[str] = "sigmoid",
                  genre: str = "UNet", train_mode: str = "from_scratch",
                  dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 block_remat: bool = False):
         super().__init__()
+        self.init_kwargs = {k: v for k, v in locals().items()
+                            if k not in ("self", "generator", "__class__")}
         if train_mode != "from_scratch":
             raise NotImplementedError(
                 f"train_mode {train_mode!r} is not ported yet")
@@ -67,6 +74,12 @@ class SegModel(nn.Module):
         self._decoder_name = f"{type(decoder).__name__}_0"
         self.out = HeadConv(decoder.out_features, output_nums, dtype=dtype,
                             generator=generator)
+        set_block_remat(self, block_remat)
+
+    def reinitialized(self, generator: torch.Generator) -> "SegModel":
+        """A new model of this architecture with weights drawn from
+        ``generator``."""
+        return type(self)(**self.init_kwargs, generator=generator)
 
     def forward(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
         # a fresh channels_last copy in the compute dtype: a batch of one
@@ -109,6 +122,7 @@ def model_selector(
     train_mode: str = "from_scratch",
     dtype: torch.dtype = torch.float32,
     generator: tp.Optional[torch.Generator] = None,
+    block_remat: bool = False,
 ) -> SegModel:
     """String-dispatch factory with the JAX ``model_selector``'s surface
     (segmodel.py:173).  ``num_channels`` sizes the first conv; ``length``,
@@ -122,4 +136,5 @@ def model_selector(
         output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,
         dense_loop=dense_loop, is_transconv=is_transconv, alpha=alpha,
         final_activation=final_activation, genre=model_genre,
-        train_mode=train_mode, dtype=dtype, generator=generator)
+        train_mode=train_mode, dtype=dtype, generator=generator,
+        block_remat=block_remat)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import remat as _remat
 from .kernels import pyramid
 
 # Keras's LeakyReLU slope, which the reference keeps (blocks.py:77).
@@ -103,8 +104,9 @@ class BatchNorm(nn.Module):
     N, H, W in that promoted dtype, the variance as ``E[x**2] - E[x]**2``
     clamped at 0 (flax's ``use_fast_variance``), and advances the running
     statistics with flax's ``momentum`` (the weight of the old value,
-    0.99), biased variance included.  ``F.batch_norm`` is not used: it would store the
-    unbiased variance."""
+    0.99), biased variance included, once a forward: not again while the
+    backward recomputes a checkpointed forward (``ops/remat.py``).
+    ``F.batch_norm`` is not used: it would store the unbiased variance."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  epsilon: float = 1e-3):
@@ -123,19 +125,38 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min(
                 (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            if not _remat.recomputing():
+                self._advance(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
+    @torch.no_grad()
+    def _advance(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
-class ConvBlock(nn.Module):
+
+class _Block(nn.Module):
+    """A block that ``remat = blocks`` rematerializes (JAX ``remat_block``,
+    blocks.py:33-73): with ``remat`` set, its forward in training mode with
+    gradients runs under ``ops.remat.checkpoint`` with the ``conv_outs``
+    policy.  ``remat`` is a plain attribute, so the ``state_dict`` keys
+    are the plain block's (``SegModel(block_remat=True)`` sets it on the
+    outermost blocks)."""
+
+    remat = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training and torch.is_grad_enabled():
+            return _remat.checkpoint(self._forward, x, policy="conv_outs")
+        return self._forward(x)
+
+
+class ConvBlock(_Block):
     """conv -> [BatchNorm] -> [activation] (JAX ``ConvBlock``, blocks.py:191).
 
     SAME padding, stride 1, odd square kernel, with bias: the
@@ -160,7 +181,7 @@ class ConvBlock(nn.Module):
             self.Conv_0.bias.zero_()
         self.BatchNorm_0 = BatchNorm(features) if use_bn else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.Conv_0
         # flax casts input, kernel and bias to the compute dtype and adds
         # the bias in that dtype, after the convolution
@@ -261,7 +282,7 @@ def concat(*tensors: torch.Tensor) -> torch.Tensor:
     return torch.cat(tensors, dim=1)
 
 
-class DenseBlock(nn.Module):
+class DenseBlock(_Block):
     """One ConvBlock, then ``num_layers`` times ``x = x + ConvBlock(x)``
     (JAX ``DenseBlock``, blocks.py:516)."""
 
@@ -275,7 +296,7 @@ class DenseBlock(nn.Module):
                 in_features if k == 0 else features, features, kernel,
                 dtype=dtype, generator=generator))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.ConvBlock_0(x)
         for k in range(1, self.num_layers + 1):
             x = x + getattr(self, f"ConvBlock_{k}")(x)
@@ -298,7 +319,7 @@ def multires_features(model_width: int, alpha: float = 1.0) -> int:
     return sum(multires_widths(model_width, alpha))
 
 
-class MultiResBlock(nn.Module):
+class MultiResBlock(_Block):
     """MultiRes block, 2D (JAX ``MultiResBlock``, blocks.py:717, its
     unpacked branch :748-765): three chained ConvBlocks of
     ``multires_widths`` channels (``ConvBlock_1..3``), concatenated, then
@@ -323,7 +344,7 @@ class MultiResBlock(nn.Module):
         self.BatchNorm_0 = BatchNorm(self.out_features)
         self.BatchNorm_1 = BatchNorm(self.out_features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         shortcut = self.ConvBlock_0(x)
         c3 = self.ConvBlock_1(x)
         c5 = self.ConvBlock_2(c3)
@@ -332,7 +353,7 @@ class MultiResBlock(nn.Module):
         return self.BatchNorm_1(torch.relu(shortcut + out))
 
 
-class ResPath(nn.Module):
+class ResPath(_Block):
     """``max(length, 1)`` residual units (JAX ``ResPath``, blocks.py:794):
     unit i adds a 1x1 ConvBlock (``ConvBlock_<2i>``) and a kxk one
     (``ConvBlock_<2i+1>``) of the same input, then ReLU and
@@ -351,12 +372,27 @@ class ResPath(nn.Module):
                 cin, model_width, kernel, dtype=dtype, generator=generator))
             self.add_module(f"BatchNorm_{i}", BatchNorm(model_width))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.length):
             shortcut = getattr(self, f"ConvBlock_{2 * i}")(x)
             main = getattr(self, f"ConvBlock_{2 * i + 1}")(x)
             x = getattr(self, f"BatchNorm_{i}")(torch.relu(shortcut + main))
         return x
+
+
+#: the block classes ``remat = blocks`` checkpoints one by one (JAX: the
+#: ``maybe_remat`` sites of models/encoders.py and models/decoders.py)
+REMAT_BLOCKS = (ConvBlock, DenseBlock, MultiResBlock, ResPath)
+
+
+def set_block_remat(module: nn.Module, enabled: bool) -> None:
+    """Set ``remat`` on the outermost ``REMAT_BLOCKS`` under ``module``
+    (the blocks inside them run within their checkpoint)."""
+    for child in module.children():
+        if isinstance(child, REMAT_BLOCKS):
+            child.remat = enabled
+        else:
+            set_block_remat(child, enabled)
 
 
 class AttentionGate(nn.Module):

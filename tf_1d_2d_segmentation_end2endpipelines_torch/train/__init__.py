@@ -5,7 +5,11 @@ train/eval/predict steps, callbacks, state_dict checkpoints and the
 from .callbacks import (  # noqa: F401
     BestTracker,
     EarlyStopping,
+    LearningRateScheduler,
+    NaNGuard,
     ReduceLROnPlateau,
+    cosine_decay,
+    exponential_decay,
     infer_mode,
 )
 from .checkpoint import CheckpointManager  # noqa: F401

@@ -179,22 +179,40 @@ def save_train_config(cfg: TrainConfig, path: str) -> None:
         parser.write(f)
 
 
+#: fields that do not define the training trajectory: bookkeeping,
+#: output locations, fold and epoch selection, restore directives and
+#: test-only keys (JAX config.py:388-394).  Editing one of these between a
+#: preemption and the relaunch keeps the resume state.
+_RESUME_TOKEN_EXCLUDE = frozenset({
+    "num_epochs", "start_fold", "end_fold", "save_dir", "save_history",
+    "tensorboard_dir", "task_name", "load_weights", "test_set", "tta",
+    "threshold",
+})
+
+
+def resume_token(cfg: TrainConfig) -> str:
+    """Fingerprint of the training-defining fields of ``cfg``, stored in
+    exact-resume checkpoints (JAX config.py:397-410): the same config
+    resumes, a changed one (a fine-tune stage into the same ``save_dir``)
+    starts its stage fresh.  The same 16 hex digits as the JAX package's
+    for the same INI: both configs have the same fields in the same
+    order."""
+    import hashlib
+
+    items = sorted((k, v) for k, v in dc.asdict(cfg).items()
+                   if k not in _RESUME_TOKEN_EXCLUDE)
+    return hashlib.sha256(repr(items).encode()).hexdigest()[:16]
+
+
 def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
     """The INI settings of ``cfg`` the port's ``train`` verb does not take
-    yet, as ``key = value`` strings (empty when it takes them all)."""
+    yet, as ``key = value`` strings (empty when it takes them all): the
+    multi-device keys."""
     checks = (
-        ("augment", cfg.augment),
-        ("augment_device", cfg.augment_device),
-        ("patchify", cfg.patchify),
-        ("accumulation_steps", cfg.accumulation_steps > 1),
-        ("remat", bool(cfg.remat.strip())),
-        ("ema_decay", cfg.ema_decay > 0),
         ("model_parallel", cfg.model_parallel > 1),
         ("spatial_parallel", cfg.spatial_parallel > 1),
         ("pipeline_parallel", cfg.pipeline_parallel > 1),
         ("zero1", cfg.zero1),
-        ("exact_resume", cfg.exact_resume),
-        ("tensorboard_dir", bool(cfg.tensorboard_dir.strip())),
     )
     return [f"{key} = {getattr(cfg, key)!r}" for key, bad in checks if bad]
 

@@ -167,3 +167,14 @@ def load_optax_state(optimizer: torch.optim.Optimizer,
         elif name == "Nadam":
             state["step"] = count
         optimizer.state[p] = state
+
+
+def ema_from_flax(model: torch.nn.Module,
+                  ema_params: tp.Mapping) -> tp.List[torch.Tensor]:
+    """The JAX state's ``ema_params`` (a tree shaped like flax ``params``)
+    as the port's EMA shadow: float32 tensors in ``model.parameters()``
+    order, each on its parameter's device (``train.state.ema_shadow``'s
+    layout), through the parameters' leaf mapping."""
+    params = dict(model.named_parameters())
+    shadow = flax_to_state_dict({"params": ema_params}, params)
+    return [shadow[name].to(p.device) for name, p in params.items()]
