@@ -23,7 +23,12 @@ metrics (``registries``); the ``predict`` verb with every view on the
 trained flagship fold (``predict``); the train verb with gradient
 accumulation, ``conv_outs`` remat, an EMA shadow, the on-card augment and
 exact resume (``train_options``), and with patchify and host augmentation
-(``train_patchify``).  Phases, each printing lines:
+(``train_patchify``); and the 1D pipeline on BASELINE config 1 (a 1D UNet
+W32/D3 on one-channel 1024-sample signals, float32): the ``train1d``,
+``test1d`` and ``predict1d`` verbs and its fixed batch (``config1``,
+``config1_bf16``, ``config1_ds``), and the other five 1D archs
+(``1d_UNetE``, ``1d_UNetP``, ``1d_UNetPP``, ``1d_UNet3P_ds``,
+``1d_MultiResUNet_ag``).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
@@ -41,7 +46,11 @@ exact resume (``train_options``), and with patchify and host augmentation
    yardstick the port never calls), and the bound: bytes moved at 3.35
    TB/s; beside each pooled UNet3+ skip, the earlier design of the same call
    (one single-level launch per level); beside the DS targets' row, the
-   floor: the same kernel's time on a (1, 2, 2, 1) mask
+   floor: the same kernel's time on a (1, 2, 2, 1) mask; then the 1D
+   kernels (csrc/pool1d.cu) the same way at every 1D call (config 1's
+   shapes, float32, and bfloat16 for its fixed batch and as twins of the
+   MultiRes and UNet3+ calls) and edge cases, the library yardstick
+   ``F.max_pool1d`` and its backward, the DS mask's floor on (1, 2, 1)
 4. serve: 16/16 answered 200 with a 256x256 mask; masks equal to
    ``label_from_pred`` of the same model run with the plain pool, away
    from the threshold; the pyramid kernel launched exactly 4 times (one
@@ -139,20 +148,39 @@ exact resume (``train_options``), and with patchify and host augmentation
     epoch with ``patchify`` (patches of 128, all of an image's in its
     batch) and, where OpenCV imports, ``augment`` (4 + 4 launches a step
     of 64 patches)
+21. signal verbs: synthetic .pt sets (1024 train, 128 val, 128 test
+    signals of 1024 samples) and config 1 through the command line:
+    ``train1d`` for 2 epochs at batch 128 (3 + 3 launches a step, 3 a
+    validation batch, the loss falls, its artifacts written), ``test1d``
+    (the JAX verb's metric keys, the checkpoint restored, 3 launches a
+    batch), ``predict1d`` (outputs within 1e-5 of best.pt's plain-pool
+    forward, 3 launches a batch); config 1's fixed batch of 128 in
+    float32 and bfloat16 (3 + 3 a step) and with ``d_s = 1`` (4 + 3: the
+    targets' pyramid), 30 steps each, the loss falls, p50 step and peak
+    memory beside the verb's own step
+22. 1D archs: UNetE, UNetP, UNetPP (3 + 3 a step), UNet3+ with ``d_s =
+    1`` (6 + 6) and MultiResUNet with ``a_g = 1`` (3 + 3, its pools at 31,
+    62 and 124 channels) at config 1's size, float32, batch 128, 20
+    counted steps each, the loss falls
+23. 1D reference: phase 17's check on W8/D3 1D UNet3+ with ``d_s = 1``
+    and MultiResUNet with ``a_g = 1`` on (2, 256, 1) signals,
+    MeanAbsoluteError
 
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
-last, on phase 6's folders and fold and phase 12's PNGs; the others run
-in their order.
+after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
+phases 21-23; the others run in their order.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
 ``config2_UNetE``, ``config2_UNetP``, ``test``, ``config4_MultiResUNet``,
 ``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
-``registries``, ``predict``, ``train_options`` or ``train_patchify``): the
-launches of that path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18
-(its 8 counted runs and the verb's), 19 or 20 (the straight verb run of
-``train_options``, the patchify verb run), and the device times and bound
-of the calls that path makes per batch or step; the last is ``{"ok":
+``registries``, ``predict``, ``train_options``, ``train_patchify``, or a
+1D path with the rows ``maxpool1d_pyramid`` and ``maxpool1d_backward``):
+the launches of that path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16,
+18 (its 8 counted runs and the verb's), 19, 20 (the straight verb run of
+``train_options``, the patchify verb run), 21 (``config1``: the train1d
+run; the fixed batches) or 22, and the device times and bound of the
+calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
 
@@ -506,6 +534,93 @@ BWD_ROUTES = {
     (_BF16, (2, 37, 53, 16), 8): BWD_ROWS,
 }
 
+# ---- the 1D pipeline (phases 21-23): BASELINE config 1 (BASELINE.md:28;
+# the JAX package's benchmarks/zoo_bench.py:64-70), a 1D UNet of depth 3
+# and width 32 on one-channel 1024-sample signals, Regression, linear head,
+# MeanAbsoluteError, Adam, float32 (the [SIGNAL1D] defaults); batch 128
+SIG_LEN = 1024
+SIG_BATCH = 128
+N_SIG_TRAIN, N_SIG_VAL, N_SIG_TEST = 1024, 128, 128
+SIG_EPOCHS = 2
+#: phase 22: counted fixed-batch steps of each of the other five archs
+SIG_STEPS = 20
+#: the JAX ``test_1d``'s metric keys (drivers_1d.py:336-350)
+NILM_KEYS = ("DEOI", "EA", "JEOI", "MAE", "MSE", "PCC", "RMSE", "SAE",
+             "restored_checkpoint")
+# 1D calls are (dtype, (B, L, C) shape, levels, wanted) and (dtype, shape,
+# factor): the encoder pools conv outputs 32, 64, 128 wide; the MultiRes
+# encoder pools its blocks' outputs, 31 x 2**k (the branches truncate
+# before the level's multiplier); UNet3+ pools skip 0 to levels 1-2 and
+# skip 1 to level 1, one launch each; the DS targets are (B, L, 1) f32
+_SIG_ENC = [(SIG_BATCH, SIG_LEN >> k, 32 << k) for k in range(3)]
+_SIG_MRB = [(SIG_BATCH, SIG_LEN >> k, 31 << k) for k in range(3)]
+_FWD1 = {dt: {"enc": [(dt, s, 1, (1,)) for s in _SIG_ENC],
+              "mrb": [(dt, s, 1, (1,)) for s in _SIG_MRB],
+              "dec3p": [(dt, _SIG_ENC[0], 2, _all(2)),
+                        (dt, _SIG_ENC[1], 1, (1,))]}
+         for dt in (_F32, _BF16)}
+_SIG_DS_MASK = (_F32, (SIG_BATCH, SIG_LEN, 1), 3, _all(3))
+_BWD1 = {dt: {"enc": [(dt, s, 2) for s in _SIG_ENC],
+              "mrb": [(dt, s, 2) for s in _SIG_MRB],
+              "dec3p": [(dt, _SIG_ENC[0], 4), (dt, _SIG_ENC[0], 2),
+                        (dt, _SIG_ENC[1], 2)]}
+         for dt in (_F32, _BF16)}
+#: phase 22: path -> (arch, ds, ag)
+SIG_ARCHS = {"1d_UNetE": ("UNetE", 0, 0), "1d_UNetP": ("UNetP", 0, 0),
+             "1d_UNetPP": ("UNetPP", 0, 0), "1d_UNet3P_ds": ("UNet3P", 1, 0),
+             "1d_MultiResUNet_ag": ("MultiResUNet", 0, 1)}
+FWD_PATHS_1D = {
+    "config1": _FWD1[_F32]["enc"],
+    "config1_bf16": _FWD1[_BF16]["enc"],
+    "config1_ds": _FWD1[_F32]["enc"] + [_SIG_DS_MASK],
+    **{p: _FWD1[_F32]["enc"] for p in ("1d_UNetE", "1d_UNetP", "1d_UNetPP")},
+    "1d_UNet3P_ds": _FWD1[_F32]["enc"] + _FWD1[_F32]["dec3p"]
+    + [_SIG_DS_MASK],
+    "1d_MultiResUNet_ag": _FWD1[_F32]["mrb"],
+}
+BWD_PATHS_1D = {
+    "config1": _BWD1[_F32]["enc"],
+    "config1_bf16": _BWD1[_BF16]["enc"],
+    "config1_ds": _BWD1[_F32]["enc"],
+    **{p: _BWD1[_F32]["enc"] for p in ("1d_UNetE", "1d_UNetP", "1d_UNetPP")},
+    "1d_UNet3P_ds": _BWD1[_F32]["enc"] + _BWD1[_F32]["dec3p"],
+    "1d_MultiResUNet_ag": _BWD1[_F32]["mrb"],
+}
+#: timed beside the paths' calls: the same calls in bf16
+FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"]
+BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"]
+FWD1_EDGES = [
+    (_F32, (3, 1001, 8), 4, (1, 3)),   # ragged, 16-byte, levels 1 and 3
+    (_BF16, (2, 77, 3), 3, _all(3)),   # ragged, one channel a thread
+    (_F32, (3, 37, 5), 4, _all(4)),    # level 4 of a 37-sample signal: 2
+    (_BF16, (2, 3, 16), 2, _all(2)),   # level 2 empty
+    (_BF16, (2, 64, 24), 1, (1,)),     # offset: no row on 16 bytes
+]
+FWD1_OFFSETS = {(_BF16, (2, 64, 24), 1, (1,)): 1}
+BWD1_EDGES = [
+    (_F32, (3, 1001, 8), 4), (_BF16, (2, 77, 3), 8), (_F32, (2, 37, 16), 16),
+    (_BF16, (1, 3, 8), 4),             # nothing pooled: zeros
+]
+
+
+def _route1d(case: tuple, backward: bool = False) -> str:
+    """The kernel a 1D call on a fresh (16-byte aligned) tensor must take:
+    16 bytes of channels a thread when C is a multiple of 16 bytes, else
+    one channel a thread (csrc/pool1d.cu)."""
+    dtype, shape = case[0], case[1]
+    vec = shape[-1] * (4 if dtype == _F32 else 2) % 16 == 0
+    name = "pool1d_backward_kernel" if backward else "pool1d_kernel"
+    return f"{name}<V={'16B' if vec else '1'}>"
+
+
+FWD1_ROUTES = {c: _route1d(c) for cs in FWD_PATHS_1D.values()
+               for c in cs + FWD1_TWINS}
+FWD1_ROUTES[(_BF16, (2, 64, 24), 1, (1,))] = "pool1d_kernel<V=1>"
+BWD1_ROUTES = {c: _route1d(c, backward=True) for cs in BWD_PATHS_1D.values()
+               for c in cs + BWD1_TWINS}
+ALL_FWD_PATHS = {**FWD_PATHS, **FWD_PATHS_1D}
+ALL_BWD_PATHS = {**BWD_PATHS, **BWD_PATHS_1D}
+
 
 def _kernel_row(name: str, path: str, source: str, replaces: str,
                 max_err: float, cases: list, measured: dict) -> dict:
@@ -536,7 +651,8 @@ def _print_paths(what: str, paths: dict, measured: dict) -> None:
 def _case_input(dtype: str, shape: tuple, gen, plateaus: bool,
                 offset: int = 0, plants: tuple = ()):
     """An NHWC input from ``gen`` with a NaN, as a (B, C, H, W)
-    channels_last tensor on the card: ``plants`` (index, value) set too;
+    channels_last tensor on the card (a (B, L, C) ``shape``: the (B, C,
+    1, L) tensor of a 1D signal): ``plants`` (index, value) set too;
     ``offset`` elements of storage before it."""
     import torch
 
@@ -549,6 +665,8 @@ def _case_input(dtype: str, shape: tuple, gen, plateaus: bool,
     flat = torch.zeros(offset + x.numel(), dtype=getattr(torch, dtype),
                        device="cuda")
     flat[offset:] = x.reshape(-1).to(flat)
+    if len(shape) == 3:
+        return flat[offset:].view(shape).permute(0, 2, 1).unsqueeze(2)
     return flat[offset:].view(shape).permute(0, 3, 1, 2)
 
 
@@ -1056,7 +1174,7 @@ def _run_train_verb(phase: str, cfg, path: str) -> dict:
 
 
 def _fixed_batch(phase: str, trainer, x, y, steps: int = FIXED_STEPS,
-                 must_fall: bool = True) -> float:
+                 must_fall: bool = True, unit: str = "img") -> float:
     """``steps`` train steps on one batch already on the card (the targets
     built from the mask ``y`` at every step, as the verb does); prints the
     p50 step over all but the first 5 (host clock, synchronized), img/s
@@ -1086,7 +1204,7 @@ def _fixed_batch(phase: str, trainer, x, y, steps: int = FIXED_STEPS,
     print(f"{phase}: {steps} steps on one batch of {b}: mean loss of the "
           f"first 5 {first:.5f}, of the last 5 {last:.5f}; p50 train step "
           f"{p50 * 1e3:.3f} ms over the last {steps - 5} (host clock, "
-          f"synchronized), {b / p50:.1f} img/s; max_memory_allocated "
+          f"synchronized), {b / p50:.1f} {unit}/s; max_memory_allocated "
           f"{peak} B ({peak / 2 ** 30:.3f} GiB)", flush=True)
     return p50
 
@@ -1155,7 +1273,7 @@ def phase_train_ds(tmp: str) -> dict:
 
 
 def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
-                   must_fall: bool) -> dict:
+                   must_fall: bool, unit: str = "img") -> dict:
     """One step that picks cuDNN's algorithms, then ``steps`` counted
     fixed-batch steps (``_fixed_batch``), the counts set to 0 just before
     them and read just after: exactly ``path``'s pyramid and pool-backward
@@ -1168,11 +1286,11 @@ def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
     pool_backward.launches.reset()
     pool_backward.g_copies.reset()
     p50 = _fixed_batch(f"{phase} {path}", trainer, x, targets, steps=steps,
-                       must_fall=must_fall)
+                       must_fall=must_fall, unit=unit)
     fwd, bwd, copies = (pyramid.launches.value,
                         pool_backward.launches.value,
                         pool_backward.g_copies.value)  # ... and ends here
-    n_fwd, n_bwd = len(FWD_PATHS[path]), len(BWD_PATHS[path])
+    n_fwd, n_bwd = len(ALL_FWD_PATHS[path]), len(ALL_BWD_PATHS[path])
     _check((fwd, bwd) == (n_fwd * steps, n_bwd * steps),
            f"{path}: launched pyramid {fwd}x, backward {bwd}x, not "
            f"{n_fwd} and {n_bwd} x {steps} steps")
@@ -1538,12 +1656,15 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
 
 
 def _train_reference(phase: str, what: str, cpu, targets, weights,
-                     want_launches: tuple, cpu64=None) -> None:
+                     want_launches: tuple, cpu64=None,
+                     shape: tuple = (2, 64, 64, 3), loss=None) -> None:
     """One float32 train step of ``cpu`` on the card (the kernels, cuDNN
     without TF32, deterministic) against the same step on the CPU (the
     plain versions) from the same weights, batch and Adam state, within
     phase 7's tolerances (``_reference_errors``, every parameter counted).
     ``targets(y)`` builds the step's targets from the mask on its device.
+    The input is uniform of ``shape``, the mask of its shape with one
+    channel; ``loss`` defaults to BCEDice.
 
     ``cpu64`` (phase 17 only) is the same model built with
     ``dtype=torch.float64``: parameters, loss and Adam stay float32 and
@@ -1567,11 +1688,12 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
         bce_dice_loss, make_optimizer, make_train_step)
 
     lr = 1e-3
+    loss = loss or bce_dice_loss
     gpu = copy.deepcopy(cpu).cuda()
     refs = (cpu,) if cpu64 is None else (cpu, cpu64)
     rng = np.random.default_rng(SEED + 4)
-    x = torch.from_numpy(rng.uniform(size=(2, 64, 64, 3)).astype(np.float32))
-    y = torch.from_numpy((rng.uniform(size=(2, 64, 64, 1)) > 0.7).astype(
+    x = torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+    y = torch.from_numpy((rng.uniform(size=shape[:-1] + (1,)) > 0.7).astype(
         np.float32))
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32,
@@ -1583,12 +1705,12 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
         counts = (pyramid.launches.value, pool_backward.launches.value)
         loss_c = [make_train_step(
             ref, make_optimizer("Adam", ref.parameters(), lr),
-            bce_dice_loss, weights)(x, targets(y))[0] for ref in refs]
+            loss, weights)(x, targets(y))[0] for ref in refs]
         _check((pyramid.launches.value, pool_backward.launches.value) == counts,
                "the CPU step launched a kernel")
         loss_g, _ = make_train_step(
             gpu, make_optimizer("Adam", gpu.parameters(), lr),
-            bce_dice_loss, weights)(x.cuda(), targets(y.cuda()))
+            loss, weights)(x.cuda(), targets(y.cuda()))
         torch.cuda.synchronize()
         launched = (pyramid.launches.value - counts[0],
                     pool_backward.launches.value - counts[1])
@@ -1606,7 +1728,7 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     _check(any(e["ok"] for e in errs),
            f"float32 train step of a {what}, card vs CPU: "
            + "; ".join(readings))
-    print(f"{phase}: float32 train step of a {what} on (2, 64, 64, 3), card "
+    print(f"{phase}: float32 train step of a {what} on {shape}, card "
           f"(kernels {launched[0]}+{launched[1]} launches, cuDNN without "
           f"TF32, deterministic) " + "; ".join(readings), flush=True)
 
@@ -2508,6 +2630,363 @@ def phase_train_patchify(tmp: str) -> dict:
     return {"pyramid": run["pyramid"], "backward": run["backward"]}
 
 
+def _max_err(got, want, what: str) -> float:
+    """Bit-exact check of kernel outputs against plain ones (NaN
+    positions kept); returns the max-abs error over the finite ones."""
+    import torch
+
+    err = 0.0
+    for k, p in zip(got, want):
+        _check(k.shape == p.shape and k.dtype == p.dtype and
+               k.is_contiguous(memory_format=torch.channels_last),
+               f"{what}: {k.shape} {k.dtype} vs {p.shape} {p.dtype}")
+        _check(torch.equal(k.isnan(), p.isnan()),
+               f"{what}: NaN positions differ")
+        fin = ~p.isnan()
+        e = float((k[fin].float() - p[fin].float()).abs().max()) \
+            if bool(fin.any()) else 0.0
+        _check(e == 0.0, f"{what}: max-abs {e}")
+        err = max(err, e)
+    return err
+
+
+def phase_kernels_1d() -> tuple:
+    """Phase 3 for the 1D kernels (csrc/pool1d.cu): the 1D pyramid and
+    the 1D pool backward against their plain versions, bit for bit, at
+    every call each 1D path makes (FWD_PATHS_1D, BWD_PATHS_1D: config 1's
+    shapes in float32, and bfloat16 for the fixed batch), their bf16 twins
+    and edge cases, with ReLU plateaus and a NaN; each line names the
+    route and, for the timed calls, the device time of the kernel, the
+    plain version and the library call (``F.max_pool1d``, and the
+    backward of ``F.max_pool1d(return_indices=True)``), and the bound.
+    Beside the DS targets' row, the floor: the same kernel on a (1, 2, 1)
+    mask.  Returns ({path: pyramid row}, {path: backward row})."""
+    import torch
+    import torch.nn.functional as F
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fwd_timed = list(dict.fromkeys(
+        [c for cs in FWD_PATHS_1D.values() for c in cs] + FWD1_TWINS))
+    bwd_timed = list(dict.fromkeys(
+        [c for cs in BWD_PATHS_1D.values() for c in cs] + BWD1_TWINS))
+    max_fwd, max_bwd, measured = 0.0, 0.0, {}
+    for case in fwd_timed + FWD1_EDGES:
+        dtype, shape, levels, wanted = case
+        x = _case_input(dtype, shape, gen, plateaus=False,
+                        offset=FWD1_OFFSETS.get(case, 0))
+        before = pyramid.launches.value
+        got = pyramid.maxpool1d_pyramid(x, levels, wanted)
+        torch.cuda.synchronize()
+        _check(pyramid.launches.value == before + 1,
+               f"1D pyramid {shape} {wanted}: not one launch")
+        what = (f"maxpool1d_pyramid {dtype} (B, L, C) {tuple(shape)} levels "
+                f"{list(wanted)}")
+        max_fwd = max(max_fwd, _max_err(
+            got, pyramid.maxpool1d_pyramid_plain(x, levels, wanted), what))
+        kernel = pyramid.route1d(x, levels, wanted)
+        _check_route(what, kernel, FWD1_ROUTES.get(case))
+        what += f" [{kernel}]"
+        if case not in fwd_timed:
+            print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
+                  "kept)", flush=True)
+            continue
+        x1 = x[:, :, 0]  # the (B, C, L) view F.max_pool1d takes
+        t = _in_turns({
+            "plain": lambda: pyramid.maxpool1d_pyramid_plain(x, levels,
+                                                             wanted),
+            "kernel": lambda: pyramid.maxpool1d_pyramid(x, levels, wanted),
+            "library": lambda: [F.max_pool1d(x1, 1 << lvl)
+                                for lvl in wanted]}, flush)
+        nbytes = _bytes(x, *got)
+        measured[case] = {**t, "bytes": nbytes}
+        line = (f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
+                f"kept); device time kernel {t['kernel']:.4f} ms, plain "
+                f"{t['plain']:.4f} ms, library {len(wanted)} F.max_pool1d "
+                f"call(s) {t['library']:.4f} ms, bound "
+                f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s)")
+        if case == _SIG_DS_MASK:
+            tiny = _case_input(dtype, (1, 2, 1), gen, plateaus=False)
+            floor = _in_turns({"floor": lambda: pyramid.maxpool1d_pyramid(
+                tiny, levels)}, flush)["floor"]
+            line += f"; floor (the same call on (1, 2, 1)) {floor:.4f} ms"
+        print(line, flush=True)
+    for case in bwd_timed + BWD1_EDGES:
+        dtype, shape, f = case
+        x = _case_input(dtype, shape, gen, plateaus=True)
+        b, c, _, n = x.shape
+        g = torch.randn((b, n // f, c), generator=gen).to(
+            "cuda", x.dtype).permute(0, 2, 1).unsqueeze(2)
+        before = pool_backward.launches.value
+        got = pool_backward.maxpool1d_backward(x, g, f)
+        torch.cuda.synchronize()
+        _check(pool_backward.launches.value == before + 1,
+               f"1D pool backward {shape} f={f}: not one launch")
+        what = f"maxpool1d_backward {dtype} (B, L, C) {tuple(shape)} f={f}"
+        want = pool_backward.maxpool1d_backward_plain(x, g, f)
+        _check(torch.equal(got, want), f"{what}: differs from plain")
+        max_bwd = max(max_bwd, _max_err([got], [want], what))
+        kernel = pool_backward.route1d(x, g, f)
+        _check_route(what, kernel, BWD1_ROUTES.get(case))
+        what += f" [{kernel}]"
+        if case not in bwd_timed:
+            print(f"phase 3 kernel {what}: equal to plain (max-abs 0, "
+                  "plateaus and a NaN)", flush=True)
+            continue
+        x1, g1 = x[:, :, 0], g[:, :, 0]
+        _, idx = F.max_pool1d(x1, f, return_indices=True)
+        t = _in_turns({
+            "plain": lambda: pool_backward.maxpool1d_backward_plain(x, g, f),
+            "kernel": lambda: pool_backward.maxpool1d_backward(x, g, f),
+            # the backward of F.max_pool1d(return_indices=True), given the
+            # indices its forward saved
+            "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                g1.unsqueeze(2), x1.unsqueeze(2), [1, f], [1, f], [0, 0],
+                [1, 1], False, idx.unsqueeze(2))}, flush)
+        nbytes = _bytes(x, g, got)
+        measured[case] = {**t, "bytes": nbytes}
+        print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
+              f"and a NaN); device time kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, library max_pool1d's backward "
+              f"{t['library']:.4f} ms, bound {_bound_ms(nbytes):.4f} ms "
+              f"({nbytes} B at 3.35 TB/s)", flush=True)
+    _print_paths("1D pyramid", FWD_PATHS_1D, measured)
+    _print_paths("1D pool-backward", BWD_PATHS_1D, measured)
+    src = "tf_1d_2d_segmentation_end2endpipelines_torch/csrc/pool1d.cu"
+    return ({p: _kernel_row(
+        "maxpool1d_pyramid", p, src,
+        "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/pallas/pyramid.py:49",
+        max_fwd, cases, measured) for p, cases in FWD_PATHS_1D.items()},
+        {p: _kernel_row(
+            "maxpool1d_backward", p, src,
+            "tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py:467",
+            max_bwd, cases, measured) for p, cases in BWD_PATHS_1D.items()})
+
+
+def _write_signal_sets(tmp: str) -> dict:
+    """Synthetic .pt sets (``synthetic_signals``, seed SEED + 21): 1024
+    train, 128 val and 128 test signals of 1024 samples; returns their
+    paths and the test arrays."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        save_pt, synthetic_signals)
+
+    x, y = synthetic_signals(N_SIG_TRAIN + N_SIG_VAL + N_SIG_TEST, SIG_LEN,
+                             seed=SEED + 21)
+    cuts = {"train": (0, N_SIG_TRAIN),
+            "val": (N_SIG_TRAIN, N_SIG_TRAIN + N_SIG_VAL),
+            "test": (N_SIG_TRAIN + N_SIG_VAL, len(x))}
+    out = {}
+    for name, (a, b) in cuts.items():
+        out[name] = os.path.join(tmp, f"{name}_signals.pt")
+        save_pt({"samples": x[a:b], "labels": y[a:b]}, out[name])
+    out["x_test"], out["y_test"] = x[cuts["test"][0]:], y[cuts["test"][0]:]
+    return out
+
+
+def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
+                    width: int = 32):
+    """Config 1's trainer for ``arch`` at width ``width``, depth 3, weights
+    from SEED: MeanAbsoluteError (on every head, default_ds_weights with
+    ``ds``, the ds_type UNet targets built on the card), Adam lr 3e-4."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        Trainer, default_ds_weights)
+
+    model = model_selector_1d(arch, SIG_LEN, 3, 1, width, 3, ds=ds, ag=ag,
+                              dtype=dtype,
+                              generator=torch.Generator().manual_seed(SEED))
+    return Trainer(model, loss="MeanAbsoluteError", optimizer="Adam",
+                   learning_rate=3e-4, device="cuda",
+                   loss_weights=default_ds_weights(3) if ds else None,
+                   prepare_targets=(lambda m: prepare_train_dict(
+                       m, 3, "UNet", spatial_rank=1)) if ds else None)
+
+
+def phase_signal_verbs(tmp: str) -> dict:
+    """Phase 21: the 1D verbs on BASELINE config 1 through the command
+    line (the card by default): ``train1d`` on the synthetic sets for 2
+    epochs (3 + 3 launches a step, 3 a validation batch; the loss falls;
+    Signal_Configs.ini, best.pt and history.json written); ``test1d`` on
+    the fold (the JAX verb's metric keys, the checkpoint restored, 3
+    launches a batch of 128); ``predict1d`` on the test signals (3 a
+    batch), its outputs equal to the plain-pool forward of best.pt within
+    1e-5.  Then config 1's fixed batch of 128 in float32 and bfloat16
+    (3 + 3 a step) and with ``d_s = 1`` (one more pyramid launch a step:
+    the targets), p50 step and peak memory.  Returns {path: launches}."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers_1d
+    from tf_1d_2d_segmentation_end2endpipelines_torch.__main__ import main
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        Signal1DConfig, save_signal_config)
+
+    sets = _write_signal_sets(tmp)
+    save_dir = os.path.join(tmp, "Results_1D")
+    cfg = Signal1DConfig(
+        train_set=sets["train"], val_set=sets["val"], test_set=sets["test"],
+        signal_length=SIG_LEN, num_channel=1, model_name="UNet",
+        model_depth=3, model_width=32, kernel_size=3,
+        batch_size=SIG_BATCH, num_epochs=SIG_EPOCHS, save_dir=save_dir,
+        load_weights=False, seed=SEED)
+    ini = os.path.join(tmp, "Signal_Configs.ini")
+    save_signal_config(cfg, ini)
+    print(f"phase 21 signal verbs: config 1, W32/D3 UNet on ({SIG_LEN}, 1) "
+          f"signals, float32, MeanAbsoluteError, Adam lr "
+          f"{cfg.learning_rate}, batch {SIG_BATCH}, {SIG_EPOCHS} epochs of "
+          f"{N_SIG_TRAIN} signals, {N_SIG_VAL} val", flush=True)
+
+    def counted(argv):
+        pyramid.launches.reset()  # the main path's run starts here
+        pool_backward.launches.reset()
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, pyramid.launches.value,
+                pool_backward.launches.value)  # ... and ends here
+
+    train_s, fwd, bwd = counted(["train1d", ini])
+    steps = SIG_EPOCHS * -(-N_SIG_TRAIN // SIG_BATCH)
+    val = SIG_EPOCHS * -(-N_SIG_VAL // SIG_BATCH)
+    n = len(FWD_PATHS_1D["config1"])
+    _check((fwd, bwd) == (n * (steps + val), n * steps),
+           f"train1d launched {fwd} + {bwd}, not {n} x ({steps} steps + "
+           f"{val} val batches) + {n} x {steps}")
+    with open(os.path.join(save_dir, "history.json")) as f:
+        hist = json.load(f)
+    _check(all(np.isfinite(hist["loss"] + hist["val_loss"])),
+           f"non-finite losses {hist}")
+    _check(hist["loss"][-1] < hist["loss"][0], f"loss did not fall: {hist}")
+    for name in ("Signal_Configs.ini", "best.pt", "history.json"):
+        _check(os.path.exists(os.path.join(save_dir, name)),
+               f"train1d did not write {name}")
+    verb_ms = 1e3 / hist["steps_per_sec"][-1]
+    print(f"phase 21 train1d: {train_s:.2f} s; loss {hist['loss']}, "
+          f"val_loss {hist['val_loss']}; maxpool1d_pyramid.launches = {fwd} "
+          f"= {n} x ({steps} steps + {val} val batches), "
+          f"maxpool1d_backward.launches = {bwd} = {n} x {steps}; the verb's "
+          f"last epoch {verb_ms:.3f} ms a step ({SIG_BATCH * hist['steps_per_sec'][-1]:.1f}"
+          f" signals/s, copies included)", flush=True)
+
+    test_s, tfwd, tbwd = counted(["test1d", ini])
+    with open(os.path.join(save_dir, "test_metrics_1d.json")) as f:
+        metrics = json.load(f)
+    batches = -(-N_SIG_TEST // SIG_BATCH)
+    _check(tuple(sorted(metrics)) == NILM_KEYS,
+           f"test1d keys {sorted(metrics)} != the JAX verb's {NILM_KEYS}")
+    _check(metrics["restored_checkpoint"] is True, "best.pt not restored")
+    _check(all(np.isfinite(v) for k, v in metrics.items()
+               if k != "restored_checkpoint"), f"test1d metrics {metrics}")
+    _check((tfwd, tbwd) == (n * batches, 0),
+           f"test1d launched {tfwd} + {tbwd}, not {n} x {batches} + 0")
+    print(f"phase 21 test1d: {test_s:.2f} s; {metrics}; "
+          f"maxpool1d_pyramid.launches = {tfwd} = {n} x {batches} batch(es)",
+          flush=True)
+
+    npz = os.path.join(tmp, "predictions_1d.npz")
+    pred_s, pfwd, _ = counted(["predict1d", ini, "--out", npz])
+    got = np.load(npz)["output"]
+    _check(got.shape == (N_SIG_TEST, SIG_LEN, 1) and pfwd == n * batches,
+           f"predict1d: {got.shape}, {pfwd} launches")
+    model, _ = drivers_1d._restore_model_1d(cfg, "checking", "cuda")
+    with mock.patch.object(pyramid, "maxpool1d_pyramid",
+                           pyramid.maxpool1d_pyramid_plain):
+        plain = Trainer(model, device="cuda").predict(sets["x_test"])["out"]
+    err = float(np.abs(got - plain).max())
+    _check(err <= 1e-5, f"predict1d vs the plain-pool forward: {err}")
+    print(f"phase 21 predict1d: {pred_s:.2f} s; {got.shape} outputs within "
+          f"{err:.3g} (<= 1e-5) of best.pt's plain-pool forward; "
+          f"maxpool1d_pyramid.launches = {pfwd}", flush=True)
+
+    counts = {"config1": {"pyramid": fwd, "backward": bwd}}
+    x, y = sets["x_test"], sets["y_test"]
+    for path, dtype, ds in (("config1", torch.float32, 0),
+                            ("config1_bf16", torch.bfloat16, 0),
+                            ("config1_ds", torch.float32, 1)):
+        trainer = _signal_trainer("UNet", dtype, ds=ds)
+        run = _counted_steps("phase 21", path, trainer, trainer.to_device(x),
+                             trainer.to_device(y), FIXED_STEPS,
+                             must_fall=True, unit="signals")
+        if path != "config1":  # config 1's row counts the verb's run
+            counts[path] = run
+        del trainer
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_signal_steps() -> dict:
+    """Phase 22: the other five 1D archs at config 1's size (W32/D3,
+    1024 samples, float32, batch 128 of phase 21's test signals): UNetE,
+    UNetP, UNetPP (3 + 3 a step), UNet3+ with ``d_s = 1`` (6 + 6: 3
+    encoder pools, one pyramid per pooled skip and the targets' pyramid;
+    3 + 2 + 1 backward) and MultiResUNet with ``a_g = 1`` (3 + 3 at 31, 62
+    and 124 channels); 20 counted steps each, the loss must fall."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_signals)
+
+    x, y = synthetic_signals(SIG_BATCH, SIG_LEN, seed=SEED + 22)
+    counts = {}
+    for path, (arch, ds, ag) in SIG_ARCHS.items():
+        trainer = _signal_trainer(arch, torch.float32, ds=ds, ag=ag)
+        print(f"phase 22 {path}: W32/D3 {arch} ds={ds} ag={ag}, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, float32, batch {SIG_BATCH}", flush=True)
+        counts[path] = _counted_steps(
+            "phase 22", path, trainer, trainer.to_device(x),
+            trainer.to_device(y), SIG_STEPS, must_fall=True, unit="signals")
+        del trainer
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_signal_reference() -> None:
+    """Phase 23: phase 17's check on W8/D3 1D models on (2, 256, 1)
+    signals, MeanAbsoluteError: UNet3+ with ``d_s = 1`` (6 + 6 launches)
+    and MultiResUNet with ``a_g = 1`` (3 + 3), the card's float32 step
+    against the CPU's float32 and float64 steps with phase 7's
+    tolerances.  As in phase 17, the float64 step is needed: on an H100
+    UNet3+'s float32 steps moved 0.5% of its parameters apart beyond 1e-5
+    (PERF.md section 6), all of them biases of convolutions that feed a
+    training-mode BatchNorm, whose exact gradient is 0 and whose rounding
+    Adam's first update scales up to about lr."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights, get_loss)
+
+    for arch, ds, ag, want in (("UNet3P", 1, 0, (6, 6)),
+                               ("MultiResUNet", 0, 1, (3, 3))):
+        cpu = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds, ag=ag,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 23))
+        cpu64 = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds, ag=ag,
+                                  dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        _train_reference(
+            "phase 23 1D reference", f"W8/D3 1D {arch}"
+            + (" with d_s=1" if ds else "") + (" with a_g=1" if ag else ""),
+            cpu, (lambda y: prepare_train_dict(y, 3, "UNet", spatial_rank=1))
+            if ds else (lambda y: y), default_ds_weights(3) if ds else None,
+            want, cpu64, shape=(2, 256, 1),
+            loss=get_loss("MeanAbsoluteError"))
+
+
 def main() -> int:
     import torch
 
@@ -2526,6 +3005,9 @@ def main() -> int:
         phase_ds_mask()
         return 0
     pyr, bwd = phase_kernels(), phase_pool_backward()
+    pyr1, bwd1 = phase_kernels_1d()
+    pyr.update(pyr1)
+    bwd.update(bwd1)
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(tmp)
     phase_reference(served["model"])
@@ -2547,6 +3029,9 @@ def main() -> int:
         predicted = phase_predict(tmp, _train_config(tmp, "Results"))
         trained["train_options"] = phase_train_options(tmp)
         trained["train_patchify"] = phase_train_patchify(tmp)
+        trained.update(phase_signal_verbs(tmp))
+        trained.update(phase_signal_steps())
+        phase_signal_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

@@ -2,7 +2,7 @@
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
     python3 profile_train_step.py [--out DIR]
-        [--model flagship|unet3p_ds|multiresunet|unet_ag]
+        [--model flagship|unet3p_ds|multiresunet|unet_ag|unet1d]
 
 The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam), or with
 ``--model unet3p_ds`` UNet3+ W32/D4 with deep supervision (its targets
@@ -10,8 +10,10 @@ built from the mask at every step, one pyramid launch, and
 ``default_ds_weights(4)``: the train verb's step with ``d_s = 1``), or with
 ``--model multiresunet`` config 4's MultiResUNet W32/D4 (alpha 1: odd
 channel counts), or with ``--model unet_ag`` config 4's UNet W32/D4 with
-attention gates, takes 10 train steps on one synthetic batch of 16, then
-10 more under
+attention gates, takes 10 train steps on one synthetic batch of 16, or
+with ``--model unet1d`` BASELINE config 1 (the 1D UNet W32/D3 on
+one-channel 1024-sample signals, float32, MeanAbsoluteError, Adam lr
+3e-4) on a batch of 128 synthetic signals, then 10 more under
 ``torch.profiler``.  Prints the card's name and power limit, the
 host time per step with and without the profiler, the device time per
 step by kernel (the profiler's CUDA rows), grouped into the layers of
@@ -30,7 +32,7 @@ WARMUP, STEPS, BATCH = 10, 10, 16  # warm-up steps, profiled steps, batch
 
 GROUPS = (  # (layer, substrings of a device kernel's name), first match wins
     ("pool kernels (hand-written)", ("pool_vec", "pool_backward",
-                                     "pyramid")),
+                                     "pyramid", "pool1d")),
     ("bilinear upsample (UNet3+)", ("upsample",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "sm90_xmma", "wgrad", "dgrad",
                               "implicit_gemm", "cutlass", "gemm")),
@@ -39,9 +41,12 @@ GROUPS = (  # (layer, substrings of a device kernel's name), first match wins
     ("reductions (BN statistics, loss sums)", ("reduce", "sum", "mean")),
 )
 OTHER = "elementwise (BN apply, bias, activations, casts, loss) and other"
-#: --model -> (decoder, deep supervision, attention gates)
+#: --model -> (decoder or 1D arch, deep supervision, attention gates)
 MODELS = {"flagship": ("UNetPP", 0, 0), "unet3p_ds": ("UNet3P", 1, 0),
-          "multiresunet": ("MultiResUNet", 0, 0), "unet_ag": ("UNet", 0, 1)}
+          "multiresunet": ("MultiResUNet", 0, 0), "unet_ag": ("UNet", 0, 1),
+          "unet1d": ("UNet", 0, 0)}
+#: config 1's batch of signals and their length
+SIG_BATCH, SIG_LEN = 128, 1024
 
 
 def _group(name: str) -> str:
@@ -66,8 +71,9 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
-        prepare_train_dict, synthetic_images)
-    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+        prepare_train_dict, synthetic_images, synthetic_signals)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        SegModel, model_selector_1d)
     from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
         Trainer, default_ds_weights)
 
@@ -76,15 +82,26 @@ def main(argv=None) -> int:
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     decoder, ds, ag = MODELS[args.model]
-    model = SegModel(decoder, 32, 4, ds=ds, ag=ag, dtype=torch.bfloat16,
-                     generator=torch.Generator().manual_seed(0))
-    trainer = Trainer(
-        model, loss="BCEDiceLoss", learning_rate=2e-4,
-        loss_weights=default_ds_weights(4) if ds else None, device="cuda",
-        prepare_targets=(lambda y: prepare_train_dict(y, 4, "UNet"))
-        if ds else None)
+    gen = torch.Generator().manual_seed(0)
+    if args.model == "unet1d":
+        batch, unit = SIG_BATCH, "signals"
+        model = model_selector_1d(decoder, SIG_LEN, 3, 1, 32, 3,
+                                  generator=gen)
+        trainer = Trainer(model, loss="MeanAbsoluteError",
+                          learning_rate=3e-4, device="cuda")
+        x, y = synthetic_signals(batch, SIG_LEN, seed=0)
+    else:
+        batch, unit = BATCH, "img"
+        model = SegModel(decoder, 32, 4, ds=ds, ag=ag, dtype=torch.bfloat16,
+                         generator=gen)
+        trainer = Trainer(
+            model, loss="BCEDiceLoss", learning_rate=2e-4,
+            loss_weights=default_ds_weights(4) if ds else None,
+            device="cuda",
+            prepare_targets=(lambda y: prepare_train_dict(y, 4, "UNet"))
+            if ds else None)
+        x, y = synthetic_images(batch, 256, seed=0)
     prepare = trainer.prepare_targets or (lambda y: y)
-    x, y = synthetic_images(BATCH, 256, seed=0)
     x, y = trainer.to_device(x), trainer.to_device(y)
 
     def steps(n: int) -> float:
@@ -121,12 +138,12 @@ def main(argv=None) -> int:
     busy = sum(r[0] for r in rows)
     # the profiler slows the host, not the kernels: the idle share of a
     # step is read against the step without it
-    print(f"{args.model}, batch {BATCH}: host time per step {plain_ms:.3f} ms without "
+    print(f"{args.model}, batch {batch}: host time per step {plain_ms:.3f} ms without "
           f"the profiler, {prof_ms:.3f} ms with it (mean of {STEPS} "
           f"steps after {WARMUP} warm-up); device busy {busy:.3f} ms "
           f"per step, idle share of a step without the profiler "
-          f"{1 - busy / plain_ms:.3f}; {BATCH / plain_ms * 1e3:.1f} "
-          f"img/s", flush=True)
+          f"{1 - busy / plain_ms:.3f}; {batch / plain_ms * 1e3:.1f} "
+          f"{unit}/s", flush=True)
     groups = {}
     for ms, n, name in rows:
         g = groups.setdefault(_group(name), [0.0, 0.0])

@@ -593,3 +593,108 @@ def test_cuda_launches_per_step_under_remat_and_accumulation(option, want):
     assert bool(torch.isfinite(loss))
     assert (pyramid.launches.value - before[0],
             pool_backward.launches.value - before[1]) == want
+
+
+def _signal(shape, seed, plateaus=True):
+    """A (B, L, C) input with ReLU plateaus and a NaN, as the (B, C, 1, L)
+    channels_last CPU tensor the 1D kernels take."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    if plateaus:
+        x = torch.where(x < 0.3, torch.zeros_like(x), x)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    return x.permute(0, 2, 1).unsqueeze(2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,levels,wanted,route", [
+    (torch.bfloat16, (128, 1024, 32), 1, (1,), "pool1d_kernel<V=16B>"),
+    (torch.bfloat16, (128, 256, 128), 1, (1,), "pool1d_kernel<V=16B>"),
+    (torch.bfloat16, (128, 1024, 31), 1, (1,), "pool1d_kernel<V=1>"),
+    (torch.bfloat16, (128, 1024, 32), 2, None, "pool1d_kernel<V=16B>"),
+    (torch.float32, (128, 1024, 1), 3, None, "pool1d_kernel<V=1>"),
+    (torch.float32, (3, 1001, 8), 4, (1, 3), "pool1d_kernel<V=16B>"),
+    (torch.float32, (3, 37, 5), 4, None, "pool1d_kernel<V=1>"),
+    (torch.bfloat16, (2, 3, 16), 2, None, "pool1d_kernel<V=16B>"),
+])
+def test_cuda_pool1d_kernel_equals_plain_version(dtype, shape, levels,
+                                                 wanted, route):
+    """The 1D pyramid launches once, takes the named route and equals
+    its plain version bit for bit (NaN positions kept), ragged lengths
+    and level subsets included."""
+    _need_cuda()
+    x = _signal(shape, 6).to("cuda", dtype)
+    assert pyramid.route1d(x, levels, wanted) == route
+    before = pyramid.launches.value
+    got = pyramid.maxpool1d_pyramid(x, levels, wanted)
+    torch.cuda.synchronize()
+    assert pyramid.launches.value == before + 1
+    want = pyramid.maxpool1d_pyramid_plain(x, levels, wanted)
+    assert len(got) == len(want)
+    for k, w in zip(got, want):
+        _assert_same(k, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,factor", [
+    (torch.bfloat16, (128, 1024, 32), 2), (torch.bfloat16, (128, 1024, 31), 2),
+    (torch.float32, (3, 1001, 8), 4), (torch.bfloat16, (2, 77, 3), 8),
+    (torch.float32, (2, 37, 16), 16), (torch.bfloat16, (1, 3, 8), 4),
+])
+def test_cuda_pool1d_backward_equals_plain_version(dtype, shape, factor):
+    """The 1D pool backward routes each gradient as the plain version
+    does (the first maximum; NaN as select_and_scatter), bit for bit,
+    zeros past the floor."""
+    _need_cuda()
+    x = _signal(shape, 7).to("cuda", dtype)
+    b, c, _, n = x.shape
+    g = torch.randn((b, c, 1, n // factor), generator=torch.Generator()
+                    .manual_seed(8)).to("cuda", dtype).contiguous(
+        memory_format=torch.channels_last)
+    before = pool_backward.launches.value
+    got = pool_backward.maxpool1d_backward(x, g, factor)
+    torch.cuda.synchronize()
+    assert pool_backward.launches.value == before + 1
+    assert torch.equal(got, pool_backward.maxpool1d_backward_plain(x, g,
+                                                                   factor))
+
+
+@pytest.mark.cuda
+def test_cuda_model_1d_step_launches_and_matches_cpu():
+    """A W8 D3 UNet3P with ``ds = 1`` on (4, 256, 1): one float32 train
+    step on the card launches 3 encoder pools, 2 skip pyramids and the
+    targets pyramid (6) and 3 + 3 backward kernels, and gives the CPU's
+    loss within 1e-4."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        Trainer, default_ds_weights)
+
+    x = torch.randn(4, 256, 1, generator=torch.Generator().manual_seed(9))
+    y = (torch.rand(4, 256, 1, generator=torch.Generator().manual_seed(10))
+         > 0.5).float()
+    losses = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            model = model_selector_1d(
+                "UNet3P", 256, 3, 1, 8, 3, ds=1,
+                generator=torch.Generator().manual_seed(0))
+            trainer = Trainer(model, loss="MeanAbsoluteError", device=dev,
+                              loss_weights=default_ds_weights(3),
+                              prepare_targets=lambda m: prepare_train_dict(
+                                  m, 3, "UNet", spatial_rank=1))
+            counts = (pyramid.launches.value, pool_backward.launches.value)
+            loss, _ = trainer.train_step(*trainer._batch(x.numpy(),
+                                                         y.numpy()))
+            losses.append(float(loss))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                assert (pyramid.launches.value - counts[0],
+                        pool_backward.launches.value - counts[1]) == (6, 6)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert abs(losses[0] - losses[1]) <= 1e-4

@@ -1,6 +1,6 @@
 """``python -m tf_1d_2d_segmentation_end2endpipelines_torch
-train|test|serve|predict ...``: the port's command line (JAX:
-drivers.py:895-900, :936-946, :956-968, :1067-1078)."""
+train|test|serve|predict|train1d|test1d|predict1d ...``: the port's
+command line (JAX: drivers.py:895-933, :936-946, :956-968, :1046-1078)."""
 from __future__ import annotations
 
 import argparse
@@ -61,6 +61,22 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     p_prd.add_argument("--seed", type=int, default=None,
                        help="seed of the weights used when best.pt is "
                        "absent (default: the INI seed)")
+    for verb, what in (("train1d", "train on a .pt signal set; writes "
+                        "<save_dir>/best.pt"),
+                       ("test1d", "NILM evaluation of a trained 1D model "
+                        "on the config's test_set"),
+                       ("predict1d", "inference on unlabeled .pt signals; "
+                        "writes an .npz of predictions")):
+        p = sub.add_parser(verb, help=what)
+        p.add_argument("config", nargs="?", default="Signal_Configs.ini")
+        p.add_argument("--device", default="cuda",
+                       help="torch device to run on (default: cuda)")
+        p.add_argument("--seed", type=int, default=None,
+                       help="replaces the INI seed (weights, shuffle)")
+        if verb == "predict1d":
+            p.add_argument("--input", default=None,
+                           help="input .pt (defaults to the config test_set)")
+            p.add_argument("--out", default="predictions_1d.npz")
     args = parser.parse_args(argv)
     if args.cmd == "train":
         from .drivers import train
@@ -73,6 +89,16 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
         serve(args.config, host=args.host, port=args.port, fold=args.fold,
               max_batch=args.max_batch, threshold=args.threshold,
               int8=args.int8, device=args.device, seed=args.seed)
+    elif args.cmd == "train1d":
+        from .drivers_1d import train_1d
+        train_1d(args.config, device=args.device, seed=args.seed)
+    elif args.cmd == "test1d":
+        from .drivers_1d import test_1d
+        test_1d(args.config, device=args.device, seed=args.seed)
+    elif args.cmd == "predict1d":
+        from .drivers_1d import predict_1d
+        predict_1d(args.config, input_path=args.input, out_path=args.out,
+                   device=args.device, seed=args.seed)
     elif args.cmd == "predict":
         from .drivers import predict
         predict(args.config, input_path=args.input, out_dir=args.out,

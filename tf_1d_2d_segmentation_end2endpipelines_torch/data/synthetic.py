@@ -1,12 +1,62 @@
-"""Synthetic 2D segmentation data
-(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/data/synthetic.py:31),
-and a writer of such data as an image folder the train verb reads."""
+"""Synthetic 1D and 2D segmentation data (JAX: tf_1d_2d_segmentation_
+end2endpipelines_tpu/data/synthetic.py: ``synthetic_signals`` :9,
+``synthetic_images`` :31, ``batches`` :59), and a writer of 2D data as an
+image folder the train verb reads."""
 from __future__ import annotations
 
 import os
 import typing as tp
 
 import numpy as np
+
+
+def synthetic_signals(num: int, length: int = 1024, channels: int = 1,
+                      seed: int = 0) -> tp.Tuple[np.ndarray, np.ndarray]:
+    """1D binary segmentation: noisy sinusoids with random active windows
+    (BASELINE config 1: 1024-sample signals).  Returns float32 (B, L, C)
+    signals and (B, L, 1) masks, the JAX function's draws."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 8 * np.pi, length, dtype=np.float32)
+    x = np.zeros((num, length, channels), np.float32)
+    y = np.zeros((num, length, 1), np.float32)
+    for i in range(num):
+        base = np.sin(t * rng.uniform(0.5, 2.0)) * rng.uniform(0.5, 1.5)
+        for _ in range(rng.integers(1, 4)):
+            s = rng.integers(0, length - length // 8)
+            e = s + rng.integers(length // 16, length // 8)
+            base[s:e] += rng.uniform(2.0, 4.0)
+            y[i, s:e, 0] = 1.0
+        sig = base + rng.normal(0, 0.1, length)
+        for c in range(channels):
+            x[i, :, c] = sig
+    return x, y
+
+
+def batches(x: np.ndarray, y, batch_size: int, shuffle: bool = True,
+            seed: int = 0, drop_remainder: bool = True):
+    """Host batch iterator factory (a reusable callable, as the trainer
+    takes).  Call ``e`` (from 0) shuffles with ``seed + e``, the JAX
+    function's order; ``y`` may be an array or a dict of arrays.  The
+    callable's ``set_epoch`` sets the counter, so exact resume replays the
+    interrupted run's data order."""
+    n = x.shape[0]
+    state = {"epoch": 0}
+
+    def it():
+        e, state["epoch"] = state["epoch"], state["epoch"] + 1
+        idx = np.arange(n)
+        if shuffle:
+            np.random.default_rng(seed + e).shuffle(idx)
+        stop = n - (n % batch_size) if drop_remainder else n
+        for s in range(0, stop, batch_size):
+            sel = idx[s:s + batch_size]
+            if isinstance(y, dict):
+                yield x[sel], {k: v[sel] for k, v in y.items()}
+            else:
+                yield x[sel], y[sel]
+
+    it.set_epoch = lambda epoch: state.__setitem__("epoch", int(epoch))
+    return it
 
 
 def synthetic_images(num: int, size: int = 256, channels: int = 3,

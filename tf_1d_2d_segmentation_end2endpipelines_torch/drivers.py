@@ -91,17 +91,20 @@ def resolve_device(device: tp.Union[str, torch.device]) -> torch.device:
 def _restore_model(cfg: TrainConfig, ckpt_dir: str, action: str,
                    device: tp.Union[str, torch.device],
                    dtype: tp.Optional[torch.dtype] = None,
-                   seed: tp.Optional[int] = None) -> torch.nn.Module:
-    """Build the model with weights drawn from ``seed`` (default: the INI
-    ``seed``), load ``<ckpt_dir>/best.pt`` over them when it exists (warn
-    when absent) and, when the fold kept an EMA shadow (``best_ema.pt``,
-    saved with this ``best.pt``), the shadow over the parameters: the
-    weights the run validated on
+                   seed: tp.Optional[int] = None,
+                   build: tp.Callable[..., torch.nn.Module] = _build_model
+                   ) -> torch.nn.Module:
+    """Build the model (``build(cfg, dtype=, generator=)``) with weights
+    drawn from ``seed`` (default: the INI ``seed``), load ``<ckpt_dir>/
+    best.pt`` over them when it exists (warn when absent) and, when the
+    fold kept an EMA shadow (``best_ema.pt``, saved with this
+    ``best.pt``), the shadow over the parameters: the weights the run
+    validated on
     (JAX ``eval_params``, serve.py:53-54); move it to ``device`` and
     switch it to eval mode."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-    model = _build_model(cfg, dtype=dtype, generator=gen)
+    model = build(cfg, dtype=dtype, generator=gen)
     ckpt = CheckpointManager(ckpt_dir)
     if ckpt.exists("best"):
         shadow = ckpt.restore(model, None, "best")
@@ -147,6 +150,20 @@ def _check_train_config(cfg: TrainConfig) -> None:
             "augment and augment_device are alternatives (the same op set "
             "on the host or on the card); both would augment every sample "
             "twice: pick one")
+    _check_step_keys(cfg, _num_classes(cfg), (
+        (cfg.augment, "cv2", "opencv-python (augment = 1)"),
+        (bool(cfg.tensorboard_dir), "tensorboard",
+         "tensorboard (tensorboard_dir)")))
+
+
+def _check_step_keys(cfg, num_classes: int,
+                     packages: tp.Sequence[tp.Tuple[bool, str, str]]
+                     ) -> None:
+    """The checks the 2D and 1D train verbs share, on ``cfg`` (a
+    ``TrainConfig`` or ``Signal1DConfig``): accumulation, remat (but
+    ``blocks``, which each verb judges), EMA decay, the host packages
+    (``(needed, module, what)``), ds_type and the loss, metric and
+    optimizer names."""
     if cfg.accumulation_steps < 1 or (
             cfg.accumulation_steps > 1
             and cfg.batch_size % cfg.accumulation_steps):
@@ -157,10 +174,7 @@ def _check_train_config(cfg: TrainConfig) -> None:
         check_policy(cfg.remat.strip() or None)
     if not 0.0 <= cfg.ema_decay < 1.0:
         raise ValueError(f"ema_decay must be in [0, 1), got {cfg.ema_decay}")
-    for needed, module, package in (
-            (cfg.augment, "cv2", "opencv-python (augment = 1)"),
-            (bool(cfg.tensorboard_dir), "tensorboard",
-             "tensorboard (tensorboard_dir)")):
+    for needed, module, package in packages:
         if needed:
             try:
                 __import__(module)
@@ -171,7 +185,7 @@ def _check_train_config(cfg: TrainConfig) -> None:
         raise ValueError(f"Unknown ds_type {cfg.ds_type!r}")
     get_loss(cfg.loss_function)
     for name in cfg.metric_list:
-        make_metric(name, num_classes=_num_classes(cfg))
+        make_metric(name, num_classes=num_classes)
     make_optimizer(cfg.optimizer_function,
                    [torch.zeros(1, requires_grad=True)], cfg.learning_rate)
 
@@ -348,19 +362,20 @@ def _train_batches(loader: PrefetchLoader, dev_aug, seed: int,
 
 
 def _save_history(history: tp.Dict[str, tp.List[float]], ckpt_dir: str,
-                  metric: tp.Optional[str]) -> None:
-    """``history.json``; ``history.h5``, one dataset per key, the
-    reference's format (Train.py:425-430), with a warning when it cannot
-    be written; and ``history.png`` where matplotlib imports, else one
-    line saying it was not drawn (JAX drivers.py:377-395)."""
+                  metric: tp.Optional[str], h5: bool = True) -> None:
+    """``history.json``; with ``h5``, ``history.h5``, one dataset per key,
+    the reference's format (Train.py:425-430), with a warning when it
+    cannot be written; and ``history.png`` where matplotlib imports, else
+    one line saying it was not drawn (JAX drivers.py:377-395)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     with open(os.path.join(ckpt_dir, "history.json"), "w") as f:
         json.dump(history, f)
     try:
-        import h5py
-        with h5py.File(os.path.join(ckpt_dir, "history.h5"), "w") as hf:
-            for k, v in history.items():
-                hf.create_dataset(k, data=np.asarray(v))
+        if h5:
+            import h5py
+            with h5py.File(os.path.join(ckpt_dir, "history.h5"), "w") as hf:
+                for k, v in history.items():
+                    hf.create_dataset(k, data=np.asarray(v))
     except Exception as e:  # noqa: BLE001 (h5py absent, disk full, ...)
         print(f"WARNING: could not write history.h5 ({e})", flush=True)
     if ev.have_matplotlib():

@@ -1,6 +1,6 @@
 """Evaluation of the port: confusion-matrix metrics, test-time
 augmentation and reports (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/
-eval; the 1D NILM metrics are not ported)."""
+eval), and the 1D NILM metrics (``nilm``)."""
 from .reports import (  # noqa: F401
     export_results_sheet,
     have_matplotlib,
@@ -21,4 +21,11 @@ from .segmetrics import (  # noqa: F401
     per_class_binary_counts,
     reverse_one_hot_encoding,
 )
-from .tta import TTA_2D, make_tta_fn, parse_tta  # noqa: F401
+from .nilm import (  # noqa: F401
+    calculate_deoi,
+    calculate_ea,
+    calculate_jeoi,
+    calculate_sae,
+    construction_error,
+)
+from .tta import TTA_1D, TTA_2D, make_tta_fn, parse_tta  # noqa: F401

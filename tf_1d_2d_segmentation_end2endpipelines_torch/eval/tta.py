@@ -1,7 +1,7 @@
-"""Test-time augmentation for 2D inputs: average the predictions over
-invertible views (flips and quarter turns) of an NHWC batch
-(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/eval/tta.py:1-121; the
-1D views are not ported).
+"""Test-time augmentation: average the predictions over invertible views
+of a batch: flips and quarter turns of an NHWC batch, the length reversal
+of a 1D (B, L, C) one (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/
+eval/tta.py:1-121; ``TTA_1D`` :61-72, ``parse_tta(rank=1)`` :110).
 
 The views are layout moves, so each prediction maps back exactly.  The
 JAX package runs one forward per view inside one compiled program; here
@@ -16,7 +16,7 @@ import typing as tp
 
 import torch
 
-__all__ = ["TTA_2D", "make_tta_fn", "parse_tta"]
+__all__ = ["TTA_1D", "TTA_2D", "make_tta_fn", "parse_tta"]
 
 View = tp.Callable[[torch.Tensor], torch.Tensor]
 
@@ -50,24 +50,32 @@ TTA_2D: tp.Dict[str, tp.Tuple[View, View]] = {
 }
 
 
-def parse_tta(spec: str, square: bool = True) -> tp.Tuple[str, ...]:
-    """The views an INI ``tta`` value names (``'hflip, vflip'``): ``''`` or
-    ``'none'`` none, ``'all'`` every view the input shape allows.  Raises
-    ``ValueError`` on an unknown name, and on rot90/rot270 when the input
-    is not square."""
+#: 1D signals (B, L, C): only the length reversal is geometric
+TTA_1D: tp.Dict[str, tp.Tuple[View, View]] = {
+    "flip": _flip(1),
+}
+
+
+def parse_tta(spec: str, square: bool = True, rank: int = 2
+              ) -> tp.Tuple[str, ...]:
+    """The views an INI ``tta`` value names (``'hflip, vflip'``; 1D,
+    ``rank`` 1: ``'flip'``): ``''`` or ``'none'`` none, ``'all'`` every
+    view the input shape allows.  Raises ``ValueError`` on an unknown
+    name, and on rot90/rot270 when the input is not square."""
+    table = TTA_2D if rank == 2 else TTA_1D
     spec = (spec or "").strip().lower()
     if spec in ("", "none", "0", "false"):
         return ()
     if spec in ("all", "1", "true"):
-        return tuple(n for n in TTA_2D if square or not n.startswith("rot"))
+        return tuple(n for n in table if square or not n.startswith("rot"))
     names = []
     for part in spec.replace(";", ",").split(","):
         name = part.strip()
         if not name:
             continue
-        if name not in TTA_2D:
+        if name not in table:
             raise ValueError(f"unknown TTA transform {name!r}; expected one "
-                             f"of {sorted(TTA_2D)}")
+                             f"of {sorted(table)} (rank {rank})")
         if name in ("rot90", "rot270") and not square:
             raise ValueError(
                 f"TTA {name!r} requires square inputs (a 90-degree rotation "
@@ -78,14 +86,16 @@ def parse_tta(spec: str, square: bool = True) -> tp.Tuple[str, ...]:
 
 def make_tta_fn(predict_fn: tp.Callable[[torch.Tensor],
                                         tp.Dict[str, torch.Tensor]],
-                transforms: tp.Sequence[str]
+                transforms: tp.Sequence[str], rank: int = 2
                 ) -> tp.Callable[[torch.Tensor], tp.Dict[str, torch.Tensor]]:
-    """Wrap ``predict_fn`` (an NHWC batch -> a dict of NHWC heads) so that
-    each head is the mean over the identity and ``transforms``: the
-    identity's prediction, plus each view's mapped back, in the order
-    given, divided by ``1 + len(transforms)`` (the JAX order of sums).
-    Every view of the batch goes through one ``predict_fn`` call."""
-    pairs = [TTA_2D[name] for name in transforms]
+    """Wrap ``predict_fn`` (an NHWC batch -> a dict of NHWC heads; at
+    ``rank`` 1 (B, L, C)) so that each head is the mean over the identity
+    and ``transforms``: the identity's prediction, plus each view's mapped
+    back, in the order given, divided by ``1 + len(transforms)`` (the JAX
+    order of sums).  Every view of the batch goes through one
+    ``predict_fn`` call."""
+    table = TTA_2D if rank == 2 else TTA_1D
+    pairs = [table[name] for name in transforms]
     if not pairs:
         return predict_fn
 

@@ -1,5 +1,12 @@
 """Model zoo of the port: the from-scratch UNet, UNetE, UNetP, UNet++,
-UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet."""
+UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet; in 1D, UNet, UNetE,
+UNetP, UNet++, UNet3+ and MultiResUNet (``api_1d``)."""
+from .api_1d import (  # noqa: F401
+    ARCH_NAMES_1D,
+    SegModel1D,
+    UNet1D,
+    model_selector_1d,
+)
 from .decoders import (  # noqa: F401
     ChainDecoder,
     FullScaleDecoder,

@@ -13,6 +13,13 @@ UNet3+ and MultiResUNet3+ full-scale decoders (``FullScaleDecoder``,
 Every decoder takes ``skips`` = [conv1 .. convD, bottleneck] and returns
 ``(deconv, levels)``, ``levels`` being the deep-supervision heads in the
 reference's order (level{D} first .. level1 last).
+
+``dialect`` "1d" (JAX ``_DecoderBase``, decoders.py:55-158) builds the 1D
+tree's decoders over (B, C, 1, L) signals: the 2-wide transposed conv
+with BatchNorm and ReLU, nearest upsampling and resizing, nodes of
+``conv_repeats`` ConvBlocks of kernel ``kernel``, MultiRes nodes whose
+branch widths truncate before the level's multiplier, pools over the
+length axis (``pyramid.maxpool1d_levels``).
 """
 from __future__ import annotations
 
@@ -28,12 +35,13 @@ from ..ops.kernels import pyramid
 
 class _DecoderBase(nn.Module):
     """Shared decoder machinery (JAX ``_DecoderBase``, decoders.py:55):
-    ``_up`` upsamples by 2, by the 2D dialect's transposed conv
-    (``TransConv_<n>``) or, with ``is_transconv`` off, by bilinear resize,
-    which keeps the source's width; ``_resize`` is bilinear upsampling;
-    a node is one ConvBlock (``ConvBlock_<n>``) or, with ``multires``, one
-    MultiResBlock (``MultiResBlock_<n>``) whose output is
-    ``multires_features`` wide; ``_ds_head`` is a 1x1 conv named
+    ``_up`` upsamples by 2, by the dialect's transposed conv
+    (``TransConv_<n>``) or, with ``is_transconv`` off, by the dialect's
+    resize (bilinear in 2D, nearest in 1D), which keeps the source's
+    width; ``_resize`` is that resize; node ``n`` is ``conv_repeats``
+    ConvBlocks (``ConvBlock_<n * conv_repeats + r>``) or, with
+    ``multires``, one MultiResBlock (``MultiResBlock_<n>``) whose output is
+    ``_node_features`` wide; ``_ds_head`` is a 1x1 conv named
     ``level{k}``.  Subclasses create their submodules in flax call order,
     so the flax auto-names map one for one.  The skips they take are the
     encoder's taps, W * 2**j wide, and the latent's output, as wide as a
@@ -42,8 +50,12 @@ class _DecoderBase(nn.Module):
 
     def __init__(self, model_width: int, model_depth: int, D_S: int = 0,
                  is_transconv: bool = True, multires: bool = False,
-                 alpha: float = 1.0, dtype: torch.dtype = torch.float32):
+                 alpha: float = 1.0, dtype: torch.dtype = torch.float32,
+                 kernel: int = 3, conv_repeats: int = 1,
+                 dialect: str = "2d"):
         super().__init__()
+        if dialect not in ("1d", "2d"):
+            raise ValueError(f"unknown decoder dialect {dialect!r}")
         self.model_width = model_width
         self.model_depth = model_depth
         self.D_S = D_S
@@ -51,7 +63,10 @@ class _DecoderBase(nn.Module):
         self.multires = multires
         self.alpha = alpha
         self.dtype = dtype
-        self._node = "MultiResBlock" if multires else "ConvBlock"
+        self.kernel = kernel
+        self.conv_repeats = conv_repeats
+        self.dialect = dialect
+        self.rank = 1 if dialect == "1d" else 2
 
     def _add_up(self, n: int, in_features: int, features: int,
                 generator: tp.Optional[torch.Generator]) -> int:
@@ -59,44 +74,68 @@ class _DecoderBase(nn.Module):
         if not self.is_transconv:
             return in_features
         self.add_module(f"TransConv_{n}", TransConv(
-            in_features, features, dtype=self.dtype, generator=generator))
+            in_features, features, dtype=self.dtype, generator=generator,
+            dialect=self.dialect))
         return features
 
     def _up(self, x: torch.Tensor, n: int) -> torch.Tensor:
         if self.is_transconv:
             return getattr(self, f"TransConv_{n}")(x)
-        return upsample(x, 2, method="bilinear")
+        return self._resize(x, 2)
 
-    @staticmethod
-    def _resize(x: torch.Tensor, factor: int) -> torch.Tensor:
-        return upsample(x, factor, method="bilinear")
+    def _resize(self, x: torch.Tensor, factor: int) -> torch.Tensor:
+        method = "nearest" if self.rank == 1 else "bilinear"
+        return upsample(x, factor, method=method, rank=self.rank)
+
+    def _multires_width(self, features: int) -> tp.Tuple[int, int]:
+        """(width, multiplier) of a MultiRes node of width ``features``:
+        the 2D tree passes the width, the 1D tree the base width and the
+        level's multiplier (decoders.py:119-125)."""
+        if self.rank == 1:
+            return self.model_width, features // self.model_width
+        return features, 1
 
     def _node_features(self, features: int) -> int:
         """The output width of a node of width ``features``."""
-        return (multires_features(features, self.alpha) if self.multires
-                else features)
+        if not self.multires:
+            return features
+        width, multiplier = self._multires_width(features)
+        return multires_features(width, self.alpha, multiplier)
+
+    def _node_modules(self, n: int) -> tp.List[str]:
+        if self.multires:
+            return [f"MultiResBlock_{n}"]
+        return [f"ConvBlock_{n * self.conv_repeats + r}"
+                for r in range(self.conv_repeats)]
 
     def _add_node(self, n: int, in_features: int, features: int,
                   generator: tp.Optional[torch.Generator]) -> int:
         """Create node ``n``; returns its output width."""
+        kw = dict(dtype=self.dtype, generator=generator, rank=self.rank)
         if self.multires:
-            block = MultiResBlock(in_features, features, 3, alpha=self.alpha,
-                                  dtype=self.dtype, generator=generator)
-        else:
-            block = ConvBlock(in_features, features, 3, dtype=self.dtype,
-                              generator=generator)
-        self.add_module(f"{self._node}_{n}", block)
-        return self._node_features(features)
+            width, multiplier = self._multires_width(features)
+            block = MultiResBlock(in_features, width, self.kernel,
+                                  alpha=self.alpha, multiplier=multiplier,
+                                  **kw)
+            self.add_module(f"MultiResBlock_{n}", block)
+            return block.out_features
+        for name in self._node_modules(n):
+            self.add_module(name, ConvBlock(in_features, features,
+                                            self.kernel, **kw))
+            in_features = features
+        return features
 
     def _run_node(self, n: int, x: torch.Tensor) -> torch.Tensor:
-        return getattr(self, f"{self._node}_{n}")(x)
+        for name in self._node_modules(n):
+            x = getattr(self, name)(x)
+        return x
 
     def _add_gate(self, n: int, skip_features: int, gate_features: int,
                   features: int, generator: tp.Optional[torch.Generator]
                   ) -> None:
         self.add_module(f"AttentionGate_{n}", AttentionGate(
             skip_features, gate_features, features, dtype=self.dtype,
-            generator=generator))
+            generator=generator, dialect=self.dialect))
 
     def _gate(self, n: int, skip: torch.Tensor, gate: torch.Tensor
               ) -> torch.Tensor:
@@ -106,8 +145,8 @@ class _DecoderBase(nn.Module):
                      generator: tp.Optional[torch.Generator],
                      stride: int = 1) -> None:
         self.add_module(f"level{level}", HeadConv(
-            in_features, 1, stride=stride, dtype=self.dtype,
-            generator=generator))
+            in_features, 1, stride=stride if self.rank == 2 else (1, stride),
+            dtype=self.dtype, generator=generator))
 
     def _ds_head(self, x: torch.Tensor, level: int) -> torch.Tensor:
         return getattr(self, f"level{level}")(x)
@@ -132,7 +171,9 @@ class ChainDecoder(_DecoderBase):
                  style: str = "unet", D_S: int = 0, A_G: int = 0,
                  LSTM: int = 0, is_transconv: bool = True,
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 kernel: int = 3, conv_repeats: int = 1,
+                 dialect: str = "2d"):
         if style not in self.STYLES:
             raise NotImplementedError(
                 f"ChainDecoder style {style!r} is not ported yet")
@@ -141,7 +182,9 @@ class ChainDecoder(_DecoderBase):
                 "chain decoders with ConvLSTM fusion are not ported yet")
         super().__init__(model_width, model_depth, D_S=D_S,
                          is_transconv=is_transconv,
-                         multires=style != "unet", alpha=alpha, dtype=dtype)
+                         multires=style != "unet", alpha=alpha, dtype=dtype,
+                         kernel=kernel, conv_repeats=conv_repeats,
+                         dialect=dialect)
         self.style = style
         self.A_G = A_G
         W, D = model_width, model_depth
@@ -204,7 +247,9 @@ class GridDecoder(_DecoderBase):
                  variant: str = "PP", D_S: int = 0, A_G: int = 0,
                  LSTM: int = 0, is_transconv: bool = True,
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 kernel: int = 3, conv_repeats: int = 1,
+                 dialect: str = "2d"):
         if variant not in ("E", "P", "PP"):
             raise NotImplementedError(
                 f"GridDecoder variant {variant!r} is not ported yet")
@@ -212,7 +257,9 @@ class GridDecoder(_DecoderBase):
             raise NotImplementedError(
                 "grid decoders with ConvLSTM fusion are not ported yet")
         super().__init__(model_width, model_depth, D_S=D_S,
-                         is_transconv=is_transconv, alpha=alpha, dtype=dtype)
+                         is_transconv=is_transconv, alpha=alpha, dtype=dtype,
+                         kernel=kernel, conv_repeats=conv_repeats,
+                         dialect=dialect)
         self.variant = variant
         self.A_G = A_G
         W, D = model_width, model_depth
@@ -285,9 +332,13 @@ class FullScaleDecoder(_DecoderBase):
                  A_G: int = 0, LSTM: int = 0, is_transconv: bool = True,
                  multires: bool = False, alpha: float = 1.0,
                  dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 kernel: int = 3, conv_repeats: int = 1,
+                 dialect: str = "2d"):
         super().__init__(model_width, model_depth, D_S=D_S,
-                         multires=multires, alpha=alpha, dtype=dtype)
+                         multires=multires, alpha=alpha, dtype=dtype,
+                         kernel=kernel, conv_repeats=conv_repeats,
+                         dialect=dialect)
         W, D = model_width, model_depth
         feat = W * D if multires else W * (D + 1)
         n = r = 0
@@ -306,7 +357,8 @@ class FullScaleDecoder(_DecoderBase):
             for _ in range(j):                          # earlier steps
                 if multires:
                     self.add_module(f"ResPath_{r}", ResPath(
-                        deconv, j, W, 3, dtype=dtype, generator=generator))
+                        deconv, j, W, kernel, dtype=dtype,
+                        generator=generator, rank=self.rank))
                     r += 1
                     tot += W
                 else:
@@ -334,8 +386,9 @@ class FullScaleDecoder(_DecoderBase):
         # end2endpipelines_tpu/models/decoders.py:353-356); all of them come
         # from one pyramid launch, one read of the skip.  Max is exact, so
         # each tap equals that pool, forward and gradient.
-        pooled = [pyramid.maxpool_levels(skips[k], D - 1 - k)
-                  for k in range(D - 1)]
+        levels_of = (pyramid.maxpool_levels if self.rank == 2
+                     else pyramid.maxpool1d_levels)
+        pooled = [levels_of(skips[k], D - 1 - k) for k in range(D - 1)]
         for j in range(D):
             sc_all = node(skips[D - j - 1])
             for k in range(0, D - j - 1):

@@ -1,10 +1,14 @@
-"""Block library of the port: the 2D blocks the UNet genre, the MultiRes
-family and the attention gates run, ported from
+"""Block library of the port: the blocks the UNet genre, the MultiRes
+family and the attention gates run, in 2D and in 1D, ported from
 tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
 
 Layout: modules and block functions take and return (B, C, H, W) tensors
 in ``torch.channels_last`` memory, i.e. the JAX package's NHWC buffers
-seen through PyTorch's NCHW indexing.  Parameters stay float32; a block
+seen through PyTorch's NCHW indexing.  A 1D signal is a (B, C, 1, L)
+tensor in the same memory format, i.e. the JAX package's NLC buffer: a
+block built with ``rank=1`` convolves it with (1, k) kernels (flax's 1D
+``SAME`` padding, (k - 1) // 2 before and k // 2 after), pools and
+upsamples its length axis alone.  Parameters stay float32; a block
 built with ``dtype=torch.bfloat16`` casts its weights and activations to
 bf16 in the same places the flax modules do, so converted weights give
 the JAX outputs and, through autograd, the JAX gradients (BatchNorm in
@@ -156,27 +160,41 @@ class _Block(nn.Module):
         return self._forward(x)
 
 
+def _same_padding(kernel: int, rank: int
+                  ) -> tp.Tuple[tp.Tuple[int, int], tp.Optional[tp.Tuple]]:
+    """flax's stride-1 ``SAME`` for a square kernel (``rank`` 2, odd
+    sides) or a (1, k) one (``rank`` 1, any k): ``(padding, pad)``, the
+    symmetric padding ``F.conv2d`` takes and, for an even k, the uneven
+    ``F.pad`` of the length axis before it: (k - 1) // 2 before and
+    k // 2 after, as flax pads."""
+    if kernel % 2 == 1:
+        return (kernel // 2, kernel // 2) if rank == 2 else (0, kernel // 2), None
+    return (0, 0), ((kernel - 1) // 2, kernel // 2)
+
+
 class ConvBlock(_Block):
     """conv -> [BatchNorm] -> [activation] (JAX ``ConvBlock``, blocks.py:191).
 
-    SAME padding, stride 1, odd square kernel, with bias: the
-    configurations the slice runs.  Kernel init he_uniform, zero bias."""
+    SAME padding, stride 1, with bias: an odd square kernel (``rank`` 2)
+    or a (1, k) kernel of any k over a 1D signal (``rank`` 1).  Kernel
+    init he_uniform, zero bias."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  use_bn: bool = True, activation: tp.Optional[str] = "relu",
                  dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 2):
         super().__init__()
-        if kernel % 2 != 1:
+        if rank == 2 and kernel % 2 != 1:
             raise NotImplementedError("ConvBlock: only odd kernels (SAME "
-                                      "padding, stride 1) are ported")
-        self.kernel = kernel
+                                      "padding, stride 1) are ported in 2D")
+        self.padding, self.pad = _same_padding(kernel, rank)
         self.activation = activation
         self.dtype = dtype
-        self.Conv_0 = nn.Conv2d(in_features, features, kernel,
-                                padding=kernel // 2)
+        self.Conv_0 = nn.Conv2d(in_features, features,
+                                (kernel, kernel) if rank == 2 else (1, kernel))
         with torch.no_grad():
-            he_uniform_(self.Conv_0.weight, kernel * kernel * in_features,
+            he_uniform_(self.Conv_0.weight, kernel ** rank * in_features,
                         generator)
             self.Conv_0.bias.zero_()
         self.BatchNorm_0 = BatchNorm(features) if use_bn else None
@@ -185,8 +203,10 @@ class ConvBlock(_Block):
         conv = self.Conv_0
         # flax casts input, kernel and bias to the compute dtype and adds
         # the bias in that dtype, after the convolution
-        x = F.conv2d(x.to(self.dtype), conv.weight.to(self.dtype),
-                     padding=self.kernel // 2)
+        x = x.to(self.dtype)
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
+        x = F.conv2d(x, conv.weight.to(self.dtype), padding=self.padding)
         x = x + conv.bias.to(self.dtype).view(1, -1, 1, 1)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
@@ -194,33 +214,51 @@ class ConvBlock(_Block):
 
 
 class TransConv(nn.Module):
-    """Transposed-conv upsample, 2D dialect (JAX ``TransConv``,
-    blocks.py:346): k4 s2 SAME, no BN, LeakyReLU 0.3.
+    """Transposed-conv upsample by 2 (JAX ``TransConv``, blocks.py:346).
 
-    flax stores the kernel as (kh, kw, C_out, C_in) with
-    ``transpose_kernel=True``; ``permute(3, 2, 0, 1)`` gives
-    ``conv_transpose2d``'s (C_in, C_out, kh, kw) weight, used with
-    ``padding=1`` and no flip (pinned by tests/test_torch_blocks.py).
+    - ``dialect`` "2d": k4 s2 SAME, no BN, LeakyReLU 0.3.  flax stores the
+      kernel as (kh, kw, C_out, C_in) with ``transpose_kernel=True``;
+      ``permute(3, 2, 0, 1)`` gives ``conv_transpose2d``'s (C_in, C_out,
+      kh, kw) weight, used with ``padding=1`` and no flip (pinned by
+      tests/test_torch_blocks.py).
+    - ``dialect`` "1d" (the 1D tree's ``trans_conv1D``, called from
+      decoders.py:99-108): a 2-wide kernel, stride 2 along L, SAME (which
+      pads nothing: output 2i + t is input i times tap t), then
+      ``BatchNorm_0`` and ReLU.  flax's (2, C_out, C_in) kernel becomes the
+      (C_in, C_out, 1, 2) weight by ``permute(2, 1, 0)``, no flip
+      (tests/test_torch_blocks_1d.py).
+
     Init as flax's ``ConvTranspose``: lecun_normal over that kernel shape,
     whose fan-in axis is C_out; zero bias."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 dialect: str = "2d"):
         super().__init__()
         self.dtype = dtype
-        self.ConvTranspose_0 = nn.ConvTranspose2d(in_features, features, 4,
-                                                  stride=2, padding=1)
+        self.dialect = dialect
+        if dialect == "2d":
+            self.ConvTranspose_0 = nn.ConvTranspose2d(
+                in_features, features, 4, stride=2, padding=1)
+            fan_in = 16 * features
+        else:
+            self.ConvTranspose_0 = nn.ConvTranspose2d(
+                in_features, features, (1, 2), stride=(1, 2))
+            self.BatchNorm_0 = BatchNorm(features)
+            fan_in = 2 * features
         with torch.no_grad():
-            lecun_normal_(self.ConvTranspose_0.weight, 16 * features,
-                          generator)
+            lecun_normal_(self.ConvTranspose_0.weight, fan_in, generator)
             self.ConvTranspose_0.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = self.ConvTranspose_0
         x = F.conv_transpose2d(x.to(self.dtype), ct.weight.to(self.dtype),
-                               stride=2, padding=1)
-        return _leaky_relu(x + ct.bias.to(self.dtype).view(1, -1, 1, 1))
+                               stride=ct.stride, padding=ct.padding)
+        x = x + ct.bias.to(self.dtype).view(1, -1, 1, 1)
+        if self.dialect == "2d":
+            return _leaky_relu(x)
+        return torch.relu(self.BatchNorm_0(x))
 
 
 class HeadConv(nn.Conv2d):
@@ -228,7 +266,11 @@ class HeadConv(nn.Conv2d):
     ``out`` head and the decoders' deep-supervision heads (JAX
     ``_DecoderBase._ds_head``, decoders.py:153).  SAME padding of a 1x1
     kernel pads nothing, so a stride of 2 samples rows and columns 0, 2,
-    4, ...  Init as flax's: lecun_normal kernel, zero bias."""
+    4, ... (a (1, 2) stride the positions of a 1D signal): the forward
+    takes those samples by slicing, then convolves with stride 1, the same
+    conv; PyTorch's CPU build (oneDNN) crashes in the weight gradient of
+    some strided channels_last 1x1 convs (UNet3+'s 1D heads).  Init as
+    flax's: lecun_normal kernel, zero bias."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32,
@@ -242,38 +284,53 @@ class HeadConv(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax casts input, kernel and bias to the compute dtype and adds
         # the bias after the convolution
-        x = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype),
-                     stride=self.stride)
+        sh, sw = self.stride
+        if (sh, sw) != (1, 1):
+            x = x[:, :, ::sh, ::sw]
+        x = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype))
         return x + self.bias.to(self.dtype).view(1, -1, 1, 1)
 
 
 def upsample(x: torch.Tensor, factor: int = 2,
-             method: str = "bilinear") -> torch.Tensor:
-    """Bilinear upsampling by ``factor`` with half-pixel centers (JAX
-    ``upsample``, blocks.py:389, ``jax.image.resize``): the same sample
-    positions and weights as ``F.interpolate(align_corners=False)``, which
-    keeps channels_last memory.  In float32 the two agree to rounding;
-    in bf16 to one bf16 ulp (tests/test_torch_ds_blocks.py)."""
-    if method != "bilinear":
+             method: str = "bilinear", rank: int = 2) -> torch.Tensor:
+    """Upsampling by ``factor`` (JAX ``upsample``, blocks.py:389).
+
+    ``bilinear`` (2D): half-pixel centers, ``jax.image.resize``: the same
+    sample positions and weights as ``F.interpolate(align_corners=
+    False)``, which keeps channels_last memory.  In float32 the two agree
+    to rounding; in bf16 to one bf16 ulp (tests/test_torch_ds_blocks.py).
+    ``nearest``: every element repeated ``factor`` times along each
+    spatial axis (``jnp.repeat``), the length axis alone at ``rank`` 1;
+    for integer factors torch's nearest index ``floor(i / factor)`` is
+    that repeat exactly."""
+    if method == "nearest":
+        scale = (1, factor) if rank == 1 else (factor, factor)
+        return F.interpolate(x, scale_factor=scale, mode="nearest")
+    if method != "bilinear" or rank != 2:
         raise NotImplementedError(
-            f"upsample method {method!r} is not ported yet (ported: "
-            "bilinear, the 2D dialect's)")
+            f"upsample method {method!r} at rank {rank} is not ported yet "
+            "(ported: bilinear in 2D, nearest)")
     return F.interpolate(x, scale_factor=factor, mode="bilinear",
                          align_corners=False)
 
 
 def downsample_pool(x: torch.Tensor, factor: int = 2,
-                    op: str = "max") -> torch.Tensor:
-    """Pool with window == stride == ``factor``, VALID (Keras semantics).
+                    op: str = "max", rank: int = 2) -> torch.Tensor:
+    """Pool with window == stride == ``factor``, VALID (Keras semantics),
+    over H and W (``rank`` 2) or over the length axis of a (B, C, 1, L)
+    signal (``rank`` 1).
 
     Max pooling by ``2**m`` (m = 1..4) is level m of the max-pool pyramid,
     so it runs the pyramid kernel on a CUDA tensor (JAX:
     ``lax.reduce_window``), with XLA's first-max gradient
-    (``pyramid.maxpool``: the pool-backward kernel on a CUDA tensor)."""
+    (``pyramid.maxpool``, ``pyramid.maxpool1d``: the pool-backward kernels
+    on a CUDA tensor)."""
     if op == "max":
-        return pyramid.maxpool(x, factor)
+        return (pyramid.maxpool(x, factor) if rank == 2
+                else pyramid.maxpool1d(x, factor))
     if op == "avg":
-        return F.avg_pool2d(x, factor, factor)
+        window = factor if rank == 2 else (1, factor)
+        return F.avg_pool2d(x, window, window)
     raise ValueError(f"Unknown pool op {op!r}")
 
 
@@ -303,44 +360,48 @@ class DenseBlock(_Block):
         return x
 
 
-def multires_widths(model_width: int, alpha: float = 1.0
-                    ) -> tp.Tuple[int, int, int]:
-    """The three branch widths of a 2D ``MultiResBlock``:
-    ``max(int(alpha * W * f), 1)`` for f in 0.167, 0.333, 0.5 (the
-    reference truncates; the clamp lets tiny test widths build)."""
+def multires_widths(model_width: int, alpha: float = 1.0,
+                    multiplier: int = 1) -> tp.Tuple[int, int, int]:
+    """The three branch widths of a ``MultiResBlock``:
+    ``max(int(alpha * W * f), 1) * multiplier`` for f in 0.167, 0.333,
+    0.5 (the reference truncates; the clamp lets tiny test widths build).
+    The 2D tree passes the level's width with ``multiplier`` 1; the 1D
+    tree the base width and the level's multiplier, so it truncates
+    before multiplying (JAX blocks.py:732-750)."""
     w = alpha * model_width
-    return (max(int(w * 0.167), 1), max(int(w * 0.333), 1),
-            max(int(w * 0.5), 1))
+    return (max(int(w * 0.167), 1) * multiplier,
+            max(int(w * 0.333), 1) * multiplier,
+            max(int(w * 0.5), 1) * multiplier)
 
 
-def multires_features(model_width: int, alpha: float = 1.0) -> int:
+def multires_features(model_width: int, alpha: float = 1.0,
+                      multiplier: int = 1) -> int:
     """The output width of a ``MultiResBlock``: its three branches'
-    (31 for W = 32 at alpha 1, 63 for 64, ...)."""
-    return sum(multires_widths(model_width, alpha))
+    (31 for W = 32 at alpha 1, 63 for 64, ...; 1D: 31 * multiplier at
+    W = 32)."""
+    return sum(multires_widths(model_width, alpha, multiplier))
 
 
 class MultiResBlock(_Block):
-    """MultiRes block, 2D (JAX ``MultiResBlock``, blocks.py:717, its
-    unpacked branch :748-765): three chained ConvBlocks of
-    ``multires_widths`` channels (``ConvBlock_1..3``), concatenated, then
-    ``BatchNorm_0``; the 1x1 ConvBlock shortcut (``ConvBlock_0``, created
-    first) is added in the activation dtype, then ReLU and
-    ``BatchNorm_1``."""
+    """MultiRes block (JAX ``MultiResBlock``, blocks.py:717, its unpacked
+    branch :748-765): three chained ConvBlocks of ``multires_widths``
+    channels (``ConvBlock_1..3``), concatenated, then ``BatchNorm_0``; the
+    1x1 ConvBlock shortcut (``ConvBlock_0``, created first) is added in
+    the activation dtype, then ReLU and ``BatchNorm_1``.  ``rank`` 1 with
+    the level's ``multiplier`` is the 1D tree's block."""
 
     def __init__(self, in_features: int, model_width: int, kernel: int = 3,
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 multiplier: int = 1, rank: int = 2):
         super().__init__()
-        f1, f2, f3 = multires_widths(model_width, alpha)
+        f1, f2, f3 = multires_widths(model_width, alpha, multiplier)
         self.out_features = f1 + f2 + f3
-        self.ConvBlock_0 = ConvBlock(in_features, self.out_features, 1,
-                                     dtype=dtype, generator=generator)
-        self.ConvBlock_1 = ConvBlock(in_features, f1, kernel, dtype=dtype,
-                                     generator=generator)
-        self.ConvBlock_2 = ConvBlock(f1, f2, kernel, dtype=dtype,
-                                     generator=generator)
-        self.ConvBlock_3 = ConvBlock(f2, f3, kernel, dtype=dtype,
-                                     generator=generator)
+        kw = dict(dtype=dtype, generator=generator, rank=rank)
+        self.ConvBlock_0 = ConvBlock(in_features, self.out_features, 1, **kw)
+        self.ConvBlock_1 = ConvBlock(in_features, f1, kernel, **kw)
+        self.ConvBlock_2 = ConvBlock(f1, f2, kernel, **kw)
+        self.ConvBlock_3 = ConvBlock(f2, f3, kernel, **kw)
         self.BatchNorm_0 = BatchNorm(self.out_features)
         self.BatchNorm_1 = BatchNorm(self.out_features)
 
@@ -361,15 +422,17 @@ class ResPath(_Block):
 
     def __init__(self, in_features: int, length: int, model_width: int,
                  kernel: int = 3, dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 2):
         super().__init__()
         self.length = max(length, 1)
+        kw = dict(dtype=dtype, generator=generator, rank=rank)
         for i in range(self.length):
             cin = in_features if i == 0 else model_width
             self.add_module(f"ConvBlock_{2 * i}", ConvBlock(
-                cin, model_width, 1, dtype=dtype, generator=generator))
+                cin, model_width, 1, **kw))
             self.add_module(f"ConvBlock_{2 * i + 1}", ConvBlock(
-                cin, model_width, kernel, dtype=dtype, generator=generator))
+                cin, model_width, kernel, **kw))
             self.add_module(f"BatchNorm_{i}", BatchNorm(model_width))
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -396,14 +459,17 @@ def set_block_remat(module: nn.Module, enabled: bool) -> None:
 
 
 class AttentionGate(nn.Module):
-    """Additive attention gate over a skip, 2D dialect (JAX
-    ``AttentionGate``, blocks.py:537): ``Conv_0`` (1x1, stride 2: rows and
-    columns 0, 2, 4, .., ceil(H / 2) of them as flax's SAME) and
-    ``BatchNorm_0`` on the skip,
+    """Additive attention gate over a skip (JAX ``AttentionGate``,
+    blocks.py:537): ``Conv_0`` (1x1, stride 2: rows and columns 0, 2, 4,
+    .., ceil(H / 2) of them as flax's SAME) and ``BatchNorm_0`` on the
+    skip,
     ``Conv_1`` and ``BatchNorm_1`` on the gating signal (at half the
     skip's resolution), ReLU of their sum, ``Conv_2`` to one channel,
     ``BatchNorm_2``, sigmoid; that map upsampled by 2 twice, bilinear and
     by ``TransConv_0``, and the skip multiplied by the sum of the two.
+    ``dialect`` "1d" (blocks.py:574-577): the length axis strided and
+    upsampled, by nearest repeat and by the 1D ``TransConv`` (its own
+    BatchNorm and ReLU).
 
     The stride of ``Conv_0`` is taken by slicing the skip, which is the
     same conv: PyTorch's CPU build (oneDNN, torch 2.13) crashes in the
@@ -417,8 +483,10 @@ class AttentionGate(nn.Module):
 
     def __init__(self, skip_features: int, gate_features: int,
                  features: int, dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 dialect: str = "2d"):
         super().__init__()
+        self.dialect = dialect
         self.Conv_0 = HeadConv(skip_features, features, dtype=dtype,
                                generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
@@ -427,11 +495,17 @@ class AttentionGate(nn.Module):
         self.BatchNorm_1 = BatchNorm(features)
         self.Conv_2 = HeadConv(features, 1, dtype=dtype, generator=generator)
         self.BatchNorm_2 = BatchNorm(1)
-        self.TransConv_0 = TransConv(1, 1, dtype=dtype, generator=generator)
+        self.TransConv_0 = TransConv(1, 1, dtype=dtype, generator=generator,
+                                     dialect=dialect)
 
     def forward(self, skip: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-        a = self.BatchNorm_0(self.Conv_0(skip[:, :, ::2, ::2]))
+        one_d = self.dialect == "1d"
+        strided = skip[:, :, :, ::2] if one_d else skip[:, :, ::2, ::2]
+        a = self.BatchNorm_0(self.Conv_0(strided))
         b = self.BatchNorm_1(self.Conv_1(gate))
         c = torch.sigmoid(self.BatchNorm_2(self.Conv_2(torch.relu(a + b))))
-        r = upsample(c, 2, method="bilinear") + self.TransConv_0(c)
-        return skip * r
+        if one_d:
+            r = upsample(c, 2, method="nearest", rank=1)
+        else:
+            r = upsample(c, 2, method="bilinear")
+        return skip * (r + self.TransConv_0(c))

@@ -121,6 +121,18 @@ def load_library() -> ctypes.CDLL:
         lib.tpuseg_maxpool_backward_route.argtypes = [vp, vp, vp, i32, i64,
                                                       i32, i32, i32, i32]
         lib.tpuseg_maxpool_backward_route.restype = ctypes.c_char_p
+        lib.tpuseg_maxpool1d_pyramid.argtypes = [vp, vp, i32, i64, i32, i32,
+                                                 i32, vp]
+        lib.tpuseg_maxpool1d_pyramid.restype = i32
+        lib.tpuseg_maxpool1d_pyramid_route.argtypes = [vp, vp, i32, i64, i32,
+                                                       i32, i32]
+        lib.tpuseg_maxpool1d_pyramid_route.restype = ctypes.c_char_p
+        lib.tpuseg_maxpool1d_backward.argtypes = [vp, vp, vp, i32, i64, i32,
+                                                  i32, i32, vp]
+        lib.tpuseg_maxpool1d_backward.restype = i32
+        lib.tpuseg_maxpool1d_backward_route.argtypes = [vp, vp, vp, i32, i64,
+                                                        i32, i32, i32]
+        lib.tpuseg_maxpool1d_backward_route.restype = ctypes.c_char_p
         lib.tpuseg_cuda_error_string.argtypes = [i32]
         lib.tpuseg_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

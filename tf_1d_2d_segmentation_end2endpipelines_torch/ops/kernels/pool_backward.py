@@ -22,6 +22,14 @@ it and what its design does about it.
   or raises.  Each launch adds one to :data:`launches`; each copy of ``g``
   into channels_last memory adds one to :data:`g_copies`.
 - :func:`route` names the kernel a CUDA call launches.
+
+Rank 1: :func:`maxpool1d_backward` (plain version
+:func:`maxpool1d_backward_plain`, :func:`route1d`) is the same gradient
+for a pool over the length axis of a 1D signal, a (B, C, 1, L)
+channels_last tensor ((B, L, C) memory): the window is F consecutive
+positions, walked in order, and the positions the floor cuts off get a
+zero gradient.  Its CUDA kernel is in ``csrc/pool1d.cu``; it counts in
+the same :data:`launches` and :data:`g_copies`.
 """
 from __future__ import annotations
 
@@ -161,3 +169,107 @@ def maxpool_backward(x: torch.Tensor, g: torch.Tensor, factor: int
     if x.device.type == "cpu":
         return maxpool_backward_plain(x, g, factor)
     raise ValueError(f"maxpool_backward: unsupported device {x.device}")
+
+
+# ------------------------------------------------------------------ rank 1
+
+def _check_shapes_1d(x: torch.Tensor, g: torch.Tensor, factor: int) -> None:
+    if factor not in FACTORS:
+        raise ValueError(f"pool factor must be one of {FACTORS}, got "
+                         f"{factor}")
+    if x.dim() != 4 or x.shape[2] != 1:
+        raise ValueError(f"expected a (B, C, 1, L) input, got shape "
+                         f"{tuple(x.shape)}")
+    b, c, _, n = x.shape
+    if tuple(g.shape) != (b, c, 1, n // factor):
+        raise ValueError(f"gradient shape {tuple(g.shape)} does not match "
+                         f"the pool by {factor} of {tuple(x.shape)}")
+    if g.dtype != x.dtype:
+        raise TypeError(f"gradient dtype {g.dtype} != input dtype {x.dtype}")
+
+
+def maxpool1d_backward_plain(x: torch.Tensor, g: torch.Tensor, factor: int
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of :func:`maxpool1d_backward`.  ``x`` is the
+    pool's (B, C, 1, L) input, ``g`` the gradient of its (B, C, 1,
+    L // factor) output; returns dx like ``x``, in channels_last memory."""
+    _check_shapes_1d(x, g, factor)
+    f = factor
+    b, c, _, n = x.shape
+    nf = n // f
+    win = x.permute(0, 2, 3, 1)[:, 0, :nf * f].reshape(b, nf, f, c)
+    sel_val = win[:, :, 0]
+    sel = torch.zeros_like(sel_val, dtype=torch.int16)
+    for j in range(1, f):
+        take = ~(sel_val >= win[:, :, j])
+        sel_val = torch.where(take, win[:, :, j], sel_val)
+        sel = torch.where(take, torch.full_like(sel, j), sel)
+    gn = g.permute(0, 2, 3, 1)[:, 0]
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    parts = torch.stack([torch.where(sel == j, gn, zero) for j in range(f)],
+                        dim=2)
+    dx = torch.zeros((b, n, c), dtype=x.dtype, device=x.device)
+    dx[:, :nf * f] = parts.reshape(b, nf * f, c)
+    return dx.unsqueeze(1).permute(0, 3, 1, 2)
+
+
+def _args_1d(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor,
+             factor: int) -> tuple:
+    b, c, _, n = x.shape
+    return (x.data_ptr(), g.data_ptr(), dx.data_ptr(), DTYPE_CODES[x.dtype],
+            b, n, c, factor)
+
+
+def _maxpool1d_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
+                             ) -> torch.Tensor:
+    from ._build import check, load_library
+
+    g = _check_cuda(x, g)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    if dx.numel() == 0:  # nothing to route: no launch
+        return dx
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.tpuseg_maxpool1d_backward(*_args_1d(x, g, dx, factor),
+                                             stream)
+    check(lib, code, "maxpool1d_backward")
+    launches.add()
+    return dx
+
+
+def route1d(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
+    """The name of the kernel that :func:`maxpool1d_backward` launches for
+    the same CUDA tensors and factor: ``pool1d_backward_kernel`` with
+    16 bytes (``<V=16B>``) or one channel (``<V=1>``) a thread; "none" for
+    an empty ``x``.  Launches nothing and counts no copy."""
+    from ._build import load_library, route_name
+
+    _check_shapes_1d(x, g, factor)
+    if x.device.type != "cuda":
+        raise ValueError(f"route1d: the kernels run on CUDA tensors, got "
+                         f"{x.device}")
+    if not g.is_contiguous(memory_format=torch.channels_last):
+        g = g.contiguous(memory_format=torch.channels_last)
+    _check_cuda(x, g)
+    if x.numel() == 0:
+        return "none"
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    return route_name(load_library().tpuseg_maxpool1d_backward_route(
+        *_args_1d(x, g, dx, factor)), "maxpool1d_backward")
+
+
+def maxpool1d_backward(x: torch.Tensor, g: torch.Tensor, factor: int
+                       ) -> torch.Tensor:
+    """dx of the max pool by ``factor`` (2, 4, 8 or 16) over the length
+    axis of ``x`` (B, C, 1, L) for the output gradient ``g``.  On a CUDA
+    tensor ``x`` must be float32 or bfloat16 in channels_last memory, and
+    ``g`` of the same dtype (copied into channels_last if it is not); one
+    launch of the kernel.  A CPU tensor goes through
+    :func:`maxpool1d_backward_plain`.  dx is channels_last."""
+    _check_shapes_1d(x, g, factor)
+    if x.device.type == "cuda":
+        return _maxpool1d_backward_cuda(x, g, factor)
+    if x.device.type == "cpu":
+        return maxpool1d_backward_plain(x, g, factor)
+    raise ValueError(f"maxpool1d_backward: unsupported device {x.device}")

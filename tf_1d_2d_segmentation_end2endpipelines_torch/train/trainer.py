@@ -398,11 +398,12 @@ class Trainer:
 
     def predict(self, x: np.ndarray, tta: tp.Sequence[str] = ()
                 ) -> tp.Dict[str, np.ndarray]:
-        """Every head of the eval-mode forward of the NHWC batch ``x`` on
-        the trainer's device (on the EMA shadow when there is one), as
-        float32 numpy arrays.  ``tta`` names views (eval.tta.TTA_2D) to
+        """Every head of the eval-mode forward of the NHWC batch ``x`` (a
+        (B, L, C) batch for a 1D model) on the trainer's device (on the
+        EMA shadow when there is one), as float32 numpy arrays.  ``tta``
+        names views (eval.tta.TTA_2D, TTA_1D by the batch's rank) to
         average over; all views of the batch run as one forward."""
-        step = make_tta_fn(self.predict_step, tta)
+        step = make_tta_fn(self.predict_step, tta, rank=np.ndim(x) - 2)
         with torch.inference_mode():
             out = step(self.to_device(x))
             return {k: v.float().cpu().numpy() for k, v in out.items()}

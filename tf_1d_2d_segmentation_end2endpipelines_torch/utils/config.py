@@ -1,9 +1,10 @@
-"""The typed training and test configs and their INI loaders, with the
-schema of tf_1d_2d_segmentation_end2endpipelines_tpu/utils/config.py
-(``TrainConfig`` :20, ``TestConfig`` :187, ``load_train_config`` :333,
-``load_test_config`` :341): a reference Train_Configs.ini or
-Test_Configs.ini loads unchanged.  The field comments live in the JAX
-package.
+"""The typed training, test and 1D signal configs and their INI loaders,
+with the schema of tf_1d_2d_segmentation_end2endpipelines_tpu/utils/
+config.py (``TrainConfig`` :20, ``TestConfig`` :187, ``Signal1DConfig``
+:228, ``load_train_config`` :333, ``load_test_config`` :341,
+``load_signal_config`` :349, ``save_signal_config`` :357): a reference
+Train_Configs.ini or Test_Configs.ini, or a Signal_Configs.ini, loads
+unchanged.  The field comments live in the JAX package.
 """
 from __future__ import annotations
 
@@ -125,6 +126,71 @@ class TestConfig:
     tta: str = ""
 
 
+@dc.dataclass
+class Signal1DConfig:
+    """The 1D signal pipeline's config (section ``[SIGNAL1D]``), the JAX
+    fields and defaults in the JAX order (so ``resume_token`` gives the
+    JAX digits)."""
+    train_set: str = "Data/Train_Set.pt"
+    val_set: str = ""
+    test_set: str = "Data/Test_Set.pt"
+    x_key: str = "samples"
+    y_key: str = "labels"
+    signal_length: int = 1024
+    num_channel: int = 1
+    model_name: str = "UNet"
+    model_depth: int = 3
+    model_width: int = 16
+    kernel_size: int = 3
+    problem_type: str = "Regression"
+    output_nums: int = 1
+    d_s: int = 0
+    a_e: int = 0
+    a_g: int = 0
+    lstm: int = 0
+    alpha: float = 1.0
+    q_onn: int = 3
+    t: int = 2
+    dense_loop: int = 2
+    feature_number: int = 1024
+    is_transconv: bool = True
+    cardinality: int = 5
+    pooling_type: str = "avg"
+    se_ratio: int = 16
+    block_size: int = 7
+    keep_prob: float = 0.9
+    ds_type: str = "UNet"
+    batch_size: int = 8
+    learning_rate: float = 3e-4
+    num_epochs: int = 50
+    loss_function: str = "MeanAbsoluteError"
+    optimizer_function: str = "Adam"
+    metric_list: tp.Tuple[str, ...] = ("MeanSquaredError",)
+    monitor_param: str = "val_loss"
+    patience_amount: int = 20
+    patience_amount_rlronp: int = 10
+    patience_mode: str = "min"
+    rlronp_factor: float = 0.5
+    save_history: bool = True
+    load_weights: bool = True
+    save_dir: str = "Results_1D"
+    seed: int = 1
+    compute_dtype: str = "float32"
+    remat: str = ""
+    accumulation_steps: int = 1
+    model_parallel: int = 1
+    spatial_parallel: int = 1
+    zero1: bool = False
+    pipeline_parallel: int = 1
+    exact_resume: bool = False
+    clipnorm: float = 0.0
+    clipvalue: float = 0.0
+    global_clipnorm: float = 0.0
+    tensorboard_dir: str = ""
+    ema_decay: float = 0.0
+    tta: str = ""
+
+
 _T = tp.TypeVar("_T")
 
 
@@ -168,15 +234,33 @@ def load_test_config(path: str) -> TestConfig:
     return _load_section(TestConfig, parser["TEST"])
 
 
-def save_train_config(cfg: TrainConfig, path: str) -> None:
-    """Write ``cfg`` as an INI that ``load_train_config`` (here and in the
-    JAX package) reads back."""
+def load_signal_config(path: str) -> Signal1DConfig:
+    """Load a Signal_Configs.ini (section [SIGNAL1D])."""
     parser = configparser.ConfigParser()
-    parser["TRAIN"] = {
+    with open(path) as f:
+        parser.read_file(f)
+    return _load_section(Signal1DConfig, parser["SIGNAL1D"])
+
+
+def _save_section(cfg, section: str, path: str) -> None:
+    parser = configparser.ConfigParser()
+    parser[section] = {
         k: (",".join(v) if isinstance(v, tuple) else str(v))
         for k, v in dc.asdict(cfg).items()}
     with open(path, "w") as f:
         parser.write(f)
+
+
+def save_train_config(cfg: TrainConfig, path: str) -> None:
+    """Write ``cfg`` as an INI that ``load_train_config`` (here and in the
+    JAX package) reads back."""
+    _save_section(cfg, "TRAIN", path)
+
+
+def save_signal_config(cfg: Signal1DConfig, path: str) -> None:
+    """Write ``cfg`` as an INI that ``load_signal_config`` (here and in
+    the JAX package) reads back."""
+    _save_section(cfg, "SIGNAL1D", path)
 
 
 #: fields that do not define the training trajectory: bookkeeping,
@@ -190,7 +274,7 @@ _RESUME_TOKEN_EXCLUDE = frozenset({
 })
 
 
-def resume_token(cfg: TrainConfig) -> str:
+def resume_token(cfg: tp.Union[TrainConfig, Signal1DConfig]) -> str:
     """Fingerprint of the training-defining fields of ``cfg``, stored in
     exact-resume checkpoints (JAX config.py:397-410): the same config
     resumes, a changed one (a fine-tune stage into the same ``save_dir``)
@@ -209,6 +293,26 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
     yet, as ``key = value`` strings (empty when it takes them all): the
     multi-device keys."""
     checks = (
+        ("model_parallel", cfg.model_parallel > 1),
+        ("spatial_parallel", cfg.spatial_parallel > 1),
+        ("pipeline_parallel", cfg.pipeline_parallel > 1),
+        ("zero1", cfg.zero1),
+    )
+    return [f"{key} = {getattr(cfg, key)!r}" for key, bad in checks if bad]
+
+
+def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
+    """The settings of ``cfg`` the port's 1D verbs do not take yet, as
+    ``key = value`` strings (empty when it takes them all): a
+    ``model_name`` outside the ported ``UNet1D`` archs (UNet, UNetE,
+    UNetP, UNetPP, UNet3P, MultiResUNet), ``lstm``, ``a_e`` and the
+    multi-device keys."""
+    from ..models.api_1d import PORTED_ARCHS_1D
+
+    checks = (
+        ("model_name", cfg.model_name not in PORTED_ARCHS_1D),
+        ("lstm", bool(cfg.lstm)),
+        ("a_e", bool(cfg.a_e)),
         ("model_parallel", cfg.model_parallel > 1),
         ("spatial_parallel", cfg.spatial_parallel > 1),
         ("pipeline_parallel", cfg.pipeline_parallel > 1),

@@ -9,7 +9,9 @@ The port's modules carry the flax auto-names, so a flax path maps to a
 ======================  ===================  ==============================
 flax leaf               torch key            layout
 ======================  ===================  ==============================
-params .../kernel       .../weight           4-D: ``permute(3, 2, 0, 1)``
+params .../kernel       .../weight           4-D: ``permute(3, 2, 0, 1)``;
+                                             3-D (1D): ``permute(2, 1, 0)``
+                                             then a unit H axis
 params .../bias         .../bias             as is
 params .../scale        .../weight           as is (BatchNorm)
 batch_stats .../mean    .../running_mean     as is
@@ -19,7 +21,11 @@ batch_stats .../var     .../running_var      as is
 The one permutation serves both kernels: a Conv's HWIO becomes OIHW, and
 a ConvTranspose's (kh, kw, C_out, C_in), stored with
 ``transpose_kernel=True``, becomes ``conv_transpose2d``'s
-(C_in, C_out, kh, kw).
+(C_in, C_out, kh, kw).  The 1D models convolve (B, C, 1, L) tensors, so
+a 1D Conv's (k, C_in, C_out) becomes (C_out, C_in, 1, k) and a 1D
+ConvTranspose's (k, C_out, C_in) the (C_in, C_out, 1, k) weight, both by
+``permute(2, 1, 0)`` and a unit axis (no flip: ``ops/blocks.py``'s
+``TransConv``).
 """
 from __future__ import annotations
 
@@ -72,6 +78,8 @@ def flax_to_state_dict(variables: tp.Mapping[str, tp.Mapping],
         arr = torch.from_numpy(np.array(value, dtype=np.float32))
         if arr.dim() == 4:
             arr = arr.permute(3, 2, 0, 1).contiguous()
+        elif arr.dim() == 3:
+            arr = arr.permute(2, 1, 0).unsqueeze(2).contiguous()
         want = tuple(reference[key].shape)
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: converted shape {tuple(arr.shape)} != "
