@@ -28,7 +28,13 @@ W32/D3 on one-channel 1024-sample signals, float32): the ``train1d``,
 ``test1d`` and ``predict1d`` verbs and its fixed batch (``config1``,
 ``config1_bf16``, ``config1_ds``), and the other five 1D archs
 (``1d_UNetE``, ``1d_UNetP``, ``1d_UNetPP``, ``1d_UNet3P_ds``,
-``1d_MultiResUNet_ag``).  Phases, each printing lines:
+``1d_MultiResUNet_ag``); and BASELINE config 5: its 1D models BCDUNet
+(``lstm = 1``), SEDUNet, NABNet and IBAUNet (with gates) at config 1's
+size in float32 and bfloat16 (``config5_<model>``,
+``config5_<model>_bf16``, ``config5_BCDUNet_ds``) and through the 1D
+verbs (``config5_verbs_BCDUNet``, ``config5_verbs_NABNet``), and its
+W32/D4 UNet on EfficientNetB0 (bf16, batch 16, 256x256; no pool
+kernel).  Phases, each printing lines:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
 2. build: every kernel under csrc/ compiled from this checkout by nvcc
@@ -166,9 +172,28 @@ W32/D3 on one-channel 1024-sample signals, float32): the ``train1d``,
     and MultiResUNet with ``a_g = 1`` on (2, 256, 1) signals,
     MeanAbsoluteError
 
+24. config 5 in 1D: 20 counted fixed-batch steps of BCDUNet (``lstm =
+    1, dense_loop = 2``), SEDUNet (``se_ratio = 8``), NABNet
+    (``dense_loop = 2``) and IBAUNet (``a_g = 1``) at config 1's size in
+    float32 and bfloat16 (3 + 3 launches a step: each pools its level
+    outputs 32, 64 and 128 wide) and BCDUNet with ``d_s = 1`` (4 + 3),
+    the loss must fall; phase 21's verbs on BCDUNet and NABNet; then
+    phase 23's check on each at W8/D3 (and BCDUNet with ``d_s = 1``)
+25. config 5 in 2D: the W32/D4 UNet on EfficientNetB0 (random weights,
+    bf16, batch 16 at 256x256 of pixel-valued images), 20 counted steps
+    with ``encoder_trainable`` 0 and 1, no pool launch (it downsamples by
+    strided convolutions), the loss must fall, the backbone's running
+    statistics unchanged with 0 and all moved with 1; cuDNN's depthwise
+    convolutions of the step timed (CUDA events, L2 flushed); the
+    ``train`` verb for one epoch (best.pt served), ``test`` and
+    ``predict`` on phase 12's PNGs (0 launches, every pixel counted); a
+    float32 card step of a W8/D3 model against the CPU's float32 and
+    float64 steps (phase 17's check), the backbone's statistics
+    calibrated on one batch, with ``encoder_trainable`` 0 and 1
+
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
-phases 21-23; the others run in their order.
+phases 21-25; the others run in their order.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
@@ -179,7 +204,8 @@ and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 the launches of that path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16,
 18 (its 8 counted runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
-run; the fixed batches) or 22, and the device times and bound of the
+run; the fixed batches), 22 or 24 (the fixed batches; the train1d runs),
+and the device times and bound of the
 calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
@@ -569,6 +595,19 @@ _BWD1 = {dt: {"enc": [(dt, s, 2) for s in _SIG_ENC],
 SIG_ARCHS = {"1d_UNetE": ("UNetE", 0, 0), "1d_UNetP": ("UNetP", 0, 0),
              "1d_UNetPP": ("UNetPP", 0, 0), "1d_UNet3P_ds": ("UNet3P", 1, 0),
              "1d_MultiResUNet_ag": ("MultiResUNet", 0, 1)}
+#: phase 24: BASELINE config 5's 1D models (zoo_bench.py:112-121) at
+#: config 1's size, loss and optimizer; IBAUNet with its LSTM attention
+#: gates.  path -> (model_name, keyword arguments).  Each pools its level
+#: outputs 32, 64 and 128 wide, as config 1's encoder does
+CONFIG5_1D = {"config5_BCDUNet": ("BCDUNet", dict(lstm=1, dense_loop=2)),
+              "config5_SEDUNet": ("SEDUNet", dict(se_ratio=8)),
+              "config5_NABNet": ("NABNet", dict(dense_loop=2)),
+              "config5_IBAUNet": ("IBAUNet", dict(ag=1))}
+#: phase 24's runs of the 1D verbs: path -> the CONFIG5_1D path
+CONFIG5_VERBS = {"config5_verbs_BCDUNet": "config5_BCDUNet",
+                 "config5_verbs_NABNet": "config5_NABNet"}
+_CONFIG5_RUNS = [(p + sfx, dt) for p in CONFIG5_1D
+                 for sfx, dt in (("", _F32), ("_bf16", _BF16))]
 FWD_PATHS_1D = {
     "config1": _FWD1[_F32]["enc"],
     "config1_bf16": _FWD1[_BF16]["enc"],
@@ -577,6 +616,9 @@ FWD_PATHS_1D = {
     "1d_UNet3P_ds": _FWD1[_F32]["enc"] + _FWD1[_F32]["dec3p"]
     + [_SIG_DS_MASK],
     "1d_MultiResUNet_ag": _FWD1[_F32]["mrb"],
+    **{p: _FWD1[dt]["enc"] for p, dt in _CONFIG5_RUNS},
+    "config5_BCDUNet_ds": _FWD1[_F32]["enc"] + [_SIG_DS_MASK],
+    **{p: _FWD1[_F32]["enc"] for p in CONFIG5_VERBS},
 }
 BWD_PATHS_1D = {
     "config1": _BWD1[_F32]["enc"],
@@ -585,7 +627,16 @@ BWD_PATHS_1D = {
     **{p: _BWD1[_F32]["enc"] for p in ("1d_UNetE", "1d_UNetP", "1d_UNetPP")},
     "1d_UNet3P_ds": _BWD1[_F32]["enc"] + _BWD1[_F32]["dec3p"],
     "1d_MultiResUNet_ag": _BWD1[_F32]["mrb"],
+    **{p: _BWD1[dt]["enc"] for p, dt in _CONFIG5_RUNS},
+    "config5_BCDUNet_ds": _BWD1[_F32]["enc"],
+    **{p: _BWD1[_F32]["enc"] for p in CONFIG5_VERBS},
 }
+#: phase 25: BASELINE config 5's 2D model (zoo_bench.py:123-130), a W32/D4
+#: UNet on EfficientNetB0 (random weights: encoder_weights = none), bf16,
+#: batch 16 at 256x256; it downsamples by strided convolutions, so it
+#: launches no pool kernel
+EFFNET = "EfficientNetB0"
+EFFNET_STEPS = 20
 #: timed beside the paths' calls: the same calls in bf16
 FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"]
 BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"]
@@ -1126,11 +1177,13 @@ def _train_config(tmp: str, results: str, **kw):
     return TrainConfig(**base)
 
 
-def _run_train_verb(phase: str, cfg, path: str) -> dict:
+def _run_train_verb(phase: str, cfg, path: str,
+                    calls: "tuple | None" = None) -> dict:
     """The train verb's fold loop on the card, the counts set to 0 just
     before it and read just after: ``path``'s pyramid calls per train step
     and validation batch, and its pool-backward calls per train step
-    (FWD_PATHS, BWD_PATHS).  Then best.pt is served."""
+    (FWD_PATHS, BWD_PATHS; or ``calls``, forward and backward, for a path
+    that is in neither).  Then best.pt is served."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
@@ -1148,7 +1201,7 @@ def _run_train_verb(phase: str, cfg, path: str) -> dict:
                         pool_backward.g_copies.value)  # ... and ends here
     steps = cfg.num_epochs * -(-N_TRAIN // cfg.batch_size)
     val_batches = cfg.num_epochs * -(-N_VAL // cfg.batch_size)
-    n_fwd, n_bwd = len(FWD_PATHS[path]), len(BWD_PATHS[path])
+    n_fwd, n_bwd = calls or (len(FWD_PATHS[path]), len(BWD_PATHS[path]))
     losses = hist["loss"] + hist["val_loss"]
     _check(all(np.isfinite(losses)), f"non-finite losses {hist}")
     _check(bwd == n_bwd * steps,
@@ -1273,11 +1326,13 @@ def phase_train_ds(tmp: str) -> dict:
 
 
 def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
-                   must_fall: bool, unit: str = "img") -> dict:
+                   must_fall: bool, unit: str = "img",
+                   calls: "tuple | None" = None) -> dict:
     """One step that picks cuDNN's algorithms, then ``steps`` counted
     fixed-batch steps (``_fixed_batch``), the counts set to 0 just before
     them and read just after: exactly ``path``'s pyramid and pool-backward
-    calls (FWD_PATHS, BWD_PATHS) per step."""
+    calls (FWD_PATHS, BWD_PATHS) per step, or ``calls`` (forward,
+    backward) for a path that is in neither."""
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pool_backward, pyramid)
 
@@ -1290,7 +1345,8 @@ def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
     fwd, bwd, copies = (pyramid.launches.value,
                         pool_backward.launches.value,
                         pool_backward.g_copies.value)  # ... and ends here
-    n_fwd, n_bwd = len(ALL_FWD_PATHS[path]), len(ALL_BWD_PATHS[path])
+    n_fwd, n_bwd = calls or (len(ALL_FWD_PATHS[path]),
+                             len(ALL_BWD_PATHS[path]))
     _check((fwd, bwd) == (n_fwd * steps, n_bwd * steps),
            f"{path}: launched pyramid {fwd}x, backward {bwd}x, not "
            f"{n_fwd} and {n_bwd} x {steps} steps")
@@ -2787,10 +2843,12 @@ def _write_signal_sets(tmp: str) -> dict:
 
 
 def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
-                    width: int = 32):
+                    width: int = 32, **kw):
     """Config 1's trainer for ``arch`` at width ``width``, depth 3, weights
     from SEED: MeanAbsoluteError (on every head, default_ds_weights with
-    ``ds``, the ds_type UNet targets built on the card), Adam lr 3e-4."""
+    ``ds``, the ds_type UNet targets built on the card), Adam lr 3e-4;
+    ``kw`` goes to ``model_selector_1d`` (``lstm``, ``dense_loop``,
+    ``se_ratio``)."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
@@ -2802,7 +2860,8 @@ def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
 
     model = model_selector_1d(arch, SIG_LEN, 3, 1, width, 3, ds=ds, ag=ag,
                               dtype=dtype,
-                              generator=torch.Generator().manual_seed(SEED))
+                              generator=torch.Generator().manual_seed(SEED),
+                              **kw)
     return Trainer(model, loss="MeanAbsoluteError", optimizer="Adam",
                    learning_rate=3e-4, device="cuda",
                    loss_weights=default_ds_weights(3) if ds else None,
@@ -2810,17 +2869,18 @@ def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
                        m, 3, "UNet", spatial_rank=1)) if ds else None)
 
 
-def phase_signal_verbs(tmp: str) -> dict:
-    """Phase 21: the 1D verbs on BASELINE config 1 through the command
-    line (the card by default): ``train1d`` on the synthetic sets for 2
-    epochs (3 + 3 launches a step, 3 a validation batch; the loss falls;
+def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
+                  model_name: str, **over) -> dict:
+    """The 1D verbs through the command line (the card by default) on
+    ``model_name`` at config 1's size (``over``: its other INI keys):
+    ``train1d`` on the synthetic sets for SIG_EPOCHS epochs (``path``'s
+    calls a step, its forward calls a validation batch; the loss falls;
     Signal_Configs.ini, best.pt and history.json written); ``test1d`` on
-    the fold (the JAX verb's metric keys, the checkpoint restored, 3
-    launches a batch of 128); ``predict1d`` on the test signals (3 a
-    batch), its outputs equal to the plain-pool forward of best.pt within
-    1e-5.  Then config 1's fixed batch of 128 in float32 and bfloat16
-    (3 + 3 a step) and with ``d_s = 1`` (one more pyramid launch a step:
-    the targets), p50 step and peak memory.  Returns {path: launches}."""
+    the fold (the JAX verb's metric keys, the checkpoint restored, the
+    forward calls a batch of 128); ``predict1d`` on the test signals, its
+    outputs equal to the plain-pool forward of best.pt within 1e-5.
+    Returns {"pyramid", "backward"} of the train1d run and ``verb_ms``,
+    the verb's step in its last epoch."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch import drivers_1d
@@ -2831,20 +2891,20 @@ def phase_signal_verbs(tmp: str) -> dict:
     from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
         Signal1DConfig, save_signal_config)
 
-    sets = _write_signal_sets(tmp)
-    save_dir = os.path.join(tmp, "Results_1D")
+    save_dir = os.path.join(tmp, f"Results_1D_{path}")
     cfg = Signal1DConfig(
         train_set=sets["train"], val_set=sets["val"], test_set=sets["test"],
-        signal_length=SIG_LEN, num_channel=1, model_name="UNet",
+        signal_length=SIG_LEN, num_channel=1, model_name=model_name,
         model_depth=3, model_width=32, kernel_size=3,
         batch_size=SIG_BATCH, num_epochs=SIG_EPOCHS, save_dir=save_dir,
-        load_weights=False, seed=SEED)
-    ini = os.path.join(tmp, "Signal_Configs.ini")
+        load_weights=False, seed=SEED, **over)
+    ini = os.path.join(tmp, f"Signal_Configs_{path}.ini")
     save_signal_config(cfg, ini)
-    print(f"phase 21 signal verbs: config 1, W32/D3 UNet on ({SIG_LEN}, 1) "
-          f"signals, float32, MeanAbsoluteError, Adam lr "
-          f"{cfg.learning_rate}, batch {SIG_BATCH}, {SIG_EPOCHS} epochs of "
-          f"{N_SIG_TRAIN} signals, {N_SIG_VAL} val", flush=True)
+    print(f"{phase} signal verbs ({path}): W32/D3 {model_name} "
+          f"{over or ''} on ({SIG_LEN}, 1) signals, float32, "
+          f"MeanAbsoluteError, Adam lr {cfg.learning_rate}, batch "
+          f"{SIG_BATCH}, {SIG_EPOCHS} epochs of {N_SIG_TRAIN} signals, "
+          f"{N_SIG_VAL} val", flush=True)
 
     def counted(argv):
         pyramid.launches.reset()  # the main path's run starts here
@@ -2858,10 +2918,10 @@ def phase_signal_verbs(tmp: str) -> dict:
     train_s, fwd, bwd = counted(["train1d", ini])
     steps = SIG_EPOCHS * -(-N_SIG_TRAIN // SIG_BATCH)
     val = SIG_EPOCHS * -(-N_SIG_VAL // SIG_BATCH)
-    n = len(FWD_PATHS_1D["config1"])
-    _check((fwd, bwd) == (n * (steps + val), n * steps),
+    n, n_bwd = len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])
+    _check((fwd, bwd) == (n * (steps + val), n_bwd * steps),
            f"train1d launched {fwd} + {bwd}, not {n} x ({steps} steps + "
-           f"{val} val batches) + {n} x {steps}")
+           f"{val} val batches) + {n_bwd} x {steps}")
     with open(os.path.join(save_dir, "history.json")) as f:
         hist = json.load(f)
     _check(all(np.isfinite(hist["loss"] + hist["val_loss"])),
@@ -2871,12 +2931,13 @@ def phase_signal_verbs(tmp: str) -> dict:
         _check(os.path.exists(os.path.join(save_dir, name)),
                f"train1d did not write {name}")
     verb_ms = 1e3 / hist["steps_per_sec"][-1]
-    print(f"phase 21 train1d: {train_s:.2f} s; loss {hist['loss']}, "
+    print(f"{phase} train1d ({path}): {train_s:.2f} s; loss {hist['loss']}, "
           f"val_loss {hist['val_loss']}; maxpool1d_pyramid.launches = {fwd} "
           f"= {n} x ({steps} steps + {val} val batches), "
-          f"maxpool1d_backward.launches = {bwd} = {n} x {steps}; the verb's "
-          f"last epoch {verb_ms:.3f} ms a step ({SIG_BATCH * hist['steps_per_sec'][-1]:.1f}"
-          f" signals/s, copies included)", flush=True)
+          f"maxpool1d_backward.launches = {bwd} = {n_bwd} x {steps}; the "
+          f"verb's last epoch {verb_ms:.3f} ms a step "
+          f"({SIG_BATCH * hist['steps_per_sec'][-1]:.1f} signals/s, copies "
+          f"included)", flush=True)
 
     test_s, tfwd, tbwd = counted(["test1d", ini])
     with open(os.path.join(save_dir, "test_metrics_1d.json")) as f:
@@ -2889,11 +2950,11 @@ def phase_signal_verbs(tmp: str) -> dict:
                if k != "restored_checkpoint"), f"test1d metrics {metrics}")
     _check((tfwd, tbwd) == (n * batches, 0),
            f"test1d launched {tfwd} + {tbwd}, not {n} x {batches} + 0")
-    print(f"phase 21 test1d: {test_s:.2f} s; {metrics}; "
+    print(f"{phase} test1d ({path}): {test_s:.2f} s; {metrics}; "
           f"maxpool1d_pyramid.launches = {tfwd} = {n} x {batches} batch(es)",
           flush=True)
 
-    npz = os.path.join(tmp, "predictions_1d.npz")
+    npz = os.path.join(tmp, f"predictions_{path}.npz")
     pred_s, pfwd, _ = counted(["predict1d", ini, "--out", npz])
     got = np.load(npz)["output"]
     _check(got.shape == (N_SIG_TEST, SIG_LEN, 1) and pfwd == n * batches,
@@ -2904,11 +2965,23 @@ def phase_signal_verbs(tmp: str) -> dict:
         plain = Trainer(model, device="cuda").predict(sets["x_test"])["out"]
     err = float(np.abs(got - plain).max())
     _check(err <= 1e-5, f"predict1d vs the plain-pool forward: {err}")
-    print(f"phase 21 predict1d: {pred_s:.2f} s; {got.shape} outputs within "
-          f"{err:.3g} (<= 1e-5) of best.pt's plain-pool forward; "
+    print(f"{phase} predict1d ({path}): {pred_s:.2f} s; {got.shape} outputs "
+          f"within {err:.3g} (<= 1e-5) of best.pt's plain-pool forward; "
           f"maxpool1d_pyramid.launches = {pfwd}", flush=True)
+    return {"pyramid": fwd, "backward": bwd, "verb_ms": verb_ms}
 
-    counts = {"config1": {"pyramid": fwd, "backward": bwd}}
+
+def phase_signal_verbs(tmp: str) -> dict:
+    """Phase 21: the 1D verbs on BASELINE config 1 (``_signal_verbs``: a
+    W32/D3 UNet, 3 + 3 launches a step, 3 a validation batch and a test
+    batch).  Then config 1's fixed batch of 128 in float32 and bfloat16
+    (3 + 3 a step) and with ``d_s = 1`` (one more pyramid launch a step:
+    the targets), p50 step and peak memory.  Returns {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp)
+    counts = {"config1": _signal_verbs("phase 21", tmp, sets, "config1",
+                                       "UNet")}
     x, y = sets["x_test"], sets["y_test"]
     for path, dtype, ds in (("config1", torch.float32, 0),
                             ("config1_bf16", torch.bfloat16, 0),
@@ -2987,6 +3060,259 @@ def phase_signal_reference() -> None:
             loss=get_loss("MeanAbsoluteError"))
 
 
+def phase_config5_1d(tmp: str) -> dict:
+    """Phase 24: BASELINE config 5's 1D models (CONFIG5_1D) at config 1's
+    size (W32/D3, 1024 samples, batch 128 of phase 21's test signals,
+    MeanAbsoluteError, Adam): 20 counted fixed-batch steps of each in
+    float32 and in bfloat16 (3 + 3 launches a step: every special pools
+    its level outputs 32, 64 and 128 wide), BCDUNet with ``d_s = 1`` (4 +
+    3: the targets' pyramid), the loss must fall; then the 1D verbs on
+    BCDUNet (``lstm = 1``) and NABNet (``_signal_verbs``).  Returns
+    {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp)
+    x, y = sets["x_test"], sets["y_test"]
+    runs = [(p + sfx, arch, dt, 0, kw) for p, (arch, kw) in CONFIG5_1D.items()
+            for sfx, dt in (("", torch.float32), ("_bf16", torch.bfloat16))]
+    runs.append(("config5_BCDUNet_ds", "BCDUNet", torch.float32, 1,
+                 CONFIG5_1D["config5_BCDUNet"][1]))
+    counts = {}
+    for path, arch, dtype, ds, kw in runs:
+        trainer = _signal_trainer(arch, dtype, ds=ds, **kw)
+        print(f"phase 24 {path}: W32/D3 {arch} {kw} ds={ds}, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, {str(dtype)[6:]}, batch {SIG_BATCH}", flush=True)
+        counts[path] = _counted_steps(
+            "phase 24", path, trainer, trainer.to_device(x),
+            trainer.to_device(y), SIG_STEPS, must_fall=True, unit="signals")
+        del trainer
+        torch.cuda.empty_cache()
+    for path, model_path in CONFIG5_VERBS.items():
+        arch, kw = CONFIG5_1D[model_path]
+        counts[path] = _signal_verbs("phase 24", tmp, sets, path, arch, **kw)
+    return counts
+
+
+def phase_config5_1d_reference() -> None:
+    """Phase 24's reference: phase 23's check (the card's float32 step
+    against the CPU's float32 and float64 steps, phase 7's tolerances) on
+    each config 5 1D model at W8/D3 on (2, 256, 1) signals (3 + 3
+    launches), and BCDUNet with ``d_s = 1`` (4 + 3)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights, get_loss)
+
+    cases = [(arch, kw, 0) for arch, kw in CONFIG5_1D.values()]
+    cases.append(("BCDUNet", CONFIG5_1D["config5_BCDUNet"][1], 1))
+    for arch, kw, ds in cases:
+        cpu = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 24), **kw)
+        cpu64 = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                  dtype=torch.float64, **kw)
+        cpu64.load_state_dict(cpu.state_dict())
+        _train_reference(
+            "phase 24 1D reference", f"W8/D3 1D {arch} {kw}"
+            + (" with d_s=1" if ds else ""), cpu,
+            (lambda y: prepare_train_dict(y, 3, "UNet", spatial_rank=1))
+            if ds else (lambda y: y), default_ds_weights(3) if ds else None,
+            (3 + ds, 3), cpu64, shape=(2, 256, 1),
+            loss=get_loss("MeanAbsoluteError"))
+
+
+def _depthwise_ms(model, x) -> tuple:
+    """cuDNN's depthwise convolutions in ``model``'s backbone at the
+    shapes of a step on ``x`` (each conv's input caught in one forward):
+    the device time of each forward (with its SAME padding) and of its
+    backward (input and weight gradients), L2 flushed, summed.  Returns
+    (forward ms, backward ms, convs)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import SameConv
+
+    convs = [m for m in getattr(model, model._encoder).modules()
+             if isinstance(m, SameConv) and m.groups > 1]
+    inputs = {}
+    hooks = [m.register_forward_hook(
+        lambda m, args, out: inputs.__setitem__(m, args[0].detach()))
+        for m in convs]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fwd = bwd = 0.0
+    for m in convs:
+        xi = inputs[m].requires_grad_()
+        y = m(xi)
+        g = torch.randn_like(y)
+        fwd += _device_ms(lambda: m(xi), flush)
+        bwd += _device_ms(lambda: torch.autograd.grad(
+            y, (xi, m.weight), g, retain_graph=True), flush)
+    return fwd, bwd, len(convs)
+
+
+def _backbone_stats(model) -> dict:
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith(f"{model._encoder}.") and "running" in k}
+
+
+def phase_config5_2d(tmp: str) -> None:
+    """Phase 25: BASELINE config 5's 2D model, the W32/D4 UNet on
+    EfficientNetB0 (``encoder_weights = none``), bf16, batch 16 of phase
+    11's synthetic images at 256x256 scaled to pixel values (the backbone
+    divides by 255): 20 counted fixed-batch steps with ``encoder_trainable``
+    0 and 1, each launching no pool kernel (0 + 0), the loss must fall,
+    the backbone's running statistics unchanged with 0 and moved with 1;
+    then the ``train`` verb for one epoch on phase 6's folders (0 + 0,
+    best.pt served), ``test`` on phase 12's PNGs and ``predict`` on them
+    (0 launches, every pixel counted, a mask per image)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    x = x * 255.0
+    for trainable in (0, 1):
+        path = f"config5_EffNetB0_UNet_trainable{trainable}"
+        model = SegModel("UNet", 32, 4, output_nums=1,
+                         final_activation="sigmoid", dtype=torch.bfloat16,
+                         train_mode="pretrained_encoder", backbone=EFFNET,
+                         backbone_trainable=bool(trainable),
+                         generator=torch.Generator().manual_seed(SEED))
+        print(f"phase 25 {path}: W32/D4 UNet on {EFFNET} "
+              f"{SIZE}x{SIZE}x3 bf16, encoder_trainable = {trainable}, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"BCEDice, Adam lr 1e-4, batch {TRAIN_BATCH}", flush=True)
+        trainer = Trainer(model, loss="BCEDiceLoss", optimizer="Adam",
+                          learning_rate=1e-4, device="cuda")
+        before = _backbone_stats(trainer.model)
+        _counted_steps("phase 25", path, trainer, trainer.to_device(x),
+                       trainer.to_device(y), EFFNET_STEPS, must_fall=True,
+                       calls=(0, 0))
+        after = _backbone_stats(trainer.model)
+        moved = sum(not torch.equal(before[k], after[k]) for k in before)
+        _check(moved == (len(before) if trainable else 0),
+               f"{path}: {moved} of the backbone's {len(before)} running "
+               f"statistics moved")
+        print(f"phase 25 {path}: {moved} of the backbone's {len(before)} "
+              f"running statistics moved in training (encoder_trainable = "
+              f"{trainable})", flush=True)
+        if trainable:
+            fwd, bwd, n = _depthwise_ms(trainer.model, trainer.to_device(x))
+            print(f"phase 25 {path}: cuDNN's {n} depthwise convolutions "
+                  f"(channels_last bf16, batch {TRAIN_BATCH}), device time "
+                  f"per step: forward {fwd:.4f} ms, backward {bwd:.4f} ms, "
+                  f"{fwd + bwd:.4f} ms together", flush=True)
+        del model, trainer
+        torch.cuda.empty_cache()
+
+    cfg = _train_config(tmp, "ResultsEffNet", decoder_name="UNet",
+                        encoder_mode="pretrained_encoder",
+                        encoder_name=EFFNET, encoder_weights="none",
+                        encoder_trainable=False, normalizing_factor_img=1.0,
+                        num_epochs=1)
+    print(f"phase 25 verbs: W32/D4 UNet on {EFFNET} bf16, encoder_weights = "
+          f"none, encoder_trainable = 0, pixel-valued inputs, BCEDice, "
+          f"Adam lr {cfg.learning_rate}, batch {TRAIN_BATCH}, 1 epoch",
+          flush=True)
+    _run_train_verb("phase 25 verbs", cfg, "config5_EffNetB0_UNet",
+                    calls=(0, 0))
+    test = TestConfig(test_dir=os.path.join(tmp, "Data", "Test"),
+                      imheight=SIZE, imwidth=SIZE, batch_size=TEST_BATCH,
+                      threshold=THRESHOLD, normalizing_factor_img=1.0,
+                      save_dir=cfg.save_dir)
+    pyramid.launches.reset()  # the main path's run starts here
+    pool_backward.launches.reset()
+    t0 = time.perf_counter()
+    rep = drivers.test(config=test, device="cuda")[1]
+    masks = drivers.predict(cfg, input_path=os.path.join(test.test_dir,
+                                                         "images"),
+                            out_dir=os.path.join(tmp, "EffNetMasks"),
+                            batch=TEST_BATCH, device="cuda")
+    verbs_s = time.perf_counter() - t0
+    launches = (pyramid.launches.value,
+                pool_backward.launches.value)  # ... and ends here
+    cm = rep["confusion_matrix"]
+    _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+    _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
+           f"confusion matrix counts {int(cm.sum())} pixels")
+    _check(len(masks) == N_TEST, f"predict wrote {len(masks)} masks")
+    _check(launches == (0, 0), f"test and predict launched {launches}")
+    print(f"phase 25 verbs: drivers.test and drivers.predict in "
+          f"{verbs_s:.2f} s; test {rep['images_per_sec']:.1f} img/s, "
+          f"confusion matrix {cm.astype(np.int64).tolist()} ({int(cm.sum())} "
+          f"pixels); {len(masks)} masks; pool launches {launches}",
+          flush=True)
+
+
+def _calibrate_backbone(model, shape: tuple) -> None:
+    """Set the running statistics of ``model``'s backbone to those of one
+    uniform batch of ``shape``, as a pretrained backbone's describe its
+    inputs.  With its initial ones (mean 0, variance 1) a frozen
+    backbone's BatchNorms do not normalize: its activations and gradients
+    grow through its blocks (BatchNorm bias gradients near 60 at W8/D3),
+    and float32 rounds them by more than phase 7's absolute bars (the
+    CPU's own float32 step 1.4e-4 from its float64 step, an H100's
+    2e-4)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import BatchNorm
+
+    bb = getattr(model, model._encoder)
+    bns = [m for m in bb.modules() if isinstance(m, BatchNorm)]
+    x = torch.from_numpy(np.random.default_rng(SEED + 26).uniform(
+        size=shape).astype(np.float32))
+    for m in bns:
+        m.momentum = 0.0  # the running statistics become the batch's
+    torch.nn.Module.train(bb)  # past a frozen backbone's eval mode
+    with torch.no_grad():
+        bb(x.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last))
+    for m in bns:
+        m.momentum = 0.99
+    bb.train(False)
+
+
+def phase_config5_2d_reference() -> None:
+    """Phase 25's reference: phase 17's check (the card's float32 step
+    against the CPU's float32 and float64 steps, phase 7's tolerances) on
+    a W8/D3 UNet on EfficientNetB0 on (2, 64, 64, 3), no pool launches,
+    with ``encoder_trainable`` 0 and 1, the backbone's statistics
+    calibrated on one batch (``_calibrate_backbone``).  The inputs are
+    uniform in [0, 1) as every reference phase's."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    for trainable in (0, 1):
+        kw = dict(output_nums=1, train_mode="pretrained_encoder",
+                  backbone=EFFNET, backbone_trainable=bool(trainable))
+        cpu = SegModel("UNet", 8, 3, **kw,
+                       generator=torch.Generator().manual_seed(SEED + 25))
+        _calibrate_backbone(cpu, (2, 64, 64, 3))
+        cpu64 = SegModel("UNet", 8, 3, **kw, dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        _train_reference("phase 25 reference", f"W8/D3 UNet on {EFFNET} "
+                         f"with encoder_trainable = {trainable}", cpu,
+                         lambda y: y, None, (0, 0), cpu64,
+                         shape=(2, 64, 64, 3))
+
+
 def main() -> int:
     import torch
 
@@ -3032,6 +3358,10 @@ def main() -> int:
         trained.update(phase_signal_verbs(tmp))
         trained.update(phase_signal_steps())
         phase_signal_reference()
+        trained.update(phase_config5_1d(tmp))
+        phase_config5_1d_reference()
+        phase_config5_2d(tmp)
+        phase_config5_2d_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

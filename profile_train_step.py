@@ -2,7 +2,8 @@
 """Where the time of the port's train step goes, on one NVIDIA GPU.
 
     python3 profile_train_step.py [--out DIR]
-        [--model flagship|unet3p_ds|multiresunet|unet_ag|unet1d]
+        [--model flagship|unet3p_ds|multiresunet|unet_ag|unet1d|nabnet|
+                 effnet_unet]
 
 The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam), or with
 ``--model unet3p_ds`` UNet3+ W32/D4 with deep supervision (its targets
@@ -13,7 +14,11 @@ channel counts), or with ``--model unet_ag`` config 4's UNet W32/D4 with
 attention gates, takes 10 train steps on one synthetic batch of 16, or
 with ``--model unet1d`` BASELINE config 1 (the 1D UNet W32/D3 on
 one-channel 1024-sample signals, float32, MeanAbsoluteError, Adam lr
-3e-4) on a batch of 128 synthetic signals, then 10 more under
+3e-4) on a batch of 128 synthetic signals, or with ``--model nabnet``
+BASELINE config 5's NABNet (W32/D3, ``dense_loop = 2``) the same way, or
+with ``--model effnet_unet`` config 5's UNet W32/D4 on EfficientNetB0
+(random weights, the backbone's BatchNorms training) on the batch of 16
+scaled to pixel values, then 10 more under
 ``torch.profiler``.  Prints the card's name and power limit, the
 host time per step with and without the profiler, the device time per
 step by kernel (the profiler's CUDA rows), grouped into the layers of
@@ -33,6 +38,9 @@ WARMUP, STEPS, BATCH = 10, 10, 16  # warm-up steps, profiled steps, batch
 GROUPS = (  # (layer, substrings of a device kernel's name), first match wins
     ("pool kernels (hand-written)", ("pool_vec", "pool_backward",
                                      "pyramid", "pool1d")),
+    # cuDNN's direct kernels for depthwise convolutions (EfficientNet)
+    ("depthwise convolutions (cuDNN)", ("2d_c1_k1", "wgrad2d_shmem",
+                                        "grouped_direct")),
     ("bilinear upsample (UNet3+)", ("upsample",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "sm90_xmma", "wgrad", "dgrad",
                               "implicit_gemm", "cutlass", "gemm")),
@@ -44,7 +52,8 @@ OTHER = "elementwise (BN apply, bias, activations, casts, loss) and other"
 #: --model -> (decoder or 1D arch, deep supervision, attention gates)
 MODELS = {"flagship": ("UNetPP", 0, 0), "unet3p_ds": ("UNet3P", 1, 0),
           "multiresunet": ("MultiResUNet", 0, 0), "unet_ag": ("UNet", 0, 1),
-          "unet1d": ("UNet", 0, 0)}
+          "unet1d": ("UNet", 0, 0), "nabnet": ("NABNet", 0, 0),
+          "effnet_unet": ("UNet", 0, 0)}
 #: config 1's batch of signals and their length
 SIG_BATCH, SIG_LEN = 128, 1024
 
@@ -83,17 +92,22 @@ def main(argv=None) -> int:
     print(smi.stdout.strip().splitlines()[0], flush=True)
     decoder, ds, ag = MODELS[args.model]
     gen = torch.Generator().manual_seed(0)
-    if args.model == "unet1d":
+    if args.model in ("unet1d", "nabnet"):
         batch, unit = SIG_BATCH, "signals"
         model = model_selector_1d(decoder, SIG_LEN, 3, 1, 32, 3,
-                                  generator=gen)
+                                  dense_loop=2, generator=gen)
         trainer = Trainer(model, loss="MeanAbsoluteError",
                           learning_rate=3e-4, device="cuda")
         x, y = synthetic_signals(batch, SIG_LEN, seed=0)
     else:
         batch, unit = BATCH, "img"
+        effnet = args.model == "effnet_unet"
         model = SegModel(decoder, 32, 4, ds=ds, ag=ag, dtype=torch.bfloat16,
-                         generator=gen)
+                         generator=gen,
+                         train_mode=("pretrained_encoder" if effnet
+                                     else "from_scratch"),
+                         backbone="EfficientNetB0" if effnet else None,
+                         backbone_trainable=effnet)
         trainer = Trainer(
             model, loss="BCEDiceLoss", learning_rate=2e-4,
             loss_weights=default_ds_weights(4) if ds else None,
@@ -101,6 +115,8 @@ def main(argv=None) -> int:
             prepare_targets=(lambda y: prepare_train_dict(y, 4, "UNet"))
             if ds else None)
         x, y = synthetic_images(batch, 256, seed=0)
+        if effnet:  # the backbone divides by 255
+            x = x * 255.0
     prepare = trainer.prepare_targets or (lambda y: y)
     x, y = trainer.to_device(x), trainer.to_device(y)
 

@@ -181,7 +181,7 @@ def test_classification_head_is_a_softmax():
     ("R2UNet", {}, NotImplementedError),
     ("SelfUNetPP", {}, NotImplementedError),
     ("ConvMixerUNet", {}, NotImplementedError),
-    ("BCDUNet", {}, NotImplementedError),
+    ("MLMRSNet", {}, NotImplementedError),
     ("LinkNet", {}, NotImplementedError),
     ("UNet", {"lstm": 1}, NotImplementedError),
     ("UNet", {"ae": 1}, NotImplementedError),

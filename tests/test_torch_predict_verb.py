@@ -135,10 +135,11 @@ def test_predict_refusals_write_nothing(tmp_path):
     with pytest.raises(FileNotFoundError, match="no images"):
         drivers.predict(port, input_path=str(empty), out_dir=out,
                         device="cpu")
-    for key, value in (("a_e", 1), ("model_genre", "FPN"),
-                       ("encoder_mode", "pretrained_encoder")):
+    for over in ({"a_e": 1}, {"model_genre": "FPN"},
+                 {"encoder_mode": "pretrained_encoder",
+                  "encoder_name": "EfficientNetV2B0"}):
         with pytest.raises(NotImplementedError):
-            drivers.predict(dataclasses.replace(port, **{key: value}),
+            drivers.predict(dataclasses.replace(port, **over),
                             input_path=images, out_dir=out, device="cpu")
     with pytest.raises(ValueError, match="unknown TTA"):
         drivers.predict(port, input_path=images, out_dir=out, tta="spin",

@@ -86,7 +86,8 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 
 def test_unported_configurations_raise():
     for kw in ({"genre": "FPN"}, {"ag": 1, "lstm": 1}, {"lstm": 1},
-               {"ae": 1}, {"train_mode": "pretrained_encoder"}):
+               {"ae": 1}, {"train_mode": "pretrained_encoder",
+                           "backbone": "ResNet50"}):
         with pytest.raises(NotImplementedError):
             SegModel("UNetPP", 4, 2, **kw)
     for name in ("FPN", "UNet4P", "AHNet", "SelfUNetPP"):

@@ -164,7 +164,7 @@ def test_verbs_1d_on_a_jax_trained_fold_equal_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("over,error", [
     ({"model_name": "UNet4P"}, NotImplementedError),
-    ({"model_name": "BCDUNet"}, NotImplementedError),
+    ({"model_name": "MLMRSNet"}, NotImplementedError),
     ({"lstm": 1}, NotImplementedError),
     ({"a_e": 1}, NotImplementedError),
     ({"model_parallel": 2}, NotImplementedError),

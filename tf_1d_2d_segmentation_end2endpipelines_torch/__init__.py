@@ -8,8 +8,10 @@ on the CPU.  This package imports torch and never jax or flax.
 - ``ops``      the block library and ``ops/kernels``: kernels written by
                hand for Hopper (``csrc/*.cu``), each beside its plain
                PyTorch version
-- ``models``   the 2D UNet genre and MultiRes family, and the 1D models
-               (``api_1d``: ``SegModel1D``, ``model_selector_1d``)
+- ``models``   the 2D UNet genre and MultiRes family, on a from-scratch
+               or an EfficientNet encoder (``backbones``), and the 1D
+               models (``api_1d``: ``SegModel1D``, ``model_selector_1d``;
+               ``specials_1d``: BCDUNet, SEDUNet, IBAUNet, NABNet)
 - ``train``    losses, Adam, the train/eval steps, metrics, callbacks,
                checkpoints and the ``Trainer``
 - ``data``     the image-folder dataset, its threaded loader, ``.pt``

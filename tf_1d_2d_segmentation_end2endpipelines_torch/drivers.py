@@ -72,6 +72,7 @@ def _build_model(cfg: TrainConfig, dtype: tp.Optional[torch.dtype] = None,
         alpha=cfg.alpha,
         final_activation=cfg.final_activation,
         train_mode=cfg.train_mode,
+        is_base_model_trainable=cfg.encoder_trainable,
         dtype=_resolve_dtype(cfg, dtype),
         generator=generator,
         block_remat=cfg.remat == "blocks",
@@ -135,9 +136,13 @@ def _check_train_config(cfg: TrainConfig) -> None:
     model before writing, so an unported architecture raises there)."""
     bad = unported_train_keys(cfg)
     if bad:
+        hint = ("; ImageNet and .h5 encoder weights are not in the "
+                "repository: set encoder_weights = none to train the "
+                "encoder from random weights"
+                if any(b.startswith("encoder_weights") for b in bad) else "")
         raise NotImplementedError(
             "the port's train verb does not take these settings yet: "
-            + ", ".join(bad))
+            + ", ".join(bad) + hint)
     if cfg.augment_device and cfg.patchify:
         # the host path augments the whole image before patchify; patches
         # of one image augmented apart would not be that

@@ -32,7 +32,7 @@ from .data import (batches, load_signal_dataset, load_signal_inputs,
                    prepare_train_dict)
 from .drivers import (_check_step_keys, _resolve_dtype, _restore_model,
                       _save_history, resolve_device)
-from .models import SegModel1D, model_selector_1d
+from .models import model_selector_1d
 from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
                     Trainer, default_ds_weights)
 from .utils.config import (Signal1DConfig, load_signal_config, resume_token,
@@ -42,7 +42,7 @@ from .utils.config import (Signal1DConfig, load_signal_config, resume_token,
 def _build_model_1d(cfg: Signal1DConfig,
                     dtype: tp.Optional[torch.dtype] = None,
                     generator: tp.Optional[torch.Generator] = None
-                    ) -> SegModel1D:
+                    ) -> torch.nn.Module:
     return model_selector_1d(
         cfg.model_name, cfg.signal_length, cfg.model_depth,
         cfg.num_channel, cfg.model_width, cfg.kernel_size,
@@ -95,7 +95,7 @@ def _restore_model_1d(cfg: Signal1DConfig, action: str,
                       device: tp.Union[str, torch.device],
                       dtype: tp.Optional[torch.dtype] = None,
                       seed: tp.Optional[int] = None
-                      ) -> tp.Tuple[SegModel1D, bool]:
+                      ) -> tp.Tuple[torch.nn.Module, bool]:
     """The model of ``cfg`` on ``device`` in eval mode with ``<save_dir>/
     best.pt`` (and its EMA shadow) over weights drawn from ``seed``
     (default: the INI seed); a WARNING when there is no ``best.pt``.

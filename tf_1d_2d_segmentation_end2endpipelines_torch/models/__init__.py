@@ -1,6 +1,8 @@
 """Model zoo of the port: the from-scratch UNet, UNetE, UNetP, UNet++,
-UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet; in 1D, UNet, UNetE,
-UNetP, UNet++, UNet3+ and MultiResUNet (``api_1d``)."""
+UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet, and the UNet genre on an
+EfficientNet V1 encoder (``backbones``); in 1D, UNet, UNetE, UNetP,
+UNet++, UNet3+ and MultiResUNet (``api_1d``), BCDUNet, SEDUNet, IBAUNet
+and NABNet (``specials_1d``)."""
 from .api_1d import (  # noqa: F401
     ARCH_NAMES_1D,
     SegModel1D,
@@ -15,3 +17,4 @@ from .decoders import (  # noqa: F401
 )
 from .encoders import LatentLayer, ScratchEncoder  # noqa: F401
 from .segmodel import SegModel, model_selector  # noqa: F401
+from .specials_1d import BCDUNet, IBAUNet, NABNet, SEDUNet  # noqa: F401

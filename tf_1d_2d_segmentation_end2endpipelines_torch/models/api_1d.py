@@ -5,8 +5,11 @@ end2endpipelines_tpu/models/api_1d.py): ``SegModel1D`` (:95), the
 Ported: the ``UNet1D`` archs ``UNet``, ``UNetE``, ``UNetP``, ``UNetPP``,
 ``UNet3P`` and ``MultiResUNet``, with deep supervision (``ds``), attention
 gates (``ag``), transposed convs or nearest upsampling, any kernel size
-and ``alpha``.  The other archs, ``lstm = 1``, ``ae = 1`` and the special
-families raise ``NotImplementedError`` naming what is missing.
+and ``alpha``; and the special families ``BCDUNet``, ``SEDUNet``,
+``IBAUNet`` and ``NABNet`` (models/specials_1d.py), with ``lstm``,
+``dense_loop`` and ``se_ratio``.  The other archs and families, ``lstm =
+1`` on a ``UNet1D`` arch and ``ae = 1`` raise ``NotImplementedError``
+naming what is missing.
 
 The 1D tree differs from the 2D one (JAX api_1d.py:1-13): two ConvBlocks
 an encoder level and a decoder node (one for UNet3+ and MultiRes nodes),
@@ -31,6 +34,8 @@ from torch import nn
 from ..ops import (ConvBlock, HeadConv, MultiResBlock, ResPath,
                    apply_activation, downsample_pool)
 from .decoders import ChainDecoder, FullScaleDecoder, GridDecoder
+from .specials_1d import (SPECIAL_ARCHS_1D, BCDUNet, IBAUNet, NABNet,
+                          SEDUNet)
 
 #: every arch name of the JAX ``UNet1D`` (api_1d.py:48-90)
 ARCH_NAMES_1D = (
@@ -50,8 +55,11 @@ _ARCHS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
     "MultiResUNet": dict(topo="chain", reps=1, multires=True),
 }
 
-#: the archs ``SegModel1D`` builds
-PORTED_ARCHS_1D = tuple(_ARCHS)
+#: the names ``model_selector_1d`` builds: ``SegModel1D``'s archs and
+#: the special families of models/specials_1d.py
+PORTED_ARCHS_1D = tuple(_ARCHS) + SPECIAL_ARCHS_1D
+_SPECIALS = {"BCDUNet": BCDUNet, "SEDUNet": SEDUNet, "IBAUNet": IBAUNet,
+             "NABNet": NABNet}
 
 #: the special 1D families' method names (JAX api_1d.py:420-480)
 SPECIAL_NAMES_1D = (
@@ -63,19 +71,19 @@ SPECIAL_NAMES_1D = (
 
 
 def check_arch_1d(arch: str, ae: int = 0, lstm: int = 0) -> None:
-    """Raise for what ``SegModel1D`` does not build: ``ValueError`` for a
-    name the JAX package does not know either, ``NotImplementedError``
-    naming an arch, a special family, ``lstm = 1`` or ``ae = 1`` the port
-    lacks."""
+    """Raise for what ``model_selector_1d`` does not build:
+    ``ValueError`` for a name the JAX package does not know either,
+    ``NotImplementedError`` naming an arch, a special family, ``lstm =
+    1`` on a ``UNet1D`` arch or ``ae = 1`` the port lacks."""
     if arch not in ARCH_NAMES_1D and arch not in SPECIAL_NAMES_1D:
         raise ValueError(
             f"unknown 1D architecture {arch!r}; expected one of "
             f"{sorted(ARCH_NAMES_1D)} or a special-family method name")
-    if arch not in _ARCHS:
+    if arch not in PORTED_ARCHS_1D:
         raise NotImplementedError(
             f"1D architecture {arch!r} is not ported yet (ported: "
-            f"{', '.join(_ARCHS)})")
-    if lstm:
+            f"{', '.join(PORTED_ARCHS_1D)})")
+    if lstm and arch in _ARCHS:
         raise NotImplementedError("1D models with lstm = 1 (ConvLSTM "
                                   "fusion) are not ported yet")
     if ae:
@@ -107,6 +115,9 @@ class SegModel1D(nn.Module):
         self.init_kwargs = {k: v for k, v in locals().items()
                             if k not in ("self", "generator", "__class__")}
         check_arch_1d(arch, ae=ae, lstm=lstm)
+        if arch not in _ARCHS:
+            raise ValueError(f"{arch!r} is a special family: "
+                             "model_selector_1d builds it")
         if model_depth < 1:
             raise ValueError("The depth of the model cannot be less than 1")
         cfg = _ARCHS[arch]
@@ -240,15 +251,26 @@ def model_selector_1d(arch: str, length: int, model_depth: int,
                       block_size: int = 7, keep_prob: float = 0.9,
                       dtype: torch.dtype = torch.float32,
                       generator: tp.Optional[torch.Generator] = None
-                      ) -> SegModel1D:
+                      ) -> nn.Module:
     """Name-string dispatch over the 1D zoo with the JAX
     ``model_selector_1d``'s surface (api_1d.py:395).  The ported archs
-    build; the others, and the special families' names, raise
+    build a ``SegModel1D``, the four ported special families their model
+    (``dense_loop``, ``se_ratio``, ``lstm`` and ``ag`` as JAX
+    api_1d.py:424-434 passes them); the other names raise
     ``NotImplementedError`` naming them, and an unknown name raises the
     JAX package's ``ValueError``.  ``length`` is accepted for parity (the
-    model takes any length); ``t``, ``q``, ``dense_loop``,
-    ``feature_number``, ``cardinality``, ``pooling_type``, ``se_ratio``,
-    ``block_size`` and ``keep_prob`` configure only unported families."""
+    model takes any length); ``t``, ``q``, ``feature_number``,
+    ``cardinality``, ``pooling_type``, ``block_size`` and ``keep_prob``
+    configure only unported families."""
+    if arch in _SPECIALS:
+        check_arch_1d(arch, ae=ae, lstm=lstm)
+        return _SPECIALS[arch](
+            model_width=model_width, model_depth=model_depth,
+            kernel_size=kernel_size, problem_type=problem_type,
+            output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,
+            dense_loop=dense_loop, se_ratio=se_ratio,
+            in_channels=num_channel, is_transconv=is_transconv, dtype=dtype,
+            generator=generator)
     return UNet1D(length, model_depth, num_channel, model_width,
                   kernel_size, problem_type=problem_type,
                   output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,

@@ -1,9 +1,11 @@
-"""From-scratch encoder and latent layer of the port
+"""Encoders and latent layer of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/encoders.py).
 
 Ported: the ConvBlock encoder (encoders.py:103-107), the MultiRes encoder
 of MultiResUNet and MultiResUNet3+ (:59-70) and KSSNet's (:71-84); the
-DenseBlock latent (:136-137) and the MultiResBlock latent (:130-132).
+DenseBlock latent (:136-137) and the MultiResBlock latent (:130-132);
+the pretrained backbone's tap projector (:140) on its default branch
+(:194-197).
 """
 from __future__ import annotations
 
@@ -103,24 +105,54 @@ class ScratchEncoder(nn.Module):
         return taps, conv
 
 
+class PretrainedTapProjector(nn.Module):
+    """A pretrained backbone's tap at ``level`` (1-based) projected to the
+    decoder's width W * 2**(level - 1) (JAX ``PretrainedTapProjector``,
+    encoders.py:140): on the default branch (:194-197), a bare conv
+    (``ConvBlock_0`` without BatchNorm or activation), 3x3 at level 1 and
+    1x1 deeper.  The MultiRes, KSSNet, UNet4P/AHNet and Self branches
+    (:165-193) raise ``NotImplementedError``."""
+
+    def __init__(self, decoder_name: str, level: int, in_features: int,
+                 model_width: int, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        if (decoder_name in MULTIRES_FAMILIES + _OTHER_BRANCHES
+                or decoder_name.startswith("Self")):
+            raise NotImplementedError(
+                f"the pretrained-encoder tap projector for {decoder_name!r} "
+                "is not ported yet (ported: the default branch, a bare "
+                "conv a level)")
+        self.ConvBlock_0 = ConvBlock(
+            in_features, model_width * 2 ** (level - 1),
+            3 if level == 1 else 1, use_bn=False, activation=None,
+            dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvBlock_0(x)
+
+
 class LatentLayer(nn.Module):
     """Bottleneck of width W * 2**D: a DenseBlock for the UNet genre, a
-    ``MultiResBlock`` (its truncated width) for the MultiRes families."""
+    ``MultiResBlock`` (its truncated width) for the MultiRes families.
+    ``in_features`` (default: the from-scratch encoder's W * 2**D, or
+    its MultiRes block's width) is a pretrained backbone's at depth 5."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
                  dense_loop: int = 1, alpha: float = 1.0,
                  dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None):
+                 generator: tp.Optional[torch.Generator] = None,
+                 in_features: tp.Optional[int] = None):
         super().__init__()
         _check_family(decoder_name, "LatentLayer")
         feats = model_width * 2 ** model_depth
         if decoder_name in MULTIRES_FAMILIES:
             self.MultiResBlock_0 = MultiResBlock(
-                multires_features(feats, alpha), feats, 3, alpha=alpha,
-                dtype=dtype, generator=generator)
+                in_features or multires_features(feats, alpha), feats, 3,
+                alpha=alpha, dtype=dtype, generator=generator)
             self._block = "MultiResBlock_0"
         else:
-            self.DenseBlock_0 = DenseBlock(feats, feats, 3,
+            self.DenseBlock_0 = DenseBlock(in_features or feats, feats, 3,
                                            num_layers=dense_loop,
                                            dtype=dtype, generator=generator)
             self._block = "DenseBlock_0"

@@ -1,10 +1,12 @@
 """Top-level segmentation model of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
 
-Ported: the from-scratch UNet genre, with or without deep supervision,
-without autoencoder mode, with any decoder that ``decoders.build_decoder``
-has (UNet, UNetE, UNetP, UNet++, UNet3+, MultiResUNet, MultiResUNet3+ and
-KSSNet so far), attention gates on the chains and grids.
+Ported: the UNet genre, with or without deep supervision, without
+autoencoder mode, with any decoder that ``decoders.build_decoder`` has
+(UNet, UNetE, UNetP, UNet++, UNet3+, MultiResUNet, MultiResUNet3+ and
+KSSNet so far), attention gates on the chains and grids; its encoder
+from scratch or, ``train_mode = "pretrained_encoder"``, an EfficientNet
+V1 backbone (``backbones``) with the default tap projectors.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from torch import nn
 
 from ..ops import HeadConv, apply_activation, set_block_remat
 from .decoders import build_decoder
-from .encoders import LatentLayer, ScratchEncoder
+from .backbones import get_backbone
+from .encoders import LatentLayer, PretrainedTapProjector, ScratchEncoder
 
 
 class SegModel(nn.Module):
@@ -34,7 +37,16 @@ class SegModel(nn.Module):
     one by one in training (``remat = blocks``; JAX segmodel.py:67-73),
     with the same ``state_dict`` keys.  ``init_kwargs`` keeps the
     constructor's arguments, so ``reinitialized`` can draw a fresh model
-    of the same architecture."""
+    of the same architecture.
+
+    ``train_mode = "pretrained_encoder"`` (depth 1 to 5) encodes with the
+    ``backbone`` named (``<Backbone>_0``, its taps 0 .. min(D, 5)), each
+    tap but the deepest at depth 5 projected to its level's width
+    (``PretrainedTapProjector_<k>``, min(D + 1, 5) of them); the latent
+    reads projected tap D, or at depth 5 the backbone's raw top (JAX
+    segmodel.py:76-125).  ``backbone_trainable`` False keeps the
+    backbone's BatchNorms on their running statistics in training
+    (``EfficientNetBackbone.trainable``); its parameters still train."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
                  in_channels: int = 3, output_nums: int = 1, ds: int = 0,
@@ -44,28 +56,53 @@ class SegModel(nn.Module):
                  genre: str = "UNet", train_mode: str = "from_scratch",
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 block_remat: bool = False):
+                 block_remat: bool = False,
+                 backbone: tp.Optional[str] = None,
+                 backbone_trainable: bool = False):
         super().__init__()
         self.init_kwargs = {k: v for k, v in locals().items()
                             if k not in ("self", "generator", "__class__")}
-        if train_mode != "from_scratch":
-            raise NotImplementedError(
-                f"train_mode {train_mode!r} is not ported yet")
+        W, D = model_width, model_depth
+        self.pretrained = train_mode == "pretrained_encoder"
+        if self.pretrained:
+            if not 1 <= D <= 5:
+                raise ValueError(
+                    "The depth of a pretrained-encoder model can only be "
+                    "discretely varied from 1 to 5")
+        elif train_mode != "from_scratch":
+            raise ValueError(
+                'train_mode must be "pretrained_encoder" or "from_scratch"')
+        elif D < 1:
+            raise ValueError("The depth of the model cannot be less than 1")
         if genre != "UNet" or ae:
             raise NotImplementedError(
                 "only the UNet genre without autoencoder mode is ported")
-        if model_depth < 1:
-            raise ValueError("The depth of the model cannot be less than 1")
-        W, D = model_width, model_depth
         self.model_depth = D
         self.final_activation = final_activation
         self.dtype = dtype
-        self.ScratchEncoder_0 = ScratchEncoder(
-            decoder_name, in_channels, W, D, alpha=alpha, dtype=dtype,
-            generator=generator)
+        bottom = None
+        if self.pretrained:
+            bb = get_backbone(backbone, dtype=dtype, max_tap=min(D, 5),
+                              in_channels=in_channels, generator=generator,
+                              trainable=backbone_trainable)
+            self._encoder = f"{type(bb).__name__}_0"
+            self.add_module(self._encoder, bb)
+            for lvl in range(1, min(D + 1, 5) + 1):
+                self.add_module(
+                    f"PretrainedTapProjector_{lvl - 1}",
+                    PretrainedTapProjector(
+                        decoder_name, lvl, bb.tap_features[lvl - 1], W,
+                        dtype=dtype, generator=generator))
+            bottom = bb.tap_features[5] if D == 5 else None
+        else:
+            self._encoder = "ScratchEncoder_0"
+            self.ScratchEncoder_0 = ScratchEncoder(
+                decoder_name, in_channels, W, D, alpha=alpha, dtype=dtype,
+                generator=generator)
         self.LatentLayer_0 = LatentLayer(decoder_name, W, D, dense_loop,
                                          alpha=alpha, dtype=dtype,
-                                         generator=generator)
+                                         generator=generator,
+                                         in_features=bottom)
         decoder = build_decoder(decoder_name, model_width=W, model_depth=D,
                                 D_S=ds, A_G=ag, LSTM=lstm,
                                 is_transconv=is_transconv, alpha=alpha,
@@ -89,7 +126,13 @@ class SegModel(nn.Module):
         x = x.permute(0, 3, 1, 2)
         x = torch.empty(x.shape, dtype=self.dtype, device=x.device,
                         memory_format=torch.channels_last).copy_(x)
-        taps, bottom = self.ScratchEncoder_0(x)
+        if self.pretrained:
+            raw = getattr(self, self._encoder)(x)
+            taps = [getattr(self, f"PretrainedTapProjector_{k}")(tap)
+                    for k, tap in enumerate(raw[:5])]
+            bottom = raw[5] if self.model_depth == 5 else taps[-1]
+        else:
+            taps, bottom = self.ScratchEncoder_0(x)
         conv = self.LatentLayer_0(bottom)
         skips = taps[:self.model_depth] + [conv]
         deconv, levels = getattr(self, self._decoder_name)(skips)
@@ -120,16 +163,19 @@ def model_selector(
     alpha: float = 1.0,
     final_activation: str = "sigmoid",
     train_mode: str = "from_scratch",
+    is_base_model_trainable: bool = False,
     dtype: torch.dtype = torch.float32,
     generator: tp.Optional[torch.Generator] = None,
     block_remat: bool = False,
 ) -> SegModel:
     """String-dispatch factory with the JAX ``model_selector``'s surface
-    (segmodel.py:173).  ``num_channels`` sizes the first conv; ``length``,
-    ``width`` and ``encoder_name`` are accepted for parity (the model takes
-    any spatial size; only the from-scratch encoder is ported)."""
+    (segmodel.py:173).  ``num_channels`` sizes the first conv;
+    ``encoder_name`` names the backbone of a ``pretrained_encoder``
+    model; ``length`` and ``width`` are accepted for parity (the model
+    takes any spatial size)."""
     if model_genre not in ("UNet", "FPN"):
         raise ValueError(f"Unknown model genre {model_genre!r}")
+    pretrained = train_mode == "pretrained_encoder"
     return SegModel(
         decoder_name=decoder_name, model_width=model_width,
         model_depth=model_depth, in_channels=num_channels,
@@ -137,4 +183,6 @@ def model_selector(
         dense_loop=dense_loop, is_transconv=is_transconv, alpha=alpha,
         final_activation=final_activation, genre=model_genre,
         train_mode=train_mode, dtype=dtype, generator=generator,
-        block_remat=block_remat)
+        block_remat=block_remat,
+        backbone=encoder_name if pretrained else None,
+        backbone_trainable=is_base_model_trainable)

@@ -1,5 +1,7 @@
 """Block library of the port: the blocks the UNet genre, the MultiRes
-family and the attention gates run, in 2D and in 1D, ported from
+family, the attention gates, the 1D special families (squeeze-and-excite,
+the ConvLSTM cells) and the EfficientNet backbone (``SameConv``) run, in
+2D and in 1D, ported from
 tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
 
 Layout: modules and block functions take and return (B, C, H, W) tensors
@@ -160,24 +162,84 @@ class _Block(nn.Module):
         return self._forward(x)
 
 
-def _same_padding(kernel: int, rank: int
-                  ) -> tp.Tuple[tp.Tuple[int, int], tp.Optional[tp.Tuple]]:
-    """flax's stride-1 ``SAME`` for a square kernel (``rank`` 2, odd
-    sides) or a (1, k) one (``rank`` 1, any k): ``(padding, pad)``, the
-    symmetric padding ``F.conv2d`` takes and, for an even k, the uneven
-    ``F.pad`` of the length axis before it: (k - 1) // 2 before and
-    k // 2 after, as flax pads."""
-    if kernel % 2 == 1:
-        return (kernel // 2, kernel // 2) if rank == 2 else (0, kernel // 2), None
-    return (0, 0), ((kernel - 1) // 2, kernel // 2)
+def he_normal_(w: torch.Tensor, fan_in: int,
+               generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``he_normal``: a normal truncated at two standard deviations,
+    rescaled so the variance is 2/fan_in."""
+    std = math.sqrt(2.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=generator)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tp.Tuple[int, int]:
+    """flax's ``SAME`` padding of one spatial axis of ``size`` for a
+    ``kernel`` at ``stride``: ``ceil(size / stride)`` outputs, the
+    ``max((out - 1) * stride + kernel - size, 0)`` padded elements split
+    with the smaller half before.  At stride 2 and an even size that is
+    uneven: 0 before and 1 after for k = 3, 1 and 2 for k = 5."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class SameConv(nn.Conv2d):
+    """flax ``nn.Conv`` with ``SAME`` padding at any stride: a square
+    kernel (``rank`` 2) or a (1, k) one over a 1D signal (``rank`` 1),
+    ``groups`` (flax's ``feature_group_count``), bias optional.  The
+    padding depends on the input's size (``same_pads``); where it is
+    uneven (stride 2, or an even 1D kernel) the input is padded by
+    ``F.pad`` before a conv that pads nothing.  Casts input, kernel and
+    bias to ``dtype`` and adds the bias after the convolution, as flax.
+    Init: ``init`` is ``lecun_normal`` (flax's default), ``he_uniform``,
+    ``he_normal`` or ``orthogonal``; zero bias."""
+
+    def __init__(self, in_features: int, features: int, kernel: int,
+                 stride: int = 1, groups: int = 1, bias: bool = True,
+                 init: str = "lecun_normal",
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 2):
+        ks = (kernel, kernel) if rank == 2 else (1, kernel)
+        st = (stride, stride) if rank == 2 else (1, stride)
+        super().__init__(in_features, features, ks, stride=st, groups=groups,
+                         bias=bias)
+        self.dtype = dtype
+        fan_in = in_features // groups * kernel ** rank
+        with torch.no_grad():
+            if init == "orthogonal":
+                nn.init.orthogonal_(self.weight, generator=generator)
+            elif init == "he_uniform":
+                he_uniform_(self.weight, fan_in, generator)
+            elif init == "he_normal":
+                he_normal_(self.weight, fan_in, generator)
+            else:
+                lecun_normal_(self.weight, fan_in, generator)
+            if bias:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        ph = same_pads(x.shape[2], kh, sh)
+        pw = same_pads(x.shape[3], kw, sw)
+        x = x.to(self.dtype)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            padding = (ph[0], pw[0])
+        else:
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+            padding = (0, 0)
+        y = F.conv2d(x, self.weight.to(self.dtype), None, self.stride,
+                     padding, 1, self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).view(1, -1, 1, 1)
+        return y
 
 
 class ConvBlock(_Block):
     """conv -> [BatchNorm] -> [activation] (JAX ``ConvBlock``, blocks.py:191).
 
-    SAME padding, stride 1, with bias: an odd square kernel (``rank`` 2)
-    or a (1, k) kernel of any k over a 1D signal (``rank`` 1).  Kernel
-    init he_uniform, zero bias."""
+    ``Conv_0`` is a ``SameConv``: SAME padding, stride 1, with bias, a
+    square kernel (``rank`` 2) or a (1, k) kernel over a 1D signal
+    (``rank`` 1), of any k.  Kernel init he_uniform, zero bias."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  use_bn: bool = True, activation: tp.Optional[str] = "relu",
@@ -185,29 +247,14 @@ class ConvBlock(_Block):
                  generator: tp.Optional[torch.Generator] = None,
                  rank: int = 2):
         super().__init__()
-        if rank == 2 and kernel % 2 != 1:
-            raise NotImplementedError("ConvBlock: only odd kernels (SAME "
-                                      "padding, stride 1) are ported in 2D")
-        self.padding, self.pad = _same_padding(kernel, rank)
         self.activation = activation
-        self.dtype = dtype
-        self.Conv_0 = nn.Conv2d(in_features, features,
-                                (kernel, kernel) if rank == 2 else (1, kernel))
-        with torch.no_grad():
-            he_uniform_(self.Conv_0.weight, kernel ** rank * in_features,
-                        generator)
-            self.Conv_0.bias.zero_()
+        self.Conv_0 = SameConv(in_features, features, kernel,
+                               init="he_uniform", dtype=dtype,
+                               generator=generator, rank=rank)
         self.BatchNorm_0 = BatchNorm(features) if use_bn else None
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv = self.Conv_0
-        # flax casts input, kernel and bias to the compute dtype and adds
-        # the bias in that dtype, after the convolution
-        x = x.to(self.dtype)
-        if self.pad is not None:
-            x = F.pad(x, self.pad)
-        x = F.conv2d(x, conv.weight.to(self.dtype), padding=self.padding)
-        x = x + conv.bias.to(self.dtype).view(1, -1, 1, 1)
+        x = self.Conv_0(x)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x)
         return apply_activation(x, self.activation)
@@ -509,3 +556,158 @@ class AttentionGate(nn.Module):
         else:
             r = upsample(c, 2, method="bilinear")
         return skip * (r + self.TransConv_0(c))
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: input, kernel and bias cast to ``dtype``, the
+    bias added after the product.  Init as flax's: lecun_normal kernel,
+    zero bias.  flax's (in, out) kernel is this ``weight`` transposed
+    (utils/flax_to_torch.py)."""
+
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__(in_features, features)
+        self.dtype = dtype
+        with torch.no_grad():
+            lecun_normal_(self.weight, in_features, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return (F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+                + self.bias.to(self.dtype))
+
+
+class _ZeroGrads(torch.autograd.Function):
+    """The identity on ``x`` whose backward also gives each parameter in
+    ``params`` a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, *params):
+        ctx.likes = [(p.shape, p.dtype, p.device) for p in params]
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros(s, dtype=d, device=v)
+                            for s, d, v in ctx.likes)
+
+
+def zero_grads(x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+    """``x``, with a zero gradient for ``params`` where the forward does
+    not reach them.  optax updates every parameter of the tree, with a
+    zero gradient where the loss does not depend on it (its count and its
+    moments advance); the port's optimizers skip a parameter whose
+    gradient is None, so such a parameter gets its zero explicitly."""
+    return _ZeroGrads.apply(x, *params)
+
+
+def spatial_mean(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """The mean over H and W, accumulated in at least float32 and rounded
+    to ``x``'s dtype, as ``jnp.mean`` computes a bf16 mean."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    return xf.mean(dim=(2, 3), keepdim=keepdim).to(x.dtype)
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-and-excite (JAX ``SqueezeExcite``, blocks.py:833): the
+    mean over the spatial axes (accumulated in float32 and rounded to the
+    activation dtype, as ``jnp.mean`` does in bf16), ``Dense_0`` to
+    ``max(C // ratio, 1)`` with ReLU, ``Dense_1`` back to C with sigmoid,
+    and the input scaled by it."""
+
+    def __init__(self, features: int, ratio: int = 8,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = max(features // ratio, 1)
+        self.Dense_0 = Dense(features, hidden, dtype, generator)
+        self.Dense_1 = Dense(hidden, features, dtype, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = spatial_mean(x)
+        s = torch.sigmoid(self.Dense_1(torch.relu(self.Dense_0(s))))
+        return x * s[:, :, None, None]
+
+
+class ConvLSTMCell(nn.Module):
+    """One ConvLSTM step from the zero state (JAX ``ConvLSTMCell``,
+    blocks.py:1030): ``input_conv`` (SAME, he_normal, with bias) to 4 x
+    ``features`` gates in Keras's order i, f, g, o; c = sigmoid(i) *
+    tanh(g) (f meets the zero state) and the output sigmoid(o) * tanh(c).
+    ``recurrent_kernel`` (orthogonal) is a parameter that the step from
+    the zero state never applies, kept for the parameter count, the
+    checkpoints and the converter; it gets a zero gradient
+    (``zero_grads``), as optax gives it."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 1):
+        super().__init__()
+        self.input_conv = SameConv(in_features, 4 * features, kernel,
+                                   init="he_normal", dtype=dtype,
+                                   generator=generator, rank=rank)
+        ks = (kernel, kernel) if rank == 2 else (1, kernel)
+        self.recurrent_kernel = nn.Parameter(
+            torch.empty((4 * features, features) + ks))
+        with torch.no_grad():
+            nn.init.orthogonal_(self.recurrent_kernel, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        i, _, g, o = self.input_conv(x).chunk(4, dim=1)
+        c = torch.sigmoid(i) * torch.tanh(g)
+        return zero_grads(torch.sigmoid(o) * torch.tanh(c),
+                          self.recurrent_kernel)
+
+
+class ConvLSTMFusion(nn.Module):
+    """The tensors concatenated on the channels, then one
+    ``ConvLSTMCell_0`` (JAX ``ConvLSTMFusion``, blocks.py:1069)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 1):
+        super().__init__()
+        self.ConvLSTMCell_0 = ConvLSTMCell(in_features, features, kernel,
+                                           dtype, generator, rank)
+
+    def forward(self, *tensors: torch.Tensor) -> torch.Tensor:
+        return self.ConvLSTMCell_0(concat(*tensors))
+
+
+class BiConvLSTM(nn.Module):
+    """Two ConvLSTM steps each way over the pair (a, b) (JAX
+    ``BiConvLSTM``, blocks.py:1083), one ``input_conv`` (he_normal, with
+    bias) and one ``recurrent_conv`` (orthogonal, no bias) shared by
+    both directions: forward over (a, b), backward over (b, a), the
+    first step of each from the zero state (no ``recurrent_conv``).
+    Returns [h_fwd, h_bwd] on the channels (2 x ``features``)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 1):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, rank=rank)
+        self.input_conv = SameConv(in_features, 4 * features, kernel,
+                                   init="he_normal", **kw)
+        self.recurrent_conv = SameConv(features, 4 * features, kernel,
+                                       bias=False, init="orthogonal", **kw)
+
+    def _step(self, x: torch.Tensor, h: tp.Optional[torch.Tensor] = None,
+              c: tp.Optional[torch.Tensor] = None):
+        gates = self.input_conv(x)
+        if h is None:
+            i, _, g, o = gates.chunk(4, dim=1)
+            new_c = torch.tanh(g) * torch.sigmoid(i)
+        else:
+            i, f, g, o = (gates + self.recurrent_conv(h)).chunk(4, dim=1)
+            new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(new_c), new_c
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        h_fwd, _ = self._step(b, *self._step(a))
+        h_bwd, _ = self._step(a, *self._step(b))
+        return concat(h_fwd, h_bwd)

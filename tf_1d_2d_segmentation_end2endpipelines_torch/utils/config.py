@@ -290,9 +290,14 @@ def resume_token(cfg: tp.Union[TrainConfig, Signal1DConfig]) -> str:
 
 def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
     """The INI settings of ``cfg`` the port's ``train`` verb does not take
-    yet, as ``key = value`` strings (empty when it takes them all): the
-    multi-device keys."""
+    yet, as ``key = value`` strings (empty when it takes them all): with
+    a pretrained encoder, ``encoder_weights`` other than ``none`` (no
+    ImageNet or ``.h5`` weights are loaded: ``none`` trains from random
+    weights), and the multi-device keys.  A backbone the port lacks
+    raises when the model is built."""
     checks = (
+        ("encoder_weights", cfg.train_mode == "pretrained_encoder"
+         and cfg.encoder_weights.strip().lower() != "none"),
         ("model_parallel", cfg.model_parallel > 1),
         ("spatial_parallel", cfg.spatial_parallel > 1),
         ("pipeline_parallel", cfg.pipeline_parallel > 1),
@@ -305,13 +310,16 @@ def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
     """The settings of ``cfg`` the port's 1D verbs do not take yet, as
     ``key = value`` strings (empty when it takes them all): a
     ``model_name`` outside the ported ``UNet1D`` archs (UNet, UNetE,
-    UNetP, UNetPP, UNet3P, MultiResUNet), ``lstm``, ``a_e`` and the
-    multi-device keys."""
+    UNetP, UNetPP, UNet3P, MultiResUNet) and special families (BCDUNet,
+    SEDUNet, IBAUNet, NABNet), ``lstm`` on a ``UNet1D`` arch, ``a_e``
+    and the multi-device keys."""
     from ..models.api_1d import PORTED_ARCHS_1D
+    from ..models.specials_1d import SPECIAL_ARCHS_1D
 
     checks = (
         ("model_name", cfg.model_name not in PORTED_ARCHS_1D),
-        ("lstm", bool(cfg.lstm)),
+        ("lstm", bool(cfg.lstm)
+         and cfg.model_name not in SPECIAL_ARCHS_1D),
         ("a_e", bool(cfg.a_e)),
         ("model_parallel", cfg.model_parallel > 1),
         ("spatial_parallel", cfg.spatial_parallel > 1),
@@ -324,12 +332,13 @@ def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
 def unported_test_keys(train: TrainConfig) -> tp.List[str]:
     """The settings of the architecture the ``test`` verb rebuilds
     (``train``: the fold's Train_Configs.ini, or the TEST config's model
-    keys) that the port does not build yet, as ``key = value`` strings.
-    Decoder families the port lacks, and the decoders that do not build
-    ``a_g`` or ``lstm``, raise when the model is built."""
+    keys) that the port does not build yet, as ``key = value`` strings:
+    the genre and ``a_e``.  Decoder families the port lacks, pretrained
+    backbones but EfficientNet V1 and the tap projectors but the default
+    one, and the decoders that do not build ``a_g`` or ``lstm``, raise
+    when the model is built."""
     checks = (
         ("model_genre", train.model_genre != "UNet"),
-        ("encoder_mode", train.train_mode != "from_scratch"),
         ("a_e", bool(train.a_e)),
     )
     return [f"{key} = {getattr(train, key)!r}" for key, bad in checks if bad]

@@ -6,22 +6,29 @@ for a bare Adam state).
 The port's modules carry the flax auto-names, so a flax path maps to a
 ``state_dict`` key by joining it with dots and renaming the leaf:
 
-======================  ===================  ==============================
-flax leaf               torch key            layout
-======================  ===================  ==============================
-params .../kernel       .../weight           4-D: ``permute(3, 2, 0, 1)``;
-                                             3-D (1D): ``permute(2, 1, 0)``
-                                             then a unit H axis
-params .../bias         .../bias             as is
-params .../scale        .../weight           as is (BatchNorm)
-batch_stats .../mean    .../running_mean     as is
-batch_stats .../var     .../running_var      as is
-======================  ===================  ==============================
+==========================  ========================  =====================
+flax leaf                   torch key                 layout
+==========================  ========================  =====================
+params .../kernel           .../weight                4-D: ``permute(3, 2,
+                                                      0, 1)``; 3-D (1D):
+                                                      ``permute(2, 1, 0)``
+                                                      then a unit H axis;
+                                                      2-D (Dense): ``.t()``
+params .../recurrent_kernel .../recurrent_kernel      as a kernel
+params .../bias             .../bias                  as is
+params .../scale            .../weight                as is (BatchNorm)
+params .../mean, .../var    .../mean, .../var         as is (``InputNorm``'s
+                                                      trained parameters)
+batch_stats .../mean        .../running_mean          as is
+batch_stats .../var         .../running_var           as is
+==========================  ========================  =====================
 
 The one permutation serves both kernels: a Conv's HWIO becomes OIHW, and
 a ConvTranspose's (kh, kw, C_out, C_in), stored with
 ``transpose_kernel=True``, becomes ``conv_transpose2d``'s
-(C_in, C_out, kh, kw).  The 1D models convolve (B, C, 1, L) tensors, so
+(C_in, C_out, kh, kw), and a depthwise conv's (k, k, 1, C) the grouped
+(C, 1, k, k) weight.  A Dense kernel (in, out) becomes ``nn.Linear``'s
+(out, in) weight.  The 1D models convolve (B, C, 1, L) tensors, so
 a 1D Conv's (k, C_in, C_out) becomes (C_out, C_in, 1, k) and a 1D
 ConvTranspose's (k, C_out, C_in) the (C_in, C_out, 1, k) weight, both by
 ``permute(2, 1, 0)`` and a unit axis (no flip: ``ops/blocks.py``'s
@@ -38,6 +45,9 @@ _LEAVES = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",
+    ("params", "recurrent_kernel"): "recurrent_kernel",
+    ("params", "mean"): "mean",
+    ("params", "var"): "var",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -80,6 +90,8 @@ def flax_to_state_dict(variables: tp.Mapping[str, tp.Mapping],
             arr = arr.permute(3, 2, 0, 1).contiguous()
         elif arr.dim() == 3:
             arr = arr.permute(2, 1, 0).unsqueeze(2).contiguous()
+        elif arr.dim() == 2:
+            arr = arr.t().contiguous()
         want = tuple(reference[key].shape)
         if tuple(arr.shape) != want:
             raise ValueError(f"{key}: converted shape {tuple(arr.shape)} != "
