@@ -472,6 +472,15 @@ FWD_PATHS = {
     "train_options": [(_BF16, s, 1, (1,)) for s in _ENC_MB] * (2 * OPT_ACCUM),
     "train_patchify": [(_BF16, s, 1, (1,)) for s in _ENC_PATCH],
 }
+#: phase 27: ConvLSTM fusion and the autoencoder bottleneck in 2D at the
+#: flagship's size: path -> (decoder, keyword arguments); UNet++ and UNet
+#: pool as the flagship, KSSNet as phase 15's
+LSTM_AE_2D = {"lstm_UNetPP_ag": ("UNetPP", dict(lstm=1, ag=1)),
+              "lstm_KSSNet_ag": ("KSSNet", dict(lstm=1, ag=1)),
+              "ae_UNet": ("UNet", dict(ae=1))}
+FWD_PATHS.update({"lstm_UNetPP_ag": _FWD_ENC_TRAIN,
+                  "lstm_KSSNet_ag": FWD_PATHS["KSSNet"],
+                  "ae_UNet": _FWD_ENC_TRAIN, "train_lstm": _FWD_ENC_TRAIN})
 #: the MultiRes encoder pools' kernel (csrc/pyramid.cu): one level at a C
 #: that is not a multiple of 16 bytes, rows starting on 16 bytes
 POOL_ROWS = "pool_rows_kernel"
@@ -533,6 +542,9 @@ BWD_PATHS = {
     "train_options": [(_BF16, s, 2) for s in _ENC_MB] * OPT_ACCUM,
     "train_patchify": [(_BF16, s, 2) for s in _ENC_PATCH],
 }
+BWD_PATHS.update({"lstm_UNetPP_ag": _BWD_ENC,
+                  "lstm_KSSNet_ag": BWD_PATHS["KSSNet"],
+                  "ae_UNet": _BWD_ENC, "train_lstm": _BWD_ENC})
 BWD_EDGES = [
     (_F32, (4, 64, 64, 32), 2),      # f32, vector path
     (_BF16, (2, 37, 53, 16), 2),     # ragged, vector path
@@ -608,6 +620,56 @@ CONFIG5_VERBS = {"config5_verbs_BCDUNet": "config5_BCDUNet",
                  "config5_verbs_NABNet": "config5_NABNet"}
 _CONFIG5_RUNS = [(p + sfx, dt) for p in CONFIG5_1D
                  for sfx, dt in (("", _F32), ("_bf16", _BF16))]
+#: phase 26: the rest of the 1D zoo at config 1's size, 20 counted steps
+#: each in float32 (``_bf16``: bfloat16): path -> (arch, keyword
+#: arguments).  The conv, recurrent, r2 and ConvMixer encoders pool their
+#: level outputs 32, 64 and 128 wide (UNet4P's dense encoder too, one
+#: launch a tap that its level-3 input reads again), ConvMixerMultiResUNet
+#: its MultiRes blocks' 31, 62 and 124, MultiResUNet3P its ResPath taps
+#: 64, 128 and 256; the UNet3+-type decoders add their skip pyramids
+ZOO_1D = {
+    "1d_UNet4P": ("UNet4P", {}), "1d_MultiResUNet3P": ("MultiResUNet3P", {}),
+    "1d_RUNet": ("RUNet", {}), "1d_R2UNet": ("R2UNet", {}),
+    "1d_R2UNetPP": ("R2UNetPP", {}), "1d_R2UNet3P": ("R2UNet3P", {}),
+    "1d_ConvMixerUNet": ("ConvMixerUNet", {}),
+    "1d_ConvMixerUNetE": ("ConvMixerUNetE", {}),
+    "1d_ConvMixerUNetP": ("ConvMixerUNetP", {}),
+    "1d_ConvMixerUNetPP": ("ConvMixerUNetPP", {}),
+    "1d_ConvMixerUNet3P": ("ConvMixerUNet3P", {}),
+    "1d_ConvMixerMultiResUNet": ("ConvMixerMultiResUNet", {}),
+    "1d_R2UNet_bf16": ("R2UNet", {}),
+    "1d_ConvMixerUNet_bf16": ("ConvMixerUNet", {}),
+    "1d_MultiResUNet3P_bf16": ("MultiResUNet3P", {}),
+    "1d_UNetPP_lstm": ("UNetPP", dict(lstm=1)),
+    "1d_UNet_ae": ("UNet", dict(ae=1)),
+    "1d_BCDUNet_ae": ("BCDUNet", dict(ae=1, lstm=1, dense_loop=2)),
+    "1d_R2UNet3P_ds": ("R2UNet3P", dict(ds=1)),
+}
+#: phase 26's runs of the 1D verbs: path -> (arch, INI keys)
+ZOO_1D_VERBS = {"1d_verbs_R2UNet_lstm": ("R2UNet", dict(lstm=1)),
+                "1d_verbs_MultiResUNet3P": ("MultiResUNet3P", {})}
+_SIG_MR3P = [(SIG_BATCH, SIG_LEN >> k, 64 << k) for k in range(3)]
+for _dt in (_F32, _BF16):
+    _FWD1[_dt]["mr3p"] = [(_dt, s, 1, (1,)) for s in _SIG_MR3P]
+    _BWD1[_dt]["mr3p"] = [(_dt, s, 2) for s in _SIG_MR3P]
+
+
+def _zoo_calls(path: str, calls: dict) -> list:
+    """The 1D calls a phase 26 path makes a step (``calls``: _FWD1 or
+    _BWD1): its encoder's pools, the UNet3+-type decoders' skip pyramids
+    and, forward with ``ds``, the targets' pyramid."""
+    arch, kw = ZOO_1D.get(path) or ZOO_1D_VERBS[path]
+    dt = _BF16 if path.endswith("_bf16") else _F32
+    enc = ("mr3p" if arch == "MultiResUNet3P" else
+           "mrb" if arch == "ConvMixerMultiResUNet" else "enc")
+    out = list(calls[dt][enc])
+    if arch.endswith("UNet3P") and arch != "MultiResUNet3P":
+        out += calls[dt]["dec3p"]
+    if kw.get("ds") and calls is _FWD1:
+        out.append(_SIG_DS_MASK)
+    return out
+
+
 FWD_PATHS_1D = {
     "config1": _FWD1[_F32]["enc"],
     "config1_bf16": _FWD1[_BF16]["enc"],
@@ -619,6 +681,7 @@ FWD_PATHS_1D = {
     **{p: _FWD1[dt]["enc"] for p, dt in _CONFIG5_RUNS},
     "config5_BCDUNet_ds": _FWD1[_F32]["enc"] + [_SIG_DS_MASK],
     **{p: _FWD1[_F32]["enc"] for p in CONFIG5_VERBS},
+    **{p: _zoo_calls(p, _FWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS}},
 }
 BWD_PATHS_1D = {
     "config1": _BWD1[_F32]["enc"],
@@ -630,6 +693,7 @@ BWD_PATHS_1D = {
     **{p: _BWD1[dt]["enc"] for p, dt in _CONFIG5_RUNS},
     "config5_BCDUNet_ds": _BWD1[_F32]["enc"],
     **{p: _BWD1[_F32]["enc"] for p in CONFIG5_VERBS},
+    **{p: _zoo_calls(p, _BWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS}},
 }
 #: phase 25: BASELINE config 5's 2D model (zoo_bench.py:123-130), a W32/D4
 #: UNet on EfficientNetB0 (random weights: encoder_weights = none), bf16,
@@ -1657,8 +1721,25 @@ def phase_test_verb(tmp: str, train_cfg) -> dict:
     return {"pyramid": runs[""]["launches"]}
 
 
+#: phases 26-27: the bar of the card's float32 step against a CPU step
+#: on its ReLU masks: gradients in units of the step's largest gradient,
+#: outputs in units of the largest output.  Phase 7's absolute 1e-4 fails
+#: the CPU's own float32 step against its float64 step on these nets;
+#: the bfloat16 control of each model must miss this bar
+#: (``_train_reference``; the readings in PERF.md section 6).
+RELATIVE_BAR = 1e-3
+#: phases 26-27: the most ReLU pre-activations of a step that a CPU step
+#: may put on the other side of 0 from the card's (the runs show 0-2)
+MAX_RELU_FLIPS = 4
+
+
+def _largest_grad(model) -> float:
+    return max(float(p.grad.abs().max()) for p in model.parameters())
+
+
 def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
-                      skip_zero_grads: bool = False) -> dict:
+                      skip_zero_grads: bool = False,
+                      relative_bar: "float | None" = None) -> dict:
     """How the card's step (``gpu``, ``loss_g``) differs from a CPU step
     (``ref``, ``loss_r``), and whether that is within phase 7's
     tolerances: loss 1e-5, gradients 1e-4, running statistics 1e-5, every
@@ -1671,7 +1752,9 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
     convolutions that feed a training-mode BatchNorm, whose exact gradient
     is 0 (the batch mean takes the bias out again), and where the card's
     float32 step computes rounding, which Adam's first update scales up to
-    about lr."""
+    about lr.  With ``relative_bar`` (phases 26-27) the gradients'
+    largest distance is taken in units of the largest gradient of the CPU
+    step, and held to that bar instead."""
     import torch
 
     gp = dict(gpu.named_parameters())
@@ -1686,20 +1769,23 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
     live = torch.cat(list(counted.values()))
     e = {"loss": abs(float(loss_r) - float(loss_g)),
          "grads": max(float((p.grad - gp[k].grad.cpu()).abs().max())
-                      for k, p in ref.named_parameters()),
+                      for k, p in ref.named_parameters()) / (
+             _largest_grad(ref) if relative_bar else 1.0),
          "stats": max(float((v - gs[k].cpu()).abs().max())
                       for k, v in ref.state_dict().items() if "running" in k),
          "params": float(diffs.max()),
          "share": float((diffs[live] > 1e-5).float().mean()),
          "no_grad": int((~live).sum())}
-    e["ok"] = (e["loss"] <= 1e-5 and e["grads"] <= 1e-4
+    grads_bar = relative_bar or 1e-4
+    e["ok"] = (e["loss"] <= 1e-5 and e["grads"] <= grads_bar
                and e["stats"] <= 1e-5 and e["params"] <= 2 * lr
                and e["share"] <= 1e-3)
     e["text"] = (
-        f"loss {e['loss']:.3g} <= 1e-5, grads max-abs {e['grads']:.3g} <= "
-        f"1e-4, running stats {e['stats']:.3g} <= 1e-5, params max-abs "
-        f"{e['params']:.3g} <= 2 lr with {e['share']:.3g} of them beyond "
-        f"1e-5 (<= 1e-3")
+        f"loss {e['loss']:.3g} <= 1e-5, grads max-abs "
+        f"{'(of the largest) ' if relative_bar else ''}{e['grads']:.3g} <= "
+        f"{grads_bar:.3g}, running stats {e['stats']:.3g} <= 1e-5, params "
+        f"max-abs {e['params']:.3g} <= 2 lr with {e['share']:.3g} of them "
+        f"beyond 1e-5 (<= 1e-3")
     e["text"] += (f"; {e['no_grad']} without a gradient left out)"
                   if skip_zero_grads else ")")
     if not e["ok"]:
@@ -1711,9 +1797,61 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
     return e
 
 
+@contextlib.contextmanager
+def _relu_masks(masks: list, replay: bool, flips: "list | None" = None):
+    """``torch.relu`` as the port's blocks call it (``torch.relu`` and the
+    ``relu`` activation), recording each call's mask ``x > 0`` in
+    ``masks`` or, with ``replay``, applying the recorded masks in call
+    order instead of its own (every recorded mask used, the shapes
+    equal); ``flips`` gets the count of elements whose own mask differs
+    from the replayed one."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import blocks
+
+    real = torch.relu
+    given = iter(masks)
+
+    def relu(x):
+        if not replay:
+            masks.append((x > 0).detach().cpu())
+            return real(x)
+        mask = next(given)
+        _check(mask.shape == x.shape, "the replayed ReLU calls differ")
+        if flips is not None:
+            flips.append(int((mask != (x > 0).cpu()).sum()))
+        return torch.where(mask.to(x.device), x, torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))
+
+    with mock.patch.object(torch, "relu", relu), \
+            mock.patch.dict(blocks._ACTIVATIONS, {"relu": relu}):
+        yield
+    _check(not replay or next(given, None) is None,
+           "the replayed step made fewer ReLU calls")
+
+
+def _train_forward(model, x, targets, loss, weights) -> tuple:
+    """The outputs (float32) and loss of a train step's forward of a copy
+    of ``model`` (training mode, BatchNorm on batch statistics, its own
+    ReLU masks), without gradients or any change to ``model``."""
+    import copy
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        deep_supervision_loss)
+
+    m = copy.deepcopy(model).train()
+    with torch.no_grad():
+        out = {k: v.float() for k, v in m(x).items()}
+        t = targets if isinstance(targets, dict) else {"out": targets}
+        return out, float(deep_supervision_loss(loss, out, t, weights))
+
+
 def _train_reference(phase: str, what: str, cpu, targets, weights,
                      want_launches: tuple, cpu64=None,
-                     shape: tuple = (2, 64, 64, 3), loss=None) -> None:
+                     shape: tuple = (2, 64, 64, 3), loss=None,
+                     control=None) -> None:
     """One float32 train step of ``cpu`` on the card (the kernels, cuDNN
     without TF32, deterministic) against the same step on the CPU (the
     plain versions) from the same weights, batch and Adam state, within
@@ -1722,7 +1860,7 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     The input is uniform of ``shape``, the mask of its shape with one
     channel; ``loss`` defaults to BCEDice.
 
-    ``cpu64`` (phase 17 only) is the same model built with
+    ``cpu64`` (phase 17 on) is the same model built with
     ``dtype=torch.float64``: parameters, loss and Adam stay float32 and
     every block computes in float64; the model code's float64 support
     (BatchNorm promotes to at least float32, ``_SLOPES`` has a float64
@@ -1733,7 +1871,26 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     to 1e-4 and, through Adam's first update, parameters with small
     gradients by up to 2 lr.  With ``cpu64`` the card's step passes when
     it is within the tolerances of either CPU step, parameters without a
-    gradient left out of the share; both readings are printed."""
+    gradient left out of the share; both readings are printed.
+
+    ``control`` (phases 26-27, with ``cpu64``) is the same model built
+    with ``dtype=torch.bfloat16``.  Its presence selects the check of
+    these phases, where one pre-activation that float32 rounding puts on
+    the other side of 0 changes its element's gradient from g to 0, and
+    at W8 on a batch of two one such element moved a recurrent net's
+    weight gradients by 2.5% of their size (PERF.md section 6):
+    - the forward and loss of the step, each device on its own ReLU
+      masks, agree with either CPU step's: loss within 1e-5, outputs
+      within RELATIVE_BAR of the largest output;
+    - the CPU steps then run on the card's ReLU masks (``_relu_masks``),
+      and at most MAX_RELU_FLIPS elements of each may differ in sign
+      from the card's;
+    - phase 7's tolerances hold but for the gradients, which are held to
+      RELATIVE_BAR of the step's largest gradient (the CPU's own float32
+      step's distance from its float64 step is printed beside them);
+    - the same step of ``control`` on the card must miss that bar
+      against both CPU steps, which shows that the bar tells a float32
+      step from a bfloat16 one."""
     import copy
 
     import torch
@@ -1751,36 +1908,97 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     x = torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
     y = torch.from_numpy((rng.uniform(size=shape[:-1] + (1,)) > 0.7).astype(
         np.float32))
+    bar = RELATIVE_BAR if control is not None else None
+
+    def step(model, xs, ys):
+        return make_train_step(
+            model, make_optimizer("Adam", model.parameters(), lr), loss,
+            weights)(xs, targets(ys))[0]
+
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    masks: list = []
+    flips: list = [[] for _ in refs]
+    forward = []
     try:
+        if control is not None:
+            out_g, fwd_loss_g = _train_forward(gpu, x.cuda(),
+                                               targets(y.cuda()), loss,
+                                               weights)
         counts = (pyramid.launches.value, pool_backward.launches.value)
-        loss_c = [make_train_step(
-            ref, make_optimizer("Adam", ref.parameters(), lr),
-            loss, weights)(x, targets(y))[0] for ref in refs]
-        _check((pyramid.launches.value, pool_backward.launches.value) == counts,
-               "the CPU step launched a kernel")
-        loss_g, _ = make_train_step(
-            gpu, make_optimizer("Adam", gpu.parameters(), lr),
-            loss, weights)(x.cuda(), targets(y.cuda()))
-        torch.cuda.synchronize()
+        with (_relu_masks(masks, replay=False) if control is not None
+              else contextlib.nullcontext()):
+            loss_g = step(gpu, x.cuda(), y.cuda())
+            torch.cuda.synchronize()
         launched = (pyramid.launches.value - counts[0],
                     pool_backward.launches.value - counts[1])
+        loss_c = []
+        for ref, flipped in zip(refs, flips):
+            if control is not None:
+                out_c, fwd_loss_c = _train_forward(ref, x, targets(y), loss,
+                                                   weights)
+                forward.append((abs(fwd_loss_c - fwd_loss_g), max(
+                    float((v - out_g[k].cpu()).abs().max())
+                    for k, v in out_c.items()) / max(
+                    float(v.abs().max()) for v in out_c.values())))
+            with (_relu_masks(masks, replay=True, flips=flipped)
+                  if control is not None else contextlib.nullcontext()):
+                loss_c.append(step(ref, x, y))
+        _check((pyramid.launches.value - counts[0],
+                pool_backward.launches.value - counts[1]) == launched,
+               "the CPU step launched a kernel")
+        if control is not None:
+            ctl = copy.deepcopy(control).cuda()
+            loss_ctl = step(ctl, x.cuda(), y.cuda())
+            torch.cuda.synchronize()
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
     _check(launched == want_launches, f"the card's step launched {launched}")
     errs = [_reference_errors(ref, loss, gpu, loss_g, lr,
-                              skip_zero_grads=cpu64 is not None)
+                              skip_zero_grads=cpu64 is not None,
+                              relative_bar=bar)
             for ref, loss in zip(refs, loss_c)]
-    readings = [f"vs CPU (plain versions) in {name}: {e['text']}"
-                + ("" if e["ok"] else " (not met)")
-                for name, e in zip(("float32", "float64"), errs)]
+    names = ("float32", "float64")
+    readings = [f"vs CPU (plain versions) in {name}"
+                + (f" with the card's ReLU masks ({sum(f)} of "
+                   f"{sum(m.numel() for m in masks)} pre-activations on the "
+                   f"other side of 0 there, <= {MAX_RELU_FLIPS})"
+                   if control is not None else "")
+                + f": {e['text']}" + ("" if e["ok"] else " (not met)")
+                for name, e, f in zip(names, errs, flips)]
+    if control is not None:
+        unmasked = "; ".join(
+            f"in {name}: loss {dl:.3g} <= 1e-5, outputs (of the largest) "
+            f"{dy:.3g} <= {bar:.3g}" for name, (dl, dy) in zip(names, forward))
+        _check(any(dl <= 1e-5 and dy <= bar for dl, dy in forward),
+               f"forward of a {what}, card vs CPU on their own ReLU masks: "
+               + unmasked)
+        readings.insert(0, "forward on each device's own ReLU masks vs CPU "
+                        + unmasked)
+        _check(max(sum(f) for f in flips) <= MAX_RELU_FLIPS,
+               f"float32 train step of a {what}: more than {MAX_RELU_FLIPS}"
+               f" pre-activations on the other side of 0 from the card's: "
+               + "; ".join(readings))
+        ctl_grads = [_reference_errors(ref, lc, ctl, loss_ctl, lr, True,
+                                       bar)["grads"]
+                     for ref, lc in zip(refs, loss_c)]
+        _check(min(ctl_grads) > bar,
+               f"the bfloat16 control step of a {what} met the gradients' "
+               f"bar: {ctl_grads}")
+        g64 = dict(cpu64.named_parameters())
+        own = max(float((p.grad - g64[k].grad).abs().max())
+                  for k, p in cpu.named_parameters()) / _largest_grad(cpu64)
+        readings.append(
+            f"the CPU's own float32 step's grads vs its float64 step (of the"
+            f" largest) {own:.3g}; the bfloat16 control step's grads (of the"
+            f" largest) " + ", ".join(f"{g:.3g}" for g in ctl_grads)
+            + f" > {bar:.3g} vs the CPU steps (missed, as it must)")
     _check(any(e["ok"] for e in errs),
            f"float32 train step of a {what}, card vs CPU: "
            + "; ".join(readings))
@@ -3313,6 +3531,183 @@ def phase_config5_2d_reference() -> None:
                          shape=(2, 64, 64, 3))
 
 
+def phase_zoo_1d(tmp: str) -> dict:
+    """Phase 26: the rest of the 1D zoo (ZOO_1D) at config 1's size
+    (W32/D3, 1024 samples, batch 128 of phase 21's test signals,
+    MeanAbsoluteError, Adam): 20 counted fixed-batch steps of each arch
+    in float32, R2UNet, ConvMixerUNet and MultiResUNet3P in bfloat16,
+    UNet++ with ``lstm = 1``, UNet and BCDUNet with ``ae = 1`` and
+    R2UNet3P with ``d_s = 1``, the loss must fall, each path's exact
+    launches a step (``_zoo_calls``); then the 1D verbs on R2UNet with
+    ``lstm = 1`` and on MultiResUNet3P (``_signal_verbs``).  Returns
+    {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp)
+    x, y = sets["x_test"], sets["y_test"]
+    counts = {}
+    for path, (arch, kw) in ZOO_1D.items():
+        kw = dict(kw)
+        ds = kw.pop("ds", 0)
+        dtype = torch.bfloat16 if path.endswith("_bf16") else torch.float32
+        trainer = _signal_trainer(arch, dtype, ds=ds, **kw)
+        print(f"phase 26 {path}: W32/D3 {arch} {kw} ds={ds}, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, {str(dtype)[6:]}, batch {SIG_BATCH}", flush=True)
+        counts[path] = _counted_steps(
+            "phase 26", path, trainer, trainer.to_device(x),
+            trainer.to_device(y), SIG_STEPS, must_fall=True, unit="signals")
+        del trainer
+        torch.cuda.empty_cache()
+    for path, (arch, over) in ZOO_1D_VERBS.items():
+        counts[path] = _signal_verbs("phase 26", tmp, sets, path, arch, **over)
+    return counts
+
+
+def phase_zoo_1d_reference() -> None:
+    """Phase 26's reference: phase 23's check (the card's float32 step
+    against the CPU's float32 and float64 steps) with the bfloat16
+    control of ``_train_reference`` (the unmasked forward, the CPU steps
+    on the card's ReLU masks, the gradients held to RELATIVE_BAR of
+    their size) on each float32 model of ZOO_1D at W8/D3 on (2, 256, 1)
+    signals, its path's launches a step."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights, get_loss)
+
+    for path, (arch, kw) in ZOO_1D.items():
+        if path.endswith("_bf16"):
+            continue
+        kw = dict(kw)
+        ds = kw.pop("ds", 0)
+        cpu = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 26), **kw)
+        cpu64 = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                  dtype=torch.float64, **kw)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                    dtype=torch.bfloat16, **kw)
+        control.load_state_dict(cpu.state_dict())
+        _train_reference(
+            "phase 26 1D reference", f"W8/D3 1D {arch} {kw}"
+            + (" with d_s=1" if ds else ""), cpu,
+            (lambda y: prepare_train_dict(y, 3, "UNet", spatial_rank=1))
+            if ds else (lambda y: y), default_ds_weights(3) if ds else None,
+            (len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])), cpu64,
+            shape=(2, 256, 1), loss=get_loss("MeanAbsoluteError"),
+            control=control)
+
+
+def phase_lstm_ae_2d(tmp: str) -> dict:
+    """Phase 27: ConvLSTM fusion and the autoencoder bottleneck in 2D at
+    the flagship's size (LSTM_AE_2D: UNet++ and KSSNet with ``lstm = 1,
+    a_g = 1``, UNet with ``ae = 1``: its bottleneck's two Dense layers
+    hold 2 x 131072 x 1024 parameters), bf16, batch 16 of phase 11's
+    images, 20 counted steps each (UNet++ and UNet 4 + 4 launches a step,
+    KSSNet 8 + 14), the loss must fall, the peak memory printed; then the
+    ``train`` verb for one epoch on phase 6's folders with UNet++ and
+    ``lstm = 1`` (4 + 4 a step, best.pt served), ``test`` and ``predict``
+    on phase 12's PNGs (4 launches a batch and predict's warm-up batch,
+    every pixel counted, a mask per image).  Returns {path: launches}."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    counts = {}
+    for path, (dec, kw) in LSTM_AE_2D.items():
+        model = SegModel(dec, 32, 4, output_nums=1,
+                         final_activation="sigmoid", dtype=torch.bfloat16,
+                         input_size=(SIZE, SIZE),
+                         generator=torch.Generator().manual_seed(SEED),
+                         **kw)
+        print(f"phase 27 {path}: W32/D4 {dec} {kw} {SIZE}x{SIZE}x3 bf16, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"BCEDice, Adam lr 1e-4, batch {TRAIN_BATCH}", flush=True)
+        trainer = Trainer(model, loss="BCEDiceLoss", optimizer="Adam",
+                          learning_rate=1e-4, device="cuda")
+        counts[path] = _counted_steps(
+            "phase 27", path, trainer, trainer.to_device(x),
+            trainer.to_device(y), CONFIG4_STEPS, must_fall=True)
+        del model, trainer
+        torch.cuda.empty_cache()
+
+    cfg = _train_config(tmp, "ResultsLSTM", lstm=1, num_epochs=1)
+    print(f"phase 27 verbs: W32/D4 UNet++ lstm = 1 bf16, BCEDice, Adam lr "
+          f"{cfg.learning_rate}, batch {TRAIN_BATCH}, 1 epoch", flush=True)
+    counts["train_lstm"] = _run_train_verb("phase 27 verbs", cfg,
+                                           "train_lstm")
+    test = TestConfig(test_dir=os.path.join(tmp, "Data", "Test"),
+                      imheight=SIZE, imwidth=SIZE, batch_size=TEST_BATCH,
+                      threshold=THRESHOLD, save_dir=cfg.save_dir)
+    batches = -(-N_TEST // TEST_BATCH)
+    pyramid.launches.reset()  # the main path's run starts here
+    t0 = time.perf_counter()
+    rep = drivers.test(config=test, device="cuda")[1]
+    tested = pyramid.launches.value
+    masks = drivers.predict(cfg, input_path=os.path.join(test.test_dir,
+                                                         "images"),
+                            out_dir=os.path.join(tmp, "LSTMMasks"),
+                            batch=TEST_BATCH, device="cuda")
+    verbs_s = time.perf_counter() - t0
+    predicted = pyramid.launches.value - tested  # ... and ends here
+    cm = rep["confusion_matrix"]
+    _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+    _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
+           f"confusion matrix counts {int(cm.sum())} pixels")
+    _check(len(masks) == N_TEST, f"predict wrote {len(masks)} masks")
+    _check((tested, predicted) == (4 * batches, 4 * (batches + 1)),
+           f"test and predict launched {tested} and {predicted}, not 4 x "
+           f"{batches} batches and 4 x ({batches} + a warm-up one)")
+    print(f"phase 27 verbs: drivers.test and drivers.predict in "
+          f"{verbs_s:.2f} s; test {rep['images_per_sec']:.1f} img/s, "
+          f"confusion matrix {cm.astype(np.int64).tolist()} ({int(cm.sum())} "
+          f"pixels); {len(masks)} masks; maxpool_pyramid.launches = "
+          f"{tested} + {predicted} = 4 x {batches} batches + 4 x ({batches} "
+          f"+ predict's warm-up one)", flush=True)
+    return counts
+
+
+def phase_lstm_ae_2d_reference() -> None:
+    """Phase 27's reference: phase 17's check (the card's float32 step
+    against the CPU's float32 and float64 steps, with the bfloat16
+    control, as in phase 26) on each LSTM_AE_2D model at
+    W8/D3 on (2, 64, 64, 3): UNet++ and UNet 3 + 3 launches, KSSNet 6 +
+    9."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    for dec, kw in LSTM_AE_2D.values():
+        cpu = SegModel(dec, 8, 3, input_size=(64, 64),
+                       generator=torch.Generator().manual_seed(SEED + 27),
+                       **kw)
+        cpu64 = SegModel(dec, 8, 3, input_size=(64, 64),
+                         dtype=torch.float64, **kw)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = SegModel(dec, 8, 3, input_size=(64, 64),
+                           dtype=torch.bfloat16, **kw)
+        control.load_state_dict(cpu.state_dict())
+        _train_reference("phase 27 reference", f"W8/D3 {dec} {kw}", cpu,
+                         lambda y: y, None,
+                         (6, 9) if dec == "KSSNet" else (3, 3), cpu64,
+                         control=control)
+
+
 def main() -> int:
     import torch
 
@@ -3362,6 +3757,10 @@ def main() -> int:
         phase_config5_1d_reference()
         phase_config5_2d(tmp)
         phase_config5_2d_reference()
+        trained.update(phase_zoo_1d(tmp))
+        phase_zoo_1d_reference()
+        trained.update(phase_lstm_ae_2d(tmp))
+        phase_lstm_ae_2d_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

@@ -101,10 +101,11 @@ def test_w32_d4_parameter_tree_maps_leaf_for_leaf(name, ag):
 
 
 def test_lstm_and_other_families_still_raise():
-    """ConvLSTM fusion on a chain or grid, the UNet4P/AHNet encoders, FPN
-    and Self-ONN raise while the model is built; UNet3+ and MultiResUNet3+
-    ignore ``ag`` and ``lstm``, as the JAX decoder does."""
-    for name in ("UNet", "MultiResUNet", "KSSNet", "UNetE", "UNetPP"):
+    """The UNet4P/AHNet encoders, FPN and Self-ONN raise while the model
+    is built, with ConvLSTM fusion and gates too (the chains and grids
+    build it); UNet3+ and MultiResUNet3+ ignore ``ag`` and ``lstm``, as
+    the JAX decoder does."""
+    for name in ("UNet4P", "UNet4PV2", "AHNet", "FPN", "SelfUNetPP"):
         with pytest.raises(NotImplementedError):
             SegModel(name, 4, 2, ag=1, lstm=1)
     for name in ("UNet4P", "UNet4PV2", "AHNet", "FPN", "SelfUNet"):

@@ -8,8 +8,8 @@ linear head, MeanAbsoluteError on every head weighted by
 ``default_ds_weights``, the targets of the decoder's ds_type) gives JAX's
 ``make_train_step`` loss and every gradient within 1e-4 and its new
 BatchNorm statistics within 1e-5.  Also BASELINE config 1's full-width
-tree (W32 D3 L1024), leaf for leaf by shape, the flax auto-names, and
-what the port refuses."""
+tree (W32 D3 L1024), leaf for leaf by shape, the flax auto-names, the
+MultiResUNet at D3 under the relative bar, and what the port refuses."""
 import numpy as np
 import pytest
 
@@ -117,6 +117,18 @@ def test_model_1d_float32_matches_jax(case):
         assert float((js[key] - v).abs().max()) <= 1e-5, key
 
 
+def test_multires_unet_d3_matches_jax():
+    """The 1D MultiResUNet at D3 (W8, deep supervision, gates), where
+    JAX's own float32 step is off its float64 step by more than 1e-4 (the
+    one-channel branches at W8): held to the relative bar of
+    tests/test_torch_recurrent_1d.py's ``assert_1d_model_matches_jax``
+    (the port's float64 step within 1e-6 of JAX's; its float32 step
+    within 1e-4 of JAX's float64 step, or four times JAX's own float32
+    distance from it)."""
+    from test_torch_recurrent_1d import assert_1d_model_matches_jax
+    assert_1d_model_matches_jax("MultiResUNet", 8, 3, ds=1, ag=1)
+
+
 @pytest.mark.parametrize("arch", sorted(DS_TYPES))
 def test_config1_full_width_tree_maps_leaf_for_leaf(arch):
     """BASELINE config 1's size (W32 D3 L1024, k3, one channel): every
@@ -176,15 +188,15 @@ def test_classification_head_is_a_softmax():
 
 
 @pytest.mark.parametrize("arch,kw,error", [
-    ("UNet4P", {}, NotImplementedError),
-    ("MultiResUNet3P", {}, NotImplementedError),
-    ("R2UNet", {}, NotImplementedError),
+    ("SelfR2UNetPP", {}, NotImplementedError),
+    ("SelfUNet3P", {}, NotImplementedError),
+    ("SAUNet", {}, NotImplementedError),
     ("SelfUNetPP", {}, NotImplementedError),
-    ("ConvMixerUNet", {}, NotImplementedError),
+    ("TernausNet11", {}, NotImplementedError),
     ("MLMRSNet", {}, NotImplementedError),
     ("LinkNet", {}, NotImplementedError),
-    ("UNet", {"lstm": 1}, NotImplementedError),
-    ("UNet", {"ae": 1}, NotImplementedError),
+    ("MultiResUNet3P", {"lstm": 1}, NotImplementedError),
+    ("Dense_Inception_UNet", {}, NotImplementedError),
     ("LinkNetX", {}, ValueError),
 ])
 def test_unported_1d_models_raise(arch, kw, error):

@@ -85,9 +85,13 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 
 
 def test_unported_configurations_raise():
-    for kw in ({"genre": "FPN"}, {"ag": 1, "lstm": 1}, {"lstm": 1},
-               {"ae": 1}, {"train_mode": "pretrained_encoder",
-                           "backbone": "ResNet50"}):
+    for kw in ({"genre": "FPN"}, {"genre": "FPN", "ag": 1, "lstm": 1},
+               {"genre": "FPN", "lstm": 1},
+               {"ae": 1, "input_size": (64, 64),
+                "train_mode": "pretrained_encoder",
+                "backbone": "EfficientNetB0"},
+               {"train_mode": "pretrained_encoder",
+                "backbone": "ResNet50"}):
         with pytest.raises(NotImplementedError):
             SegModel("UNetPP", 4, 2, **kw)
     for name in ("FPN", "UNet4P", "AHNet", "SelfUNetPP"):

@@ -17,7 +17,8 @@ variables (random, from numpy, converted by utils/flax_to_torch.py):
   is above 1), the new running statistics within 1e-5;
 - BASELINE config 5's full-width trees (W32/D3) leaf for leaf;
 - what JAX refuses, refused alike: NABNet's full-length DS heads under
-  ds_type UNet, NABNet with nearest upsampling; ``ae = 1`` unported."""
+  ds_type UNet, NABNet with nearest upsampling; ``ae = 1`` without the
+  signals' length."""
 import numpy as np
 import pytest
 
@@ -328,8 +329,15 @@ def test_nabnet_with_nearest_upsampling_fails_in_both():
 
 @pytest.mark.parametrize("arch", sorted(CONFIG5))
 def test_specials_refuse_ae(arch):
-    with pytest.raises(NotImplementedError, match="ae = 1"):
-        model_selector_1d(arch, 32, 2, 1, 4, 3, ae=1)
+    """``ae = 1`` is built from the signals' length (the bottleneck's
+    Dense is sized by it): without one the family refuses it; through
+    ``model_selector_1d`` (which passes ``length``) it builds
+    ``FeatureExtractionBlock_0`` (tests/test_torch_zoo_1d.py holds it to
+    JAX)."""
+    with pytest.raises(ValueError, match="ae = 1"):
+        getattr(specials_1d, arch)(4, 2, ae=1)
+    tm = model_selector_1d(arch, 32, 2, 1, 4, 3, ae=1, feature_number=8)
+    assert tm.FeatureExtractionBlock_0.features.out_features == 8
 
 
 def test_bfloat16_special_forward_is_bf16_and_finite():

@@ -60,8 +60,11 @@ def _build_model(cfg: TrainConfig, dtype: tp.Optional[torch.dtype] = None,
         model_genre=cfg.model_genre,
         encoder_name=cfg.encoder_name,
         decoder_name=cfg.decoder_name,
-        length=cfg.imlength,
-        width=cfg.imwidth,
+        # the size the model sees: a patch under patchify (JAX sizes the
+        # autoencoder bottleneck from its init batch:
+        # tf_1d_2d_segmentation_end2endpipelines_tpu/drivers.py:337-341)
+        length=cfg.patch_width if cfg.patchify else cfg.imlength,
+        width=cfg.patch_height if cfg.patchify else cfg.imwidth,
         model_width=cfg.model_width,
         model_depth=cfg.model_depth,
         num_channels=cfg.num_channels,
@@ -70,6 +73,7 @@ def _build_model(cfg: TrainConfig, dtype: tp.Optional[torch.dtype] = None,
         dense_loop=cfg.dense_loop,
         is_transconv=cfg.is_transconv,
         alpha=cfg.alpha,
+        feature_number=cfg.feature_number,
         final_activation=cfg.final_activation,
         train_mode=cfg.train_mode,
         is_base_model_trainable=cfg.encoder_trainable,

@@ -2,13 +2,17 @@
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/decoders.py).
 
 Ported, both with and without deep supervision, each upsampling by the 2D
-dialect's transposed conv or by bilinear resize (``is_transconv``), without
-ConvLSTM fusion: the UNet, MultiResUNet and KSSNet chains
-(``ChainDecoder`` styles ``unet``, ``multires`` and ``kssnet``, :166) and
-the UNetE, UNetP and UNet++ grids (``GridDecoder`` variants ``E``, ``P``
-and ``PP``, :223), each with or without attention gates (``A_G``); the
-UNet3+ and MultiResUNet3+ full-scale decoders (``FullScaleDecoder``,
-:324), which ignore ``A_G`` and ``LSTM`` as the JAX module does.
+dialect's transposed conv or by bilinear resize (``is_transconv``): the
+UNet, MultiResUNet and KSSNet chains (``ChainDecoder`` styles ``unet``,
+``multires`` and ``kssnet``, :166) and the UNetE, UNetP, UNet++ and
+UNet4P grids (``GridDecoder`` variants ``E``, ``P``, ``PP`` and ``4P``,
+:223), each with or without attention gates (``A_G``) and ConvLSTM
+fusion (``LSTM``); the UNet3+ and MultiResUNet3+ full-scale decoders
+(``FullScaleDecoder``, :324), which ignore ``A_G`` and ``LSTM`` as the
+JAX module does.  Nodes of the ``conv``, ``multires``, ``recurrent``,
+``r2``, ``convmixer`` and ``multires_mixer`` families (JAX
+``_node_block``, :114) serve the 1D zoo's RUNet, R2UNet and ConvMixer
+archs.
 
 Every decoder takes ``skips`` = [conv1 .. convD, bottleneck] and returns
 ``(deconv, levels)``, ``levels`` being the deep-supervision heads in the
@@ -28,54 +32,78 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import (AttentionGate, ConvBlock, HeadConv, MultiResBlock, ResPath,
-                   TransConv, concat, multires_features, upsample)
+from ..ops import (AttentionGate, AutoNamed, ConvBlock, ConvLSTMFusion,
+                   ConvMixerBlock, HeadConv, MultiResBlock, RecurrentConvBlock,
+                   ResPath, TransConv, concat, multires_features, upsample)
 from ..ops.kernels import pyramid
 
 
-class _DecoderBase(nn.Module):
+#: node families (JAX ``_DecoderBase._node_block``, decoders.py:114-151)
+NODES = ("conv", "multires", "multires_mixer", "recurrent", "r2",
+         "convmixer")
+
+
+class _DecoderBase(AutoNamed):
     """Shared decoder machinery (JAX ``_DecoderBase``, decoders.py:55):
     ``_up`` upsamples by 2, by the dialect's transposed conv
     (``TransConv_<n>``) or, with ``is_transconv`` off, by the dialect's
     resize (bilinear in 2D, nearest in 1D), which keeps the source's
-    width; ``_resize`` is that resize; node ``n`` is ``conv_repeats``
-    ConvBlocks (``ConvBlock_<n * conv_repeats + r>``) or, with
-    ``multires``, one MultiResBlock (``MultiResBlock_<n>``) whose output is
-    ``_node_features`` wide; ``_ds_head`` is a 1x1 conv named
-    ``level{k}``.  Subclasses create their submodules in flax call order,
-    so the flax auto-names map one for one.  The skips they take are the
-    encoder's taps, W * 2**j wide, and the latent's output, as wide as a
-    node of width W * 2**D.  ``out_features`` is the width of the
-    ``deconv`` a decoder returns."""
+    width; ``_resize`` is that resize; ``_ds_head`` is a 1x1 conv named
+    ``level{k}``.
+
+    A node of width ``features`` is, by ``node``: ``conv_repeats``
+    chained ConvBlocks (``conv``), ConvMixerBlocks (``convmixer``) or
+    RecurrentConvBlocks of ``t`` iterations (``recurrent``); ``r2``, a 1x1
+    ConvBlock of its input added to a chain of ``conv_repeats``
+    RecurrentConvBlocks (the ConvBlock created first); or one
+    MultiResBlock (``multires``; ``multires_mixer`` with ConvMixer units)
+    whose output is ``_node_features`` wide.  Submodules are registered
+    under flax's auto-names (``AutoNamed``) in the order the JAX decoder
+    creates them, so the flax paths map one for one.
+    The skips a decoder takes are the encoder's taps, W * 2**j wide, and
+    the bottleneck, ``bottom_features`` wide (default: a node of width W *
+    2**D).  ``out_features`` is the width of the ``deconv`` a decoder
+    returns."""
 
     def __init__(self, model_width: int, model_depth: int, D_S: int = 0,
-                 is_transconv: bool = True, multires: bool = False,
+                 is_transconv: bool = True, node: str = "conv",
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
-                 kernel: int = 3, conv_repeats: int = 1,
-                 dialect: str = "2d"):
+                 kernel: int = 3, conv_repeats: int = 1, t: int = 2,
+                 dialect: str = "2d",
+                 generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         if dialect not in ("1d", "2d"):
             raise ValueError(f"unknown decoder dialect {dialect!r}")
+        if node not in NODES:
+            raise ValueError(f"unknown decoder node {node!r}")
         self.model_width = model_width
         self.model_depth = model_depth
         self.D_S = D_S
         self.is_transconv = is_transconv
-        self.multires = multires
+        self.node = node
+        self.multires = node in ("multires", "multires_mixer")
         self.alpha = alpha
         self.dtype = dtype
         self.kernel = kernel
         self.conv_repeats = conv_repeats
+        self.t = t
         self.dialect = dialect
         self.rank = 1 if dialect == "1d" else 2
+        self._generator = generator
+        #: node n -> (its kind, its modules)
+        self._nodes: tp.List[tp.Tuple[str, tp.List[nn.Module]]] = []
 
-    def _add_up(self, n: int, in_features: int, features: int,
-                generator: tp.Optional[torch.Generator]) -> int:
+    def _kw(self) -> tp.Dict[str, tp.Any]:
+        return dict(dtype=self.dtype, generator=self._generator,
+                    rank=self.rank)
+
+    def _add_up(self, n: int, in_features: int, features: int) -> int:
         """Create node ``n``'s upsampling; returns the upsampled width."""
         if not self.is_transconv:
             return in_features
         self.add_module(f"TransConv_{n}", TransConv(
-            in_features, features, dtype=self.dtype, generator=generator,
-            dialect=self.dialect))
+            in_features, features, dtype=self.dtype,
+            generator=self._generator, dialect=self.dialect))
         return features
 
     def _up(self, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -102,51 +130,72 @@ class _DecoderBase(nn.Module):
         width, multiplier = self._multires_width(features)
         return multires_features(width, self.alpha, multiplier)
 
-    def _node_modules(self, n: int) -> tp.List[str]:
-        if self.multires:
-            return [f"MultiResBlock_{n}"]
-        return [f"ConvBlock_{n * self.conv_repeats + r}"
-                for r in range(self.conv_repeats)]
-
-    def _add_node(self, n: int, in_features: int, features: int,
-                  generator: tp.Optional[torch.Generator]) -> int:
-        """Create node ``n``; returns its output width."""
-        kw = dict(dtype=self.dtype, generator=generator, rank=self.rank)
+    def _add_node(self, in_features: int, features: int) -> int:
+        """Create the next node; returns its output width."""
+        kw = self._kw()
+        k = self.kernel
         if self.multires:
             width, multiplier = self._multires_width(features)
-            block = MultiResBlock(in_features, width, self.kernel,
-                                  alpha=self.alpha, multiplier=multiplier,
-                                  **kw)
-            self.add_module(f"MultiResBlock_{n}", block)
+            block = MultiResBlock(in_features, width, k, alpha=self.alpha,
+                                  multiplier=multiplier,
+                                  mixer=self.node == "multires_mixer", **kw)
+            self._nodes.append(("chain", [self._add(block)]))
             return block.out_features
-        for name in self._node_modules(n):
-            self.add_module(name, ConvBlock(in_features, features,
-                                            self.kernel, **kw))
-            in_features = features
+        blocks = []
+        if self.node == "r2":
+            blocks.append(self._add(ConvBlock(in_features, features, 1,
+                                              **kw)))
+        cin = in_features
+        for _ in range(self.conv_repeats):
+            if self.node in ("recurrent", "r2"):
+                block: nn.Module = RecurrentConvBlock(cin, features, k,
+                                                      t=self.t, **kw)
+            elif self.node == "convmixer":
+                block = ConvMixerBlock(cin, features, k, **kw)
+            else:
+                block = ConvBlock(cin, features, k, **kw)
+            blocks.append(self._add(block))
+            cin = features
+        self._nodes.append(("r2" if self.node == "r2" else "chain", blocks))
         return features
 
     def _run_node(self, n: int, x: torch.Tensor) -> torch.Tensor:
-        for name in self._node_modules(n):
-            x = getattr(self, name)(x)
+        kind, blocks = self._nodes[n]
+        if kind == "r2":  # the 1x1 ConvBlock plus the recurrent chain
+            raw = blocks[0](x)
+            for block in blocks[1:]:
+                x = block(x)
+            return raw + x
+        for block in blocks:
+            x = block(x)
         return x
 
     def _add_gate(self, n: int, skip_features: int, gate_features: int,
-                  features: int, generator: tp.Optional[torch.Generator]
-                  ) -> None:
+                  features: int) -> None:
         self.add_module(f"AttentionGate_{n}", AttentionGate(
             skip_features, gate_features, features, dtype=self.dtype,
-            generator=generator, dialect=self.dialect))
+            generator=self._generator, dialect=self.dialect))
 
     def _gate(self, n: int, skip: torch.Tensor, gate: torch.Tensor
               ) -> torch.Tensor:
         return getattr(self, f"AttentionGate_{n}")(skip, gate)
 
+    def _add_fusion(self, n: int, in_features: int, features: int) -> int:
+        """Node ``n``'s ConvLSTM fusion (``ConvLSTMFusion_<n>``, kernel 3
+        as JAX's); returns its width."""
+        self.add_module(f"ConvLSTMFusion_{n}", ConvLSTMFusion(
+            in_features, features, dtype=self.dtype,
+            generator=self._generator, rank=self.rank))
+        return features
+
+    def _fuse(self, n: int, *tensors: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"ConvLSTMFusion_{n}")(*tensors)
+
     def _add_ds_head(self, in_features: int, level: int,
-                     generator: tp.Optional[torch.Generator],
                      stride: int = 1) -> None:
         self.add_module(f"level{level}", HeadConv(
             in_features, 1, stride=stride if self.rank == 2 else (1, stride),
-            dtype=self.dtype, generator=generator))
+            dtype=self.dtype, generator=self._generator))
 
     def _ds_head(self, x: torch.Tensor, level: int) -> torch.Tensor:
         return getattr(self, f"level{level}")(x)
@@ -157,13 +206,14 @@ class ChainDecoder(_DecoderBase):
     KSSNet, decoders.py:166-222): step j upsamples the previous step's
     output (the bottleneck at j == 0) and concatenates it with encoder tap
     D - j - 1, which with ``A_G`` first passes ``AttentionGate_j``, gated
-    by that previous output; ``kssnet`` then concatenates the sigmoids of
-    the bottleneck and of every earlier step's output, resized to this
-    level.  A node of width W * 2**(D - j - 1) follows: a ConvBlock
-    (``unet``) or a MultiResBlock (``multires``, ``kssnet``).
-    Deep-supervision head level D - j is a 1x1 conv on the step's input,
-    before the upsampling, so level k sits at 1 / 2**k of the input's
-    resolution."""
+    by that previous output; with ``LSTM`` the two are fused instead by
+    ``ConvLSTMFusion_j`` (skip first) of width max(int(W * 2**(D-j-2)),
+    1); ``kssnet`` then concatenates the sigmoids of the bottleneck and of
+    every earlier step's output, resized to this level.  A node of width
+    W * 2**(D - j - 1) follows (``style`` ``multires`` and ``kssnet``:
+    MultiRes nodes; ``unet``: the ``node`` family).  Deep-supervision head
+    level D - j is a 1x1 conv on the step's input, before the upsampling,
+    so level k sits at 1 / 2**k of the input's resolution."""
 
     STYLES = ("unet", "multires", "kssnet")
 
@@ -173,33 +223,36 @@ class ChainDecoder(_DecoderBase):
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
                  kernel: int = 3, conv_repeats: int = 1,
-                 dialect: str = "2d"):
+                 dialect: str = "2d", node: str = "conv", t: int = 2,
+                 bottom_features: tp.Optional[int] = None):
         if style not in self.STYLES:
             raise NotImplementedError(
                 f"ChainDecoder style {style!r} is not ported yet")
-        if LSTM:
-            raise NotImplementedError(
-                "chain decoders with ConvLSTM fusion are not ported yet")
         super().__init__(model_width, model_depth, D_S=D_S,
                          is_transconv=is_transconv,
-                         multires=style != "unet", alpha=alpha, dtype=dtype,
-                         kernel=kernel, conv_repeats=conv_repeats,
-                         dialect=dialect)
+                         node="multires" if style != "unet" else node,
+                         alpha=alpha, dtype=dtype, kernel=kernel,
+                         conv_repeats=conv_repeats, t=t, dialect=dialect,
+                         generator=generator)
         self.style = style
         self.A_G = A_G
+        self.LSTM = LSTM
         W, D = model_width, model_depth
         # widths of the bottleneck and of each step's output so far
-        outs = [self._node_features(W * 2 ** D)]
+        outs = [bottom_features or self._node_features(W * 2 ** D)]
         for j in range(D):
             width_j = W * 2 ** (D - j - 1)
             if A_G:
-                self._add_gate(j, width_j, outs[-1], width_j, generator)
+                self._add_gate(j, width_j, outs[-1], width_j)
             if D_S:
-                self._add_ds_head(outs[-1], D - j, generator)
-            cin = self._add_up(j, outs[-1], width_j, generator) + width_j
+                self._add_ds_head(outs[-1], D - j)
+            cin = self._add_up(j, outs[-1], width_j) + width_j
+            if LSTM:
+                cin = self._add_fusion(j, cin, max(int(W * 2.0 ** (D - j - 2)),
+                                                   1))
             if style == "kssnet":
                 cin += sum(outs)
-            outs.append(self._add_node(j, cin, width_j, generator))
+            outs.append(self._add_node(cin, width_j))
         self.out_features = outs[-1]
 
     def forward(self, skips: tp.Sequence[torch.Tensor]
@@ -214,7 +267,9 @@ class ChainDecoder(_DecoderBase):
                 skip = self._gate(j, skip, deconv)
             if self.D_S:
                 levels.append(self._ds_head(deconv, D - j))
-            merged = concat(self._up(deconv, j), skip)
+            up = self._up(deconv, j)
+            merged = (self._fuse(j, skip, up) if self.LSTM
+                      else concat(up, skip))
             if self.style == "kssnet":
                 merged = concat(merged, *[
                     torch.sigmoid(self._resize(o, 2 ** (j - m + 1)))
@@ -226,10 +281,15 @@ class ChainDecoder(_DecoderBase):
 class GridDecoder(_DecoderBase):
     """The (j, i) grids: node (j, i) upsamples node (j+1, i-1) (or the
     encoder tap j + 1 at i == 1), concatenates it with its skips and runs a
-    ConvBlock of width W * 2**j.  The skips by ``variant`` (reference
+    node of width W * 2**j.  The skips by ``variant`` (reference
     unet_variants.py):
 
     - ``PP`` (UNet++, :277): nodes (j, 1..i-1), then encoder tap j;
+    - ``4P`` (UNet4P, :379): as ``PP``, and the nodes on the diagonal i +
+      j == D with 1 < i (but row D - 1) also concatenate the diagonal's
+      earlier nodes (D - m, m), m in 1..i-2, resized to the row (2D: their
+      sigmoids; the 1D dialect concatenates them ungated, decoders.py:
+      300-318);
     - ``P`` (UNetP, :217): node (j, i-1) for i > 1, else encoder tap j;
     - ``E`` (UNetE, :157): encoder tap j.  Without deep supervision only
       the nodes with i + j == D are built: the others feed only the heads
@@ -238,7 +298,10 @@ class GridDecoder(_DecoderBase):
 
     With ``A_G`` each skip first passes an ``AttentionGate_<g>`` gated by
     the node's source, numbered over the built nodes in the reference's
-    order (for UNet++: (j, 1), .., (j, i-1), then the encoder tap).
+    order (for UNet++: (j, 1), .., (j, i-1), then the encoder tap).  With
+    ``LSTM`` ``ConvLSTMFusion_<n>`` of width max(int(W * 2**(j-1)), 1)
+    fuses [encoder tap or P's skip, the upsampled source, nodes (j, 1..
+    i-1)] in place of the concat (decoders.py:283-288).
 
     Deep-supervision heads, all at full resolution: level D on the first
     encoder tap, level D - i on node (0, i) for i < D."""
@@ -249,40 +312,51 @@ class GridDecoder(_DecoderBase):
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
                  kernel: int = 3, conv_repeats: int = 1,
-                 dialect: str = "2d"):
-        if variant not in ("E", "P", "PP"):
+                 dialect: str = "2d", node: str = "conv", t: int = 2,
+                 bottom_features: tp.Optional[int] = None):
+        if variant not in ("E", "P", "PP", "4P"):
             raise NotImplementedError(
                 f"GridDecoder variant {variant!r} is not ported yet")
-        if LSTM:
-            raise NotImplementedError(
-                "grid decoders with ConvLSTM fusion are not ported yet")
         super().__init__(model_width, model_depth, D_S=D_S,
-                         is_transconv=is_transconv, alpha=alpha, dtype=dtype,
-                         kernel=kernel, conv_repeats=conv_repeats,
-                         dialect=dialect)
+                         is_transconv=is_transconv, node=node, alpha=alpha,
+                         dtype=dtype, kernel=kernel,
+                         conv_repeats=conv_repeats, t=t, dialect=dialect,
+                         generator=generator)
         self.variant = variant
         self.A_G = A_G
+        self.LSTM = LSTM
         W, D = model_width, model_depth
-        self.out_features = W
+        dense = variant in ("PP", "4P")
         #: node (i, j) -> the numbers of its skips' attention gates
         self._gates: tp.Dict[tp.Tuple[int, int], tp.List[int]] = {}
+        #: node (i, j) -> the diagonal nodes (D - m, m) it concatenates
+        self._paths: tp.Dict[tp.Tuple[int, int], tp.List[int]] = {}
+        width = {}  # node (j, i) -> its output width
         if D_S:
-            self._add_ds_head(W, D, generator)
-        for n, (i, j) in enumerate(self._nodes()):
+            self._add_ds_head(W, D)
+        for n, (i, j) in enumerate(self._nodes_ij()):
             width_j = W * 2 ** j
-            n_skips = i if variant == "PP" else 1
+            src = ((bottom_features or W * 2 ** D) if i == 1 and j == D - 1
+                   else W * 2 ** (j + 1) if i == 1 else width[(j + 1, i - 1)])
+            n_skips = i if dense else 1
             if A_G:
                 first = sum(len(g) for g in self._gates.values())
                 self._gates[(i, j)] = list(range(first, first + n_skips))
                 for g in self._gates[(i, j)]:
-                    self._add_gate(g, width_j, 2 * width_j, width_j,
-                                   generator)
-            up = self._add_up(n, 2 * width_j, width_j, generator)
-            self._add_node(n, up + n_skips * width_j, width_j, generator)
+                    self._add_gate(g, width_j, src, width_j)
+            cin = self._add_up(n, src, width_j) + n_skips * width_j
+            if LSTM:
+                cin = self._add_fusion(n, cin, max(int(W * 2.0 ** (j - 1)),
+                                                   1))
+            if variant == "4P" and i > 1 and i + j == D and j != D - 1:
+                self._paths[(i, j)] = list(range(1, i - 1))
+                cin += sum(width[(D - m, m)] for m in self._paths[(i, j)])
+            width[(j, i)] = self._add_node(cin, width_j)
             if D_S and j == 0 and i < D:
-                self._add_ds_head(W, D - i, generator)
+                self._add_ds_head(width[(0, i)], D - i)
+        self.out_features = width[(0, D)]
 
-    def _nodes(self) -> tp.List[tp.Tuple[int, int]]:
+    def _nodes_ij(self) -> tp.List[tp.Tuple[int, int]]:
         """The built nodes (i, j), in the reference's order."""
         D = self.model_depth
         return [(i, j) for i in range(1, D + 1) for j in range(D - i + 1)
@@ -295,9 +369,9 @@ class GridDecoder(_DecoderBase):
         if self.D_S:
             levels.append(self._ds_head(skips[0], D))
         deconvs: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
-        for n, (i, j) in enumerate(self._nodes()):
+        for n, (i, j) in enumerate(self._nodes_ij()):
             src = skips[j + 1] if i == 1 else deconvs[(j + 1, i - 1)]
-            if self.variant == "PP":
+            if self.variant in ("PP", "4P"):
                 terms = [deconvs[(j, k)] for k in range(1, i)] + [skips[j]]
             elif self.variant == "P" and i > 1:
                 terms = [deconvs[(j, i - 1)]]
@@ -306,7 +380,15 @@ class GridDecoder(_DecoderBase):
             if self.A_G:
                 terms = [self._gate(g, t, src)
                          for g, t in zip(self._gates[(i, j)], terms)]
-            merged = concat(self._up(src, n), *terms)
+            up = self._up(src, n)
+            if self.LSTM:  # [skip, upsampled, (the dense total)]
+                merged = self._fuse(n, terms[-1], up, *terms[:-1])
+            else:
+                merged = concat(up, *terms)
+            for m in self._paths.get((i, j), ()):
+                path = self._resize(deconvs[(D - m, m)], 2 ** (i - m))
+                merged = concat(merged, torch.sigmoid(path)
+                                if self.rank == 2 else path)
             deconvs[(j, i)] = self._run_node(n, merged)
             if self.D_S and j == 0 and i < D:
                 levels.append(self._ds_head(deconvs[(0, i)], D - i))
@@ -322,11 +404,14 @@ class FullScaleDecoder(_DecoderBase):
     sigmoids of every earlier step's output through a node (UNet3+) or
     through ``ResPath(j, W)`` (``multires``), upsampled to this level;
     then a node of width W * (D + 1) (UNet3+) or W * D (``multires``).
-    Nodes are ConvBlocks, or MultiResBlocks with ``multires``; all but
-    the last of a step are W wide.  Deep-supervision heads are 1x1 convs
-    with stride 2 (half resolution, the reference's quirk).  Attention
-    gates, ConvLSTM fusion and the upsampling mode do not enter this
-    decoder, in the JAX package too."""
+    Nodes are of the ``node`` family (``multires``: MultiResBlocks); all
+    but the last of a step are W wide.  R2UNet3P's quirks are kept
+    (decoders.py:346-376): with ``r2`` nodes the same-level tap takes a
+    plain ConvBlock, and an earlier step's output a 1x1 ConvBlock plus
+    one RecurrentConvBlock.  Deep-supervision heads are 1x1 convs with
+    stride 2 (half resolution, the reference's quirk).  Attention gates,
+    ConvLSTM fusion and the upsampling mode do not enter this decoder, in
+    the JAX package too."""
 
     def __init__(self, model_width: int, model_depth: int, D_S: int = 0,
                  A_G: int = 0, LSTM: int = 0, is_transconv: bool = True,
@@ -334,38 +419,47 @@ class FullScaleDecoder(_DecoderBase):
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
                  kernel: int = 3, conv_repeats: int = 1,
-                 dialect: str = "2d"):
+                 dialect: str = "2d", node: str = "conv", t: int = 2,
+                 bottom_features: tp.Optional[int] = None):
         super().__init__(model_width, model_depth, D_S=D_S,
-                         multires=multires, alpha=alpha, dtype=dtype,
-                         kernel=kernel, conv_repeats=conv_repeats,
-                         dialect=dialect)
+                         node="multires" if multires else node, alpha=alpha,
+                         dtype=dtype, kernel=kernel,
+                         conv_repeats=conv_repeats, t=t, dialect=dialect,
+                         generator=generator)
+        self.respaths = multires
         W, D = model_width, model_depth
         feat = W * D if multires else W * (D + 1)
-        n = r = 0
-
-        def node(in_features: int, features: int) -> int:
-            nonlocal n
-            n += 1
-            return self._add_node(n - 1, in_features, features, generator)
-
-        deconv = self._node_features(W * 2 ** D)  # the bottleneck's width
+        kw = self._kw()
+        r2 = self.node == "r2"
+        r = 0
+        deconv = bottom_features or self._node_features(W * 2 ** D)
         for j in range(D):
-            tot = node(W * 2 ** (D - j - 1), W)         # same-level tap
+            if r2:  # a plain ConvBlock on the same-level tap
+                self._nodes.append(("chain", [self._add(ConvBlock(
+                    W * 2 ** (D - j - 1), W, kernel, **kw))]))
+                tot = W
+            else:
+                tot = self._add_node(W * 2 ** (D - j - 1), W)
             for k in range(0, D - j - 1):
-                tot += node(W * 2 ** k, W)              # pooled taps
-            tot += node(deconv, W)                      # previous step
+                tot += self._add_node(W * 2 ** k, W)    # pooled taps
+            tot += self._add_node(deconv, W)            # previous step
             for _ in range(j):                          # earlier steps
                 if multires:
                     self.add_module(f"ResPath_{r}", ResPath(
-                        deconv, j, W, kernel, dtype=dtype,
-                        generator=generator, rank=self.rank))
+                        deconv, j, W, kernel, **kw))
                     r += 1
                     tot += W
+                elif r2:  # a 1x1 ConvBlock plus one recurrent block
+                    self._nodes.append(("r2", [
+                        self._add(ConvBlock(deconv, W, 1, **kw)),
+                        self._add(RecurrentConvBlock(deconv, W, kernel,
+                                                     t=t, **kw))]))
+                    tot += W
                 else:
-                    tot += node(deconv, W)
-            deconv = node(tot, feat)
+                    tot += self._add_node(deconv, W)
+            deconv = self._add_node(tot, feat)
             if D_S:
-                self._add_ds_head(deconv, D - j, generator, stride=2)
+                self._add_ds_head(deconv, D - j, stride=2)
         self.out_features = deconv
 
     def forward(self, skips: tp.Sequence[torch.Tensor]
@@ -396,7 +490,7 @@ class FullScaleDecoder(_DecoderBase):
                 sc_all = concat(sc_all, node(sc))
             tot = concat(sc_all, torch.sigmoid(self._resize(node(deconv), 2)))
             for m in range(j):
-                if self.multires:
+                if self.respaths:
                     d = getattr(self, f"ResPath_{r}")(deconvs[m])
                     r += 1
                 else:

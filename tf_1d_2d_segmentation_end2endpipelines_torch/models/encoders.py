@@ -134,7 +134,8 @@ class PretrainedTapProjector(nn.Module):
 
 class LatentLayer(nn.Module):
     """Bottleneck of width W * 2**D: a DenseBlock for the UNet genre, a
-    ``MultiResBlock`` (its truncated width) for the MultiRes families.
+    ``MultiResBlock`` (its truncated width) for the MultiRes families;
+    ``out_features`` is its output's width.
     ``in_features`` (default: the from-scratch encoder's W * 2**D, or
     its MultiRes block's width) is a pretrained backbone's at depth 5."""
 
@@ -151,11 +152,13 @@ class LatentLayer(nn.Module):
                 in_features or multires_features(feats, alpha), feats, 3,
                 alpha=alpha, dtype=dtype, generator=generator)
             self._block = "MultiResBlock_0"
+            self.out_features = self.MultiResBlock_0.out_features
         else:
             self.DenseBlock_0 = DenseBlock(in_features or feats, feats, 3,
                                            num_layers=dense_loop,
                                            dtype=dtype, generator=generator)
             self._block = "DenseBlock_0"
+            self.out_features = feats
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, self._block)(x)

@@ -1,12 +1,13 @@
 """Top-level segmentation model of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
 
-Ported: the UNet genre, with or without deep supervision, without
-autoencoder mode, with any decoder that ``decoders.build_decoder`` has
-(UNet, UNetE, UNetP, UNet++, UNet3+, MultiResUNet, MultiResUNet3+ and
-KSSNet so far), attention gates on the chains and grids; its encoder
-from scratch or, ``train_mode = "pretrained_encoder"``, an EfficientNet
-V1 backbone (``backbones``) with the default tap projectors.
+Ported: the UNet genre, with or without deep supervision, with any
+decoder that ``decoders.build_decoder`` has (UNet, UNetE, UNetP, UNet++,
+UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet so far), attention gates
+and ConvLSTM fusion on the chains and grids; its encoder from scratch,
+with or without the autoencoder bottleneck, or, ``train_mode =
+"pretrained_encoder"``, an EfficientNet V1 backbone (``backbones``) with
+the default tap projectors.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import HeadConv, apply_activation, set_block_remat
+from ..ops import (FeatureExtractionBlock, HeadConv, apply_activation,
+                   pooled_size, set_block_remat)
 from .decoders import build_decoder
 from .backbones import get_backbone
 from .encoders import LatentLayer, PretrainedTapProjector, ScratchEncoder
@@ -37,7 +39,10 @@ class SegModel(nn.Module):
     one by one in training (``remat = blocks``; JAX segmodel.py:67-73),
     with the same ``state_dict`` keys.  ``init_kwargs`` keeps the
     constructor's arguments, so ``reinitialized`` can draw a fresh model
-    of the same architecture.
+    of the same architecture.  ``ae = 1`` (from scratch) puts the
+    autoencoder bottleneck after the latent (``FeatureExtractionBlock_0``,
+    W * 2**D wide, ``feature_number`` features; JAX segmodel.py:141-143),
+    sized by ``input_size``, the (H, W) of the images it takes.
 
     ``train_mode = "pretrained_encoder"`` (depth 1 to 5) encodes with the
     ``backbone`` named (``<Backbone>_0``, its taps 0 .. min(D, 5)), each
@@ -52,6 +57,8 @@ class SegModel(nn.Module):
                  in_channels: int = 3, output_nums: int = 1, ds: int = 0,
                  ae: int = 0, ag: int = 0, lstm: int = 0, dense_loop: int = 1,
                  is_transconv: bool = True, alpha: float = 1.0,
+                 feature_number: int = 1024,
+                 input_size: tp.Optional[tp.Tuple[int, int]] = None,
                  final_activation: tp.Optional[str] = "sigmoid",
                  genre: str = "UNet", train_mode: str = "from_scratch",
                  dtype: torch.dtype = torch.float32,
@@ -74,9 +81,16 @@ class SegModel(nn.Module):
                 'train_mode must be "pretrained_encoder" or "from_scratch"')
         elif D < 1:
             raise ValueError("The depth of the model cannot be less than 1")
-        if genre != "UNet" or ae:
+        if genre != "UNet":
             raise NotImplementedError(
-                "only the UNet genre without autoencoder mode is ported")
+                f"the {genre} genre is not ported yet (ported: UNet)")
+        if ae and self.pretrained:
+            raise NotImplementedError(
+                "ae = 1 (the autoencoder bottleneck) on a pretrained "
+                "encoder is not ported yet (ported: from scratch)")
+        if ae and not input_size:
+            raise ValueError("ae = 1 needs the input size: the autoencoder "
+                             "bottleneck's Dense is sized by it")
         self.model_depth = D
         self.final_activation = final_activation
         self.dtype = dtype
@@ -103,10 +117,18 @@ class SegModel(nn.Module):
                                          alpha=alpha, dtype=dtype,
                                          generator=generator,
                                          in_features=bottom)
+        bottom = self.LatentLayer_0.out_features
+        self.ae = bool(ae)
+        if ae:
+            self.FeatureExtractionBlock_0 = FeatureExtractionBlock(
+                bottom, tuple(pooled_size(n, D) for n in input_size),
+                W * 2 ** D, feature_number, dtype=dtype, generator=generator)
+            bottom = W * 2 ** D
         decoder = build_decoder(decoder_name, model_width=W, model_depth=D,
                                 D_S=ds, A_G=ag, LSTM=lstm,
                                 is_transconv=is_transconv, alpha=alpha,
-                                dtype=dtype, generator=generator)
+                                dtype=dtype, generator=generator,
+                                bottom_features=bottom)
         self.add_module(f"{type(decoder).__name__}_0", decoder)
         self._decoder_name = f"{type(decoder).__name__}_0"
         self.out = HeadConv(decoder.out_features, output_nums, dtype=dtype,
@@ -134,6 +156,8 @@ class SegModel(nn.Module):
         else:
             taps, bottom = self.ScratchEncoder_0(x)
         conv = self.LatentLayer_0(bottom)
+        if self.ae:
+            conv = self.FeatureExtractionBlock_0(conv)
         skips = taps[:self.model_depth] + [conv]
         deconv, levels = getattr(self, self._decoder_name)(skips)
         out = apply_activation(self.out(deconv), self.final_activation)
@@ -161,6 +185,7 @@ def model_selector(
     dense_loop: int = 1,
     is_transconv: bool = True,
     alpha: float = 1.0,
+    feature_number: int = 1024,
     final_activation: str = "sigmoid",
     train_mode: str = "from_scratch",
     is_base_model_trainable: bool = False,
@@ -171,8 +196,9 @@ def model_selector(
     """String-dispatch factory with the JAX ``model_selector``'s surface
     (segmodel.py:173).  ``num_channels`` sizes the first conv;
     ``encoder_name`` names the backbone of a ``pretrained_encoder``
-    model; ``length`` and ``width`` are accepted for parity (the model
-    takes any spatial size)."""
+    model; ``length`` and ``width``, the input's height and width, size
+    the autoencoder bottleneck (``ae = 1``; without it the model takes
+    any spatial size)."""
     if model_genre not in ("UNet", "FPN"):
         raise ValueError(f"Unknown model genre {model_genre!r}")
     pretrained = train_mode == "pretrained_encoder"
@@ -181,6 +207,7 @@ def model_selector(
         model_depth=model_depth, in_channels=num_channels,
         output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,
         dense_loop=dense_loop, is_transconv=is_transconv, alpha=alpha,
+        feature_number=feature_number, input_size=(length, width),
         final_activation=final_activation, genre=model_genre,
         train_mode=train_mode, dtype=dtype, generator=generator,
         block_remat=block_remat,

@@ -22,10 +22,11 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import (AttentionGate, BatchNorm, BiConvLSTM, ConvBlock,
-                   ConvLSTMCell, ConvLSTMFusion, HeadConv, SqueezeExcite,
+from ..ops import (AttentionGate, AutoNamed, BatchNorm, BiConvLSTM,
+                   ConvBlock, ConvLSTMCell, ConvLSTMFusion,
+                   FeatureExtractionBlock, HeadConv, SqueezeExcite,
                    TransConv, apply_activation, concat, downsample_pool,
-                   upsample, zero_grads)
+                   pooled_size, upsample, zero_grads)
 
 #: the families this module builds
 SPECIAL_ARCHS_1D = ("BCDUNet", "SEDUNet", "IBAUNet", "NABNet")
@@ -135,7 +136,7 @@ class AttentionLSTMGate(nn.Module):
         return skip * r
 
 
-class _Special1DBase(nn.Module):
+class _Special1DBase(AutoNamed):
     """What the four families share (JAX ``_Special1DBase``, :115): the
     constructor surface, the (B, L, C) <-> (B, C, 1, L) conversion, the
     encoder of two ConvBlocks a level (``_encoder``), the upsampling
@@ -145,9 +146,11 @@ class _Special1DBase(nn.Module):
     ``level<k>`` (``_ds``).
 
     ``forward`` returns ``{"out": (B, L, output_nums)}`` in ``dtype``,
-    plus ``level<D>`` .. ``level1`` with ``ds == 1``.  ``ae = 1`` (the
-    autoencoder bottleneck, ``FeatureExtractionBlock``) is not ported
-    and raises.  ``init_kwargs`` keeps the constructor's arguments, so
+    plus ``level<D>`` .. ``level1`` with ``ds == 1``.  ``ae = 1`` puts
+    the autoencoder bottleneck (``FeatureExtractionBlock_0``, W wide,
+    ``feature_number`` features) after the bottleneck's first block
+    (``_bottleneck_ae``); ``length``, the signals' length, sizes it.
+    ``init_kwargs`` keeps the constructor's arguments, so
     ``reinitialized`` draws a fresh model of the same architecture."""
 
     def __init__(self, model_width: int, model_depth: int,
@@ -155,39 +158,31 @@ class _Special1DBase(nn.Module):
                  output_nums: int = 1, ds: int = 0, ae: int = 0, ag: int = 0,
                  lstm: int = 0, dense_loop: int = 1, se_ratio: int = 16,
                  in_channels: int = 1, is_transconv: bool = True,
+                 feature_number: int = 1024,
+                 length: tp.Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None):
         super().__init__()
         self.init_kwargs = {k: v for k, v in locals().items()
                             if k not in ("self", "generator", "__class__")}
-        if ae:
-            raise NotImplementedError(
-                f"{type(self).__name__} with ae = 1 (the autoencoder "
-                "bottleneck, FeatureExtractionBlock) is not ported yet")
+        if ae and not length:
+            raise ValueError("ae = 1 needs the signals' length: the "
+                             "autoencoder bottleneck's Dense is sized by it")
         if model_depth < 1:
             raise ValueError("The depth of the model cannot be less than 1")
         self.model_depth = model_depth
         self.problem_type = problem_type
         self.output_nums = output_nums
-        self.ds, self.ag, self.lstm = ds, ag, lstm
+        self.ds, self.ag, self.lstm, self.ae = ds, ag, lstm, ae
+        self.feature_number, self.length = feature_number, length
         self.is_transconv = is_transconv
         self.dtype = dtype
         self._kw = dict(dtype=dtype, generator=generator)
-        self._counts: tp.Dict[str, int] = {}
 
     def reinitialized(self, generator: torch.Generator) -> "_Special1DBase":
         """A new model of this architecture with weights drawn from
         ``generator``."""
         return type(self)(**self.init_kwargs, generator=generator)
-
-    def _add(self, module: nn.Module, kind: tp.Optional[str] = None
-             ) -> nn.Module:
-        """Register ``module`` under flax's next auto-name of its kind."""
-        kind = kind or type(module).__name__
-        n = self._counts.get(kind, 0)
-        self._counts[kind] = n + 1
-        self.add_module(f"{kind}_{n}", module)
-        return module
 
     def _conv_block(self, cin: int, features: int, kernel: int,
                     **kw) -> ConvBlock:
@@ -205,17 +200,34 @@ class _Special1DBase(nn.Module):
             cin = feats
         return cin
 
+    def _bottleneck_ae(self, cin: int, width: int) -> tp.Tuple[
+            tp.Tuple[nn.Module, ...], int]:
+        """With ``ae = 1`` the autoencoder bottleneck on the pooled
+        length of ``cin`` channels, ``width`` wide (JAX :174, :218, :269,
+        :328): (the block,) and ``width``; else () and ``cin``."""
+        if not self.ae:
+            return (), cin
+        return (self._add(FeatureExtractionBlock(
+            cin, (1, pooled_size(self.length, self.model_depth)), width,
+            self.feature_number, **self._kw)),), width
+
     def _dense_bottleneck(self, cin: int, width: int, kernel: int,
                           dense_loop: int) -> None:
-        """``DenseConcatBlock_0`` of ``dense_loop - 1`` layers, then two
-        ConvBlocks (``self.bottom``)."""
+        """``DenseConcatBlock_0`` of ``dense_loop - 1`` layers, the
+        autoencoder bottleneck with ``ae``, then two ConvBlocks
+        (``self.bottom``, run in order)."""
         feats = width * 2 ** self.model_depth
         dense = self._add(DenseConcatBlock(cin, feats, kernel,
                                            num_layers=dense_loop - 1,
                                            **self._kw))
-        self.bottom = (dense,
-                       self._conv_block(dense.out_features, feats, kernel),
+        ae, cin = self._bottleneck_ae(dense.out_features, width)
+        self.bottom = (dense, *ae, self._conv_block(cin, feats, kernel),
                        self._conv_block(feats, feats, kernel))
+
+    def _bottom(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.bottom:
+            x = block(x)
+        return x
 
     def _up_module(self, cin: int, feats: int) -> tp.Optional[nn.Module]:
         if self.is_transconv:
@@ -319,8 +331,7 @@ class _ChainSpecial(_Special1DBase):
     def forward(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
         D = self.model_depth
         taps, pool = self._encode(self._signal(x))
-        dense, cb1, cb2 = self.bottom
-        deconv = cb2(cb1(dense(pool)))
+        deconv = self._bottom(pool)
         levels = []
         for j, node in enumerate(self.dec):
             skip = taps[D - j - 1]
@@ -374,8 +385,10 @@ class IBAUNet(_Special1DBase):
         for i in range(1, D + 1):
             self.enc.append(self._add(RIBlock(cin, W * 2 ** (i - 1), **ri)))
             cin = W * 2 ** (i - 1)
-        self.bottom = (self._add(RIBlock(cin, W * 2 ** D, **ri)),
-                       self._add(RIBlock(W * 2 ** D, W * 2 ** D, **ri)))
+        first = self._add(RIBlock(cin, W * 2 ** D, **ri))
+        ae, cin = self._bottleneck_ae(W * 2 ** D, W)
+        self.bottom = (first, *ae,
+                       self._add(RIBlock(cin, W * 2 ** D, **ri)))
         cin = W * 2 ** D
         self.dec = []
         for j in range(D):
@@ -400,7 +413,7 @@ class IBAUNet(_Special1DBase):
             conv = block(pool)
             pool = downsample_pool(conv, 2, op="max", rank=1)
             taps.append(conv)
-        deconv = self.bottom[1](self.bottom[0](pool))
+        deconv = self._bottom(pool)
         levels = []
         for j, node in enumerate(self.dec):
             if node["ds"] is not None:
@@ -468,8 +481,7 @@ class NABNet(_Special1DBase):
     def forward(self, x: torch.Tensor) -> tp.Dict[str, torch.Tensor]:
         D = self.model_depth
         skips, pool = self._encode(self._signal(x))
-        dense, cb1, cb2 = self.bottom
-        skips.append(cb2(cb1(dense(pool))))
+        skips.append(self._bottom(pool))
         top = getattr(self, f"level{D}", None)
         levels = [top(skips[0])] if top is not None else []
         nodes: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}

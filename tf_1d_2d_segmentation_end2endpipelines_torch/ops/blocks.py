@@ -1,7 +1,8 @@
 """Block library of the port: the blocks the UNet genre, the MultiRes
 family, the attention gates, the 1D special families (squeeze-and-excite,
-the ConvLSTM cells) and the EfficientNet backbone (``SameConv``) run, in
-2D and in 1D, ported from
+the ConvLSTM cells), the recurrent and ConvMixer blocks of the RUNet,
+R2UNet and ConvMixer archs, the autoencoder bottleneck and the
+EfficientNet backbone (``SameConv``) run, in 2D and in 1D, ported from
 tf_1d_2d_segmentation_end2endpipelines_tpu/ops/blocks.py.
 
 Layout: modules and block functions take and return (B, C, H, W) tensors
@@ -53,11 +54,26 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(x, dim=1)
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    # flax's ``nn.gelu`` by name: its default is the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf gelu (flax ``nn.gelu(approximate=False)``, Keras's gelu),
+    which ``ConvMixerBlock`` applies."""
+    return F.gelu(x, approximate="none")
+
+
 _ACTIVATIONS: tp.Dict[str, tp.Optional[tp.Callable]] = {
     "relu": torch.relu,
     "leakyrelu": _leaky_relu,
     "leaky_relu": _leaky_relu,
+    "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
+    "gelu": _gelu_tanh,
+    "elu": F.elu,
+    "selu": F.selu,
     "softmax": _softmax,
     "linear": None,
     "none": None,
@@ -96,6 +112,32 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     std = math.sqrt(1.0 / fan_in) / .87962566103423978
     return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                  generator=generator)
+
+
+class AutoNamed(nn.Module):
+    """A module that registers children under flax's auto-names: per-type
+    counters in the order the flax module creates them (``<Type>_<k>``),
+    so utils/flax_to_torch.py maps each leaf by its path."""
+
+    def __init__(self):
+        super().__init__()
+        self._counts: tp.Dict[str, int] = {}
+
+    def _add(self, module: nn.Module) -> nn.Module:
+        """Register ``module`` under flax's next auto-name of its type."""
+        kind = type(module).__name__
+        n = self._counts.get(kind, 0)
+        self._counts[kind] = n + 1
+        self.add_module(f"{kind}_{n}", module)
+        return module
+
+
+def pooled_size(size: int, depth: int) -> int:
+    """An axis of ``size`` after ``depth`` max pools by 2 (VALID: each
+    floors)."""
+    for _ in range(depth):
+        size //= 2
+    return size
 
 
 class BatchNorm(nn.Module):
@@ -274,6 +316,10 @@ class TransConv(nn.Module):
       ``BatchNorm_0`` and ReLU.  flax's (2, C_out, C_in) kernel becomes the
       (C_in, C_out, 1, 2) weight by ``permute(2, 1, 0)``, no flip
       (tests/test_torch_blocks_1d.py).
+    - ``dialect`` "2d" at ``rank`` 1: the 2D block over a 1D signal (the
+      1D MultiResUNet3P's attention gates, which JAX builds without the
+      1D dialect): a (1, 4) kernel, stride 2 and padding 1 along L,
+      LeakyReLU.
 
     Init as flax's ``ConvTranspose``: lecun_normal over that kernel shape,
     whose fan-in axis is C_out; zero bias."""
@@ -281,11 +327,16 @@ class TransConv(nn.Module):
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 dialect: str = "2d"):
+                 dialect: str = "2d", rank: int = 2):
         super().__init__()
         self.dtype = dtype
         self.dialect = dialect
-        if dialect == "2d":
+        if dialect == "2d" and rank == 1:
+            self.ConvTranspose_0 = nn.ConvTranspose2d(
+                in_features, features, (1, 4), stride=(1, 2),
+                padding=(0, 1))
+            fan_in = 4 * features
+        elif dialect == "2d":
             self.ConvTranspose_0 = nn.ConvTranspose2d(
                 in_features, features, 4, stride=2, padding=1)
             fan_in = 16 * features
@@ -342,22 +393,23 @@ def upsample(x: torch.Tensor, factor: int = 2,
              method: str = "bilinear", rank: int = 2) -> torch.Tensor:
     """Upsampling by ``factor`` (JAX ``upsample``, blocks.py:389).
 
-    ``bilinear`` (2D): half-pixel centers, ``jax.image.resize``: the same
+    ``bilinear``: half-pixel centers, ``jax.image.resize``: the same
     sample positions and weights as ``F.interpolate(align_corners=
     False)``, which keeps channels_last memory.  In float32 the two agree
     to rounding; in bf16 to one bf16 ulp (tests/test_torch_ds_blocks.py).
+    At ``rank`` 1 the length axis alone is resized (linear).
     ``nearest``: every element repeated ``factor`` times along each
     spatial axis (``jnp.repeat``), the length axis alone at ``rank`` 1;
     for integer factors torch's nearest index ``floor(i / factor)`` is
     that repeat exactly."""
+    scale = (1, factor) if rank == 1 else (factor, factor)
     if method == "nearest":
-        scale = (1, factor) if rank == 1 else (factor, factor)
         return F.interpolate(x, scale_factor=scale, mode="nearest")
-    if method != "bilinear" or rank != 2:
+    if method != "bilinear":
         raise NotImplementedError(
-            f"upsample method {method!r} at rank {rank} is not ported yet "
-            "(ported: bilinear in 2D, nearest)")
-    return F.interpolate(x, scale_factor=factor, mode="bilinear",
+            f"upsample method {method!r} is not ported yet (ported: "
+            "bilinear, nearest)")
+    return F.interpolate(x, scale_factor=scale, mode="bilinear",
                          align_corners=False)
 
 
@@ -429,36 +481,96 @@ def multires_features(model_width: int, alpha: float = 1.0,
     return sum(multires_widths(model_width, alpha, multiplier))
 
 
+class RecurrentConvBlock(_Block):
+    """Recurrent conv block of RUNet and R2UNet (JAX
+    ``RecurrentConvBlock``, blocks.py:923): ``t`` times ``x =
+    concat(ConvBlock_<i>(x), inputs)``, then a last ConvBlock
+    (``ConvBlock_<t>``), all ``features`` wide with kernel ``kernel``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 t: int = 2, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 2):
+        super().__init__()
+        self.t = t
+        kw = dict(dtype=dtype, generator=generator, rank=rank)
+        for i in range(t + 1):
+            cin = in_features if i == 0 else features + in_features
+            self.add_module(f"ConvBlock_{i}",
+                            ConvBlock(cin, features, kernel, **kw))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        inputs = x
+        for i in range(self.t):
+            x = concat(getattr(self, f"ConvBlock_{i}")(x), inputs)
+        return getattr(self, f"ConvBlock_{self.t}")(x)
+
+
+class ConvMixerBlock(_Block):
+    """ConvMixer block (JAX ``ConvMixerBlock``, blocks.py:967): the
+    depthwise conv ``dw`` (SAME, bias, lecun_normal, ``groups`` = C_in:
+    the name tells the converter so even at C_in = 1), the exact gelu,
+    ``BatchNorm_0``, the input added back, the 1x1 ``Conv_0`` to
+    ``features``, the exact gelu and ``BatchNorm_1``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 2):
+        super().__init__()
+        kw = dict(dtype=dtype, generator=generator, rank=rank)
+        self.dw = SameConv(in_features, in_features, kernel,
+                           groups=in_features, **kw)
+        self.BatchNorm_0 = BatchNorm(in_features)
+        self.Conv_0 = SameConv(in_features, features, 1, **kw)
+        self.BatchNorm_1 = BatchNorm(features)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        # cuDNN may hand back a depthwise conv's output, and a conv's of a
+        # one-channel input (whose strides cannot say channels_last), in
+        # the NCHW layout; the pools and the sums downstream read
+        # channels_last
+        dw = self.dw(x).contiguous(memory_format=torch.channels_last)
+        x = self.BatchNorm_0(gelu_exact(dw)) + x
+        y = self.Conv_0(x).contiguous(memory_format=torch.channels_last)
+        return self.BatchNorm_1(gelu_exact(y))
+
+
 class MultiResBlock(_Block):
     """MultiRes block (JAX ``MultiResBlock``, blocks.py:717, its unpacked
     branch :748-765): three chained ConvBlocks of ``multires_widths``
     channels (``ConvBlock_1..3``), concatenated, then ``BatchNorm_0``; the
     1x1 ConvBlock shortcut (``ConvBlock_0``, created first) is added in
     the activation dtype, then ReLU and ``BatchNorm_1``.  ``rank`` 1 with
-    the level's ``multiplier`` is the 1D tree's block."""
+    the level's ``multiplier`` is the 1D tree's block.  ``mixer``: the
+    same block with ``ConvMixerBlock_0..3`` as its conv units (the
+    ConvMixer archs' MultiResUNet)."""
 
     def __init__(self, in_features: int, model_width: int, kernel: int = 3,
                  alpha: float = 1.0, dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 multiplier: int = 1, rank: int = 2):
+                 multiplier: int = 1, rank: int = 2, mixer: bool = False):
         super().__init__()
         f1, f2, f3 = multires_widths(model_width, alpha, multiplier)
         self.out_features = f1 + f2 + f3
+        unit, kind = ((ConvMixerBlock, "ConvMixerBlock") if mixer
+                      else (ConvBlock, "ConvBlock"))
         kw = dict(dtype=dtype, generator=generator, rank=rank)
-        self.ConvBlock_0 = ConvBlock(in_features, self.out_features, 1, **kw)
-        self.ConvBlock_1 = ConvBlock(in_features, f1, kernel, **kw)
-        self.ConvBlock_2 = ConvBlock(f1, f2, kernel, **kw)
-        self.ConvBlock_3 = ConvBlock(f2, f3, kernel, **kw)
+        self._units = [f"{kind}_{i}" for i in range(4)]
+        for name, (cin, cout, k) in zip(self._units, (
+                (in_features, self.out_features, 1), (in_features, f1, kernel),
+                (f1, f2, kernel), (f2, f3, kernel))):
+            self.add_module(name, unit(cin, cout, k, **kw))
         self.BatchNorm_0 = BatchNorm(self.out_features)
         self.BatchNorm_1 = BatchNorm(self.out_features)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = self.ConvBlock_0(x)
-        c3 = self.ConvBlock_1(x)
-        c5 = self.ConvBlock_2(c3)
-        c7 = self.ConvBlock_3(c5)
+        shortcut, b1, b2, b3 = (getattr(self, n) for n in self._units)
+        c3 = b1(x)
+        c5 = b2(c3)
+        c7 = b3(c5)
         out = self.BatchNorm_0(concat(c3, c5, c7))
-        return self.BatchNorm_1(torch.relu(shortcut + out))
+        return self.BatchNorm_1(torch.relu(shortcut(x) + out))
 
 
 class ResPath(_Block):
@@ -516,7 +628,9 @@ class AttentionGate(nn.Module):
     by ``TransConv_0``, and the skip multiplied by the sum of the two.
     ``dialect`` "1d" (blocks.py:574-577): the length axis strided and
     upsampled, by nearest repeat and by the 1D ``TransConv`` (its own
-    BatchNorm and ReLU).
+    BatchNorm and ReLU).  ``dialect`` "2d" at ``rank`` 1 (the 1D
+    MultiResUNet3P's gates): the length axis strided and upsampled by
+    linear resize and the (1, 4) ``TransConv``.
 
     The stride of ``Conv_0`` is taken by slicing the skip, which is the
     same conv: PyTorch's CPU build (oneDNN, torch 2.13) crashes in the
@@ -531,9 +645,10 @@ class AttentionGate(nn.Module):
     def __init__(self, skip_features: int, gate_features: int,
                  features: int, dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 dialect: str = "2d"):
+                 dialect: str = "2d", rank: tp.Optional[int] = None):
         super().__init__()
         self.dialect = dialect
+        self.rank = rank or (1 if dialect == "1d" else 2)
         self.Conv_0 = HeadConv(skip_features, features, dtype=dtype,
                                generator=generator)
         self.BatchNorm_0 = BatchNorm(features)
@@ -543,18 +658,16 @@ class AttentionGate(nn.Module):
         self.Conv_2 = HeadConv(features, 1, dtype=dtype, generator=generator)
         self.BatchNorm_2 = BatchNorm(1)
         self.TransConv_0 = TransConv(1, 1, dtype=dtype, generator=generator,
-                                     dialect=dialect)
+                                     dialect=dialect, rank=self.rank)
 
     def forward(self, skip: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-        one_d = self.dialect == "1d"
-        strided = skip[:, :, :, ::2] if one_d else skip[:, :, ::2, ::2]
+        strided = (skip[:, :, :, ::2] if self.rank == 1
+                   else skip[:, :, ::2, ::2])
         a = self.BatchNorm_0(self.Conv_0(strided))
         b = self.BatchNorm_1(self.Conv_1(gate))
         c = torch.sigmoid(self.BatchNorm_2(self.Conv_2(torch.relu(a + b))))
-        if one_d:
-            r = upsample(c, 2, method="nearest", rank=1)
-        else:
-            r = upsample(c, 2, method="bilinear")
+        method = "nearest" if self.dialect == "1d" else "bilinear"
+        r = upsample(c, 2, method=method, rank=self.rank)
         return skip * (r + self.TransConv_0(c))
 
 
@@ -576,6 +689,42 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (F.linear(x.to(self.dtype), self.weight.to(self.dtype))
                 + self.bias.to(self.dtype))
+
+
+class FeatureExtractionBlock(nn.Module):
+    """The autoencoder bottleneck (JAX ``FeatureExtractionBlock``,
+    blocks.py:492): the input flattened, ``features`` (a Dense to
+    ``feature_number``), ``Dense_0`` back to ``prod(spatial) *
+    model_width``, reshaped to the spatial grid with ``model_width``
+    channels.  flax flattens NHWC (NLC) arrays, so the (B, C, H, W)
+    channels_last input is flattened as (B, H, W, C) and the output
+    rebuilt the same way: the converted Dense kernels then see the same
+    vector order.  ``spatial`` is the input's (H, W) ((1, L) for a 1D
+    signal): flax sizes the first Dense from the input at init, the port
+    at construction."""
+
+    def __init__(self, in_features: int, spatial: tp.Tuple[int, int],
+                 model_width: int, feature_number: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None):
+        super().__init__()
+        self.spatial = tuple(spatial)
+        self.model_width = model_width
+        size = self.spatial[0] * self.spatial[1]
+        self.features = Dense(size * in_features, feature_number, dtype,
+                              generator)
+        self.Dense_0 = Dense(feature_number, size * model_width, dtype,
+                             generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        if (h, w) != self.spatial:
+            raise ValueError(
+                f"FeatureExtractionBlock built for a {self.spatial} grid "
+                f"got {(h, w)}: ae = 1 fixes the input size")
+        y = self.Dense_0(self.features(x.permute(0, 2, 3, 1).reshape(b, -1)))
+        y = y.view(b, h, w, self.model_width).permute(0, 3, 1, 2)
+        return y.contiguous(memory_format=torch.channels_last)
 
 
 class _ZeroGrads(torch.autograd.Function):

@@ -309,18 +309,15 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
 def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
     """The settings of ``cfg`` the port's 1D verbs do not take yet, as
     ``key = value`` strings (empty when it takes them all): a
-    ``model_name`` outside the ported ``UNet1D`` archs (UNet, UNetE,
-    UNetP, UNetPP, UNet3P, MultiResUNet) and special families (BCDUNet,
-    SEDUNet, IBAUNet, NABNet), ``lstm`` on a ``UNet1D`` arch, ``a_e``
-    and the multi-device keys."""
+    ``model_name`` outside the ported ``UNet1D`` archs (all but the three
+    Self-ONN ones) and special families (BCDUNet, SEDUNet, IBAUNet,
+    NABNet), ``lstm`` on ``MultiResUNet3P`` (whose reference branch
+    crashes; the JAX package refuses it) and the multi-device keys."""
     from ..models.api_1d import PORTED_ARCHS_1D
-    from ..models.specials_1d import SPECIAL_ARCHS_1D
 
     checks = (
         ("model_name", cfg.model_name not in PORTED_ARCHS_1D),
-        ("lstm", bool(cfg.lstm)
-         and cfg.model_name not in SPECIAL_ARCHS_1D),
-        ("a_e", bool(cfg.a_e)),
+        ("lstm", bool(cfg.lstm) and cfg.model_name == "MultiResUNet3P"),
         ("model_parallel", cfg.model_parallel > 1),
         ("spatial_parallel", cfg.spatial_parallel > 1),
         ("pipeline_parallel", cfg.pipeline_parallel > 1),
@@ -333,12 +330,10 @@ def unported_test_keys(train: TrainConfig) -> tp.List[str]:
     """The settings of the architecture the ``test`` verb rebuilds
     (``train``: the fold's Train_Configs.ini, or the TEST config's model
     keys) that the port does not build yet, as ``key = value`` strings:
-    the genre and ``a_e``.  Decoder families the port lacks, pretrained
-    backbones but EfficientNet V1 and the tap projectors but the default
-    one, and the decoders that do not build ``a_g`` or ``lstm``, raise
-    when the model is built."""
+    the genre.  Decoder families the port lacks, pretrained backbones but
+    EfficientNet V1, the tap projectors but the default one and ``a_e``
+    on a pretrained encoder raise when the model is built."""
     checks = (
         ("model_genre", train.model_genre != "UNet"),
-        ("a_e", bool(train.a_e)),
     )
     return [f"{key} = {getattr(train, key)!r}" for key, bad in checks if bad]
