@@ -190,22 +190,38 @@ kernel).  Phases, each printing lines:
     float32 card step of a W8/D3 model against the CPU's float32 and
     float64 steps (phase 17's check), the backbone's statistics
     calibrated on one batch, with ``encoder_trainable`` 0 and 1
+26. the rest of the 1D zoo at config 1's size (``phase_zoo_1d``, W8/D3
+    references with the bfloat16 control)
+27. ConvLSTM fusion and the autoencoder bottleneck in 2D at the
+    flagship's size (``phase_lstm_ae_2d``), W8/D3 references
+28. the Self-ONN family and the FPN genre in 2D at the flagship's size
+    on the images times SELF_2D_SCALE (``phase_self_2d``: SelfUNet,
+    SelfUNetPP, SelfUNet3P with and without ``d_s``, SelfFPN, FPN, 20
+    steps each, exact launches, the loss falls; SelfFPN and SelfUNet on
+    EfficientNetB0; the verbs on SelfUNetPP), W8/D3 references
+29. the 1D Self-ONN archs at config 1's size on the signals times
+    SELF_1D_SCALE (``phase_self_1d``: SelfR2UNetPP, SelfUNetPP,
+    SelfUNet3P with and without ``d_s``; the 1D verbs on SelfUNetPP),
+    W8/D3 references
 
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
-phases 21-25; the others run in their order.
+phases 21-29; the others run in their order.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
 ``config2_UNetE``, ``config2_UNetP``, ``test``, ``config4_MultiResUNet``,
 ``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
-``registries``, ``predict``, ``train_options``, ``train_patchify``, or a
-1D path with the rows ``maxpool1d_pyramid`` and ``maxpool1d_backward``):
-the launches of that path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16,
-18 (its 8 counted runs and the verb's), 19, 20 (the straight verb run of
+``registries``, ``predict``, ``train_options``, ``train_patchify``, the
+paths of phases 27-28 (``lstm_*``, ``ae_UNet``, ``train_lstm``,
+``self_*``, ``fpn_FPN``, ``train_self``), or a 1D path with the rows
+``maxpool1d_pyramid`` and ``maxpool1d_backward``): the launches of that
+path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted
+runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
 run; the fixed batches), 22 or 24 (the fixed batches; the train1d runs),
-and the device times and bound of the
+26-29 (the fixed batches; the verb runs), and the device times and
+bound of the
 calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
 exits 1 before printing any result.
@@ -481,6 +497,40 @@ LSTM_AE_2D = {"lstm_UNetPP_ag": ("UNetPP", dict(lstm=1, ag=1)),
 FWD_PATHS.update({"lstm_UNetPP_ag": _FWD_ENC_TRAIN,
                   "lstm_KSSNet_ag": FWD_PATHS["KSSNet"],
                   "ae_UNet": _FWD_ENC_TRAIN, "train_lstm": _FWD_ENC_TRAIN})
+#: phase 28: the Self-ONN family (q = 3) and the FPN genre in 2D at the
+#: flagship's size: path -> (decoder, genre, keyword arguments).  Their
+#: encoders pool their level outputs 32, 64, 128 and 256 wide, as the
+#: flagship's; SelfUNet3P adds UNet3+'s skip pyramids, and with ``d_s =
+#: 1`` the targets' pyramid (UNet3+ with DS's calls)
+SELF_2D = {"self_SelfUNet": ("SelfUNet", "UNet", {}),
+           "self_SelfUNetPP": ("SelfUNetPP", "UNet", {}),
+           "self_SelfUNet3P": ("SelfUNet3P", "UNet", {}),
+           "self_SelfUNet3P_ds": ("SelfUNet3P", "UNet", dict(ds=1)),
+           "self_SelfFPN": ("SelfFPN", "FPN", {}),
+           "fpn_FPN": ("FPN", "FPN", {})}
+#: phase 28's images are multiplied by SELF_2D_SCALE (the verbs read the
+#: PNGs with ``normalizing_factor_img = 255 / SELF_2D_SCALE``).  The
+#: Self-ONN encoder and latent cube their inputs seven times at D4 with no
+#: normalization between: on phase 11's images in [0, 1] JAX's float32
+#: forward of SelfUNet (W32/D4, its initial weights) overflows, as the
+#: port's losses do, while at 0.3 every Self model's forward is finite
+#: (tests/test_torch_self_models.py checks JAX's at 1 and 0.3).  The scale
+#: is chosen for the reference, not for the port.
+SELF_2D_SCALE = 0.3
+#: phase 28 on EfficientNetB0 (random weights, frozen: ``encoder_trainable
+#: = 0``, the INI default), pixel-valued images times SELF_2D_SCALE: path
+#: -> (decoder, genre); they pool nothing.  A frozen backbone keeps its
+#: initial statistics, so its taps scale with the input; trained, its
+#: BatchNorms bring them to O(1-10), SelfUNet's projectors and latent cube
+#: them to 1e13 and the next Oper's cubes pass bfloat16's range (3.4e38)
+#: at batch 16 from the seed's weights, even at 0.1 times the images
+SELF_2D_B0 = {"self_SelfFPN_B0": ("SelfFPN", "FPN"),
+              "self_SelfUNet_B0": ("SelfUNet", "UNet")}
+FWD_PATHS.update({
+    **{p: _FWD_ENC_TRAIN for p in ("self_SelfUNet", "self_SelfUNetPP",
+                                   "self_SelfFPN", "fpn_FPN", "train_self")},
+    "self_SelfUNet3P": FWD_PATHS["config3_UNet3P"],
+    "self_SelfUNet3P_ds": FWD_PATHS["train_ds"]})
 #: the MultiRes encoder pools' kernel (csrc/pyramid.cu): one level at a C
 #: that is not a multiple of 16 bytes, rows starting on 16 bytes
 POOL_ROWS = "pool_rows_kernel"
@@ -545,6 +595,11 @@ BWD_PATHS = {
 BWD_PATHS.update({"lstm_UNetPP_ag": _BWD_ENC,
                   "lstm_KSSNet_ag": BWD_PATHS["KSSNet"],
                   "ae_UNet": _BWD_ENC, "train_lstm": _BWD_ENC})
+BWD_PATHS.update({
+    **{p: _BWD_ENC for p in ("self_SelfUNet", "self_SelfUNetPP",
+                             "self_SelfFPN", "fpn_FPN", "train_self")},
+    "self_SelfUNet3P": BWD_PATHS["config3_UNet3P"],
+    "self_SelfUNet3P_ds": BWD_PATHS["train_ds"]})
 BWD_EDGES = [
     (_F32, (4, 64, 64, 32), 2),      # f32, vector path
     (_BF16, (2, 37, 53, 16), 2),     # ragged, vector path
@@ -648,6 +703,30 @@ ZOO_1D = {
 #: phase 26's runs of the 1D verbs: path -> (arch, INI keys)
 ZOO_1D_VERBS = {"1d_verbs_R2UNet_lstm": ("R2UNet", dict(lstm=1)),
                 "1d_verbs_MultiResUNet3P": ("MultiResUNet3P", {})}
+#: phase 29: config 1's signals are multiplied by SELF_1D_SCALE for the 1D
+#: Self-ONN archs.  Each of their Opers stacks x, x**2 and x**3 and the 1D
+#: tree puts no BatchNorm or tanh after it, so on config 1's signals
+#: (amplitude up to ~5.5) the reference's own float32 forward overflows.
+#: On this phase's 128 signals JAX's (W32/D3, its PRNGKey(0) weights) is
+#: non-finite for SelfUNetPP and SelfUNet3P at 1, 0.3 and 0.1 and finite
+#: at 0.03; SelfR2UNetPP's, whose encoder levels end in BatchNorm, so
+#: that its bare decoder cubes normalized values whatever the signals'
+#: scale, is non-finite at every scale down to 0.01 and finite at 0.001.
+#: SELF_1D_SCALE is the largest of 1, 0.3, 0.1, 0.03, 0.01 and 0.001 at
+#: which all three are finite (tests/test_torch_self_models.py holds the
+#: port to JAX's overflow and checks this constant).  The scale is chosen
+#: for the reference, not for the port.
+SELF_1D_SCALE = 0.001
+#: phase 29: the 1D Self-ONN archs at config 1's size, float32, 20
+#: counted steps each: path -> (arch, keyword arguments).  Their encoders
+#: pool their level outputs 32, 64 and 128 wide; SelfUNet3P adds UNet3+'s
+#: skip pyramids (and with ``d_s = 1`` the targets')
+SELF_1D = {"1d_self_SelfR2UNetPP": ("SelfR2UNetPP", {}),
+           "1d_self_SelfUNetPP": ("SelfUNetPP", {}),
+           "1d_self_SelfUNet3P": ("SelfUNet3P", {}),
+           "1d_self_SelfUNet3P_ds": ("SelfUNet3P", dict(ds=1))}
+#: phase 29's run of the 1D verbs: path -> (arch, INI keys)
+SELF_1D_VERBS = {"1d_verbs_SelfUNetPP": ("SelfUNetPP", {})}
 _SIG_MR3P = [(SIG_BATCH, SIG_LEN >> k, 64 << k) for k in range(3)]
 for _dt in (_F32, _BF16):
     _FWD1[_dt]["mr3p"] = [(_dt, s, 1, (1,)) for s in _SIG_MR3P]
@@ -655,10 +734,10 @@ for _dt in (_F32, _BF16):
 
 
 def _zoo_calls(path: str, calls: dict) -> list:
-    """The 1D calls a phase 26 path makes a step (``calls``: _FWD1 or
-    _BWD1): its encoder's pools, the UNet3+-type decoders' skip pyramids
-    and, forward with ``ds``, the targets' pyramid."""
-    arch, kw = ZOO_1D.get(path) or ZOO_1D_VERBS[path]
+    """The 1D calls a phase 26 or 29 path makes a step (``calls``: _FWD1
+    or _BWD1): its encoder's pools, the UNet3+-type decoders' skip
+    pyramids and, forward with ``ds``, the targets' pyramid."""
+    arch, kw = {**ZOO_1D, **ZOO_1D_VERBS, **SELF_1D, **SELF_1D_VERBS}[path]
     dt = _BF16 if path.endswith("_bf16") else _F32
     enc = ("mr3p" if arch == "MultiResUNet3P" else
            "mrb" if arch == "ConvMixerMultiResUNet" else "enc")
@@ -681,7 +760,8 @@ FWD_PATHS_1D = {
     **{p: _FWD1[dt]["enc"] for p, dt in _CONFIG5_RUNS},
     "config5_BCDUNet_ds": _FWD1[_F32]["enc"] + [_SIG_DS_MASK],
     **{p: _FWD1[_F32]["enc"] for p in CONFIG5_VERBS},
-    **{p: _zoo_calls(p, _FWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS}},
+    **{p: _zoo_calls(p, _FWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS,
+                                         **SELF_1D, **SELF_1D_VERBS}},
 }
 BWD_PATHS_1D = {
     "config1": _BWD1[_F32]["enc"],
@@ -693,7 +773,8 @@ BWD_PATHS_1D = {
     **{p: _BWD1[dt]["enc"] for p, dt in _CONFIG5_RUNS},
     "config5_BCDUNet_ds": _BWD1[_F32]["enc"],
     **{p: _BWD1[_F32]["enc"] for p in CONFIG5_VERBS},
-    **{p: _zoo_calls(p, _BWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS}},
+    **{p: _zoo_calls(p, _BWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS,
+                                         **SELF_1D, **SELF_1D_VERBS}},
 }
 #: phase 25: BASELINE config 5's 2D model (zoo_bench.py:123-130), a W32/D4
 #: UNet on EfficientNetB0 (random weights: encoder_weights = none), bf16,
@@ -1181,8 +1262,9 @@ def phase_reference(model) -> None:
           f"{err:.3g} <= 1e-4", flush=True)
 
 
-def _serve_one_png(cfg, fold_dir: str) -> int:
-    """Status of one PNG request to ``make_server`` over ``fold_dir``."""
+def _serve_one_png(cfg, fold_dir: str, requests: int = 1) -> int:
+    """Status of ``requests`` PNG requests, one after another, to
+    ``make_server`` over ``fold_dir`` (any but 200 raises)."""
     from tf_1d_2d_segmentation_end2endpipelines_torch.serve import (
         make_server)
 
@@ -1190,18 +1272,20 @@ def _serve_one_png(cfg, fold_dir: str) -> int:
     serving = threading.Thread(target=server.serve_forever, daemon=True)
     serving.start()
     try:
-        img = (np.random.default_rng(SEED).uniform(size=(SIZE, SIZE, 3))
-               * 255).astype(np.uint8)
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{server.server_address[1]}/predict",
-            data=_png(img), method="POST")
-        try:
-            with urllib.request.urlopen(req, timeout=300) as resp:
-                status = resp.status
-                resp.read()
-        except urllib.error.HTTPError as e:
-            raise AssertionError(f"serving best.pt answered {e.code}: "
-                                 f"{e.read()[:2000]!r}") from e
+        for i in range(requests):
+            img = (np.random.default_rng(SEED + i).uniform(
+                size=(SIZE, SIZE, 3)) * 255).astype(np.uint8)
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/predict",
+                data=_png(img), method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=300) as resp:
+                    status = resp.status
+                    resp.read()
+            except urllib.error.HTTPError as e:
+                raise AssertionError(f"serving best.pt answered {e.code}: "
+                                     f"{e.read()[:2000]!r}") from e
+            _check(status == 200, f"serving best.pt answered {status}")
     finally:
         server.shutdown()
         server.server_close()
@@ -1242,12 +1326,12 @@ def _train_config(tmp: str, results: str, **kw):
 
 
 def _run_train_verb(phase: str, cfg, path: str,
-                    calls: "tuple | None" = None) -> dict:
+                    calls: "tuple | None" = None, requests: int = 1) -> dict:
     """The train verb's fold loop on the card, the counts set to 0 just
     before it and read just after: ``path``'s pyramid calls per train step
     and validation batch, and its pool-backward calls per train step
     (FWD_PATHS, BWD_PATHS; or ``calls``, forward and backward, for a path
-    that is in neither).  Then best.pt is served."""
+    that is in neither).  Then best.pt is served ``requests`` PNGs."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
@@ -1283,10 +1367,10 @@ def _run_train_verb(phase: str, cfg, path: str,
     fold = os.path.join(cfg.save_dir, "Fold_1")
     _check(os.path.exists(os.path.join(fold, drivers.BEST_WEIGHTS)),
            "best.pt not written")
-    status = _serve_one_png(cfg, fold)
-    _check(status == 200, f"serving best.pt answered {status}")
+    status = _serve_one_png(cfg, fold, requests)
     print(f"{phase}: {drivers.BEST_WEIGHTS} written; make_server loaded it "
-          f"and answered a PNG request with {status}", flush=True)
+          f"and answered {requests} PNG request(s) with {status}",
+          flush=True)
     return {"hist": hist, "pyramid": fwd, "backward": bwd}
 
 
@@ -1771,8 +1855,9 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
          "grads": max(float((p.grad - gp[k].grad.cpu()).abs().max())
                       for k, p in ref.named_parameters()) / (
              _largest_grad(ref) if relative_bar else 1.0),
-         "stats": max(float((v - gs[k].cpu()).abs().max())
-                      for k, v in ref.state_dict().items() if "running" in k),
+         "stats": max((float((v - gs[k].cpu()).abs().max())
+                       for k, v in ref.state_dict().items()
+                       if "running" in k), default=0.0),
          "params": float(diffs.max()),
          "share": float((diffs[live] > 1e-5).float().mean()),
          "no_grad": int((~live).sum())}
@@ -1851,14 +1936,14 @@ def _train_forward(model, x, targets, loss, weights) -> tuple:
 def _train_reference(phase: str, what: str, cpu, targets, weights,
                      want_launches: tuple, cpu64=None,
                      shape: tuple = (2, 64, 64, 3), loss=None,
-                     control=None) -> None:
+                     control=None, x_scale: float = 1.0) -> None:
     """One float32 train step of ``cpu`` on the card (the kernels, cuDNN
     without TF32, deterministic) against the same step on the CPU (the
     plain versions) from the same weights, batch and Adam state, within
     phase 7's tolerances (``_reference_errors``, every parameter counted).
     ``targets(y)`` builds the step's targets from the mask on its device.
-    The input is uniform of ``shape``, the mask of its shape with one
-    channel; ``loss`` defaults to BCEDice.
+    The input is uniform of ``shape`` times ``x_scale``, the mask of its
+    shape with one channel; ``loss`` defaults to BCEDice.
 
     ``cpu64`` (phase 17 on) is the same model built with
     ``dtype=torch.float64``: parameters, loss and Adam stay float32 and
@@ -1905,7 +1990,8 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     gpu = copy.deepcopy(cpu).cuda()
     refs = (cpu,) if cpu64 is None else (cpu, cpu64)
     rng = np.random.default_rng(SEED + 4)
-    x = torch.from_numpy(rng.uniform(size=shape).astype(np.float32))
+    x = torch.from_numpy((rng.uniform(size=shape) * x_scale).astype(
+        np.float32))
     y = torch.from_numpy((rng.uniform(size=shape[:-1] + (1,)) > 0.7).astype(
         np.float32))
     bar = RELATIVE_BAR if control is not None else None
@@ -3040,21 +3126,23 @@ def phase_kernels_1d() -> tuple:
             max_bwd, cases, measured) for p, cases in BWD_PATHS_1D.items()})
 
 
-def _write_signal_sets(tmp: str) -> dict:
+def _write_signal_sets(tmp: str, scale: float = 1.0) -> dict:
     """Synthetic .pt sets (``synthetic_signals``, seed SEED + 21): 1024
-    train, 128 val and 128 test signals of 1024 samples; returns their
-    paths and the test arrays."""
+    train, 128 val and 128 test signals of 1024 samples, multiplied by
+    ``scale``; returns their paths and the test arrays."""
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
         save_pt, synthetic_signals)
 
     x, y = synthetic_signals(N_SIG_TRAIN + N_SIG_VAL + N_SIG_TEST, SIG_LEN,
                              seed=SEED + 21)
+    x = x * np.float32(scale)
     cuts = {"train": (0, N_SIG_TRAIN),
             "val": (N_SIG_TRAIN, N_SIG_TRAIN + N_SIG_VAL),
             "test": (N_SIG_TRAIN + N_SIG_VAL, len(x))}
     out = {}
     for name, (a, b) in cuts.items():
-        out[name] = os.path.join(tmp, f"{name}_signals.pt")
+        out[name] = os.path.join(
+            tmp, f"{name}_signals{'' if scale == 1 else f'_x{scale}'}.pt")
         save_pt({"samples": x[a:b], "labels": y[a:b]}, out[name])
     out["x_test"], out["y_test"] = x[cuts["test"][0]:], y[cuts["test"][0]:]
     return out
@@ -3708,6 +3796,217 @@ def phase_lstm_ae_2d_reference() -> None:
                          control=control)
 
 
+def phase_self_2d(tmp: str) -> dict:
+    """Phase 28: the Self-ONN family and the FPN genre in 2D at the
+    flagship's size (SELF_2D: SelfUNet, SelfUNetPP, SelfUNet3P with and
+    without ``d_s = 1``, SelfFPN and FPN; W32/D4, q = 3), bf16, batch 16
+    of phase 11's images times SELF_2D_SCALE, 20 counted steps each (4 +
+    4 launches a step; SelfUNet3P 7 + 10, with ``d_s = 1`` 8 + 10), the
+    loss must fall, the peak memory printed; SelfFPN and SelfUNet on
+    EfficientNetB0 (SELF_2D_B0, ``encoder_trainable = 0``), 0 + 0; then
+    the ``train`` verb for one
+    epoch on phase 6's folders with SelfUNetPP (4 + 4 a step, best.pt
+    served 4 PNG requests), ``test`` and ``predict`` on phase 12's PNGs
+    (4 launches a batch and predict's warm-up batch, every pixel counted,
+    a mask per image), the PNGs read with ``normalizing_factor_img = 255
+    / SELF_2D_SCALE``.  Returns {path: launches}."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict, synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        Trainer, default_ds_weights)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    counts = {}
+    runs = [(p, dec, genre, kw) for p, (dec, genre, kw) in SELF_2D.items()]
+    runs += [(p, dec, genre, dict(train_mode="pretrained_encoder",
+                                  backbone=EFFNET))
+             for p, (dec, genre) in SELF_2D_B0.items()]
+    for path, dec, genre, kw in runs:
+        kw = dict(kw)
+        ds = kw.pop("ds", 0)
+        b0 = path in SELF_2D_B0
+        model = SegModel(dec, 32, 4, output_nums=1, ds=ds, genre=genre,
+                         final_activation="sigmoid", dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED), **kw)
+        print(f"phase 28 {path}: W32/D4 {dec} genre {genre}"
+              f"{' on ' + EFFNET if b0 else ''}{' d_s=1' if ds else ''} "
+              f"q=3 {SIZE}x{SIZE}x3 bf16, "
+              f"{sum(p.numel() for p in model.parameters())} params, "
+              f"BCEDice, Adam lr 1e-4, batch {TRAIN_BATCH}", flush=True)
+        trainer = Trainer(
+            model, loss="BCEDiceLoss", optimizer="Adam", learning_rate=1e-4,
+            device="cuda", loss_weights=default_ds_weights(4) if ds else None,
+            prepare_targets=(lambda m: prepare_train_dict(m, 4, "UNet"))
+            if ds else None)
+        run = _counted_steps(
+            "phase 28", path, trainer,
+            trainer.to_device(x * np.float32(
+                SELF_2D_SCALE * (255.0 if b0 else 1.0))),
+            trainer.to_device(y),
+            EFFNET_STEPS if b0 else CONFIG4_STEPS, must_fall=True,
+            calls=(0, 0) if b0 else None)
+        if not b0:
+            counts[path] = run
+        del model, trainer
+        torch.cuda.empty_cache()
+
+    factor = 255.0 / SELF_2D_SCALE
+    cfg = _train_config(tmp, "ResultsSelf", decoder_name="SelfUNetPP",
+                        num_epochs=1, normalizing_factor_img=factor)
+    print(f"phase 28 verbs: W32/D4 SelfUNetPP q=3 bf16, BCEDice, Adam lr "
+          f"{cfg.learning_rate}, batch {TRAIN_BATCH}, 1 epoch", flush=True)
+    counts["train_self"] = _run_train_verb("phase 28 verbs", cfg,
+                                           "train_self", requests=4)
+    test = TestConfig(test_dir=os.path.join(tmp, "Data", "Test"),
+                      imheight=SIZE, imwidth=SIZE, batch_size=TEST_BATCH,
+                      threshold=THRESHOLD, save_dir=cfg.save_dir,
+                      normalizing_factor_img=factor)
+    batches = -(-N_TEST // TEST_BATCH)
+    pyramid.launches.reset()  # the main path's run starts here
+    t0 = time.perf_counter()
+    rep = drivers.test(config=test, device="cuda")[1]
+    tested = pyramid.launches.value
+    masks = drivers.predict(cfg, input_path=os.path.join(test.test_dir,
+                                                         "images"),
+                            out_dir=os.path.join(tmp, "SelfMasks"),
+                            batch=TEST_BATCH, device="cuda")
+    verbs_s = time.perf_counter() - t0
+    predicted = pyramid.launches.value - tested  # ... and ends here
+    cm = rep["confusion_matrix"]
+    _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+    _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
+           f"confusion matrix counts {int(cm.sum())} pixels")
+    _check(len(masks) == N_TEST, f"predict wrote {len(masks)} masks")
+    _check((tested, predicted) == (4 * batches, 4 * (batches + 1)),
+           f"test and predict launched {tested} and {predicted}, not 4 x "
+           f"{batches} batches and 4 x ({batches} + a warm-up one)")
+    print(f"phase 28 verbs: drivers.test and drivers.predict in "
+          f"{verbs_s:.2f} s; test {rep['images_per_sec']:.1f} img/s, "
+          f"confusion matrix {cm.astype(np.int64).tolist()} ({int(cm.sum())} "
+          f"pixels); {len(masks)} masks; maxpool_pyramid.launches = "
+          f"{tested} + {predicted} = 4 x {batches} batches + 4 x ({batches} "
+          f"+ predict's warm-up one)", flush=True)
+    return counts
+
+
+def phase_self_2d_reference() -> None:
+    """Phase 28's reference: phase 26's check (the card's float32 step
+    against the CPU's float32 and float64 steps, the bfloat16 control) on
+    each SELF_2D model at W8/D3 on (2, 64, 64, 3) (uniform times
+    SELF_2D_SCALE): 3 + 3 launches, SelfUNet3P 5 + 6 (6 + 6 with ``d_s =
+    1``: the targets' pyramid).  With ``d_s = 1`` the heads (1-filter
+    Opers of the decoder) are scaled to give values near 0.5, as phase
+    10's: BCEDice clips a head's raw value to [1e-7, 1 - 1e-7], and a
+    value that rounding moves across a clip edge gains or loses its whole
+    gradient (the CPU's own float32 step was 3.3e-3 of the largest
+    gradient off its float64 step with the heads as drawn)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import Oper
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights)
+
+    for dec, genre, kw in SELF_2D.values():
+        kw = dict(kw, genre=genre)
+        ds = kw.get("ds", 0)
+        cpu = SegModel(dec, 8, 3, generator=torch.Generator().manual_seed(
+            SEED + 28), **kw)
+        with torch.no_grad():
+            for m in getattr(cpu, cpu._decoder_name).modules():
+                if isinstance(m, Oper) and m.onn_conv.out_channels == 1:
+                    m.onn_conv.weight.mul_(0.01)
+                    m.onn_conv.bias.fill_(0.5)
+        cpu64 = SegModel(dec, 8, 3, dtype=torch.float64, **kw)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = SegModel(dec, 8, 3, dtype=torch.bfloat16, **kw)
+        control.load_state_dict(cpu.state_dict())
+        want = ((6 if ds else 5, 6) if dec == "SelfUNet3P" else (3, 3))
+        _train_reference(
+            "phase 28 reference", f"W8/D3 {dec} genre {genre}"
+            + (" with d_s=1" if ds else ""), cpu,
+            (lambda y: prepare_train_dict(y, 3, "UNet")) if ds
+            else (lambda y: y), default_ds_weights(3) if ds else None,
+            want, cpu64, control=control, x_scale=SELF_2D_SCALE)
+
+
+def phase_self_1d(tmp: str) -> dict:
+    """Phase 29: the 1D Self-ONN archs at config 1's size (SELF_1D:
+    SelfR2UNetPP, SelfUNetPP, SelfUNet3P with and without ``d_s = 1``;
+    W32/D3, q = 3, float32, batch 128) on config 1's signals times
+    SELF_1D_SCALE, 20 counted steps each (3 + 3 launches a step;
+    SelfUNet3P 5 + 6, with ``d_s = 1`` 6 + 6), the loss must fall; then
+    the 1D verbs on SelfUNetPP (``_signal_verbs`` on the scaled sets).
+    Returns {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp, scale=SELF_1D_SCALE)
+    x, y = sets["x_test"], sets["y_test"]
+    counts = {}
+    for path, (arch, kw) in SELF_1D.items():
+        kw = dict(kw)
+        ds = kw.pop("ds", 0)
+        trainer = _signal_trainer(arch, torch.float32, ds=ds, **kw)
+        print(f"phase 29 {path}: W32/D3 {arch} ds={ds} q=3, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, float32, batch {SIG_BATCH}, signals times "
+              f"{SELF_1D_SCALE}", flush=True)
+        counts[path] = _counted_steps(
+            "phase 29", path, trainer, trainer.to_device(x),
+            trainer.to_device(y), SIG_STEPS, must_fall=True, unit="signals")
+        del trainer
+        torch.cuda.empty_cache()
+    for path, (arch, over) in SELF_1D_VERBS.items():
+        counts[path] = _signal_verbs("phase 29", tmp, sets, path, arch, **over)
+    return counts
+
+
+def phase_self_1d_reference() -> None:
+    """Phase 29's reference: phase 26's check on each SELF_1D model at
+    W8/D3 on (2, 256, 1) signals (uniform times SELF_1D_SCALE),
+    MeanAbsoluteError: 3 + 3 launches, SelfUNet3P 5 + 6 (6 + 6 with
+    ``d_s = 1``)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights, get_loss)
+
+    for path, (arch, kw) in SELF_1D.items():
+        kw = dict(kw)
+        ds = kw.pop("ds", 0)
+        cpu = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 29), **kw)
+        cpu64 = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                  dtype=torch.float64, **kw)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = model_selector_1d(arch, 256, 3, 1, 8, 3, ds=ds,
+                                    dtype=torch.bfloat16, **kw)
+        control.load_state_dict(cpu.state_dict())
+        _train_reference(
+            "phase 29 1D reference", f"W8/D3 1D {arch}"
+            + (" with d_s=1" if ds else ""), cpu,
+            (lambda y: prepare_train_dict(y, 3, "UNet", spatial_rank=1))
+            if ds else (lambda y: y), default_ds_weights(3) if ds else None,
+            (len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])), cpu64,
+            shape=(2, 256, 1), loss=get_loss("MeanAbsoluteError"),
+            control=control, x_scale=SELF_1D_SCALE)
+
+
 def main() -> int:
     import torch
 
@@ -3761,6 +4060,10 @@ def main() -> int:
         phase_zoo_1d_reference()
         trained.update(phase_lstm_ae_2d(tmp))
         phase_lstm_ae_2d_reference()
+        trained.update(phase_self_2d(tmp))
+        phase_self_2d_reference()
+        trained.update(phase_self_1d(tmp))
+        phase_self_1d_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

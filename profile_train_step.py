@@ -3,7 +3,7 @@
 
     python3 profile_train_step.py [--out DIR]
         [--model flagship|unet3p_ds|multiresunet|unet_ag|unet1d|nabnet|
-                 effnet_unet]
+                 effnet_unet|selfunet]
 
 The flagship (W32/D4 UNet++, 256x256x3, bf16, BCEDiceLoss, Adam), or with
 ``--model unet3p_ds`` UNet3+ W32/D4 with deep supervision (its targets
@@ -18,12 +18,19 @@ one-channel 1024-sample signals, float32, MeanAbsoluteError, Adam lr
 BASELINE config 5's NABNet (W32/D3, ``dense_loop = 2``) the same way, or
 with ``--model effnet_unet`` config 5's UNet W32/D4 on EfficientNetB0
 (random weights, the backbone's BatchNorms training) on the batch of 16
-scaled to pixel values, then 10 more under
+scaled to pixel values, or with ``--model selfunet`` the Self-ONN
+SelfUNet W32/D4 (q = 3) on the batch of 16 times SELF_2D_SCALE (the
+scale of ``chip_smoke.py``'s phase 28, where the reference's forward is
+finite), then 10 more under
 ``torch.profiler``.  Prints the card's name and power limit, the
 host time per step with and without the profiler, the device time per
 step by kernel (the profiler's CUDA rows), grouped into the layers of
-PERF.md section 5, and the card's idle share of a step.  The full table
-and a Chrome trace go to ``--out`` (default ``build/profile_train_step/``).
+PERF.md section 5, and the card's idle share of a step; for
+``selfunet`` also the device time of the Self-ONN power stacks alone
+(``ops.onn.power_stack``: the multiplies and the concatenation, forward,
+and their backward), timed by CUDA events at the shapes and dtypes of
+the step's Oper inputs.  The full table and a Chrome trace go to
+``--out`` (default ``build/profile_train_step/``).
 """
 from __future__ import annotations
 
@@ -53,7 +60,9 @@ OTHER = "elementwise (BN apply, bias, activations, casts, loss) and other"
 MODELS = {"flagship": ("UNetPP", 0, 0), "unet3p_ds": ("UNet3P", 1, 0),
           "multiresunet": ("MultiResUNet", 0, 0), "unet_ag": ("UNet", 0, 1),
           "unet1d": ("UNet", 0, 0), "nabnet": ("NABNet", 0, 0),
-          "effnet_unet": ("UNet", 0, 0)}
+          "effnet_unet": ("UNet", 0, 0), "selfunet": ("SelfUNet", 0, 0)}
+#: selfunet's images are multiplied by this (chip_smoke.py's SELF_2D_SCALE)
+SELF_2D_SCALE = 0.3
 #: config 1's batch of signals and their length
 SIG_BATCH, SIG_LEN = 128, 1024
 
@@ -117,6 +126,8 @@ def main(argv=None) -> int:
         x, y = synthetic_images(batch, 256, seed=0)
         if effnet:  # the backbone divides by 255
             x = x * 255.0
+        if args.model == "selfunet":
+            x = x * SELF_2D_SCALE
     prepare = trainer.prepare_targets or (lambda y: y)
     x, y = trainer.to_device(x), trainer.to_device(y)
 
@@ -172,12 +183,68 @@ def main(argv=None) -> int:
           flush=True)
     for ms, n, name in rows[:25]:
         print(f"  {ms:8.3f}  {n:6.1f}  {name[:110]}", flush=True)
+    if args.model == "selfunet":
+        fwd_ms, bwd_ms, n = _power_stack_ms(trainer, x, prepare(y))
+        print(f"power stacks ({n} a step, forward / backward alone): "
+              f"{fwd_ms:.3f} / {bwd_ms:.3f} ms per step, "
+              f"{(fwd_ms + bwd_ms) / busy:.1%} of the device busy time",
+              flush=True)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=200))
     prof.export_chrome_trace(os.path.join(args.out, "trace.json"))
     print(f"wrote {args.out}/key_averages.txt and trace.json", flush=True)
     return 0
+
+
+def _power_stack_ms(trainer, x, y) -> tuple:
+    """Device ms per step of the power stacks of the model's Oper and
+    OperTranspose layers alone, forward and backward (CUDA events, the
+    median of 5 loops of 10), each at the input shape, dtype and memory
+    layout it takes in one train step; and how many there are."""
+    import statistics
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import (
+        Oper, OperTranspose, power_stack)
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: seen.append((a[0].detach(), m.q)))
+        for m in trainer.model.modules()
+        if isinstance(m, (Oper, OperTranspose))]
+    trainer.train_step(x, y)
+    for h in hooks:
+        h.remove()
+    cases = []
+    for t, q in seen:
+        a = t.clone().requires_grad_()
+        out = power_stack(a, q)
+        cases.append((a, q, out, torch.randn_like(out)))
+
+    def timed(fn) -> float:
+        runs = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for _ in range(10):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / 10)
+        return statistics.median(runs)
+
+    def forward():
+        for a, q, _, _ in cases:
+            power_stack(a.detach(), q)
+
+    def backward():
+        for a, _, out, g in cases:
+            torch.autograd.grad(out, a, g, retain_graph=True)
+
+    return timed(forward), timed(backward), len(cases)
 
 
 if __name__ == "__main__":

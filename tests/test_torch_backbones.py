@@ -122,7 +122,8 @@ def test_narrow_efficientnet_equals_flax():
     # JAX's VJP in float64, the exact one the port's float32 is held to
     with jax.enable_x64(True):
         def cast(tree):
-            return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+            return jax.tree.map(
+                lambda a: np.asarray(a).astype(jnp.float64), tree)
 
         j64 = jm.clone(dtype=jnp.float64)
 
@@ -136,7 +137,7 @@ def test_narrow_efficientnet_equals_flax():
                 taps, upd["batch_stats"])
 
         dparams, (taps_j, new_bs) = jax.tree.map(
-            lambda a: np.asarray(a, np.float32),
+            lambda a: np.asarray(a).astype(np.float32),
             jax.jit(jax.grad(f, has_aux=True))(cast(variables["params"])))
     taps_t = tm.train()(nhwc_to_torch(x))
     sum((t * nhwc_to_torch(g)).sum() for t, g in zip(taps_t, gs)).backward()
@@ -210,7 +211,8 @@ def test_efficientnet_unet_matches_jax(D, size, trainable):
 
     with jax.enable_x64(True):
         def cast(tree):
-            return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+            return jax.tree.map(
+                lambda a: np.asarray(a).astype(jnp.float64), tree)
 
         step_model = jm.clone(dtype=jnp.float64)
         state = jstate.create_train_state(step_model, jax.random.PRNGKey(0),
@@ -220,7 +222,7 @@ def test_efficientnet_unet_matches_jax(D, size, trainable):
                                       jlosses.bce_dice_loss)
         state, jloss, _ = jax.jit(step)(state, cast(x), cast(y))
         jloss = float(jloss)
-        state = jax.tree.map(lambda a: np.asarray(a, np.float32), state)
+        state = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), state)
     names = dict(tm.named_parameters())
     tloss, _ = make_train_step(tm, make_optimizer("Adam", names.values(),
                                                   1e-3), bce_dice_loss)(
@@ -285,7 +287,7 @@ def test_unported_pretrained_settings_raise():
     with pytest.raises(ValueError, match="Unknown backbone"):
         get_backbone("ResNet9000")
     for decoder in ("MultiResUNet", "MultiResUNet3P", "KSSNet", "UNet4P",
-                    "AHNet", "SelfUNetPP"):
+                    "AHNet", "UNet4PV2"):
         with pytest.raises(NotImplementedError):
             SegModel(decoder, 4, 2, train_mode="pretrained_encoder",
                      backbone="EfficientNetB0")

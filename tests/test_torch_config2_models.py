@@ -42,9 +42,10 @@ CASES = [(name, ds, tc) for name in ("UNet", "UNetE", "UNetP")
 def _grad_capture() -> optax.GradientTransformation:
     """An optax transformation whose state is the last gradient and whose
     update is zero: ``make_train_step`` then hands back its own gradient
-    in ``opt_state``."""
+    in ``opt_state``.  The initial state is numpy zeros: an eager
+    ``jnp.zeros_like`` compiles once per parameter shape."""
     return optax.GradientTransformation(
-        lambda params: jax.tree.map(jnp.zeros_like, params),
+        lambda params: jax.tree.map(np.zeros_like, params),
         lambda g, state, params=None: (jax.tree.map(jnp.zeros_like, g), g))
 
 
@@ -57,8 +58,16 @@ def _models(name, ds, tc):
     return jm, tm
 
 
+def scale_kernels(variables, factor):
+    """``variables`` with every kernel scaled by ``factor``."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: a * np.float32(factor)
+        if path[-1].key == "kernel" else a, variables)
+
+
 def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
-                             size=SIZE, step_dtype=jnp.float32):
+                             size=SIZE, step_dtype=jnp.float32, heads=None,
+                             kernel_scale=1.0):
     """The bar every ported model is held to: ``jm`` (JAX ``SegModel``)
     and ``tm`` (the port's) on (2, size, size, 3) with random parameters
     and BN statistics: the converter fills every torch key from a flax
@@ -70,13 +79,20 @@ def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
     loss and every gradient of JAX's ``make_train_step`` within 1e-4 and
     its new BatchNorm statistics within 1e-5.  JAX's step computes in
     ``step_dtype``: float64 (under ``jax.enable_x64``) where JAX's own
-    float32 step is off the exact one by more than the bar."""
+    float32 step is off the exact one by more than the bar.
+
+    ``heads(params)`` gives the deep-supervision heads' parameter dicts
+    (default: ``level1`` .. ``level{depth}`` of ``module``);
+    ``kernel_scale`` scales every random kernel (the Self-ONN models'
+    cubes overflow at the default draw)."""
     rng = np.random.default_rng(5)
     x = rng.uniform(size=(2, size, size, 3)).astype(np.float32)
     y = (rng.uniform(size=(2, size, size, 1)) > 0.6).astype(np.float32)
-    variables = random_variables(jm, jnp.asarray(x), seed=3)
-    for k in range(1, depth + 1) if ds else ():
-        head = variables["params"][module][f"level{k}"]
+    variables = scale_kernels(random_variables(jm, jnp.asarray(x), seed=3),
+                              kernel_scale)
+    for head in ((heads or (lambda p: [p[module][f"level{k}"] for k in
+                                       range(1, depth + 1)]))(
+            variables["params"]) if ds else ()):
         head["kernel"] = head["kernel"] * np.float32(0.01)
         head["bias"] = np.full_like(head["bias"], 0.5)
     sd = flax_to_state_dict(variables, tm.state_dict())
@@ -100,7 +116,7 @@ def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
     weights = default_ds_weights(depth) if ds else None
     with jax.enable_x64(step_dtype == jnp.float64):
         def cast(tree):
-            return jax.tree.map(lambda a: jnp.asarray(a, step_dtype), tree)
+            return jax.tree.map(lambda a: np.asarray(a).astype(step_dtype), tree)
 
         jy = (jax_prepare_train_dict(jnp.asarray(y), depth, ds_type) if ds
               else jnp.asarray(y))
@@ -113,7 +129,7 @@ def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
                                       loss_weights=weights)
         state, jloss, _ = jax.jit(step)(state, cast(x), cast(jy))
         jloss = float(jloss)
-        state = jax.tree.map(lambda a: np.asarray(a, np.float32), state)
+        state = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), state)
 
     if ds:
         with torch.no_grad():

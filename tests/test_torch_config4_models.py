@@ -101,16 +101,19 @@ def test_w32_d4_parameter_tree_maps_leaf_for_leaf(name, ag):
 
 
 def test_lstm_and_other_families_still_raise():
-    """The UNet4P/AHNet encoders, FPN and Self-ONN raise while the model
-    is built, with ConvLSTM fusion and gates too (the chains and grids
-    build it); UNet3+ and MultiResUNet3+ ignore ``ag`` and ``lstm``, as
-    the JAX decoder does."""
-    for name in ("UNet4P", "UNet4PV2", "AHNet", "FPN", "SelfUNetPP"):
+    """The UNet4P/AHNet encoders, the MultiRes tap projector and the
+    backbones but EfficientNet V1 raise while the model is built, with
+    ConvLSTM fusion and gates too (the chains and grids build it); UNet3+
+    and MultiResUNet3+ ignore ``ag`` and ``lstm``, as the JAX decoder
+    does."""
+    b0 = dict(train_mode="pretrained_encoder", backbone="EfficientNetB0")
+    for name, kw in (("UNet4P", {}), ("UNet4PV2", {}), ("AHNet", {}),
+                     ("MultiResUNet", b0),
+                     ("UNet", dict(b0, backbone="ResNet50"))):
         with pytest.raises(NotImplementedError):
-            SegModel(name, 4, 2, ag=1, lstm=1)
-    for name in ("UNet4P", "UNet4PV2", "AHNet", "FPN", "SelfUNet"):
+            SegModel(name, 4, 2, ag=1, lstm=1, **kw)
         with pytest.raises(NotImplementedError):
-            SegModel(name, 4, 2)
+            SegModel(name, 4, 2, **kw)
     for name in ("UNet3P", "MultiResUNet3P"):
         assert sorted(SegModel(name, 4, 2, ag=1, lstm=1).state_dict()) == \
             sorted(SegModel(name, 4, 2).state_dict())

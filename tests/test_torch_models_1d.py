@@ -188,10 +188,10 @@ def test_classification_head_is_a_softmax():
 
 
 @pytest.mark.parametrize("arch,kw,error", [
-    ("SelfR2UNetPP", {}, NotImplementedError),
-    ("SelfUNet3P", {}, NotImplementedError),
+    ("SelfSAUNet", {}, NotImplementedError),
+    ("SAMultiResUNet", {}, NotImplementedError),
     ("SAUNet", {}, NotImplementedError),
-    ("SelfUNetPP", {}, NotImplementedError),
+    ("LDNet", {}, NotImplementedError),
     ("TernausNet11", {}, NotImplementedError),
     ("MLMRSNet", {}, NotImplementedError),
     ("LinkNet", {}, NotImplementedError),

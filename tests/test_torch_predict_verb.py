@@ -135,7 +135,7 @@ def test_predict_refusals_write_nothing(tmp_path):
     with pytest.raises(FileNotFoundError, match="no images"):
         drivers.predict(port, input_path=str(empty), out_dir=out,
                         device="cpu")
-    for over in ({"decoder_name": "AHNet"}, {"model_genre": "FPN"},
+    for over in ({"decoder_name": "AHNet"}, {"decoder_name": "UNet4P"},
                  {"encoder_mode": "pretrained_encoder",
                   "encoder_name": "EfficientNetV2B0"}):
         with pytest.raises(NotImplementedError):

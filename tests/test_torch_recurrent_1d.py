@@ -30,7 +30,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from test_torch_blocks import random_variables  # noqa: E402
-from test_torch_config2_models import _grad_capture  # noqa: E402
+from test_torch_config2_models import _grad_capture, scale_kernels  # noqa: E402
 from test_torch_specials_1d import _pair, _x  # noqa: E402
 
 from tf_1d_2d_segmentation_end2endpipelines_tpu.data.pyramid import (  # noqa: E402
@@ -55,7 +55,7 @@ L = 32
 #: the ds_type whose targets fit an arch's heads: the chains' and the
 #: UNet3+-type level k at L / 2**k, the grids' at L
 GRIDS = ("UNetE", "UNetP", "UNetPP", "UNet4P", "R2UNetPP", "ConvMixerUNetE",
-         "ConvMixerUNetP", "ConvMixerUNetPP")
+         "ConvMixerUNetP", "ConvMixerUNetPP", "SelfR2UNetPP", "SelfUNetPP")
 
 
 def build_1d(arch, W, D, kernel=3, length=L, **kw):
@@ -64,7 +64,8 @@ def build_1d(arch, W, D, kernel=3, length=L, **kw):
             model_selector_1d(arch, length, D, 2, W, kernel, **kw))
 
 
-def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L, **kw):
+def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L,
+                                x_scale=1.0, kernel_scale=1.0, **kw):
     """The bar of this slice's 1D models: ``arch`` built by both
     packages' ``model_selector_1d`` (``kw``: its options) on (2,
     ``length``, 2) signals with random variables: every torch key filled
@@ -75,15 +76,18 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L, **kw):
     loss within 1e-4, every gradient within ``bar`` of max(1, its size),
     the new running statistics within 1e-5.  ``bar`` is 1e-4 or, where
     the port misses it, four times the largest such distance of JAX's
-    own float32 step from its float64 step (the relative bar).  Returns
-    the port's model."""
+    own float32 step from its float64 step (the relative bar).  The
+    signals are normal times ``x_scale``, the random kernels scaled by
+    ``kernel_scale`` (the Self-ONN archs' cubes overflow otherwise).
+    Returns the port's model."""
     jm, tm = build_1d(arch, W, D, kernel, length, **kw)
     ds = kw.get("ds", 0)
     ds_type = "UNetPP" if arch in GRIDS else "UNet"
     rng = np.random.default_rng(5)
-    x = rng.normal(size=(2, length, 2)).astype(np.float32)
+    x = (rng.normal(size=(2, length, 2)) * x_scale).astype(np.float32)
     y = (rng.uniform(size=(2, length, 1)) > 0.6).astype(np.float32)
-    variables = random_variables(jm, jnp.asarray(x), seed=3)
+    variables = scale_kernels(random_variables(jm, jnp.asarray(x), seed=3),
+                              kernel_scale)
     sd = flax_to_state_dict(variables, tm.state_dict())
     assert sorted(sd) == sorted(tm.state_dict())
     assert sum(v.size for v in jax.tree.leaves(variables["params"])) == sum(
@@ -107,7 +111,7 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L, **kw):
     def jax_step(dtype):
         with jax.enable_x64(dtype == jnp.float64):
             def cast(tree):
-                return jax.tree.map(lambda a: jnp.asarray(a, dtype), tree)
+                return jax.tree.map(lambda a: np.asarray(a).astype(dtype), tree)
 
             jy = (jax_prepare_train_dict(jnp.asarray(y), D, ds_type,
                                          spatial_rank=1)
@@ -121,7 +125,7 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L, **kw):
                 jlosses.get_loss("MeanAbsoluteError"), loss_weights=weights)
             state, loss, _ = jax.jit(step)(state, cast(x), cast(jy))
             return float(loss), jax.tree.map(
-                lambda a: np.asarray(a, np.float32), state)
+                lambda a: np.asarray(a).astype(np.float32), state)
 
     jloss, state = jax_step(jnp.float64)
     ty = (prepare_train_dict(torch.from_numpy(y), D, ds_type, spatial_rank=1)

@@ -85,8 +85,12 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 
 
 def test_unported_configurations_raise():
-    for kw in ({"genre": "FPN"}, {"genre": "FPN", "ag": 1, "lstm": 1},
-               {"genre": "FPN", "lstm": 1},
+    for kw in ({"train_mode": "pretrained_encoder",
+                "backbone": "EfficientNetV2B0"},
+               {"train_mode": "pretrained_encoder", "backbone": "VGG16",
+                "ag": 1, "lstm": 1},
+               {"train_mode": "pretrained_encoder",
+                "backbone": "DenseNet121", "lstm": 1},
                {"ae": 1, "input_size": (64, 64),
                 "train_mode": "pretrained_encoder",
                 "backbone": "EfficientNetB0"},
@@ -94,9 +98,11 @@ def test_unported_configurations_raise():
                 "backbone": "ResNet50"}):
         with pytest.raises(NotImplementedError):
             SegModel("UNetPP", 4, 2, **kw)
-    for name in ("FPN", "UNet4P", "AHNet", "SelfUNetPP"):
+    for name, kw in (("UNet4PV2", {}), ("UNet4P", {}), ("AHNet", {}),
+                     ("KSSNet", {"train_mode": "pretrained_encoder",
+                                 "backbone": "EfficientNetB0"})):
         with pytest.raises(NotImplementedError):
-            SegModel(name, 4, 2)
+            SegModel(name, 4, 2, **kw)
 
 
 def test_batch_of_one_from_numpy_reaches_the_pool_channels_last(monkeypatch):

@@ -222,7 +222,7 @@ def test_special_1d_float32_matches_jax(case):
     weights = default_ds_weights(D) if ds else None
     with jax.enable_x64(True):
         def cast(tree):
-            return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), tree)
+            return jax.tree.map(lambda a: np.asarray(a).astype(jnp.float64), tree)
 
         jy = (jax_prepare_train_dict(jnp.asarray(y), D, ds_type,
                                      spatial_rank=1) if ds else jnp.asarray(y))
@@ -235,7 +235,7 @@ def test_special_1d_float32_matches_jax(case):
                                       loss_weights=weights)
         state, jloss, _ = jax.jit(step)(state, cast(x), cast(jy))
         jloss = float(jloss)
-        state = jax.tree.map(lambda a: np.asarray(a, np.float32), state)
+        state = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), state)
 
     ty = (prepare_train_dict(torch.from_numpy(y), D, ds_type, spatial_rank=1)
           if ds else torch.from_numpy(y))

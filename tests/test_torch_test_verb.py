@@ -242,7 +242,7 @@ def test_test_verb_writes_its_reports(tmp_path, capsys):
     assert int(rep[1]["confusion_matrix"].sum()) == 5 * SIZE * SIZE
 
 
-@pytest.mark.parametrize("key,value", [("model_genre", "FPN"),
+@pytest.mark.parametrize("key,value", [("decoder_name", "UNet4PV2"),
                                        ("decoder_name", "AHNet"),
                                        ("decoder_name", "UNet4P")])
 def test_unported_settings_raise_before_anything_is_written(tmp_path, key,

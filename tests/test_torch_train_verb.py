@@ -167,7 +167,8 @@ def test_train_verb_resumes_from_best(trained, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("model_genre", "FPN"), ("model_parallel", 2), ("spatial_parallel", 2),
+    ("decoder_name", "UNet4PV2"), ("model_parallel", 2),
+    ("spatial_parallel", 2),
     ("pipeline_parallel", 2), ("zero1", True), ("decoder_name", "UNet4P"),
 ])
 def test_unported_settings_raise_before_anything_is_written(tmp_path, key,

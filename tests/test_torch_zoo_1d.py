@@ -159,12 +159,12 @@ def test_unet4p_dense_encoder_pools_each_tap_once():
 
 
 def test_unet1d_facade_builds_every_ported_arch():
-    """The ``UNet1D`` methods of every arch name but the three Self-ONN
-    ones build; those raise, naming the arch."""
+    """The ``UNet1D`` methods of every arch name build; the facade hands
+    the Self-ONN archs its ``q`` (their first Oper stacks q powers of the
+    one-channel input)."""
     facade = api_1d.UNet1D(32, 2, 1, 4, 3, ds=0)
     for arch in api_1d.ARCH_NAMES_1D:
-        if arch.startswith("Self"):
-            with pytest.raises(NotImplementedError, match=arch):
-                getattr(facade, arch)()
-        else:
-            assert getattr(facade, arch)().arch == arch
+        assert getattr(facade, arch)().arch == arch
+    for q in (3, 2):
+        tm = api_1d.UNet1D(32, 2, 1, 4, 3, ds=0, q=q).SelfUNetPP()
+        assert tm.Oper_0.onn_conv.in_channels == q

@@ -32,8 +32,7 @@ from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
 from .train.checkpoint import weights_file
 from .utils.config import (TestConfig, TrainConfig, load_test_config,
                            load_train_config, resume_token,
-                           save_train_config, unported_test_keys,
-                           unported_train_keys)
+                           save_train_config, unported_train_keys)
 
 #: file name of a fold's serving weights under its checkpoint directory
 BEST_WEIGHTS = weights_file("best")
@@ -72,7 +71,7 @@ def _build_model(cfg: TrainConfig, dtype: tp.Optional[torch.dtype] = None,
         ds=cfg.d_s, ae=cfg.a_e, ag=cfg.a_g, lstm=cfg.lstm,
         dense_loop=cfg.dense_loop,
         is_transconv=cfg.is_transconv,
-        alpha=cfg.alpha,
+        alpha=cfg.alpha, q=cfg.q_onn,
         feature_number=cfg.feature_number,
         final_activation=cfg.final_activation,
         train_mode=cfg.train_mode,
@@ -441,11 +440,6 @@ def test(config_path: str = "Test_Configs.ini",
     tcfg = train_config if train_config is not None else _test_train_config(
         cfg)
     device = resolve_device(device)
-    bad = unported_test_keys(tcfg)
-    if bad:
-        raise NotImplementedError(
-            "the port's test verb does not build these settings yet: "
-            + ", ".join(bad))
     square = ((cfg.patch_width == cfg.patch_height) if cfg.patchify
               else (cfg.imheight == cfg.imwidth))
     tta = ev.parse_tta(cfg.tta, square=square)
@@ -586,11 +580,6 @@ def predict(config_path: tp.Union[str, TrainConfig] = "Train_Configs.ini",
     cfg = (load_train_config(config_path) if isinstance(config_path, str)
            else config_path)
     device = resolve_device(device)
-    bad = unported_test_keys(cfg)
-    if bad:
-        raise NotImplementedError(
-            "the port's predict verb does not build these settings yet: "
-            + ", ".join(bad))
     size = (cfg.imlength, cfg.imwidth)
     paths = ([input_path] if os.path.isfile(input_path)
              else _list_images(input_path))

@@ -2,18 +2,21 @@
 end2endpipelines_tpu/models/api_1d.py): ``SegModel1D`` (:95), the
 ``UNet1D`` facade (:334) and ``model_selector_1d`` (:395).
 
-Ported: every ``UNet1D`` arch but the three Self-ONN ones (UNet, UNetE,
-UNetP, UNetPP, UNet3P, UNet4P, MultiResUNet, the 1D MultiResUNet3P,
-RUNet, R2UNet, R2UNetPP, R2UNet3P and the six ConvMixer archs, also
-through the ``ConvMixerUNet`` facade), with deep supervision (``ds``),
+Ported: every ``UNet1D`` arch (UNet, UNetE, UNetP, UNetPP, UNet3P,
+UNet4P, MultiResUNet, the 1D MultiResUNet3P, RUNet, R2UNet, R2UNetPP,
+R2UNet3P, the Self-ONN SelfR2UNetPP, SelfUNetPP and SelfUNet3P of order
+``q``, and the six ConvMixer archs, also through the ``ConvMixerUNet``
+facade), with deep supervision (``ds``),
 attention gates (``ag``), ConvLSTM fusion (``lstm``; UNet3+-type
 decoders ignore it), the autoencoder bottleneck (``ae``), transposed
 convs or nearest upsampling, any kernel size, ``alpha`` and ``t``; and
 the special families ``BCDUNet``, ``SEDUNet``, ``IBAUNet`` and
 ``NABNet`` (models/specials_1d.py), with ``lstm``, ``ae``,
-``dense_loop`` and ``se_ratio``.  The other archs and families (the
-Self-ONN archs among them) and ``MultiResUNet3P`` with ``lstm = 1``
-raise ``NotImplementedError`` naming what is missing.
+``dense_loop`` and ``se_ratio``.  The other special families and
+``MultiResUNet3P`` with ``lstm = 1`` raise ``NotImplementedError``
+naming what is missing.  The Self-ONN decoders take no gates or ConvLSTM
+fusion: ``ag`` and ``lstm`` build them unchanged, as in the JAX
+package.
 
 The 1D tree differs from the 2D one (JAX api_1d.py:1-13): two ConvBlocks
 an encoder level and a decoder node (one for UNet3+ and MultiRes nodes),
@@ -26,9 +29,10 @@ JAX package's NLC buffer (ops/blocks.py).  The blocks are direct children
 with flax's auto-names, per-type counters in the order ``SegModel1D``
 creates them inline: ``ConvBlock_0 .. ConvBlock_{2D+1}`` (encoder and
 latent), or ``RecurrentConvBlock_<k>``, ``ConvMixerBlock_<k>``,
-``MultiResBlock_<i>`` / ``ResPath_<i>``, ``FeatureExtractionBlock_0``,
-then ``ChainDecoder_0``, ``GridDecoder_0`` or ``FullScaleDecoder_0``,
-then ``out``.
+``MultiResBlock_<i>`` / ``ResPath_<i>``, ``Oper_<k>``,
+``SelfRecurrentConvBlock_<k>``, ``FeatureExtractionBlock_0``, then
+``ChainDecoder_0``, ``GridDecoder_0``, ``FullScaleDecoder_0``,
+``SelfGridDecoder_0`` or ``SelfFullScaleDecoder_0``, then ``out``.
 """
 from __future__ import annotations
 
@@ -38,11 +42,13 @@ import torch
 from torch import nn
 
 from ..ops import (AttentionGate, AutoNamed, ConvBlock, ConvMixerBlock,
-                   FeatureExtractionBlock, HeadConv, MultiResBlock,
-                   RecurrentConvBlock, ResPath, TransConv, apply_activation,
-                   concat, downsample_pool, pooled_size, upsample)
+                   FeatureExtractionBlock, HeadConv, MultiResBlock, Oper,
+                   RecurrentConvBlock, ResPath, SelfRecurrentConvBlock,
+                   TransConv, apply_activation, concat, downsample_pool,
+                   pooled_size, upsample)
 from ..ops.kernels import pyramid
-from .decoders import ChainDecoder, FullScaleDecoder, GridDecoder
+from .decoders import (ChainDecoder, FullScaleDecoder, GridDecoder,
+                       SelfFullScaleDecoder, SelfGridDecoder)
 from .specials_1d import (SPECIAL_ARCHS_1D, BCDUNet, IBAUNet, NABNet,
                           SEDUNet)
 
@@ -75,6 +81,11 @@ _ARCHS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
                      enc="r2x1", latent="r2x1"),
     "R2UNet3P": dict(topo="full", node="r2", reps=2, enc="r2x2",
                      latent="r2x2"),
+    "SelfR2UNetPP": dict(topo="selfgrid", bare=True, enc="selfrec",
+                         latent="selfrec_q1"),
+    "SelfUNetPP": dict(topo="selfgrid", node_reps=2, enc="oper2",
+                       latent="oper2"),
+    "SelfUNet3P": dict(topo="selffull", enc="oper2", latent="oper2"),
     "ConvMixerUNet": dict(topo="chain", node="convmixer", reps=2,
                           enc="convmixer", latent="convmixer"),
     "ConvMixerUNetE": dict(topo="grid", variant="E", node="convmixer",
@@ -108,8 +119,8 @@ SPECIAL_NAMES_1D = (
 def check_arch_1d(arch: str, lstm: int = 0) -> None:
     """Raise for what ``model_selector_1d`` does not build:
     ``ValueError`` for a name the JAX package does not know either,
-    ``NotImplementedError`` naming an arch or a special family the port
-    lacks (the Self-ONN archs among them), and ``MultiResUNet3P`` with
+    ``NotImplementedError`` naming a special family the port lacks, and
+    ``MultiResUNet3P`` with
     ``lstm = 1``, whose reference branch crashes (JAX api_1d.py:
     203-206)."""
     if arch not in ARCH_NAMES_1D and arch not in SPECIAL_NAMES_1D:
@@ -143,10 +154,13 @@ class SegModel1D(AutoNamed):
     model takes.  ``t`` is the recurrent blocks' iterations.
     ``init_kwargs`` keeps the constructor's arguments, so
     ``reinitialized`` can draw a fresh model of the same architecture.
+    ``q`` is the Self-ONN archs' order.
 
     The encoder and latent families (JAX ``_enc_level``/``_latent``,
-    api_1d.py:115-183): two ConvBlocks, RecurrentConvBlocks or
-    ConvMixerBlocks a level; ``r2x1``/``r2x2``, a 1x1 ConvBlock added to
+    api_1d.py:115-183): two ConvBlocks, RecurrentConvBlocks,
+    ConvMixerBlocks or ``Oper``s (``oper2``) a level; ``selfrec``, one
+    ``SelfRecurrentConvBlock`` (SelfR2UNetPP's latent, ``selfrec_q1``, at
+    order 1: the reference's quirk); ``r2x1``/``r2x2``, a 1x1 ConvBlock added to
     one or two RecurrentConvBlocks; a MultiResBlock (ConvMixer units for
     ``multires_mixer``) and a ``ResPath`` tap; ``dense4p`` (UNet4P), two
     ConvBlocks whose input at level i also concatenates taps 1 .. i-2
@@ -159,7 +173,7 @@ class SegModel1D(AutoNamed):
                  kernel_size: int = 3, problem_type: str = "Regression",
                  output_nums: int = 1, ds: int = 0, ae: int = 0, ag: int = 0,
                  lstm: int = 0, alpha: float = 1.0, in_channels: int = 1,
-                 is_transconv: bool = True, t: int = 2,
+                 is_transconv: bool = True, t: int = 2, q: int = 3,
                  feature_number: int = 1024,
                  length: tp.Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
@@ -184,6 +198,7 @@ class SegModel1D(AutoNamed):
         self.dtype = dtype
         self.ds = ds
         self._kw = dict(dtype=dtype, generator=generator, rank=1)
+        self.q = q
         self.mr3p = cfg["topo"] == "mr3p1d"
         if self.mr3p:
             self._build_mr3p(W, D, k, alpha, ag, is_transconv, in_channels,
@@ -210,12 +225,23 @@ class SegModel1D(AutoNamed):
         common = dict(model_width=W, model_depth=D, D_S=ds, A_G=ag,
                       LSTM=lstm, is_transconv=is_transconv, alpha=alpha,
                       dtype=dtype, generator=generator, kernel=k,
-                      node=cfg["node"], conv_repeats=cfg["reps"], t=t,
+                      node=cfg.get("node", "conv"),
+                      conv_repeats=cfg.get("reps", 1), t=t,
                       dialect="1d", bottom_features=bottom)
+        selfs = dict(model_width=W, model_depth=D, D_S=ds,
+                     is_transconv=is_transconv, q=q, dtype=dtype,
+                     generator=generator, kernel=k, dialect="1d",
+                     bottom_features=bottom)
         if cfg["topo"] == "chain":
             decoder: nn.Module = ChainDecoder(style="unet", **common)
         elif cfg["topo"] == "grid":
             decoder = GridDecoder(variant=cfg["variant"], **common)
+        elif cfg["topo"] == "selfgrid":
+            decoder = SelfGridDecoder(bare=cfg.get("bare", False),
+                                      node_reps=cfg.get("node_reps", 1),
+                                      **selfs)
+        elif cfg["topo"] == "selffull":
+            decoder = SelfFullScaleDecoder(**selfs)
         else:
             decoder = FullScaleDecoder(multires=False, **common)
         self._decoder_name = f"{type(decoder).__name__}_0"
@@ -243,6 +269,15 @@ class SegModel1D(AutoNamed):
                 level["tap"] = self._add(ResPath(block.out_features, respath,
                                                  feats, k, **kw))
             return level, block.out_features
+        if family in ("selfrec", "selfrec_q1"):
+            level["blocks"] = [self._add(SelfRecurrentConvBlock(
+                cin, feats, k, t=t, q=1 if family == "selfrec_q1" else self.q,
+                **kw))]
+            return level, feats
+        if family == "oper2":
+            level["blocks"] = [self._add(Oper(c, feats, k, q=self.q, **kw))
+                               for c in (cin, feats)]
+            return level, feats
         if family in ("r2x1", "r2x2"):
             level["raw"] = self._add(ConvBlock(cin, feats, 1, **kw))
             n, unit = (1 if family == "r2x1" else 2), RecurrentConvBlock
@@ -436,7 +471,7 @@ class _ArchFacade:
                         kernel_size=kernel_size, problem_type=problem_type,
                         output_nums=output_nums, ds=ds, ae=ae, ag=ag,
                         lstm=lstm, alpha=alpha, in_channels=num_channel,
-                        is_transconv=is_transconv, t=t,
+                        is_transconv=is_transconv, t=t, q=q,
                         feature_number=feature_number, length=length,
                         dtype=dtype, generator=generator)
 
@@ -504,8 +539,9 @@ def model_selector_1d(arch: str, length: int, model_depth: int,
     names raise ``NotImplementedError`` naming them, and an unknown name
     raises the JAX package's ``ValueError``.  ``length`` sizes the
     autoencoder bottleneck (``ae = 1``; without it the model takes any
-    length); ``q``, ``cardinality``, ``pooling_type``, ``block_size`` and
-    ``keep_prob`` configure only unported families."""
+    length); ``q`` is the Self-ONN archs' order; ``cardinality``,
+    ``pooling_type``, ``block_size`` and ``keep_prob`` configure only
+    unported families."""
     check_arch_1d(arch, lstm=lstm)
     if arch in _SPECIALS:
         return _SPECIALS[arch](

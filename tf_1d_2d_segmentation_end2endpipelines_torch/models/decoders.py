@@ -32,9 +32,10 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import (AttentionGate, AutoNamed, ConvBlock, ConvLSTMFusion,
-                   ConvMixerBlock, HeadConv, MultiResBlock, RecurrentConvBlock,
-                   ResPath, TransConv, concat, multires_features, upsample)
+from ..ops import (AttentionGate, AutoNamed, BatchNorm, ConvBlock,
+                   ConvLSTMFusion, ConvMixerBlock, HeadConv, MultiResBlock,
+                   Oper, OperTranspose, RecurrentConvBlock, ResPath,
+                   TransConv, concat, multires_features, upsample)
 from ..ops.kernels import pyramid
 
 
@@ -200,6 +201,25 @@ class _DecoderBase(AutoNamed):
     def _ds_head(self, x: torch.Tensor, level: int) -> torch.Tensor:
         return getattr(self, f"level{level}")(x)
 
+    def _fpn_pyramid(self, stages: tp.Sequence[torch.Tensor]) -> torch.Tensor:
+        """FPN's concat pyramid of the decoder's stages (JAX decoders.py:
+        213-219): the total so far resized by 2, then the next stage
+        concatenated."""
+        tot = stages[0]
+        for stage in stages[1:]:
+            tot = concat(self._resize(tot, 2), stage)
+        return tot
+
+
+def _check_sum(up: int, skip: int) -> None:
+    """The FPN chains add the skip to the upsampled output."""
+    if up != skip:
+        raise ValueError(
+            f"the FPN decoders add the skip ({skip} channels) to the "
+            f"upsampled output ({up} channels): set is_transconv, whose "
+            "transposed conv gives the skip's width (the JAX package fails "
+            "on the shapes too)")
+
 
 class ChainDecoder(_DecoderBase):
     """The chains (reference unet_variants.py:125-154; MultiResUNet and
@@ -213,9 +233,18 @@ class ChainDecoder(_DecoderBase):
     W * 2**(D - j - 1) follows (``style`` ``multires`` and ``kssnet``:
     MultiRes nodes; ``unet``: the ``node`` family).  Deep-supervision head
     level D - j is a 1x1 conv on the step's input, before the upsampling,
-    so level k sits at 1 / 2**k of the input's resolution."""
+    so level k sits at 1 / 2**k of the input's resolution.
 
-    STYLES = ("unet", "multires", "kssnet")
+    ``fpn`` (FPN, JAX decoders.py:166-220): ConvBlock nodes, the skip
+    added to the upsampled output instead of concatenated (``A_G`` and
+    ``LSTM`` as ``unet``), and the output the concat pyramid of every
+    step's output, each earlier total resized by 2 before the next
+    step's output joins it (W * (2**D - 1) wide).  The sum needs the
+    upsampled output as wide as the skip, which only the transposed conv
+    gives: the JAX package fails on the shapes without it, the port
+    raises ``ValueError`` when it builds."""
+
+    STYLES = ("unet", "multires", "kssnet", "fpn")
 
     def __init__(self, model_width: int, model_depth: int,
                  style: str = "unet", D_S: int = 0, A_G: int = 0,
@@ -230,7 +259,8 @@ class ChainDecoder(_DecoderBase):
                 f"ChainDecoder style {style!r} is not ported yet")
         super().__init__(model_width, model_depth, D_S=D_S,
                          is_transconv=is_transconv,
-                         node="multires" if style != "unet" else node,
+                         node=("multires" if style in ("multires", "kssnet")
+                               else node),
                          alpha=alpha, dtype=dtype, kernel=kernel,
                          conv_repeats=conv_repeats, t=t, dialect=dialect,
                          generator=generator)
@@ -246,14 +276,18 @@ class ChainDecoder(_DecoderBase):
                 self._add_gate(j, width_j, outs[-1], width_j)
             if D_S:
                 self._add_ds_head(outs[-1], D - j)
-            cin = self._add_up(j, outs[-1], width_j) + width_j
+            up = self._add_up(j, outs[-1], width_j)
+            cin = up + width_j
             if LSTM:
                 cin = self._add_fusion(j, cin, max(int(W * 2.0 ** (D - j - 2)),
                                                    1))
+            elif style == "fpn":
+                _check_sum(up, width_j)
+                cin = width_j
             if style == "kssnet":
                 cin += sum(outs)
             outs.append(self._add_node(cin, width_j))
-        self.out_features = outs[-1]
+        self.out_features = sum(outs[1:]) if style == "fpn" else outs[-1]
 
     def forward(self, skips: tp.Sequence[torch.Tensor]
                 ) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
@@ -268,13 +302,19 @@ class ChainDecoder(_DecoderBase):
             if self.D_S:
                 levels.append(self._ds_head(deconv, D - j))
             up = self._up(deconv, j)
-            merged = (self._fuse(j, skip, up) if self.LSTM
-                      else concat(up, skip))
+            if self.LSTM:
+                merged = self._fuse(j, skip, up)
+            elif self.style == "fpn":
+                merged = up + skip
+            else:
+                merged = concat(up, skip)
             if self.style == "kssnet":
                 merged = concat(merged, *[
                     torch.sigmoid(self._resize(o, 2 ** (j - m + 1)))
                     for m, o in enumerate(outs)])
             outs.append(self._run_node(j, merged))
+        if self.style == "fpn":
+            return self._fpn_pyramid(outs[1:]), levels
         return outs[-1], levels
 
 
@@ -503,6 +543,235 @@ class FullScaleDecoder(_DecoderBase):
         return deconv, levels
 
 
+class _SelfDecoderBase(_DecoderBase):
+    """What the Self-ONN decoders share (JAX decoders.py:389-538): the
+    order ``q`` of their ``Oper`` and ``OperTranspose`` layers, registered
+    under flax's auto-names in creation order (``Oper_<n>``,
+    ``OperTranspose_<n>``, ``BatchNorm_<n>``), and the arguments of the
+    other decoders that they take and ignore, as the JAX modules do
+    (``A_G``, ``LSTM``, ``alpha``)."""
+
+    def __init__(self, model_width: int, model_depth: int, D_S: int = 0,
+                 A_G: int = 0, LSTM: int = 0, is_transconv: bool = True,
+                 alpha: float = 1.0, q: int = 3,
+                 dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 kernel: int = 3, dialect: str = "2d",
+                 bottom_features: tp.Optional[int] = None):
+        super().__init__(model_width, model_depth, D_S=D_S,
+                         is_transconv=is_transconv, dtype=dtype,
+                         kernel=kernel, dialect=dialect, generator=generator)
+        self.q = q
+        self.bottom = bottom_features or model_width * 2 ** model_depth
+
+    def _oper(self, in_features: int, features: int,
+              kernel: tp.Optional[int] = None, stride: int = 1) -> Oper:
+        return self._add(Oper(in_features, features, kernel or self.kernel,
+                              stride=stride, q=self.q, **self._kw()))
+
+    def _oper_up(self, in_features: int, features: int
+                 ) -> tp.Optional[OperTranspose]:
+        """The transposed ``Oper`` by 2 with tanh, or None (resize)."""
+        if not self.is_transconv:
+            return None
+        return self._add(OperTranspose(in_features, features, q=self.q,
+                                       **self._kw()))
+
+    def _upsample(self, up: tp.Optional[nn.Module], x: torch.Tensor
+                  ) -> torch.Tensor:
+        return up(x) if up is not None else self._resize(x, 2)
+
+    def _bn(self, features: int) -> BatchNorm:
+        return self._add(BatchNorm(features))
+
+
+class SelfChainDecoder(_SelfDecoderBase):
+    """The Self-ONN chains, SelfUNet (``style`` ``unet``, reference
+    unet_variants.py:644-664) and SelfFPN (``fpn``, fpn_variants.py:
+    172-199; JAX ``SelfChainDecoder``, decoders.py:389): step j upsamples
+    the previous output by a tanh ``OperTranspose`` (or resizes it),
+    concatenates encoder tap D - j - 1 (``fpn``: adds it), then an
+    ``Oper`` of width W * 2**(D-j-1), BatchNorm and tanh.  ``fpn``
+    returns the concat pyramid of the steps' outputs, as the FPN chain.
+    Deep-supervision head level D - j is ``Oper(1, 1)`` on the step's
+    input."""
+
+    STYLES = ("unet", "fpn")
+
+    def __init__(self, model_width: int, model_depth: int,
+                 style: str = "unet", **kw):
+        if style not in self.STYLES:
+            raise ValueError(f"unknown SelfChainDecoder style {style!r}")
+        super().__init__(model_width, model_depth, **kw)
+        self.style = style
+        W, D = model_width, model_depth
+        cin = self.bottom
+        self.steps: tp.List[tp.Dict[str, tp.Any]] = []
+        for j in range(D):
+            width_j = W * 2 ** (D - j - 1)
+            step = {"head": self._oper(cin, 1, 1) if self.D_S else None,
+                    "up": self._oper_up(cin, width_j)}
+            up = width_j if step["up"] is not None else cin
+            if style == "fpn":
+                _check_sum(up, width_j)
+            step["node"] = self._oper(width_j if style == "fpn"
+                                      else up + width_j, width_j)
+            step["bn"] = self._bn(width_j)
+            self.steps.append(step)
+            cin = width_j
+        self.out_features = W * (2 ** D - 1) if style == "fpn" else W
+
+    def forward(self, skips: tp.Sequence[torch.Tensor]
+                ) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
+        D = self.model_depth
+        levels: tp.List[torch.Tensor] = []
+        stages: tp.List[torch.Tensor] = []
+        deconv = skips[-1]
+        for j, step in enumerate(self.steps):
+            skip = skips[D - j - 1]
+            if step["head"] is not None:
+                levels.append(step["head"](deconv))
+            up = self._upsample(step["up"], deconv)
+            merged = up + skip if self.style == "fpn" else concat(up, skip)
+            deconv = torch.tanh(step["bn"](step["node"](merged)))
+            stages.append(deconv)
+        if self.style == "fpn":
+            return self._fpn_pyramid(stages), levels
+        return deconv, levels
+
+
+class SelfGridDecoder(_SelfDecoderBase):
+    """The Self-ONN nested grid (JAX ``SelfGridDecoder``, decoders.py:432;
+    the 2D reference's SelfUNetPP, unet_variants.py:667-710): UNet++'s
+    node order and skips (nodes (j, 1..i-1), then encoder tap j, after
+    the upsampled source), each node ``node_reps`` chained ``Oper``s of
+    width W * 2**j, then BatchNorm and tanh.  The 1D dialect (and
+    ``bare``) leaves out BatchNorm and tanh and has plain 1x1 conv heads
+    (flax ``Conv_<n>``); the 2D heads are ``Oper(1, 1)``, all at full
+    resolution: level D on the first encoder tap, level D - i on node (0,
+    i).  SelfUNetPP in 1D has two Opers a node, SelfR2UNetPP one."""
+
+    def __init__(self, model_width: int, model_depth: int,
+                 bare: bool = False, node_reps: int = 1, **kw):
+        super().__init__(model_width, model_depth, **kw)
+        W, D = model_width, model_depth
+        self.plain = bare or self.dialect == "1d"
+        #: level D's head, on the first encoder tap
+        self.heads_D = [self._head(W)] if self.D_S else []
+        self.nodes: tp.List[tp.Dict[str, tp.Any]] = []
+        for i in range(1, D + 1):
+            for j in range(D - i + 1):
+                width_j = W * 2 ** j
+                src = self.bottom if i == 1 and j == D - 1 else 2 * width_j
+                node = {"ij": (i, j), "up": self._oper_up(src, width_j)}
+                cin = (width_j if node["up"] is not None else src) + \
+                    i * width_j
+                node["opers"] = [self._oper(cin if r == 0 else width_j,
+                                            width_j)
+                                 for r in range(max(node_reps, 1))]
+                node["bn"] = None if self.plain else self._bn(width_j)
+                node["head"] = (self._head(width_j)
+                                if self.D_S and j == 0 and i < D else None)
+                self.nodes.append(node)
+        self.out_features = W
+
+    def _head(self, in_features: int) -> nn.Module:
+        if self.dialect == "1d":
+            return self._add(HeadConv(in_features, 1, dtype=self.dtype,
+                                      generator=self._generator),
+                             kind="Conv")
+        return self._oper(in_features, 1, 1)
+
+    def forward(self, skips: tp.Sequence[torch.Tensor]
+                ) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
+        D = self.model_depth
+        levels: tp.List[torch.Tensor] = []
+        for head in self.heads_D:
+            levels.append(head(skips[0]))
+        deconvs: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
+        for node in self.nodes:
+            i, j = node["ij"]
+            src = skips[j + 1] if i == 1 else deconvs[(j + 1, i - 1)]
+            x = concat(self._upsample(node["up"], src),
+                       *[deconvs[(j, k)] for k in range(1, i)], skips[j])
+            for oper in node["opers"]:
+                x = oper(x)
+            if node["bn"] is not None:
+                x = torch.tanh(node["bn"](x))
+            deconvs[(j, i)] = x
+            if node["head"] is not None:
+                levels.append(node["head"](x))
+        return deconvs[(0, D)], levels
+
+
+class SelfFullScaleDecoder(_SelfDecoderBase):
+    """The Self-ONN UNet3+ (JAX ``SelfFullScaleDecoder``, decoders.py:494;
+    reference unet_variants.py:713-747).  Step j concatenates: an ``Oper``
+    of the same-level encoder tap and of every higher-resolution tap
+    max-pooled by 2**((D - j) - k - 1), each with BatchNorm and tanh in
+    2D and bare in 1D; the gate of an ``Oper`` of the previous output
+    upsampled by 2, and the gates of ``Oper``s of every earlier output
+    upsampled to this level (gate: tanh in 2D, sigmoid in 1D); then an
+    ``Oper`` of width W * (D + 1).  All Opers but that one are W wide.
+    Each skip's pools come from one pyramid launch, as in
+    ``FullScaleDecoder``.  Deep-supervision heads are ``Oper(1, 1)`` at
+    stride 2 (half resolution, the reference's quirk)."""
+
+    def __init__(self, model_width: int, model_depth: int, **kw):
+        super().__init__(model_width, model_depth, **kw)
+        W, D = model_width, model_depth
+        feat = W * (D + 1)
+        deconv = self.bottom
+        self.steps: tp.List[tp.Dict[str, tp.Any]] = []
+        for j in range(D):
+            step = {"taps": [self._tap_oper(W * 2 ** (D - j - 1))]
+                    + [self._tap_oper(W * 2 ** k) for k in range(D - j - 1)],
+                    "prev": self._oper(deconv, W),
+                    "earlier": [self._oper(feat, W) for _ in range(j)],
+                    "node": self._oper(feat, feat)}
+            step["head"] = self._oper(feat, 1, 1, stride=2) if self.D_S \
+                else None
+            self.steps.append(step)
+            deconv = feat
+        self.out_features = feat
+
+    def _tap_oper(self, in_features: int
+                  ) -> tp.Tuple[Oper, tp.Optional[BatchNorm]]:
+        oper = self._oper(in_features, self.model_width)
+        return oper, None if self.rank == 1 else self._bn(self.model_width)
+
+    def forward(self, skips: tp.Sequence[torch.Tensor]
+                ) -> tp.Tuple[torch.Tensor, tp.List[torch.Tensor]]:
+        D = self.model_depth
+        gate = torch.sigmoid if self.rank == 1 else torch.tanh
+        levels_of = (pyramid.maxpool_levels if self.rank == 2
+                     else pyramid.maxpool1d_levels)
+        pooled = [levels_of(skips[k], D - 1 - k) for k in range(D - 1)]
+
+        def tap(oper_bn, x):
+            oper, bn = oper_bn
+            x = oper(x)
+            return x if bn is None else torch.tanh(bn(x))
+
+        levels: tp.List[torch.Tensor] = []
+        deconv = skips[-1]
+        deconvs: tp.List[torch.Tensor] = []
+        for j, step in enumerate(self.steps):
+            parts = [tap(step["taps"][0], skips[D - j - 1])]
+            for k in range(D - j - 1):
+                parts.append(tap(step["taps"][k + 1],
+                                 pooled[k][(D - j) - k - 2]))
+            parts.append(gate(self._resize(step["prev"](deconv), 2)))
+            for m, oper in enumerate(step["earlier"]):
+                parts.append(gate(self._resize(oper(deconvs[m]),
+                                               2 ** (j - m))))
+            deconv = step["node"](concat(*parts))
+            deconvs.append(deconv)
+            if step["head"] is not None:
+                levels.append(step["head"](deconv))
+        return deconv, levels
+
+
 _DECODERS: tp.Dict[str, tp.Callable[..., nn.Module]] = {
     "UNet": lambda **kw: ChainDecoder(style="unet", **kw),
     "UNetE": lambda **kw: GridDecoder(variant="E", **kw),
@@ -512,13 +781,21 @@ _DECODERS: tp.Dict[str, tp.Callable[..., nn.Module]] = {
     "MultiResUNet": lambda **kw: ChainDecoder(style="multires", **kw),
     "MultiResUNet3P": lambda **kw: FullScaleDecoder(multires=True, **kw),
     "KSSNet": lambda **kw: ChainDecoder(style="kssnet", **kw),
+    "FPN": lambda **kw: ChainDecoder(style="fpn", **kw),
+    "SelfUNet": lambda **kw: SelfChainDecoder(style="unet", **kw),
+    "SelfUNetPP": lambda **kw: SelfGridDecoder(**kw),
+    "SelfUNet3P": lambda **kw: SelfFullScaleDecoder(**kw),
+    "SelfFPN": lambda **kw: SelfChainDecoder(style="fpn", **kw),
 }
 
 
-def build_decoder(decoder_name: str, **kw) -> nn.Module:
-    """The decoder of ``decoder_name`` (JAX ``build_decoder``, :542)."""
+def build_decoder(decoder_name: str, q: int = 3, **kw) -> nn.Module:
+    """The decoder of ``decoder_name`` (JAX ``build_decoder``, :542); the
+    Self-ONN decoders take the order ``q``."""
     if decoder_name not in _DECODERS:
         raise NotImplementedError(
             f"decoder {decoder_name!r} is not ported yet (ported: "
             f"{', '.join(_DECODERS)})")
+    if decoder_name.startswith("Self"):
+        kw["q"] = q
     return _DECODERS[decoder_name](**kw)

@@ -1,13 +1,14 @@
 """Top-level segmentation model of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
 
-Ported: the UNet genre, with or without deep supervision, with any
-decoder that ``decoders.build_decoder`` has (UNet, UNetE, UNetP, UNet++,
-UNet3+, MultiResUNet, MultiResUNet3+ and KSSNet so far), attention gates
-and ConvLSTM fusion on the chains and grids; its encoder from scratch,
-with or without the autoencoder bottleneck, or, ``train_mode =
+Ported: the UNet and FPN genres, with or without deep supervision, with
+any decoder that ``decoders.build_decoder`` has (UNet, UNetE, UNetP,
+UNet++, UNet3+, MultiResUNet, MultiResUNet3+, KSSNet, FPN and the
+Self-ONN SelfUNet, SelfUNetPP, SelfUNet3P and SelfFPN so far), attention
+gates and ConvLSTM fusion on the chains and grids; the encoder from
+scratch, with or without the autoencoder bottleneck, or, ``train_mode =
 "pretrained_encoder"``, an EfficientNet V1 backbone (``backbones``) with
-the default tap projectors.
+the default and Self-ONN tap projectors, or the FPN genre's.
 """
 from __future__ import annotations
 
@@ -16,8 +17,8 @@ import typing as tp
 import torch
 from torch import nn
 
-from ..ops import (FeatureExtractionBlock, HeadConv, apply_activation,
-                   pooled_size, set_block_remat)
+from ..ops import (ConvBlock, FeatureExtractionBlock, HeadConv, Oper,
+                   apply_activation, pooled_size, set_block_remat)
 from .decoders import build_decoder
 from .backbones import get_backbone
 from .encoders import LatentLayer, PretrainedTapProjector, ScratchEncoder
@@ -51,13 +52,22 @@ class SegModel(nn.Module):
     reads projected tap D, or at depth 5 the backbone's raw top (JAX
     segmodel.py:76-125).  ``backbone_trainable`` False keeps the
     backbone's BatchNorms on their running statistics in training
-    (``EfficientNetBackbone.trainable``); its parameters still train."""
+    (``EfficientNetBackbone.trainable``); its parameters still train.
+
+    ``genre = "FPN"`` has no latent layer: the decoder's bottleneck is the
+    encoder's deepest output (JAX segmodel.py:133-140); on a pretrained
+    backbone its taps are projected by 1x1 convs with ReLU and no
+    BatchNorm (``ConvBlock_<k>``; ``Oper_<k>`` for a Self-ONN decoder)
+    instead of the tap projectors (segmodel.py:109-118).  A Self-ONN
+    decoder (``Self*``) makes the encoder, latent and projectors Self-ONN
+    ones of order ``q``, and the head ``out`` an ``Oper(1, 1)`` with the
+    final activation (segmodel.py:156-158)."""
 
     def __init__(self, decoder_name: str, model_width: int, model_depth: int,
                  in_channels: int = 3, output_nums: int = 1, ds: int = 0,
                  ae: int = 0, ag: int = 0, lstm: int = 0, dense_loop: int = 1,
                  is_transconv: bool = True, alpha: float = 1.0,
-                 feature_number: int = 1024,
+                 q: int = 3, feature_number: int = 1024,
                  input_size: tp.Optional[tp.Tuple[int, int]] = None,
                  final_activation: tp.Optional[str] = "sigmoid",
                  genre: str = "UNet", train_mode: str = "from_scratch",
@@ -81,9 +91,8 @@ class SegModel(nn.Module):
                 'train_mode must be "pretrained_encoder" or "from_scratch"')
         elif D < 1:
             raise ValueError("The depth of the model cannot be less than 1")
-        if genre != "UNet":
-            raise NotImplementedError(
-                f"the {genre} genre is not ported yet (ported: UNet)")
+        if genre not in ("UNet", "FPN"):
+            raise ValueError(f"Unknown model genre {genre!r}")
         if ae and self.pretrained:
             raise NotImplementedError(
                 "ae = 1 (the autoencoder bottleneck) on a pretrained "
@@ -94,45 +103,66 @@ class SegModel(nn.Module):
         self.model_depth = D
         self.final_activation = final_activation
         self.dtype = dtype
-        bottom = None
+        self.fpn = genre == "FPN"
+        self_onn = decoder_name.startswith("Self")
         if self.pretrained:
             bb = get_backbone(backbone, dtype=dtype, max_tap=min(D, 5),
                               in_channels=in_channels, generator=generator,
                               trainable=backbone_trainable)
             self._encoder = f"{type(bb).__name__}_0"
             self.add_module(self._encoder, bb)
+            self._projectors = []
             for lvl in range(1, min(D + 1, 5) + 1):
-                self.add_module(
-                    f"PretrainedTapProjector_{lvl - 1}",
-                    PretrainedTapProjector(
-                        decoder_name, lvl, bb.tap_features[lvl - 1], W,
-                        dtype=dtype, generator=generator))
-            bottom = bb.tap_features[5] if D == 5 else None
+                cin, feats = bb.tap_features[lvl - 1], W * 2 ** (lvl - 1)
+                if not self.fpn:
+                    name = f"PretrainedTapProjector_{lvl - 1}"
+                    proj: nn.Module = PretrainedTapProjector(
+                        decoder_name, lvl, cin, W, q=q, dtype=dtype,
+                        generator=generator)
+                elif self_onn:
+                    name, proj = f"Oper_{lvl - 1}", Oper(
+                        cin, feats, 1, q=q, dtype=dtype, generator=generator)
+                else:
+                    name, proj = f"ConvBlock_{lvl - 1}", ConvBlock(
+                        cin, feats, 1, use_bn=False, dtype=dtype,
+                        generator=generator)
+                self.add_module(name, proj)
+                self._projectors.append(name)
+            bottom = bb.tap_features[5] if D == 5 else W * 2 ** D
         else:
             self._encoder = "ScratchEncoder_0"
             self.ScratchEncoder_0 = ScratchEncoder(
-                decoder_name, in_channels, W, D, alpha=alpha, dtype=dtype,
-                generator=generator)
-        self.LatentLayer_0 = LatentLayer(decoder_name, W, D, dense_loop,
-                                         alpha=alpha, dtype=dtype,
-                                         generator=generator,
-                                         in_features=bottom)
-        bottom = self.LatentLayer_0.out_features
+                decoder_name, in_channels, W, D, alpha=alpha, q=q,
+                dtype=dtype, generator=generator)
+            bottom = self.ScratchEncoder_0.out_features
+        if not self.fpn:
+            self.LatentLayer_0 = LatentLayer(
+                decoder_name, W, D, dense_loop, alpha=alpha, q=q, dtype=dtype,
+                generator=generator,
+                in_features=bottom if self.pretrained and D == 5 else None)
+            bottom = self.LatentLayer_0.out_features
         self.ae = bool(ae)
         if ae:
             self.FeatureExtractionBlock_0 = FeatureExtractionBlock(
                 bottom, tuple(pooled_size(n, D) for n in input_size),
                 W * 2 ** D, feature_number, dtype=dtype, generator=generator)
             bottom = W * 2 ** D
-        decoder = build_decoder(decoder_name, model_width=W, model_depth=D,
-                                D_S=ds, A_G=ag, LSTM=lstm,
+        decoder = build_decoder(decoder_name, q=q, model_width=W,
+                                model_depth=D, D_S=ds, A_G=ag, LSTM=lstm,
                                 is_transconv=is_transconv, alpha=alpha,
                                 dtype=dtype, generator=generator,
                                 bottom_features=bottom)
         self.add_module(f"{type(decoder).__name__}_0", decoder)
         self._decoder_name = f"{type(decoder).__name__}_0"
-        self.out = HeadConv(decoder.out_features, output_nums, dtype=dtype,
-                            generator=generator)
+        if self_onn:  # the final activation inside the Oper
+            self.out: nn.Module = Oper(decoder.out_features, output_nums, 1,
+                                       activation=final_activation, q=q,
+                                       dtype=dtype, generator=generator)
+            self._head_activation = None
+        else:
+            self.out = HeadConv(decoder.out_features, output_nums,
+                                dtype=dtype, generator=generator)
+            self._head_activation = final_activation
         set_block_remat(self, block_remat)
 
     def reinitialized(self, generator: torch.Generator) -> "SegModel":
@@ -150,17 +180,17 @@ class SegModel(nn.Module):
                         memory_format=torch.channels_last).copy_(x)
         if self.pretrained:
             raw = getattr(self, self._encoder)(x)
-            taps = [getattr(self, f"PretrainedTapProjector_{k}")(tap)
-                    for k, tap in enumerate(raw[:5])]
+            taps = [getattr(self, name)(tap)
+                    for name, tap in zip(self._projectors, raw[:5])]
             bottom = raw[5] if self.model_depth == 5 else taps[-1]
         else:
             taps, bottom = self.ScratchEncoder_0(x)
-        conv = self.LatentLayer_0(bottom)
+        conv = bottom if self.fpn else self.LatentLayer_0(bottom)
         if self.ae:
             conv = self.FeatureExtractionBlock_0(conv)
         skips = taps[:self.model_depth] + [conv]
         deconv, levels = getattr(self, self._decoder_name)(skips)
-        out = apply_activation(self.out(deconv), self.final_activation)
+        out = apply_activation(self.out(deconv), self._head_activation)
         outputs = {"out": out.permute(0, 2, 3, 1)}
         # the reference's order: out, then levelD .. level1
         for idx, lvl in enumerate(levels):
@@ -185,6 +215,7 @@ def model_selector(
     dense_loop: int = 1,
     is_transconv: bool = True,
     alpha: float = 1.0,
+    q: int = 3,
     feature_number: int = 1024,
     final_activation: str = "sigmoid",
     train_mode: str = "from_scratch",
@@ -198,7 +229,7 @@ def model_selector(
     ``encoder_name`` names the backbone of a ``pretrained_encoder``
     model; ``length`` and ``width``, the input's height and width, size
     the autoencoder bottleneck (``ae = 1``; without it the model takes
-    any spatial size)."""
+    any spatial size); ``q`` is the Self-ONN decoders' order."""
     if model_genre not in ("UNet", "FPN"):
         raise ValueError(f"Unknown model genre {model_genre!r}")
     pretrained = train_mode == "pretrained_encoder"
@@ -206,7 +237,7 @@ def model_selector(
         decoder_name=decoder_name, model_width=model_width,
         model_depth=model_depth, in_channels=num_channels,
         output_nums=output_nums, ds=ds, ae=ae, ag=ag, lstm=lstm,
-        dense_loop=dense_loop, is_transconv=is_transconv, alpha=alpha,
+        dense_loop=dense_loop, is_transconv=is_transconv, alpha=alpha, q=q,
         feature_number=feature_number, input_size=(length, width),
         final_activation=final_activation, genre=model_genre,
         train_mode=train_mode, dtype=dtype, generator=generator,

@@ -123,9 +123,11 @@ class AutoNamed(nn.Module):
         super().__init__()
         self._counts: tp.Dict[str, int] = {}
 
-    def _add(self, module: nn.Module) -> nn.Module:
-        """Register ``module`` under flax's next auto-name of its type."""
-        kind = type(module).__name__
+    def _add(self, module: nn.Module, kind: tp.Optional[str] = None
+             ) -> nn.Module:
+        """Register ``module`` under flax's next auto-name of its type, or
+        of the flax type ``kind`` (a ``HeadConv`` is flax's ``Conv``)."""
+        kind = kind or type(module).__name__
         n = self._counts.get(kind, 0)
         self._counts[kind] = n + 1
         self.add_module(f"{kind}_{n}", module)
@@ -504,6 +506,35 @@ class RecurrentConvBlock(_Block):
         for i in range(self.t):
             x = concat(getattr(self, f"ConvBlock_{i}")(x), inputs)
         return getattr(self, f"ConvBlock_{self.t}")(x)
+
+
+class SelfRecurrentConvBlock(nn.Module):
+    """Self-ONN recurrent conv block of SelfR2UNetPP (JAX
+    ``SelfRecurrentConvBlock``, blocks.py:946): ``t`` times ``x =
+    concat(Oper_<i>(x), inputs)`` (order ``q``), then ``ConvBlock_0``, all
+    ``features`` wide with kernel ``kernel``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 t: int = 2, q: int = 3, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 2):
+        from .onn import Oper
+
+        super().__init__()
+        self.t = t
+        kw = dict(dtype=dtype, generator=generator, rank=rank)
+        for i in range(t):
+            cin = in_features if i == 0 else features + in_features
+            self.add_module(f"Oper_{i}", Oper(cin, features, kernel, q=q,
+                                              **kw))
+        self.ConvBlock_0 = ConvBlock(features + in_features if t else
+                                     in_features, features, kernel, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inputs = x
+        for i in range(self.t):
+            x = concat(getattr(self, f"Oper_{i}")(x), inputs)
+        return self.ConvBlock_0(x)
 
 
 class ConvMixerBlock(_Block):

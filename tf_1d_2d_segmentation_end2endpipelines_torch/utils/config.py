@@ -309,9 +309,9 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
 def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
     """The settings of ``cfg`` the port's 1D verbs do not take yet, as
     ``key = value`` strings (empty when it takes them all): a
-    ``model_name`` outside the ported ``UNet1D`` archs (all but the three
-    Self-ONN ones) and special families (BCDUNet, SEDUNet, IBAUNet,
-    NABNet), ``lstm`` on ``MultiResUNet3P`` (whose reference branch
+    ``model_name`` outside the ported ``UNet1D`` archs (all of them) and
+    special families (BCDUNet, SEDUNet, IBAUNet, NABNet), ``lstm`` on
+    ``MultiResUNet3P`` (whose reference branch
     crashes; the JAX package refuses it) and the multi-device keys."""
     from ..models.api_1d import PORTED_ARCHS_1D
 
@@ -324,16 +324,3 @@ def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
         ("zero1", cfg.zero1),
     )
     return [f"{key} = {getattr(cfg, key)!r}" for key, bad in checks if bad]
-
-
-def unported_test_keys(train: TrainConfig) -> tp.List[str]:
-    """The settings of the architecture the ``test`` verb rebuilds
-    (``train``: the fold's Train_Configs.ini, or the TEST config's model
-    keys) that the port does not build yet, as ``key = value`` strings:
-    the genre.  Decoder families the port lacks, pretrained backbones but
-    EfficientNet V1, the tap projectors but the default one and ``a_e``
-    on a pretrained encoder raise when the model is built."""
-    checks = (
-        ("model_genre", train.model_genre != "UNet"),
-    )
-    return [f"{key} = {getattr(train, key)!r}" for key, bad in checks if bad]

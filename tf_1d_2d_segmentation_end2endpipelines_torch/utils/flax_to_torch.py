@@ -23,6 +23,12 @@ batch_stats .../mean        .../running_mean          as is
 batch_stats .../var         .../running_var           as is
 ==========================  ========================  =====================
 
+The Self-ONN layers' leaves map the same way: ``Oper_<k>/onn_conv``
+(the model's Self head ``out/onn_conv`` too) and
+``OperTranspose_<k>/onn_trans_conv``, whose kernels' input channels are
+the power stack's ``[x, x**2, x**3]`` in the port's order as well
+(ops/onn.py).
+
 The one permutation serves both kernels: a Conv's HWIO becomes OIHW, and
 a ConvTranspose's (kh, kw, C_out, C_in), stored with
 ``transpose_kernel=True``, becomes ``conv_transpose2d``'s
