@@ -75,11 +75,11 @@ kernel).  Phases, each printing lines:
    train step and validation batch (4 encoder pools, 3 decoder pyramids,
    one per pooled skip, 1 target pyramid) and 10 pool-backward launches
    per step (one per pooled tap)
-9. config 3: 20 counted steps each of UNet++ (4 + 4 launches a step) and
+9. config 3: 10 counted steps each of UNet++ (4 + 4 launches a step) and
    UNet3+ (7 + 10), finite ``out`` loss, p50 step, img/s, peak memory
 10. ds reference: phase 7 for a W8/D3 UNet3+ with ``ds=1`` and its
     deep-supervision targets and loss weights
-11. config 2: 20 counted steps each of UNet, UNetE and UNetP (W32/D4,
+11. config 2: 10 counted steps each of UNet, UNetE and UNetP (W32/D4,
     transposed convs, no deep supervision, BCEDice, Adam 1e-4, batch 16):
     the loss falls, 4 + 4 launches a step, p50 step, img/s, peak memory
 12. test: the ``test`` verb on phase 6's fold over 16 fresh PNGs in
@@ -92,7 +92,7 @@ kernel).  Phases, each printing lines:
 13. config 2 reference: phase 7 for W8/D3 UNet with ``ds=1`` (its
     low-resolution heads and the targets pyramid), UNetE without and UNetP
     with deep supervision
-14. config 4: 20 counted steps each of MultiResUNet (alpha 1; its encoder
+14. config 4: 10 counted steps each of MultiResUNet (alpha 1; its encoder
     pools 31, 63, 127 and 255 channels: the pyramid's row kernel, the
     backward one channel a thread) and UNet with ``ag=1``, as phase 11:
     the loss falls, 4 + 4
@@ -108,7 +108,7 @@ kernel).  Phases, each printing lines:
 17. multires reference: phase 7 for W8/D3 MultiResUNet with ``ds=1``,
     UNet with ``ag=1`` and ``ds=1``, UNet++ with ``ag=1``, MultiResUNet3+
     and KSSNet
-18. registries: 20 counted steps of the flagship under each of the 8
+18. registries: 10 counted steps of the flagship under each of the 8
     optimizers with ``global_clipnorm``, ``clipnorm`` and ``clipvalue``
     each biting on the first gradient (printed): 4 + 4 launches a
     step, finite losses, p50 step; the p50 of each optimizer update (the
@@ -172,7 +172,7 @@ kernel).  Phases, each printing lines:
     and MultiResUNet with ``a_g = 1`` on (2, 256, 1) signals,
     MeanAbsoluteError
 
-24. config 5 in 1D: 20 counted fixed-batch steps of BCDUNet (``lstm =
+24. config 5 in 1D: 10 counted fixed-batch steps of BCDUNet (``lstm =
     1, dense_loop = 2``), SEDUNet (``se_ratio = 8``), NABNet
     (``dense_loop = 2``) and IBAUNet (``a_g = 1``) at config 1's size in
     float32 and bfloat16 (3 + 3 launches a step: each pools its level
@@ -180,7 +180,7 @@ kernel).  Phases, each printing lines:
     the loss must fall; phase 21's verbs on BCDUNet and NABNet; then
     phase 23's check on each at W8/D3 (and BCDUNet with ``d_s = 1``)
 25. config 5 in 2D: the W32/D4 UNet on EfficientNetB0 (random weights,
-    bf16, batch 16 at 256x256 of pixel-valued images), 20 counted steps
+    bf16, batch 16 at 256x256 of pixel-valued images), 10 counted steps
     with ``encoder_trainable`` 0 and 1, no pool launch (it downsamples by
     strided convolutions), the loss must fall, the backbone's running
     statistics unchanged with 0 and all moved with 1; cuDNN's depthwise
@@ -203,10 +203,20 @@ kernel).  Phases, each printing lines:
     SELF_1D_SCALE (``phase_self_1d``: SelfR2UNetPP, SelfUNetPP,
     SelfUNet3P with and without ``d_s``; the 1D verbs on SelfUNetPP),
     W8/D3 references
+30. the last 1D special families at config 1's size
+    (``phase_zoo_1d_specials``, ZOO_1D_SPECIALS: every TernausNet,
+    AlbUNet, LinkNet, FPN, MLMRSNet, SAUNet and Dense-Inception name,
+    SPECIALS_LONG_STEPS (20) counted steps with the loss falling, the others
+    SPECIALS_SHORT_STEPS, exact launches; the SAUNet family with
+    DropBlock at keep_prob 0.9 drawn on the card, its dropped share
+    printed; the 1D verbs on SAUNet and on LinkNetPP with ``d_s = 1``),
+    W8/D3 references of SPECIALS_LONG with the card's DropBlock draws
+    replayed on the CPU
 
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
-phases 21-29; the others run in their order.
+phases 21-30; the others run in their order.  Each phase's wall time is
+printed when it ends.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
@@ -214,13 +224,14 @@ and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
 ``registries``, ``predict``, ``train_options``, ``train_patchify``, the
 paths of phases 27-28 (``lstm_*``, ``ae_UNet``, ``train_lstm``,
-``self_*``, ``fpn_FPN``, ``train_self``), or a 1D path with the rows
+``self_*``, ``fpn_FPN``, ``train_self``), or a 1D path (phase 30's
+``1d_special_*``, ``1d_verbs_*`` among them) with the rows
 ``maxpool1d_pyramid`` and ``maxpool1d_backward``): the launches of that
 path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted
 runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
 run; the fixed batches), 22 or 24 (the fixed batches; the train1d runs),
-26-29 (the fixed batches; the verb runs), and the device times and
+26-30 (the fixed batches; the verb runs), and the device times and
 bound of the
 calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
@@ -269,15 +280,15 @@ N_VAL = 16
 TRAIN_EPOCHS = 2
 FIXED_STEPS = 30
 DS_EPOCHS = 2
-CONFIG3_STEPS = 20
-CONFIG2_STEPS = 20
-CONFIG4_STEPS = 20
+CONFIG3_STEPS = 10
+CONFIG2_STEPS = 10
+CONFIG4_STEPS = 10
 N_TEST = 16
 TEST_BATCH = 8
 #: views of phase 12's second test run
 TEST_TTA = "hflip,vflip"
 #: phase 18: counted fixed-batch steps of the flagship per optimizer
-REG_STEPS = 20
+REG_STEPS = 10
 #: phase 18's train verb fold: its metrics, by the JAX package's names
 REG_METRICS = ("MeanIoU", "OneHotMeanIoU", "AUC", "Precision", "Recall",
                "BinaryAccuracy", "tf.keras.metrics.TruePositives")
@@ -636,7 +647,7 @@ SIG_BATCH = 128
 N_SIG_TRAIN, N_SIG_VAL, N_SIG_TEST = 1024, 128, 128
 SIG_EPOCHS = 2
 #: phase 22: counted fixed-batch steps of each of the other five archs
-SIG_STEPS = 20
+SIG_STEPS = 10
 #: the JAX ``test_1d``'s metric keys (drivers_1d.py:336-350)
 NILM_KEYS = ("DEOI", "EA", "JEOI", "MAE", "MSE", "PCC", "RMSE", "SAE",
              "restored_checkpoint")
@@ -675,7 +686,7 @@ CONFIG5_VERBS = {"config5_verbs_BCDUNet": "config5_BCDUNet",
                  "config5_verbs_NABNet": "config5_NABNet"}
 _CONFIG5_RUNS = [(p + sfx, dt) for p in CONFIG5_1D
                  for sfx, dt in (("", _F32), ("_bf16", _BF16))]
-#: phase 26: the rest of the 1D zoo at config 1's size, 20 counted steps
+#: phase 26: the rest of the 1D zoo at config 1's size, SIG_STEPS counted steps
 #: each in float32 (``_bf16``: bfloat16): path -> (arch, keyword
 #: arguments).  The conv, recurrent, r2 and ConvMixer encoders pool their
 #: level outputs 32, 64 and 128 wide (UNet4P's dense encoder too, one
@@ -725,12 +736,95 @@ SELF_1D = {"1d_self_SelfR2UNetPP": ("SelfR2UNetPP", {}),
            "1d_self_SelfUNetPP": ("SelfUNetPP", {}),
            "1d_self_SelfUNet3P": ("SelfUNet3P", {}),
            "1d_self_SelfUNet3P_ds": ("SelfUNet3P", dict(ds=1))}
+#: phase 29's counted steps: at SIG_STEPS (10) SelfUNet3P's loss on the
+#: scaled signals did not fall on an H100 (NVIDIA H100 80GB HBM3, 700 W),
+#: at 20 it does
+SELF_1D_STEPS = 20
 #: phase 29's run of the 1D verbs: path -> (arch, INI keys)
 SELF_1D_VERBS = {"1d_verbs_SelfUNetPP": ("SelfUNetPP", {})}
 _SIG_MR3P = [(SIG_BATCH, SIG_LEN >> k, 64 << k) for k in range(3)]
 for _dt in (_F32, _BF16):
     _FWD1[_dt]["mr3p"] = [(_dt, s, 1, (1,)) for s in _SIG_MR3P]
     _BWD1[_dt]["mr3p"] = [(_dt, s, 2) for s in _SIG_MR3P]
+
+
+#: phase 30: the last 1D special families at config 1's size, float32,
+#: batch 128: path -> (arch, keyword arguments).  TernausNet pools its
+#: five stages (32, 64, 128, 256, 256 wide; its depth is fixed at 5),
+#: AlbUNet only its stem (32 wide at 512 samples; the rest downsamples by
+#: strided convolutions), MultiResLinkNet and SAMultiResUNet their
+#: MultiRes blocks' 31, 62, 124, Dense_Inception_UNet its blocks' 1 + W,
+#: 3 W and 44 W (the odd 33 takes the one-channel-a-thread route), the
+#: rest their level outputs 32, 64, 128; MLMRSNet_V2 also pools its taps
+#: to the deeper levels (by 2 and 4)
+ZOO_1D_SPECIALS = {
+    f"1d_special_{name}": (name, {}) for name in (
+        "TernausNet11", "TernausNet13", "TernausNet16", "TernausNet19",
+        "AlbUNet18", "AlbUNet34", "AlbUNet50", "AlbUNet101", "AlbUNet152",
+        "LinkNet", "LinkNetE", "LinkNetP", "LinkNetPP", "MultiResLinkNet",
+        "FPN", "MLMRSNet", "MLMRSNet_V2", "LDNet", "SAUNet",
+        "SAMultiResUNet", "SelfSAUNet", "Dense_Inception_UNet")}
+#: phase 30: the names that take SPECIALS_LONG_STEPS counted steps, the
+#: loss falling, and have a W8/D3 reference; the others take
+#: SPECIALS_SHORT_STEPS
+SPECIALS_LONG = ("TernausNet16", "AlbUNet34", "LinkNetPP", "MultiResLinkNet",
+                 "FPN", "MLMRSNet", "MLMRSNet_V2", "LDNet", "SAUNet",
+                 "SAMultiResUNet", "SelfSAUNet", "Dense_Inception_UNet")
+SPECIALS_LONG_STEPS = 20
+SPECIALS_SHORT_STEPS = 5
+#: phase 30's reference inputs: (2, 256, 1) signals, but Dense_Inception_
+#: UNet's (2, 128, 1).  Its dense blocks give it 867,840 ReLU
+#: pre-activations at 256 samples, 4-8 times the others', and on an H100
+#: (NVIDIA H100 80GB HBM3, 700 W) 5 and 8 of them landed on the other side
+#: of 0 from the card's, over MAX_RELU_FLIPS.  At 64 samples the flips
+#: were 0 and 1, but its Upsampling blocks' BatchNorms, whose batch
+#: variances reach ~290 at random init, then rounded their running
+#: variances 2.6-3.6e-5 apart, over phase 7's 1e-5: the CPU's own float32
+#: step is 2.2e-5 off its float64 one there, 4.8e-6 at 128 samples and
+#: 6.4e-6 at 256
+SPECIALS_REF_LEN = {"Dense_Inception_UNet": 128}
+#: phase 30's runs of the 1D verbs: path -> (arch, INI keys); SAUNet with
+#: DropBlock at the INI's keep_prob 0.9, LinkNetPP with full-length DS
+#: targets (ds_type UNetPP: no targets' pyramid)
+ZOO_1D_SPECIALS_VERBS = {
+    "1d_verbs_SAUNet": ("SAUNet", {}),
+    "1d_verbs_LinkNetPP_ds": ("LinkNetPP", dict(d_s=1, ds_type="UNetPP"))}
+_SIG_TERNAUS = [(SIG_BATCH, SIG_LEN >> k, 32 << min(k, 3)) for k in range(5)]
+_SIG_DIU = [(SIG_BATCH, SIG_LEN, 33), (SIG_BATCH, SIG_LEN >> 1, 96),
+            (SIG_BATCH, SIG_LEN >> 2, 1408)]
+_SIG_ALB = [(SIG_BATCH, SIG_LEN >> 1, 32)]
+#: MLMRSNet_V2's other pools in call order: tap 1 by 2 into level 2, then
+#: the decoder's: tap 0 by 4, tap 1 by 2, tap 0 by 2
+_SIG_V2 = [(_SIG_ENC[1], 2), (_SIG_ENC[0], 4), (_SIG_ENC[1], 2),
+           (_SIG_ENC[0], 2)]
+
+
+def _special_calls(path: str, calls: dict) -> list:
+    """The 1D calls a phase 30 path makes a step (``calls``: _FWD1 or
+    _BWD1)."""
+    arch = {**ZOO_1D_SPECIALS, **ZOO_1D_SPECIALS_VERBS}[path][0]
+    dt = _F32
+    fwd = calls is _FWD1
+
+    def pools(shapes, factor=2):
+        lvl = factor.bit_length() - 1
+        return [(dt, s, lvl, (lvl,)) if fwd else (dt, s, factor)
+                for s in shapes]
+
+    if arch.startswith("TernausNet"):
+        return pools(_SIG_TERNAUS)
+    if arch.startswith("AlbUNet"):
+        return pools(_SIG_ALB)
+    if arch == "Dense_Inception_UNet":
+        return pools(_SIG_DIU)
+    if arch in ("MultiResLinkNet", "SAMultiResUNet"):
+        return list(calls[dt]["mrb"])
+    out = list(calls[dt]["enc"])
+    if arch == "MLMRSNet_V2":
+        # the encoder's own pool of tap 2 comes after tap 1's extra pool
+        extra = [c for s, f in _SIG_V2 for c in pools([s], f)]
+        out = out[:2] + extra[:1] + out[2:] + extra[1:]
+    return out
 
 
 def _zoo_calls(path: str, calls: dict) -> list:
@@ -762,6 +856,8 @@ FWD_PATHS_1D = {
     **{p: _FWD1[_F32]["enc"] for p in CONFIG5_VERBS},
     **{p: _zoo_calls(p, _FWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS,
                                          **SELF_1D, **SELF_1D_VERBS}},
+    **{p: _special_calls(p, _FWD1) for p in {**ZOO_1D_SPECIALS,
+                                             **ZOO_1D_SPECIALS_VERBS}},
 }
 BWD_PATHS_1D = {
     "config1": _BWD1[_F32]["enc"],
@@ -775,13 +871,15 @@ BWD_PATHS_1D = {
     **{p: _BWD1[_F32]["enc"] for p in CONFIG5_VERBS},
     **{p: _zoo_calls(p, _BWD1) for p in {**ZOO_1D, **ZOO_1D_VERBS,
                                          **SELF_1D, **SELF_1D_VERBS}},
+    **{p: _special_calls(p, _BWD1) for p in {**ZOO_1D_SPECIALS,
+                                             **ZOO_1D_SPECIALS_VERBS}},
 }
 #: phase 25: BASELINE config 5's 2D model (zoo_bench.py:123-130), a W32/D4
 #: UNet on EfficientNetB0 (random weights: encoder_weights = none), bf16,
 #: batch 16 at 256x256; it downsamples by strided convolutions, so it
 #: launches no pool kernel
 EFFNET = "EfficientNetB0"
-EFFNET_STEPS = 20
+EFFNET_STEPS = 10
 #: timed beside the paths' calls: the same calls in bf16
 FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"]
 BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"]
@@ -1378,7 +1476,8 @@ def _fixed_batch(phase: str, trainer, x, y, steps: int = FIXED_STEPS,
                  must_fall: bool = True, unit: str = "img") -> float:
     """``steps`` train steps on one batch already on the card (the targets
     built from the mask ``y`` at every step, as the verb does); prints the
-    p50 step over all but the first 5 (host clock, synchronized), img/s
+    p50 step over all but the first 5 (all of them in a run of 5 or
+    fewer, which ``_counted_steps`` warms up; host clock, synchronized), img/s
     and peak memory; returns the p50 in seconds.  With ``must_fall`` the
     mean loss of the last 5 steps must be below that of the first 5."""
     import torch
@@ -1400,11 +1499,12 @@ def _fixed_batch(phase: str, trainer, x, y, steps: int = FIXED_STEPS,
     _check(all(np.isfinite(step_losses)), f"non-finite loss: {step_losses}")
     _check(last < first or not must_fall,
            f"fixed-batch loss did not fall: {step_losses}")
-    p50 = statistics.median(step_s[5:])
+    timed = step_s[5:] if steps > 5 else step_s
+    p50 = statistics.median(timed)
     b = x.shape[0]
     print(f"{phase}: {steps} steps on one batch of {b}: mean loss of the "
           f"first 5 {first:.5f}, of the last 5 {last:.5f}; p50 train step "
-          f"{p50 * 1e3:.3f} ms over the last {steps - 5} (host clock, "
+          f"{p50 * 1e3:.3f} ms over the last {len(timed)} (host clock, "
           f"synchronized), {b / p50:.1f} {unit}/s; max_memory_allocated "
           f"{peak} B ({peak / 2 ** 30:.3f} GiB)", flush=True)
     return p50
@@ -1543,7 +1643,7 @@ def phase_config2() -> dict:
     benchmarks/zoo_bench.py:73-80): W32/D4 UNet, UNetE and UNetP, binary,
     transposed-conv decoders, no deep supervision, sigmoid, BCEDice, Adam
     lr 1e-4, bf16, batch 16 of synthetic images and blob masks from a
-    seed (a batch whose loss can fall in 20 steps)."""
+    seed (a batch whose loss can fall in 10 steps)."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
@@ -1582,7 +1682,7 @@ def _check_mrb_widths(model, alpha: float) -> None:
 
 
 def _phase_steps(phase: str, paths: dict) -> dict:
-    """20 counted fixed-batch steps (CONFIG4_STEPS) of each W32/D4 model of
+    """10 counted fixed-batch steps (CONFIG4_STEPS) of each W32/D4 model of
     ``paths`` (path -> (decoder, ag)): binary, transposed convs, no deep
     supervision, sigmoid, BCEDice, Adam lr 1e-4, bf16, batch 16 of phase
     11's synthetic images and blob masks; the loss must fall."""
@@ -1994,6 +2094,8 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
         np.float32))
     y = torch.from_numpy((rng.uniform(size=shape[:-1] + (1,)) > 0.7).astype(
         np.float32))
+    _replay_card_draws(gpu, x.cuda(), [cpu] + list(refs[1:]) + (
+        [control] if control is not None else []))
     bar = RELATIVE_BAR if control is not None else None
 
     def step(model, xs, ys):
@@ -2091,6 +2193,34 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     print(f"{phase}: float32 train step of a {what} on {shape}, card "
           f"(kernels {launched[0]}+{launched[1]} launches, cuDNN without "
           f"TF32, deterministic) " + "; ".join(readings), flush=True)
+
+
+def _replay_card_draws(gpu, x, others: list) -> None:
+    """For a model with DropBlock: one training forward of a copy of
+    ``gpu`` on ``x`` draws every layer's seeds from the card's stream (a
+    CUDA generator keyed by SEED and step 0); ``gpu`` and the ``others``
+    (the CPU models, the control) then replay those draws, so the card's
+    step and the CPU's steps drop the same blocks.  A model without a
+    stochastic layer is left as it is."""
+    import copy
+
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import (
+        drawn_by_name, random_stream, replay, stream_generator)
+
+    probe = copy.deepcopy(gpu).train()
+    with torch.no_grad(), random_stream(stream_generator("cuda", SEED, 0)):
+        probe(x)
+    draws = drawn_by_name(probe)
+    if not draws:
+        return
+    replay(gpu, draws)
+    for model in others:
+        replay(model, {k: v.cpu() for k, v in draws.items()})
+    print(f"    the card's DropBlock draws replayed on the CPU: "
+          f"{len(draws)} layers, {sum(int(d.sum()) for d in draws.values())}"
+          f" seeds", flush=True)
 
 
 def phase_train_reference() -> None:
@@ -3309,7 +3439,7 @@ def phase_signal_steps() -> dict:
     UNetP, UNetPP (3 + 3 a step), UNet3+ with ``d_s = 1`` (6 + 6: 3
     encoder pools, one pyramid per pooled skip and the targets' pyramid;
     3 + 2 + 1 backward) and MultiResUNet with ``a_g = 1`` (3 + 3 at 31, 62
-    and 124 channels); 20 counted steps each, the loss must fall."""
+    and 124 channels); 10 counted steps each, the loss must fall."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
@@ -3369,7 +3499,7 @@ def phase_signal_reference() -> None:
 def phase_config5_1d(tmp: str) -> dict:
     """Phase 24: BASELINE config 5's 1D models (CONFIG5_1D) at config 1's
     size (W32/D3, 1024 samples, batch 128 of phase 21's test signals,
-    MeanAbsoluteError, Adam): 20 counted fixed-batch steps of each in
+    MeanAbsoluteError, Adam): 10 counted fixed-batch steps of each in
     float32 and in bfloat16 (3 + 3 launches a step: every special pools
     its level outputs 32, 64 and 128 wide), BCDUNet with ``d_s = 1`` (4 +
     3: the targets' pyramid), the loss must fall; then the 1D verbs on
@@ -3473,7 +3603,7 @@ def phase_config5_2d(tmp: str) -> None:
     """Phase 25: BASELINE config 5's 2D model, the W32/D4 UNet on
     EfficientNetB0 (``encoder_weights = none``), bf16, batch 16 of phase
     11's synthetic images at 256x256 scaled to pixel values (the backbone
-    divides by 255): 20 counted fixed-batch steps with ``encoder_trainable``
+    divides by 255): 10 counted fixed-batch steps with ``encoder_trainable``
     0 and 1, each launching no pool kernel (0 + 0), the loss must fall,
     the backbone's running statistics unchanged with 0 and moved with 1;
     then the ``train`` verb for one epoch on phase 6's folders (0 + 0,
@@ -3622,7 +3752,7 @@ def phase_config5_2d_reference() -> None:
 def phase_zoo_1d(tmp: str) -> dict:
     """Phase 26: the rest of the 1D zoo (ZOO_1D) at config 1's size
     (W32/D3, 1024 samples, batch 128 of phase 21's test signals,
-    MeanAbsoluteError, Adam): 20 counted fixed-batch steps of each arch
+    MeanAbsoluteError, Adam): 10 counted fixed-batch steps of each arch
     in float32, R2UNet, ConvMixerUNet and MultiResUNet3P in bfloat16,
     UNet++ with ``lstm = 1``, UNet and BCDUNet with ``ae = 1`` and
     R2UNet3P with ``d_s = 1``, the loss must fall, each path's exact
@@ -3697,7 +3827,7 @@ def phase_lstm_ae_2d(tmp: str) -> dict:
     the flagship's size (LSTM_AE_2D: UNet++ and KSSNet with ``lstm = 1,
     a_g = 1``, UNet with ``ae = 1``: its bottleneck's two Dense layers
     hold 2 x 131072 x 1024 parameters), bf16, batch 16 of phase 11's
-    images, 20 counted steps each (UNet++ and UNet 4 + 4 launches a step,
+    images, 10 counted steps each (UNet++ and UNet 4 + 4 launches a step,
     KSSNet 8 + 14), the loss must fall, the peak memory printed; then the
     ``train`` verb for one epoch on phase 6's folders with UNet++ and
     ``lstm = 1`` (4 + 4 a step, best.pt served), ``test`` and ``predict``
@@ -3800,7 +3930,7 @@ def phase_self_2d(tmp: str) -> dict:
     """Phase 28: the Self-ONN family and the FPN genre in 2D at the
     flagship's size (SELF_2D: SelfUNet, SelfUNetPP, SelfUNet3P with and
     without ``d_s = 1``, SelfFPN and FPN; W32/D4, q = 3), bf16, batch 16
-    of phase 11's images times SELF_2D_SCALE, 20 counted steps each (4 +
+    of phase 11's images times SELF_2D_SCALE, 10 counted steps each (4 +
     4 launches a step; SelfUNet3P 7 + 10, with ``d_s = 1`` 8 + 10), the
     loss must fall, the peak memory printed; SelfFPN and SelfUNet on
     EfficientNetB0 (SELF_2D_B0, ``encoder_trainable = 0``), 0 + 0; then
@@ -3963,7 +4093,8 @@ def phase_self_1d(tmp: str) -> dict:
               f"{SELF_1D_SCALE}", flush=True)
         counts[path] = _counted_steps(
             "phase 29", path, trainer, trainer.to_device(x),
-            trainer.to_device(y), SIG_STEPS, must_fall=True, unit="signals")
+            trainer.to_device(y), SELF_1D_STEPS, must_fall=True,
+            unit="signals")
         del trainer
         torch.cuda.empty_cache()
     for path, (arch, over) in SELF_1D_VERBS.items():
@@ -4007,6 +4138,107 @@ def phase_self_1d_reference() -> None:
             control=control, x_scale=SELF_1D_SCALE)
 
 
+def _dropped_share(model) -> str:
+    """The share each DropBlock of ``model`` dropped in its last training
+    forward, as text."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops import DropBlock
+
+    shares = [1.0 - float(m.kept) for m in model.modules()
+              if isinstance(m, DropBlock) and m.kept is not None]
+    return (f"{len(shares)} DropBlocks dropped {min(shares):.4f}-"
+            f"{max(shares):.4f} of their inputs (mean "
+            f"{sum(shares) / len(shares):.4f}; keep_prob 0.9)")
+
+
+def phase_zoo_1d_specials(tmp: str) -> dict:
+    """Phase 30: the last 1D special families (ZOO_1D_SPECIALS) at config
+    1's size (W32, D3 where the family takes a depth, 1024 samples, batch
+    128 of phase 21's test signals, float32, MeanAbsoluteError, Adam):
+    SPECIALS_LONG take SPECIALS_LONG_STEPS counted fixed-batch steps and
+    their loss
+    must fall, the others SPECIALS_SHORT_STEPS; each path's exact
+    launches a step (``_special_calls``); the SAUNet family draws its
+    DropBlocks (keep_prob 0.9) from the trainer's stream on the card,
+    and the share they dropped is printed; then the 1D verbs on SAUNet
+    and on LinkNetPP with ``d_s = 1`` (``_signal_verbs``).  Returns
+    {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp)
+    x, y = sets["x_test"], sets["y_test"]
+    counts = {}
+    for path, (arch, kw) in ZOO_1D_SPECIALS.items():
+        trainer = _signal_trainer(arch, torch.float32, **kw)
+        long = arch in SPECIALS_LONG
+        print(f"phase 30 {path}: W32/D3 {arch}, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, float32, batch {SIG_BATCH}", flush=True)
+        counts[path] = _counted_steps(
+            "phase 30", path, trainer, trainer.to_device(x),
+            trainer.to_device(y),
+            SPECIALS_LONG_STEPS if long else SPECIALS_SHORT_STEPS,
+            must_fall=long, unit="signals")
+        if arch in ("SAUNet", "SAMultiResUNet", "SelfSAUNet"):
+            print(f"phase 30 {path}: {_dropped_share(trainer.model)}",
+                  flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    for path, (arch, over) in ZOO_1D_SPECIALS_VERBS.items():
+        counts[path] = _signal_verbs("phase 30", tmp, sets, path, arch, **over)
+    return counts
+
+
+def phase_zoo_1d_specials_reference() -> None:
+    """Phase 30's reference: phase 26's check (the card's float32 step
+    against the CPU's float32 and float64 steps on the card's ReLU masks,
+    RELATIVE_BAR, the bfloat16 control) on each SPECIALS_LONG model at
+    W8/D3 on (2, 256, 1) signals (SPECIALS_REF_LEN: Dense_Inception_UNet's
+    are 128 long), its path's launches a step; the
+    SAUNet family's DropBlocks drop the card's draws in every step
+    (``_replay_card_draws``)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import get_loss
+
+    for arch in SPECIALS_LONG:
+        path = f"1d_special_{arch}"
+        n = SPECIALS_REF_LEN.get(arch, 256)
+        cpu = model_selector_1d(arch, n, 3, 1, 8, 3,
+                                generator=torch.Generator().manual_seed(
+                                    SEED + 30))
+        cpu64 = model_selector_1d(arch, n, 3, 1, 8, 3, dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = model_selector_1d(arch, n, 3, 1, 8, 3,
+                                    dtype=torch.bfloat16)
+        control.load_state_dict(cpu.state_dict())
+        _train_reference(
+            "phase 30 1D reference", f"W8/D3 1D {arch}", cpu, lambda y: y,
+            None, (len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])), cpu64,
+            shape=(2, n, 1), loss=get_loss("MeanAbsoluteError"),
+            control=control)
+
+
+def _time_phases() -> None:
+    """Make every ``phase_*`` function print its wall time when it ends,
+    and the script's so far."""
+    import functools
+
+    start = time.perf_counter()
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_")]:
+        def timed(*args, _fn=g[name], **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                now = time.perf_counter()
+                print(f"wall {_fn.__name__}: {now - t0:.1f} s (the script "
+                      f"at {now - start:.1f} s)", flush=True)
+        g[name] = functools.wraps(g[name])(timed)
+
+
 def main() -> int:
     import torch
 
@@ -4019,6 +4251,7 @@ def main() -> int:
         return 2
     # fails here, before any phase, outside a checkout of the repo
     import tf_1d_2d_segmentation_end2endpipelines_torch  # noqa: F401
+    _time_phases()
     phase_device()
     phase_build()
     if sys.argv[1:] == ["--ds-mask"]:
@@ -4064,6 +4297,8 @@ def main() -> int:
         phase_self_2d_reference()
         trained.update(phase_self_1d(tmp))
         phase_self_1d_reference()
+        trained.update(phase_zoo_1d_specials(tmp))
+        phase_zoo_1d_specials_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

@@ -202,12 +202,6 @@ def test_efficientnet_unet_matches_jax(D, size, trainable):
     assert sum(v.size for v in jax.tree.leaves(variables["params"])) == sum(
         p.numel() for p in tm.parameters())
     tm.load_state_dict(sd)
-    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
-        variables, jnp.asarray(x))["out"]
-    with torch.inference_mode():
-        got = tm.eval()(torch.from_numpy(x))["out"]
-    _close(got.numpy(), want, "out")
-    assert float(np.asarray(want).std()) > 1e-3
 
     with jax.enable_x64(True):
         def cast(tree):
@@ -220,9 +214,22 @@ def test_efficientnet_unet_matches_jax(D, size, trainable):
                                           variables=cast(variables))
         step = jstate.make_train_step(step_model, _grad_capture(),
                                       jlosses.bce_dice_loss)
-        state, jloss, _ = jax.jit(step)(state, cast(x), cast(y))
+
+        def both(state, xs, ys):
+            # the eval forward and the step, one compiled program
+            return step_model.apply({"params": state.params,
+                                     "batch_stats": state.batch_stats},
+                                    xs, train=False)["out"], step(state, xs,
+                                                                  ys)
+
+        want, (state, jloss, _) = jax.jit(both)(state, cast(x), cast(y))
         jloss = float(jloss)
-        state = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), state)
+        state, want = jax.tree.map(
+            lambda a: np.asarray(a).astype(np.float32), (state, want))
+    with torch.inference_mode():
+        got = tm.eval()(torch.from_numpy(x))["out"]
+    _close(got.numpy(), want, "out")
+    assert float(np.asarray(want).std()) > 1e-3
     names = dict(tm.named_parameters())
     tloss, _ = make_train_step(tm, make_optimizer("Adam", names.values(),
                                                   1e-3), bce_dice_loss)(

@@ -7,6 +7,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# Every pytest-xdist worker imports this module while it collects, so this
+# bounds the intra-op threads of each worker's torch: the tier-1 run's six
+# workers on eight cores otherwise each start one thread a core, and the
+# port's CPU tests spent most of their time contending for them.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

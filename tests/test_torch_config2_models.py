@@ -72,7 +72,8 @@ def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
     and ``tm`` (the port's) on (2, size, size, 3) with random parameters
     and BN statistics: the converter fills every torch key from a flax
     leaf and the parameter counts agree; in eval mode ``out`` and every
-    ``level{k}`` within 1e-4; one float32 training step of the port
+    ``level{k}`` within 1e-4 of JAX's forward in ``step_dtype`` (one
+    compiled program with its step); one float32 training step of the port
     (BCEDice on every head, weighted by ``default_ds_weights``, the
     targets of ``ds_type``, the decoder ``module``'s heads scaled into
     (0.05, 0.95), as tests/test_torch_ds_models.py explains) gives the
@@ -101,18 +102,6 @@ def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
         p.numel() for p in tm.parameters())
     tm.load_state_dict(sd)
 
-    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
-        variables, jnp.asarray(x))
-    with torch.inference_mode():
-        got = tm.eval()(torch.from_numpy(x))
-    assert sorted(got) == sorted(want)
-    assert len(got) == 1 + depth * ds
-    for k, w in want.items():
-        w = np.asarray(w)
-        assert got[k].shape == w.shape, k
-        assert float(np.abs(got[k].numpy() - w).max()) <= 1e-4, k
-    assert float(np.asarray(want["out"]).std()) > 1e-3  # a real signal
-
     weights = default_ds_weights(depth) if ds else None
     with jax.enable_x64(step_dtype == jnp.float64):
         def cast(tree):
@@ -127,9 +116,26 @@ def assert_model_matches_jax(jm, tm, ds, module, ds_type, depth=D,
         step = jstate.make_train_step(step_model, _grad_capture(),
                                       jlosses.bce_dice_loss,
                                       loss_weights=weights)
-        state, jloss, _ = jax.jit(step)(state, cast(x), cast(jy))
+
+        def both(state, xs, ys):
+            # the eval forward and the step, one compiled program
+            return step_model.apply({"params": state.params,
+                                     "batch_stats": state.batch_stats},
+                                    xs, train=False), step(state, xs, ys)
+
+        want, (state, jloss, _) = jax.jit(both)(state, cast(x), cast(jy))
         jloss = float(jloss)
-        state = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), state)
+        state, want = jax.tree.map(
+            lambda a: np.asarray(a).astype(np.float32), (state, want))
+
+    with torch.inference_mode():
+        got = tm.eval()(torch.from_numpy(x))
+    assert sorted(got) == sorted(want)
+    assert len(got) == 1 + depth * ds
+    for k, w in want.items():
+        assert got[k].shape == w.shape, k
+        assert float(np.abs(got[k].numpy() - w).max()) <= 1e-4, k
+    assert float(want["out"].std()) > 1e-3  # a real signal
 
     if ds:
         with torch.no_grad():

@@ -188,15 +188,15 @@ def test_classification_head_is_a_softmax():
 
 
 @pytest.mark.parametrize("arch,kw,error", [
-    ("SelfSAUNet", {}, NotImplementedError),
-    ("SAMultiResUNet", {}, NotImplementedError),
-    ("SAUNet", {}, NotImplementedError),
-    ("LDNet", {}, NotImplementedError),
-    ("TernausNet11", {}, NotImplementedError),
-    ("MLMRSNet", {}, NotImplementedError),
-    ("LinkNet", {}, NotImplementedError),
+    ("AlbUNet19", {}, ValueError),
+    ("TernausNet12", {}, ValueError),
+    ("MLMRSNet_V3", {}, ValueError),
+    ("SAUNetPP", {}, ValueError),
+    ("DenseInceptionUNet", {}, ValueError),
+    ("LinkNet4P", {}, ValueError),
+    ("FPN3P", {}, ValueError),
     ("MultiResUNet3P", {"lstm": 1}, NotImplementedError),
-    ("Dense_Inception_UNet", {}, NotImplementedError),
+    ("AlbUNet", {}, ValueError),
     ("LinkNetX", {}, ValueError),
 ])
 def test_unported_1d_models_raise(arch, kw, error):

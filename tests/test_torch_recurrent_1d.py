@@ -70,7 +70,8 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L,
     packages' ``model_selector_1d`` (``kw``: its options) on (2,
     ``length``, 2) signals with random variables: every torch key filled
     from a flax leaf and the parameter counts equal; every head in eval
-    mode within 1e-4; one training step of the port in float64 against
+    mode within 1e-4 of JAX's float64 forward (compiled in one program
+    with JAX's float64 step); one training step of the port in float64 against
     JAX's in float64, the loss and every gradient within 1e-6 of max(1,
     its size); the port's float32 step against JAX's float64 one: the
     loss within 1e-4, every gradient within ``bar`` of max(1, its size),
@@ -93,22 +94,9 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L,
     assert sum(v.size for v in jax.tree.leaves(variables["params"])) == sum(
         p.numel() for p in tm.parameters())
     tm.load_state_dict(sd)
-
-    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
-        variables, jnp.asarray(x))
-    with torch.inference_mode():
-        got = tm.eval()(torch.from_numpy(x))
-    assert sorted(got) == sorted(want) and len(got) == 1 + D * ds
-    for key, w in want.items():
-        w = np.asarray(w)
-        assert got[key].shape == w.shape, key
-        scale = max(float(np.abs(w).max()), 1.0)
-        assert float(np.abs(got[key].numpy() - w).max()) <= ATOL * scale, key
-    assert float(np.asarray(want["out"]).std()) > 1e-3
-
     weights = default_ds_weights(D) if ds else None
 
-    def jax_step(dtype):
+    def jax_step(dtype, with_eval=False):
         with jax.enable_x64(dtype == jnp.float64):
             def cast(tree):
                 return jax.tree.map(lambda a: np.asarray(a).astype(dtype), tree)
@@ -123,11 +111,28 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L,
             step = jstate.make_train_step(
                 step_model, _grad_capture(),
                 jlosses.get_loss("MeanAbsoluteError"), loss_weights=weights)
-            state, loss, _ = jax.jit(step)(state, cast(x), cast(jy))
-            return float(loss), jax.tree.map(
-                lambda a: np.asarray(a).astype(np.float32), state)
 
-    jloss, state = jax_step(jnp.float64)
+            def both(state, xs, ys):
+                # the eval forward and the step, one compiled program
+                out = (step_model.apply({"params": state.params,
+                                         "batch_stats": state.batch_stats},
+                                        xs, train=False)
+                       if with_eval else None)
+                return out, step(state, xs, ys)
+
+            out, (state, loss, _) = jax.jit(both)(state, cast(x), cast(jy))
+            return float(loss), jax.tree.map(
+                lambda a: np.asarray(a).astype(np.float32), (state, out))
+
+    jloss, (state, want) = jax_step(jnp.float64, with_eval=True)
+    with torch.inference_mode():
+        got = tm.eval()(torch.from_numpy(x))
+    assert sorted(got) == sorted(want) and len(got) == 1 + D * ds
+    for key, w in want.items():
+        assert got[key].shape == w.shape, key
+        scale = max(float(np.abs(w).max()), 1.0)
+        assert float(np.abs(got[key].numpy() - w).max()) <= ATOL * scale, key
+    assert float(want["out"].std()) > 1e-3
     ty = (prepare_train_dict(torch.from_numpy(y), D, ds_type, spatial_rank=1)
           if ds else torch.from_numpy(y))
 
@@ -161,7 +166,7 @@ def assert_1d_model_matches_jax(arch, W, D, kernel=3, length=L,
     if any(scaled(p.grad, jg[k]) > bar for k, p in names.items()):
         # the relative bar: four times JAX's own float32 step's distance
         # from its float64 step (computed only where 1e-4 is missed)
-        jg32 = flax_to_state_dict({"params": jax_step(jnp.float32)[1]
+        jg32 = flax_to_state_dict({"params": jax_step(jnp.float32)[1][0]
                                    .opt_state}, names)
         bar = max(ATOL, 4 * max(scaled(jg32[k], jg[k]) for k in names))
     for key, p in names.items():

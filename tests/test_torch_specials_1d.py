@@ -10,8 +10,9 @@ variables (random, from numpy, converted by utils/flax_to_torch.py):
   ``AttentionLSTMGate``;
 - BCDUNet, SEDUNet, IBAUNet and NABNet at W8/D2-3 on (2, 32, 2) signals,
   with ``d_s``, ``a_g``, ``lstm`` and ``is_transconv`` on and off: every
-  leaf mapped, the parameter counts equal, every head in eval mode, and
-  one float32 ``make_train_step`` (MeanAbsoluteError, the DS heads
+  leaf mapped, the parameter counts equal, every head in eval mode
+  (against JAX's float64 forward, compiled with its step), and one
+  float32 ``make_train_step`` (MeanAbsoluteError, the DS heads
   weighted by ``default_ds_weights``) against JAX's step in float64: its
   loss within 1e-4, every gradient within 1e-4 (of its size where that
   is above 1), the new running statistics within 1e-5;
@@ -57,10 +58,11 @@ def _x(shape, seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
 
-def _pair(jmod, tmod, inputs, train_arg=True, seed=0):
+def _pair(jmod, tmod, inputs, train_arg=True, seed=0, rngs=None):
     """Both blocks on the (B, L, C) ``inputs`` with the same variables, in
     eval mode and in training mode with the same upstream gradient;
-    asserts the bar.  ``train_arg``: the flax block takes ``train``."""
+    asserts the bar.  ``train_arg``: the flax block takes ``train``;
+    ``rngs`` go to its training-mode ``apply``."""
     jx = [jnp.asarray(x) for x in inputs]
     variables = dict(random_variables(jmod, *jx, seed=seed))
     sd = flax_to_state_dict(variables, tmod.state_dict())
@@ -76,6 +78,8 @@ def _pair(jmod, tmod, inputs, train_arg=True, seed=0):
 
     def f(p, xs, g):
         kw = dict(train=True, mutable=["batch_stats"]) if train_arg else {}
+        if rngs is not None:
+            kw["rngs"] = rngs
         out = jmod.apply({"params": p, "batch_stats": stats}, *xs, **kw)
         y, upd = out if train_arg else (out, {"batch_stats": {}})
         return jnp.sum(y * g), (y, upd["batch_stats"])
@@ -203,17 +207,6 @@ def test_special_1d_float32_matches_jax(case):
         p.numel() for p in tm.parameters())
     tm.load_state_dict(sd)
 
-    want = jax.jit(lambda v, x: jm.apply(v, x, train=False))(
-        variables, jnp.asarray(x))
-    with torch.inference_mode():
-        got = tm.eval()(torch.from_numpy(x))
-    assert sorted(got) == sorted(want) and len(got) == 1 + D * ds
-    for key, w in want.items():
-        w = np.asarray(w)
-        assert got[key].shape == w.shape, key
-        assert float(np.abs(got[key].numpy() - w).max()) <= ATOL, key
-    assert float(np.asarray(want["out"]).std()) > 1e-3
-
     # JAX's step in float64: at W8 the RIBlocks' branches are 2 wide and
     # the depth-3 chains deep enough that JAX's own float32 step is off
     # the exact gradients by more than the bar (as for the one-channel
@@ -233,9 +226,25 @@ def test_special_1d_float32_matches_jax(case):
         step = jstate.make_train_step(step_model, _grad_capture(),
                                       jlosses.get_loss("MeanAbsoluteError"),
                                       loss_weights=weights)
-        state, jloss, _ = jax.jit(step)(state, cast(x), cast(jy))
+
+        def both(state, xs, ys):
+            # the eval forward and the step, one compiled program
+            return step_model.apply({"params": state.params,
+                                     "batch_stats": state.batch_stats},
+                                    xs, train=False), step(state, xs, ys)
+
+        want, (state, jloss, _) = jax.jit(both)(state, cast(x), cast(jy))
         jloss = float(jloss)
-        state = jax.tree.map(lambda a: np.asarray(a).astype(np.float32), state)
+        state, want = jax.tree.map(
+            lambda a: np.asarray(a).astype(np.float32), (state, want))
+
+    with torch.inference_mode():
+        got = tm.eval()(torch.from_numpy(x))
+    assert sorted(got) == sorted(want) and len(got) == 1 + D * ds
+    for key, w in want.items():
+        assert got[key].shape == w.shape, key
+        assert float(np.abs(got[key].numpy() - w).max()) <= ATOL, key
+    assert float(want["out"].std()) > 1e-3
 
     ty = (prepare_train_dict(torch.from_numpy(y), D, ds_type, spatial_rank=1)
           if ds else torch.from_numpy(y))

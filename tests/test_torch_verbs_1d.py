@@ -163,10 +163,10 @@ def test_verbs_1d_on_a_jax_trained_fold_equal_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("over,error", [
-    ({"model_name": "SelfSAUNet"}, NotImplementedError),
-    ({"model_name": "MLMRSNet"}, NotImplementedError),
+    ({"model_name": "AlbUNet19"}, ValueError),
+    ({"model_name": "MLMRSNet_V3"}, ValueError),
     ({"model_name": "MultiResUNet3P", "lstm": 1}, NotImplementedError),
-    ({"model_name": "AlbUNet18"}, NotImplementedError),
+    ({"model_name": "TernausNet12"}, ValueError),
     ({"model_parallel": 2}, NotImplementedError),
     ({"spatial_parallel": 2}, NotImplementedError),
     ({"pipeline_parallel": 2}, NotImplementedError),
@@ -185,10 +185,10 @@ def test_train1d_refuses_before_writing(tmp_path, over, error):
 def test_test1d_and_predict1d_refuse_before_writing(tmp_path):
     tmp = str(tmp_path)
     _data(tmp)
-    cfg = _cfg(tmp, model_name="SelfSAUNet")
-    with pytest.raises(NotImplementedError, match="SelfSAUNet"):
+    cfg = _cfg(tmp, model_name="MultiResUNet3P", lstm=1)
+    with pytest.raises(NotImplementedError, match="lstm"):
         drivers_1d.test_1d(config=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="SelfSAUNet"):
+    with pytest.raises(NotImplementedError, match="lstm"):
         drivers_1d.predict_1d(config=cfg, out_path=str(tmp_path / "p.npz"),
                               device="cpu")
     assert not os.path.exists(cfg.save_dir)

@@ -78,9 +78,12 @@ def _check_model_1d(cfg: Signal1DConfig, verb: str) -> None:
 
 def _check_signal_config(cfg: Signal1DConfig) -> None:
     """Raise before ``train_1d`` writes anything: ``NotImplementedError``
-    for an arch or key the port lacks, ``ValueError`` for ``remat =
-    blocks`` (the JAX verb's message) and the settings the 2D verb
-    refuses, ``ImportError`` naming a host package a setting needs."""
+    for a key the port does not take (``unported_signal_keys``),
+    ``ValueError`` for ``remat = blocks`` (the JAX verb's message) and
+    the settings the 2D verb refuses, ``ImportError`` naming a host
+    package a setting needs.  An unknown ``model_name`` raises the JAX
+    package's ``ValueError`` when the model is built, before the first
+    write."""
     _check_model_1d(cfg, "train1d")
     if cfg.remat == "blocks":
         raise ValueError(

@@ -6,17 +6,24 @@ Ported: every ``UNet1D`` arch (UNet, UNetE, UNetP, UNetPP, UNet3P,
 UNet4P, MultiResUNet, the 1D MultiResUNet3P, RUNet, R2UNet, R2UNetPP,
 R2UNet3P, the Self-ONN SelfR2UNetPP, SelfUNetPP and SelfUNet3P of order
 ``q``, and the six ConvMixer archs, also through the ``ConvMixerUNet``
-facade), with deep supervision (``ds``),
+facade), and the LinkNet family's add-merge archs (LinkNet, LinkNetE,
+LinkNetP, LinkNetPP, MultiResLinkNet: ``merge = "add"``, built through
+the ``LinkNet`` facade of models/extra_1d.py), with deep supervision
+(``ds``),
 attention gates (``ag``), ConvLSTM fusion (``lstm``; UNet3+-type
 decoders ignore it), the autoencoder bottleneck (``ae``), transposed
 convs or nearest upsampling, any kernel size, ``alpha`` and ``t``; and
 the special families ``BCDUNet``, ``SEDUNet``, ``IBAUNet`` and
 ``NABNet`` (models/specials_1d.py), with ``lstm``, ``ae``,
-``dense_loop`` and ``se_ratio``.  The other special families and
-``MultiResUNet3P`` with ``lstm = 1`` raise ``NotImplementedError``
-naming what is missing.  The Self-ONN decoders take no gates or ConvLSTM
-fusion: ``ag`` and ``lstm`` build them unchanged, as in the JAX
-package.
+``dense_loop`` and ``se_ratio``, TernausNet, AlbUNet and the 1D FPN
+(models/extra_1d.py), MLMRSNet, MLMRSNet_V2 and LDNet
+(models/mlmrsnet.py, ``cardinality``, ``pooling_type``), SAUNet,
+SAMultiResUNet and SelfSAUNet (models/saunet.py, ``block_size``,
+``keep_prob``) and Dense_Inception_UNet (models/dense_inception.py):
+every name of the JAX ``model_selector_1d``.  ``MultiResUNet3P`` with
+``lstm = 1`` raises ``NotImplementedError``, as the JAX package refuses
+it.  The Self-ONN decoders take no gates or ConvLSTM fusion: ``ag`` and
+``lstm`` build them unchanged, as in the JAX package.
 
 The 1D tree differs from the 2D one (JAX api_1d.py:1-13): two ConvBlocks
 an encoder level and a decoder node (one for UNet3+ and MultiRes nodes),
@@ -49,8 +56,11 @@ from ..ops import (AttentionGate, AutoNamed, ConvBlock, ConvMixerBlock,
 from ..ops.kernels import pyramid
 from .decoders import (ChainDecoder, FullScaleDecoder, GridDecoder,
                        SelfFullScaleDecoder, SelfGridDecoder)
-from .specials_1d import (SPECIAL_ARCHS_1D, BCDUNet, IBAUNet, NABNet,
-                          SEDUNet)
+from .dense_inception import Dense_Inception_UNet
+from .extra_1d import LINKNET_NAMES, FPN, AlbUNet, LinkNet, TernausNet
+from .mlmrsnet import MLMRSNet
+from .saunet import SAUNet
+from .specials_1d import BCDUNet, IBAUNet, NABNet, SEDUNet
 
 #: every arch name of the JAX ``UNet1D`` (api_1d.py:48-90)
 ARCH_NAMES_1D = (
@@ -99,11 +109,18 @@ _ARCHS: tp.Dict[str, tp.Dict[str, tp.Any]] = {
     "ConvMixerMultiResUNet": dict(topo="chain", node="multires_mixer",
                                   reps=1, enc="multires_mixer",
                                   latent="multires_mixer"),
+    # the LinkNet family (JAX extra_1d.py:289-359): add-merge decoders
+    "LinkNet": dict(topo="chain", node="conv", reps=2, merge="add"),
+    "LinkNetE": dict(topo="grid", variant="E", node="conv", reps=2,
+                     merge="add"),
+    "LinkNetP": dict(topo="grid", variant="P", node="conv", reps=2,
+                     merge="add"),
+    "LinkNetPP": dict(topo="grid", variant="PP", node="conv", reps=2,
+                      merge="add"),
+    "MultiResLinkNet": dict(topo="chain", node="multires", reps=1,
+                            enc="multires", latent="multires", merge="add"),
 }
 
-#: the names ``model_selector_1d`` builds: ``SegModel1D``'s archs and
-#: the special families of models/specials_1d.py
-PORTED_ARCHS_1D = tuple(_ARCHS) + SPECIAL_ARCHS_1D
 _SPECIALS = {"BCDUNet": BCDUNet, "SEDUNet": SEDUNet, "IBAUNet": IBAUNet,
              "NABNet": NABNet}
 
@@ -113,24 +130,22 @@ SPECIAL_NAMES_1D = (
     "LDNet", "SAUNet", "SAMultiResUNet", "SelfSAUNet", "Dense_Inception_UNet",
     "TernausNet11", "TernausNet13", "TernausNet16", "TernausNet19",
     "AlbUNet18", "AlbUNet34", "AlbUNet50", "AlbUNet101", "AlbUNet152",
-    "LinkNet", "LinkNetE", "LinkNetP", "LinkNetPP", "MultiResLinkNet", "FPN")
+    ) + LINKNET_NAMES + ("FPN",)
+
+#: every name ``model_selector_1d`` builds: ``UNet1D``'s archs and the
+#: special families' method names
+PORTED_ARCHS_1D = ARCH_NAMES_1D + SPECIAL_NAMES_1D
 
 
 def check_arch_1d(arch: str, lstm: int = 0) -> None:
     """Raise for what ``model_selector_1d`` does not build:
-    ``ValueError`` for a name the JAX package does not know either,
-    ``NotImplementedError`` naming a special family the port lacks, and
-    ``MultiResUNet3P`` with
-    ``lstm = 1``, whose reference branch crashes (JAX api_1d.py:
-    203-206)."""
-    if arch not in ARCH_NAMES_1D and arch not in SPECIAL_NAMES_1D:
+    ``ValueError`` for a name the JAX package does not know either, and
+    ``NotImplementedError`` for ``MultiResUNet3P`` with ``lstm = 1``,
+    whose reference branch crashes (JAX api_1d.py:203-206)."""
+    if arch not in PORTED_ARCHS_1D:
         raise ValueError(
             f"unknown 1D architecture {arch!r}; expected one of "
             f"{sorted(ARCH_NAMES_1D)} or a special-family method name")
-    if arch not in PORTED_ARCHS_1D:
-        raise NotImplementedError(
-            f"1D architecture {arch!r} is not ported yet (ported: "
-            f"{', '.join(PORTED_ARCHS_1D)})")
     if lstm and arch == "MultiResUNet3P":
         raise NotImplementedError(
             "the 1D MultiResUNet3P with lstm = 1: the reference's LSTM "
@@ -232,10 +247,13 @@ class SegModel1D(AutoNamed):
                      is_transconv=is_transconv, q=q, dtype=dtype,
                      generator=generator, kernel=k, dialect="1d",
                      bottom_features=bottom)
+        merge = cfg.get("merge", "concat")
         if cfg["topo"] == "chain":
-            decoder: nn.Module = ChainDecoder(style="unet", **common)
+            decoder: nn.Module = ChainDecoder(style="unet", merge=merge,
+                                              **common)
         elif cfg["topo"] == "grid":
-            decoder = GridDecoder(variant=cfg["variant"], **common)
+            decoder = GridDecoder(variant=cfg["variant"], merge=merge,
+                                  **common)
         elif cfg["topo"] == "selfgrid":
             decoder = SelfGridDecoder(bare=cfg.get("bare", False),
                                       node_reps=cfg.get("node_reps", 1),
@@ -487,9 +505,9 @@ class _ArchFacade:
 class UNet1D(_ArchFacade):
     """Facade with the reference's constructor and method names (JAX
     api_1d.py:334-356, 1DCNN/Models/unet_variants.py:222-253): each
-    method returns a configured ``SegModel1D``; an arch the port lacks
-    raises ``NotImplementedError``.  ``generator`` draws the weights;
-    ``length`` sizes the autoencoder bottleneck with ``ae = 1``."""
+    method returns a configured ``SegModel1D``.  ``generator`` draws the
+    weights; ``length`` sizes the autoencoder bottleneck with ``ae =
+    1``."""
 
 
 UNet1D._register({name: name for name in ARCH_NAMES_1D})
@@ -535,14 +553,60 @@ def model_selector_1d(arch: str, length: int, model_depth: int,
     ``model_selector_1d``'s surface (api_1d.py:395).  The ported archs
     build a ``SegModel1D``, the four ported special families their model
     (``dense_loop``, ``se_ratio``, ``lstm``, ``ag``, ``ae`` and
-    ``feature_number`` as JAX api_1d.py:424-434 passes them); the other
-    names raise ``NotImplementedError`` naming them, and an unknown name
-    raises the JAX package's ``ValueError``.  ``length`` sizes the
-    autoencoder bottleneck (``ae = 1``; without it the model takes any
-    length); ``q`` is the Self-ONN archs' order; ``cardinality``,
-    ``pooling_type``, ``block_size`` and ``keep_prob`` configure only
-    unported families."""
+    ``feature_number`` as JAX api_1d.py:424-434 passes them), and the
+    other families through their facades with the arguments JAX
+    api_1d.py:435-480 passes them (``cardinality`` and ``pooling_type``
+    to MLMRSNet, ``block_size``, ``keep_prob``, ``alpha`` and ``q`` to
+    SAUNet, ``alpha`` and ``lstm`` to LinkNet); an unknown name raises
+    the JAX package's ``ValueError``.  ``length`` sizes the autoencoder
+    bottleneck (``ae = 1``; without it the model takes any length); ``q``
+    is the Self-ONN archs' order."""
     check_arch_1d(arch, lstm=lstm)
+    fam = dict(dtype=dtype, generator=generator)
+    if arch in ("MLMRSNet", "MLMRSNet_V2", "LDNet"):
+        return getattr(MLMRSNet(
+            length, model_depth, num_channel, model_width, kernel_size,
+            problem_type=problem_type, output_nums=output_nums, ds=ds,
+            ae=ae, cardinality=cardinality, pooling_type=pooling_type,
+            feature_number=feature_number, is_transconv=is_transconv,
+            **fam), arch)()
+    if arch in ("SAUNet", "SAMultiResUNet", "SelfSAUNet"):
+        return getattr(SAUNet(
+            length, model_depth, num_channel, model_width, kernel_size,
+            output_nums=output_nums, ds=ds, ae=ae, alpha=alpha,
+            feature_number=feature_number, block_size=block_size,
+            keep_prob=keep_prob, is_transconv=is_transconv, q=q, **fam),
+            arch)()
+    if arch == "Dense_Inception_UNet":
+        return Dense_Inception_UNet(
+            length, model_depth, num_channel, model_width, kernel_size,
+            problem_type=problem_type, output_nums=output_nums, ds=ds,
+            ae=ae, ag=ag, feature_number=feature_number,
+            **fam).Dense_Inception_UNet()
+    if arch.startswith("TernausNet"):
+        return getattr(TernausNet(
+            length, num_channel, model_width, ds=ds, ae=ae, ag=ag,
+            problem_type=problem_type, output_nums=output_nums,
+            feature_number=feature_number, is_transconv=is_transconv,
+            **fam), arch)()
+    if arch.startswith("AlbUNet"):
+        return getattr(AlbUNet(
+            length, num_channel, model_width, ds=ds, ae=ae, ag=ag,
+            problem_type=problem_type, output_nums=output_nums,
+            feature_number=feature_number, **fam), arch)()
+    if arch in LINKNET_NAMES:
+        return getattr(LinkNet(
+            length, model_depth, num_channel, model_width, kernel_size,
+            problem_type=problem_type, output_nums=output_nums, ds=ds,
+            ae=ae, ag=ag, lstm=lstm, alpha=alpha,
+            feature_number=feature_number, is_transconv=is_transconv,
+            **fam), arch)()
+    if arch == "FPN":
+        return FPN(length, model_depth, num_channel, model_width,
+                   kernel_size, problem_type=problem_type,
+                   output_nums=output_nums, ds=ds, ae=ae, ag=ag,
+                   feature_number=feature_number,
+                   is_transconv=is_transconv, **fam).FPN()
     if arch in _SPECIALS:
         return _SPECIALS[arch](
             model_width=model_width, model_depth=model_depth,

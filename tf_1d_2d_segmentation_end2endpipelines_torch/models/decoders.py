@@ -212,11 +212,12 @@ class _DecoderBase(AutoNamed):
 
 
 def _check_sum(up: int, skip: int) -> None:
-    """The FPN chains add the skip to the upsampled output."""
+    """The FPN chains and the add-merge decoders (LinkNet) add the skip
+    to the upsampled output."""
     if up != skip:
         raise ValueError(
-            f"the FPN decoders add the skip ({skip} channels) to the "
-            f"upsampled output ({up} channels): set is_transconv, whose "
+            f"the FPN and LinkNet decoders add the skip ({skip} channels) to "
+            f"the upsampled output ({up} channels): set is_transconv, whose "
             "transposed conv gives the skip's width (the JAX package fails "
             "on the shapes too)")
 
@@ -242,7 +243,11 @@ class ChainDecoder(_DecoderBase):
     step's output joins it (W * (2**D - 1) wide).  The sum needs the
     upsampled output as wide as the skip, which only the transposed conv
     gives: the JAX package fails on the shapes without it, the port
-    raises ``ValueError`` when it builds."""
+    raises ``ValueError`` when it builds.
+
+    ``merge`` "add" (LinkNet, JAX decoders.py:87-96): the upsampled output
+    plus the skip in place of their concat (``LSTM`` fuses them as
+    before); the sum needs the transposed conv, as ``fpn``'s."""
 
     STYLES = ("unet", "multires", "kssnet", "fpn")
 
@@ -253,7 +258,8 @@ class ChainDecoder(_DecoderBase):
                  generator: tp.Optional[torch.Generator] = None,
                  kernel: int = 3, conv_repeats: int = 1,
                  dialect: str = "2d", node: str = "conv", t: int = 2,
-                 bottom_features: tp.Optional[int] = None):
+                 bottom_features: tp.Optional[int] = None,
+                 merge: str = "concat"):
         if style not in self.STYLES:
             raise NotImplementedError(
                 f"ChainDecoder style {style!r} is not ported yet")
@@ -264,7 +270,10 @@ class ChainDecoder(_DecoderBase):
                          alpha=alpha, dtype=dtype, kernel=kernel,
                          conv_repeats=conv_repeats, t=t, dialect=dialect,
                          generator=generator)
+        if merge not in ("concat", "add"):
+            raise ValueError(f"unknown decoder merge {merge!r}")
         self.style = style
+        self.merge = merge
         self.A_G = A_G
         self.LSTM = LSTM
         W, D = model_width, model_depth
@@ -281,7 +290,7 @@ class ChainDecoder(_DecoderBase):
             if LSTM:
                 cin = self._add_fusion(j, cin, max(int(W * 2.0 ** (D - j - 2)),
                                                    1))
-            elif style == "fpn":
+            elif style == "fpn" or merge == "add":
                 _check_sum(up, width_j)
                 cin = width_j
             if style == "kssnet":
@@ -304,7 +313,7 @@ class ChainDecoder(_DecoderBase):
             up = self._up(deconv, j)
             if self.LSTM:
                 merged = self._fuse(j, skip, up)
-            elif self.style == "fpn":
+            elif self.style == "fpn" or self.merge == "add":
                 merged = up + skip
             else:
                 merged = concat(up, skip)
@@ -343,6 +352,12 @@ class GridDecoder(_DecoderBase):
     fuses [encoder tap or P's skip, the upsampled source, nodes (j, 1..
     i-1)] in place of the concat (decoders.py:283-288).
 
+    ``merge`` "add" (the LinkNet grids, JAX decoders.py:270, :291-297):
+    node (j, i)'s dense terms (nodes (j, 1 .. i-1), gated with ``A_G``)
+    are summed instead of concatenated, and the node takes ``skip + that
+    sum + upsampled`` (``skip + upsampled`` without them); ``LSTM`` fuses
+    [skip, upsampled, the sum].
+
     Deep-supervision heads, all at full resolution: level D on the first
     encoder tap, level D - i on node (0, i) for i < D."""
 
@@ -353,7 +368,8 @@ class GridDecoder(_DecoderBase):
                  generator: tp.Optional[torch.Generator] = None,
                  kernel: int = 3, conv_repeats: int = 1,
                  dialect: str = "2d", node: str = "conv", t: int = 2,
-                 bottom_features: tp.Optional[int] = None):
+                 bottom_features: tp.Optional[int] = None,
+                 merge: str = "concat"):
         if variant not in ("E", "P", "PP", "4P"):
             raise NotImplementedError(
                 f"GridDecoder variant {variant!r} is not ported yet")
@@ -362,7 +378,10 @@ class GridDecoder(_DecoderBase):
                          dtype=dtype, kernel=kernel,
                          conv_repeats=conv_repeats, t=t, dialect=dialect,
                          generator=generator)
+        if merge not in ("concat", "add"):
+            raise ValueError(f"unknown decoder merge {merge!r}")
         self.variant = variant
+        self.merge = merge
         self.A_G = A_G
         self.LSTM = LSTM
         W, D = model_width, model_depth
@@ -384,7 +403,15 @@ class GridDecoder(_DecoderBase):
                 self._gates[(i, j)] = list(range(first, first + n_skips))
                 for g in self._gates[(i, j)]:
                     self._add_gate(g, width_j, src, width_j)
-            cin = self._add_up(n, src, width_j) + n_skips * width_j
+            up = self._add_up(n, src, width_j)
+            cin = up + n_skips * width_j
+            if merge == "add":
+                # skip, the sum of the dense terms (when there are any), the
+                # upsampled output: fused side by side, else summed
+                cin = (up + (2 if n_skips > 1 else 1) * width_j if LSTM
+                       else width_j)
+                if not LSTM:
+                    _check_sum(up, width_j)
             if LSTM:
                 cin = self._add_fusion(n, cin, max(int(W * 2.0 ** (j - 1)),
                                                    1))
@@ -421,8 +448,16 @@ class GridDecoder(_DecoderBase):
                 terms = [self._gate(g, t, src)
                          for g, t in zip(self._gates[(i, j)], terms)]
             up = self._up(src, n)
+            if self.merge == "add" and len(terms) > 1:
+                tot = terms[0]
+                for t in terms[1:-1]:
+                    tot = tot + t
+                terms = [tot, terms[-1]]
             if self.LSTM:  # [skip, upsampled, (the dense total)]
                 merged = self._fuse(n, terms[-1], up, *terms[:-1])
+            elif self.merge == "add":
+                merged = terms[-1] + up if len(terms) == 1 else (
+                    terms[-1] + terms[0] + up)
             else:
                 merged = concat(up, *terms)
             for m in self._paths.get((i, j), ()):

@@ -28,10 +28,6 @@ from ..ops import (AttentionGate, AutoNamed, BatchNorm, BiConvLSTM,
                    TransConv, apply_activation, concat, downsample_pool,
                    pooled_size, upsample, zero_grads)
 
-#: the families this module builds
-SPECIAL_ARCHS_1D = ("BCDUNet", "SEDUNet", "IBAUNet", "NABNet")
-
-
 class DenseConcatBlock(nn.Module):
     """``num_layers`` times ``x = concat(x, ConvBlock(ConvBlock(x)))``
     (JAX :37): ``ConvBlock_<2l>`` and ``ConvBlock_<2l+1>`` at layer l."""

@@ -133,6 +133,14 @@ class AutoNamed(nn.Module):
         self.add_module(f"{kind}_{n}", module)
         return module
 
+    def _alias(self, name: str, module: tp.Optional[nn.Module]
+               ) -> tp.Optional[nn.Module]:
+        """``self.<name>`` is ``module``, a child already registered under
+        its flax name, without a second registration (which would give
+        its parameters a second ``state_dict`` key)."""
+        self.__dict__[name] = module
+        return module
+
 
 def pooled_size(size: int, depth: int) -> int:
     """An axis of ``size`` after ``depth`` max pools by 2 (VALID: each
@@ -281,18 +289,19 @@ class SameConv(nn.Conv2d):
 class ConvBlock(_Block):
     """conv -> [BatchNorm] -> [activation] (JAX ``ConvBlock``, blocks.py:191).
 
-    ``Conv_0`` is a ``SameConv``: SAME padding, stride 1, with bias, a
-    square kernel (``rank`` 2) or a (1, k) kernel over a 1D signal
-    (``rank`` 1), of any k.  Kernel init he_uniform, zero bias."""
+    ``Conv_0`` is a ``SameConv``: SAME padding at ``stride`` (along the
+    length at ``rank`` 1), with bias, a square kernel (``rank`` 2) or a
+    (1, k) kernel over a 1D signal (``rank`` 1), of any k.  Kernel init
+    he_uniform, zero bias."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  use_bn: bool = True, activation: tp.Optional[str] = "relu",
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 rank: int = 2):
+                 rank: int = 2, stride: int = 1):
         super().__init__()
         self.activation = activation
-        self.Conv_0 = SameConv(in_features, features, kernel,
+        self.Conv_0 = SameConv(in_features, features, kernel, stride=stride,
                                init="he_uniform", dtype=dtype,
                                generator=generator, rank=rank)
         self.BatchNorm_0 = BatchNorm(features) if use_bn else None
@@ -304,61 +313,102 @@ class ConvBlock(_Block):
         return apply_activation(x, self.activation)
 
 
-class TransConv(nn.Module):
-    """Transposed-conv upsample by 2 (JAX ``TransConv``, blocks.py:346).
+def transconv_pads(kernel: int, stride: int) -> tp.Tuple[int, int, int]:
+    """``conv_transpose2d``'s ``padding`` and ``output_padding`` along an
+    axis, and the trailing samples to crop, that give flax's ``SAME``
+    ``ConvTranspose`` (lax's transpose padding: ``k + s - 2`` in all,
+    ``pad_a = k - 1`` before when ``s > k - 1``, else ``ceil`` of half of
+    it; ``pad_b`` the rest): ``padding = k - 1 - pad_a`` and
+    ``output_padding = pad_b - pad_a``, or, where that is negative (k3/s2,
+    k4/s1, k4/s3), 0 and that many samples cropped.  The output is ``s``
+    times the input.  A positive ``output_padding`` comes with ``padding``
+    0 (``s > k - 1``), and then its samples lie past every tap: zeros
+    before the bias."""
+    pad_len = kernel + stride - 2
+    pad_a = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    extra = pad_len - 2 * pad_a
+    return kernel - 1 - pad_a, max(extra, 0), max(-extra, 0)
 
-    - ``dialect`` "2d": k4 s2 SAME, no BN, LeakyReLU 0.3.  flax stores the
-      kernel as (kh, kw, C_out, C_in) with ``transpose_kernel=True``;
-      ``permute(3, 2, 0, 1)`` gives ``conv_transpose2d``'s (C_in, C_out,
-      kh, kw) weight, used with ``padding=1`` and no flip (pinned by
-      tests/test_torch_blocks.py).
-    - ``dialect`` "1d" (the 1D tree's ``trans_conv1D``, called from
-      decoders.py:99-108): a 2-wide kernel, stride 2 along L, SAME (which
-      pads nothing: output 2i + t is input i times tap t), then
-      ``BatchNorm_0`` and ReLU.  flax's (2, C_out, C_in) kernel becomes the
-      (C_in, C_out, 1, 2) weight by ``permute(2, 1, 0)``, no flip
-      (tests/test_torch_blocks_1d.py).
-    - ``dialect`` "2d" at ``rank`` 1: the 2D block over a 1D signal (the
-      1D MultiResUNet3P's attention gates, which JAX builds without the
-      1D dialect): a (1, 4) kernel, stride 2 and padding 1 along L,
-      LeakyReLU.
+
+class TransConv(nn.Module):
+    """Transposed conv (JAX ``TransConv``, blocks.py:346): flax's
+    ``ConvTranspose`` SAME with ``transpose_kernel=True`` of any
+    ``kernel`` and ``strides``, bias, then ``BatchNorm_0`` with
+    ``use_bn`` and ``activation``.  flax stores the kernel as (kh, kw,
+    C_out, C_in) ((k, C_out, C_in) in 1D); ``permute(3, 2, 0, 1)``
+    (``permute(2, 1, 0)`` and a unit axis) gives ``conv_transpose2d``'s
+    (C_in, C_out, kh, kw) weight, used with no flip and the padding of
+    ``transconv_pads`` (pinned by tests/test_torch_blocks.py,
+    tests/test_torch_blocks_1d.py and tests/test_torch_extra_blocks_1d.py
+    for every (kernel, stride) the 1D families use).  ``rank`` 1 works
+    along the length of a (B, C, 1, L) signal with a (1, k) kernel.
+
+    ``dialect`` names the decoders' upsamplings by 2, the defaults of the
+    other arguments:
+
+    - "2d": k4 s2, no BN, LeakyReLU 0.3 (the 1D MultiResUNet3P's attention
+      gates take it at ``rank`` 1: JAX builds them without the 1D
+      dialect);
+    - "1d" (the 1D tree's ``trans_conv1D``, decoders.py:99-108): k2 s2
+      along L, ``BatchNorm_0`` and ReLU, always ``rank`` 1.
 
     Init as flax's ``ConvTranspose``: lecun_normal over that kernel shape,
     whose fan-in axis is C_out; zero bias."""
 
+    _DIALECTS = {"2d": (4, 2, False, "leaky_relu"),
+                 "1d": (2, 2, True, "relu")}
+    _DEFAULT = object()
+
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 dialect: str = "2d", rank: int = 2):
+                 dialect: str = "2d", rank: int = 2,
+                 kernel: tp.Optional[int] = None,
+                 strides: tp.Optional[int] = None,
+                 use_bn: tp.Optional[bool] = None,
+                 activation: tp.Any = _DEFAULT):
         super().__init__()
+        k, s, bn, act = self._DIALECTS[dialect]
+        k = k if kernel is None else kernel
+        s = s if strides is None else strides
+        bn = bn if use_bn is None else use_bn
+        self.activation = act if activation is self._DEFAULT else activation
         self.dtype = dtype
-        self.dialect = dialect
-        if dialect == "2d" and rank == 1:
+        self.rank = 1 if dialect == "1d" else rank
+        # output_padding is appended as zeros (``forward``): PyTorch's CPU
+        # build (oneDNN) corrupts its heap in the backward of some
+        # channels_last transposed convs with an output_padding (k1/s2)
+        pad, self.extra, self.crop = transconv_pads(k, s)
+        if self.rank == 1:
             self.ConvTranspose_0 = nn.ConvTranspose2d(
-                in_features, features, (1, 4), stride=(1, 2),
-                padding=(0, 1))
-            fan_in = 4 * features
-        elif dialect == "2d":
-            self.ConvTranspose_0 = nn.ConvTranspose2d(
-                in_features, features, 4, stride=2, padding=1)
-            fan_in = 16 * features
+                in_features, features, (1, k), stride=(1, s),
+                padding=(0, pad))
         else:
             self.ConvTranspose_0 = nn.ConvTranspose2d(
-                in_features, features, (1, 2), stride=(1, 2))
+                in_features, features, k, stride=s, padding=pad)
+        if bn:
             self.BatchNorm_0 = BatchNorm(features)
-            fan_in = 2 * features
+        else:
+            self.BatchNorm_0 = None
         with torch.no_grad():
-            lecun_normal_(self.ConvTranspose_0.weight, fan_in, generator)
+            lecun_normal_(self.ConvTranspose_0.weight,
+                          k ** self.rank * features, generator)
             self.ConvTranspose_0.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ct = self.ConvTranspose_0
         x = F.conv_transpose2d(x.to(self.dtype), ct.weight.to(self.dtype),
                                stride=ct.stride, padding=ct.padding)
+        if self.extra:
+            x = F.pad(x, (0, self.extra) if self.rank == 1
+                      else (0, self.extra, 0, self.extra))
+        elif self.crop:
+            x = (x[:, :, :, :-self.crop] if self.rank == 1
+                 else x[:, :, :-self.crop, :-self.crop])
         x = x + ct.bias.to(self.dtype).view(1, -1, 1, 1)
-        if self.dialect == "2d":
-            return _leaky_relu(x)
-        return torch.relu(self.BatchNorm_0(x))
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x)
+        return apply_activation(x, self.activation)
 
 
 class HeadConv(nn.Conv2d):
@@ -808,6 +858,30 @@ class SqueezeExcite(nn.Module):
         s = spatial_mean(x)
         s = torch.sigmoid(self.Dense_1(torch.relu(self.Dense_0(s))))
         return x * s[:, :, None, None]
+
+
+class SpatialAttention(nn.Module):
+    """CBAM's spatial gate (JAX ``SpatialAttention``, blocks.py:855): the
+    mean over the channels (accumulated in at least float32 and rounded to
+    ``x``'s dtype, as ``jnp.mean``) and the max over them, concatenated
+    (mean first), ``Conv_0`` (k SAME, no bias, lecun_normal) to one
+    channel, and ``x`` times its sigmoid.  The one-channel gate
+    broadcasts over the channels, so the product keeps ``x``'s
+    channels_last layout."""
+
+    def __init__(self, kernel: int = 7, dtype: torch.dtype = torch.float32,
+                 generator: tp.Optional[torch.Generator] = None,
+                 rank: int = 1):
+        super().__init__()
+        self.Conv_0 = SameConv(2, 1, kernel, bias=False, dtype=dtype,
+                               generator=generator, rank=rank)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        avg = xf.mean(dim=1, keepdim=True).to(x.dtype)
+        feat = concat(avg, x.amax(dim=1, keepdim=True))
+        gate = self.Conv_0(feat.contiguous(memory_format=torch.channels_last))
+        return x * torch.sigmoid(gate)
 
 
 class ConvLSTMCell(nn.Module):

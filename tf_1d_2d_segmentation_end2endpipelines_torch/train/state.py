@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import remat as _remat
+from ..ops import stochastic as _stochastic
 from .losses import LossFn, deep_supervision_loss
 from .metrics import Metric
 
@@ -90,8 +91,10 @@ def make_train_step(
     accum_steps: int = 1,
     ema: tp.Optional[tp.List[torch.Tensor]] = None,
     ema_decay: float = 0.0,
+    seed: int = 0,
 ) -> tp.Callable:
-    """``train_step(x, y, metric_states) -> (loss, metric_states)``: the
+    """``train_step(x, y, metric_states, step) -> (loss, metric_states)``:
+    the
     forward in training mode (BatchNorm on batch statistics, its running
     statistics advanced once), the float32 loss, the backward and one
     optimizer update (which clips the gradients first when
@@ -115,33 +118,54 @@ def make_train_step(
     the loss is the mean of the microbatch losses (JAX :183-221).
 
     ``ema`` (a shadow from ``ema_shadow``) with ``ema_decay`` > 0 is
-    updated in place after the optimizer (``ema_update``)."""
+    updated in place after the optimizer (``ema_update``).
+
+    Every parameter is updated, with a zero gradient where the loss does
+    not reach it (a deep-supervision head without a target), as optax's
+    update is.
+
+    A model with stochastic layers (DropBlock, Dropout) draws them from a
+    generator on ``x``'s device keyed by (``seed``, ``step``) and, under
+    accumulation, by the microbatch too (``ops.stochastic``; JAX
+    :166-174, :207).  ``step`` is the count of updates so far (the
+    trainer's, restored on resume); without it the step counts its own
+    calls from 0.  While a forward is recomputed the layers reuse their
+    draws, so every ``remat`` mode gives the plain step's gradients."""
     policy = _remat.check_policy(remat)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     params = [p for g in optimizer.param_groups for p in g["params"]]
     model_params = list(model.parameters())
+    stochastic = bool(_stochastic.stochastic_layers(model))
+    calls = [0]
 
     def loss_for(xi: torch.Tensor, ti: tp.Dict[str, torch.Tensor]):
         outputs = _float32(model(xi))
         return (deep_supervision_loss(loss_fn, outputs, ti, loss_weights),
                 outputs["out"])
 
-    def forward_backward(xi, ti):
-        if policy is None:
-            loss, out = loss_for(xi, ti)
-        else:
-            loss, out = _remat.checkpoint(loss_for, xi, ti, policy=policy)
-        loss.backward()
+    def forward_backward(xi, ti, *key):
+        gen = (_stochastic.stream_generator(xi.device, seed, *key)
+               if stochastic else None)
+        with _stochastic.random_stream(gen):
+            if policy is None:
+                loss, out = loss_for(xi, ti)
+            else:
+                loss, out = _remat.checkpoint(loss_for, xi, ti, policy=policy)
+            loss.backward()
         return loss.detach(), out.detach()
 
-    def train_step(x: torch.Tensor, y: Targets, metric_states: tp.Tuple = ()):
+    def train_step(x: torch.Tensor, y: Targets, metric_states: tp.Tuple = (),
+                   step: tp.Optional[int] = None):
+        if step is None:
+            step = calls[0]
+        calls[0] = step + 1
         targets = _as_target_dict(y)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         states = tuple(metric_states)
         if accum_steps == 1:
-            loss, out = forward_backward(x, targets)
+            loss, out = forward_backward(x, targets, step)
             micro = [(targets["out"], out)]
         else:
             if x.shape[0] % accum_steps:
@@ -153,13 +177,16 @@ def make_train_step(
             micro = []
             for i in range(accum_steps):
                 ti = {k: v[i] for k, v in ts.items()}
-                loss_i, out = forward_backward(xs[i], ti)
+                loss_i, out = forward_backward(xs[i], ti, step, i)
                 loss = loss + loss_i
                 micro.append((ti["out"], out))
             loss = loss / accum_steps
             with torch.no_grad():
                 torch._foreach_div_([p.grad for p in params
                                      if p.grad is not None], accum_steps)
+        for p in params:  # optax updates them all (a zero where the loss
+            if p.grad is None:  # does not reach them: heads without targets)
+                p.grad = torch.zeros_like(p)
         optimizer.step()
         if ema is not None and ema_decay > 0.0:
             ema_update(ema, model_params, ema_decay)

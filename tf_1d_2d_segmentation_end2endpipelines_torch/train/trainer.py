@@ -90,7 +90,8 @@ class Trainer:
         ``ema_decay`` go to the train step (``make_train_step``); with
         ``ema_decay`` > 0 validation, ``evaluate``, ``predict`` and the
         best checkpoint's selection run on the EMA shadow.  ``seed`` keys
-        NaNGuard's re-initialization."""
+        NaNGuard's re-initialization and, with the step count, the
+        stochastic layers' draws (``make_train_step``)."""
         if not 0.0 <= ema_decay < 1.0:
             raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
         self.device = torch.device(device)
@@ -112,7 +113,7 @@ class Trainer:
         self.train_step = make_train_step(
             self.model, self.optimizer, self.loss_fn, loss_weights,
             self.metric_defs, remat=remat, accum_steps=accum_steps,
-            ema=self.ema, ema_decay=ema_decay)
+            ema=self.ema, ema_decay=ema_decay, seed=seed)
         self.eval_step = make_eval_step(self.model, self.loss_fn,
                                         loss_weights, self.metric_defs,
                                         ema=self.ema)
@@ -280,7 +281,7 @@ class Trainer:
                 losses = []
                 for x, y in train_data():
                     loss, mstates = self.train_step(*self._batch(x, y),
-                                                    mstates)
+                                                    mstates, step=self.step)
                     self.step += 1
                     losses.append(loss)
                     if watch is not None and watch.triggered:

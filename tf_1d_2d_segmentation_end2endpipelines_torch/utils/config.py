@@ -307,16 +307,13 @@ def unported_train_keys(cfg: TrainConfig) -> tp.List[str]:
 
 
 def unported_signal_keys(cfg: Signal1DConfig) -> tp.List[str]:
-    """The settings of ``cfg`` the port's 1D verbs do not take yet, as
-    ``key = value`` strings (empty when it takes them all): a
-    ``model_name`` outside the ported ``UNet1D`` archs (all of them) and
-    special families (BCDUNet, SEDUNet, IBAUNet, NABNet), ``lstm`` on
-    ``MultiResUNet3P`` (whose reference branch
-    crashes; the JAX package refuses it) and the multi-device keys."""
-    from ..models.api_1d import PORTED_ARCHS_1D
-
+    """The settings of ``cfg`` the port's 1D verbs do not take, as
+    ``key = value`` strings (empty when it takes them all): ``lstm`` on
+    ``MultiResUNet3P`` (whose reference branch crashes; the JAX package
+    refuses it) and the multi-device keys.  Every ``model_name`` of the
+    JAX package is built; an unknown one raises its ``ValueError`` when
+    the model is built, before anything is written."""
     checks = (
-        ("model_name", cfg.model_name not in PORTED_ARCHS_1D),
         ("lstm", bool(cfg.lstm) and cfg.model_name == "MultiResUNet3P"),
         ("model_parallel", cfg.model_parallel > 1),
         ("spatial_parallel", cfg.spatial_parallel > 1),
