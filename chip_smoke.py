@@ -41,10 +41,11 @@ kernel).  Phases, each printing lines:
 3. kernels: each kernel against its plain PyTorch version at every call
    each path makes (the pyramid storing every level, some levels or one
    level alone for a pool by 2**m; the pool backward with windows 2, 4,
-   8 and 16) and at edge cases (bit-exact: max and its gradient routing are
-   exact), each line naming the kernel the launcher picked (it must be
-   ``pool_rows_kernel`` for every MultiRes encoder pool and
-   ``pool_backward_rows_kernel`` for every backward by 4, 8 or 16 on a
+   8, 16 and 32) and at edge cases (bit-exact: max and its gradient
+   routing are exact), each line naming the kernel the launcher picked
+   (it must be ``pool_rows_kernel`` for every MultiRes encoder pool,
+   ``pyramid_vec_kernel`` for every call storing level 5 and
+   ``pool_backward_rows_kernel`` for every backward by 4 to 32 on a
    path, and is held to the kernel named in ``FWD_ROUTES`` and
    ``BWD_ROUTES`` at the edge cases), with CUDA-event device times of the
    kernel (and the difference between its two turns), the plain version
@@ -212,10 +213,23 @@ kernel).  Phases, each printing lines:
     printed; the 1D verbs on SAUNet and on LinkNetPP with ``d_s = 1``),
     W8/D3 references of SPECIALS_LONG with the card's DropBlock draws
     replayed on the CPU
+31. the dense-input family from scratch at the flagship's size
+    (``phase_dense_2d``, DENSE_2D: UNet4P, UNet4PV2 and AHNet at D4,
+    UNet4P, AHNet and KSSNet at D5, whose tap 1 is pooled by 32, 10
+    counted steps each with the loss falling and exact launches; AHNet
+    through ``train``, ``test`` and ``predict``), W8/D3 references and
+    KSSNet W8/D5's
+32. the backbones the port added (``phase_backbones_2d``: the W32/D4
+    UNet on each of NEW_BACKBONES, trained, 5 steps, 10 for one a class,
+    then that one frozen with its statistics calibrated; the gated
+    projector families, UNet4P at D5 and ``a_e`` on ResNet50 with exact
+    launches; UNet4PV2 on ResNet50 through ``train``), W8/D3 references
+    of one backbone a class and of AHNet on ResNet50, the CPU steps on
+    the card's ReLU and ReLU6 pieces
 
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
-phases 21-30; the others run in their order.  Each phase's wall time is
+phases 21-32; the others run in their order.  Each phase's wall time is
 printed when it ends.
 The line before the last is one JSON object with a row for each kernel
 and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
@@ -224,14 +238,16 @@ and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
 ``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
 ``registries``, ``predict``, ``train_options``, ``train_patchify``, the
 paths of phases 27-28 (``lstm_*``, ``ae_UNet``, ``train_lstm``,
-``self_*``, ``fpn_FPN``, ``train_self``), or a 1D path (phase 30's
+``self_*``, ``fpn_FPN``, ``train_self``), of phases 31-32
+(``dense_*``, ``train_AHNet``, ``proj_*``, ``train_UNet4PV2_ResNet50``),
+or a 1D path (phase 30's
 ``1d_special_*``, ``1d_verbs_*`` among them) with the rows
 ``maxpool1d_pyramid`` and ``maxpool1d_backward``): the launches of that
 path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted
 runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
 run; the fixed batches), 22 or 24 (the fixed batches; the train1d runs),
-26-30 (the fixed batches; the verb runs), and the device times and
+26-32 (the fixed batches; the verb runs), and the device times and
 bound of the
 calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
@@ -345,23 +361,44 @@ def _call_ms(fn, flush) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, flush, loops: int = 5) -> float:
-    """Device time of one ``fn()`` with a cold 50 MB L2: events around REPS
-    (flush, fn) pairs minus events around REPS flushes alone, per call;
-    median over ``loops``.  Zeroing FLUSH_BYTES keeps the card busy longer
-    than the host takes to enqueue ``fn``, so host overhead drops out."""
+def _device_ms(fn, flush, loops: int = 5, reps: int = REPS) -> float:
+    """Device time of one ``fn()`` with a cold 50 MB L2: events around
+    ``reps`` (flush, fn) pairs minus events around ``reps`` flushes alone,
+    per call; median over ``loops``.  Zeroing FLUSH_BYTES keeps the card
+    busy longer than the host takes to enqueue ``fn``, so host overhead
+    drops out."""
     def pairs():
-        for _ in range(REPS):
+        for _ in range(reps):
             flush.zero_()
             fn()
 
     def flushes():
-        for _ in range(REPS):
+        for _ in range(reps):
             flush.zero_()
 
     return statistics.median(
-        (_events_ms(pairs) - _events_ms(flushes)) / REPS
+        (_events_ms(pairs) - _events_ms(flushes)) / reps
         for _ in range(loops))
+
+
+#: a plain version slower than this a call is timed over SLOW_REPS calls
+#: in one loop and one turn (the pool backward's 1,024-step walk at F = 32
+#: takes about 95 ms: 300 calls would take half a minute a case)
+SLOW_PLAIN_MS = 10.0
+SLOW_REPS = 3
+
+
+def _timed_turns(fns: dict, flush, spreads: dict) -> dict:
+    """``_in_turns`` of ``fns``, the plain version taken out of the turns
+    and timed over SLOW_REPS calls when one call of it takes more than
+    SLOW_PLAIN_MS."""
+    if _events_ms(fns["plain"]) <= SLOW_PLAIN_MS:
+        return _in_turns(fns, flush, spreads)
+    fast = {k: f for k, f in fns.items() if k != "plain"}
+    t = _in_turns(fast, flush, spreads)
+    t["plain"] = _device_ms(fns["plain"], flush, loops=1, reps=SLOW_REPS)
+    spreads["plain"] = float("nan")
+    return t
 
 
 def _host_ms(fn, reps: int = 20) -> float:
@@ -569,6 +606,12 @@ FWD_EDGES = [
     (_BF16, (2, 4, 1024, 51), 1, (1,)),     # a row wider than one span
     (_F32, (2, 64, 64, 7), 1, (1,)),        # f32 odd C (the W8 references)
     _OFFSET_1, _OFFSET_8,
+    (_BF16, (2, 70, 66, 16), 5, _all(5)),   # level 5, 16 lanes a
+    (_BF16, (3, 129, 200, 24), 5, _all(5)),  # patch, ragged; several
+    (_F32, (2, 33, 97, 12), 5, (1, 3, 5)),  # patches a warp, f32
+    (_BF16, (2, 70, 66, 16), 5, (5,)),      # level 5 alone, ragged
+    (_BF16, (2, 64, 256, 31), 5, (5,)),     # odd C, 16-byte rows
+    (_BF16, (2, 64, 64, 31), 5, (5,)),      # odd C, 62-byte output rows
 ]
 #: the kernel a call must reach, where phase 3 holds the launcher to it
 FWD_ROUTES = {
@@ -579,6 +622,10 @@ FWD_ROUTES = {
     (_F32, (2, 64, 64, 7), 1, (1,)): POOL_ROWS,
     _OFFSET_1: "pyramid_kernel",
     _OFFSET_8: POOL_ROWS,
+    (_BF16, (2, 70, 66, 16), 5, _all(5)): "pyramid_vec_kernel",
+    (_BF16, (2, 70, 66, 16), 5, (5,)): "pyramid_vec_kernel",
+    (_BF16, (2, 64, 256, 31), 5, (5,)): POOL_ROWS,
+    (_BF16, (2, 64, 64, 31), 5, (5,)): "pyramid_kernel",
 }
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
@@ -622,6 +669,9 @@ BWD_EDGES = [
     (_F32, (2, 33, 17, 4), 16),
     (_BF16, (1, 3, 3, 8), 4),        # nothing pooled
     (_BF16, (2, 32, 32, 32), 16),    # NaN first, last and twice a window
+    (_BF16, (2, 70, 66, 16), 32),    # F = 32, ragged, 16 bytes
+    (_F32, (2, 70, 66, 3), 32),      # one channel a thread
+    (_BF16, (2, 64, 64, 32), 32),    # NaN first, last and twice a window
 ]
 #: values planted in an input (NHWC index -> value) besides its NaN: for
 #: windows of 16, a NaN at window (0, 0)'s first element, at window (0,
@@ -631,11 +681,18 @@ BWD_EDGES = [
 PLANTS = {(_BF16, (2, 32, 32, 32), 16): [
     ((0, 0, 0, 1), float("nan")), ((0, 15, 31, 2), float("nan")),
     ((1, 3, 4, 3), float("nan")), ((1, 9, 12, 3), float("nan")),
-    ((1, 9, slice(13, 16), 3), -5.0)]}
+    ((1, 9, slice(13, 16), 3), -5.0)],
+    (_BF16, (2, 64, 64, 32), 32): [
+    ((0, 0, 0, 1), float("nan")), ((0, 31, 63, 2), float("nan")),
+    ((1, 3, 4, 3), float("nan")), ((1, 20, 12, 3), float("nan")),
+    ((1, 20, slice(13, 32), 3), -5.0)]}
 BWD_ROUTES = {
     **{c: BWD_ROWS for c in _BWD_DEC_3P + _BWD_TAPS_KSS if c[2] >= 4},
     (_BF16, (2, 32, 32, 32), 16): BWD_ROWS,
     (_BF16, (2, 37, 53, 16), 8): BWD_ROWS,
+    (_BF16, (2, 70, 66, 16), 32): BWD_ROWS,
+    (_F32, (2, 70, 66, 3), 32): BWD_ROWS + "<V=1>",
+    (_BF16, (2, 64, 64, 32), 32): BWD_ROWS,
 }
 
 # ---- the 1D pipeline (phases 21-23): BASELINE config 1 (BASELINE.md:28;
@@ -880,6 +937,120 @@ BWD_PATHS_1D = {
 #: launches no pool kernel
 EFFNET = "EfficientNetB0"
 EFFNET_STEPS = 10
+
+# ---- phases 31-32: the dense-input family from scratch, every
+# backbone, the gated tap projectors; W32, batch 16, 256x256, bf16
+#: encoder tap k of a W32 model at 256x256: (16, 256 >> k, 256 >> k, 32 << k)
+_TAP = [(TRAIN_BATCH, SIZE >> k, SIZE >> k, 32 << k) for k in range(5)]
+#: a W32-wide tensor at tap k's grid (AHNet's ResPaths of the encoder taps)
+_AT_W = [(TRAIN_BATCH, SIZE >> k, SIZE >> k, 32) for k in range(5)]
+
+
+def _pyramids(taps: list, deepest: int) -> tuple:
+    """UNet4P and UNet4PV2 (and the gated projectors): tap k pooled once
+    to levels 1 .. deepest - k, each level with its own backward."""
+    fwd = [(_BF16, s, deepest - k, _all(deepest - k))
+           for k, s in enumerate(taps[:deepest])]
+    bwd = [(_BF16, s, 1 << lvl) for k, s in enumerate(taps[:deepest])
+           for lvl in range(1, deepest - k + 1)]
+    return fwd, bwd
+
+
+def _ahnet_encoder(depth: int) -> tuple:
+    """AHNet's encoder: for each block i its fresh ResPath (W wide) on
+    taps 0 .. i-1 pooled by 2**(i-k), then the chain's pool by 2 of tap
+    i - 1, each a single level with its own backward."""
+    fwd, bwd = [], []
+    for i in range(1, depth + 1):
+        for k in range(i):
+            fwd.append((_BF16, _AT_W[k], i - k, (i - k,)))
+            bwd.append((_BF16, _AT_W[k], 1 << (i - k)))
+        fwd.append((_BF16, _TAP[i - 1], 1, (1,)))
+        bwd.append((_BF16, _TAP[i - 1], 2))
+    return fwd, bwd
+
+
+def _ahnet_projectors(batch: int) -> tuple:
+    """AHNet's tap projectors on a backbone (five levels) at ``batch``:
+    level l's own ResPath, W * 2**(l-1) wide, on projected tap k < l,
+    pooled by 2**(l-k)."""
+    fwd, bwd = [], []
+    for lvl in range(2, 6):
+        for k in range(1, lvl):
+            shape = (batch,) + _TAP[k - 1][1:3] + (32 << (lvl - 1),)
+            fwd.append((_BF16, shape, lvl - k, (lvl - k,)))
+            bwd.append((_BF16, shape, 1 << (lvl - k)))
+    return fwd, bwd
+
+
+#: the KSSNet W32/D5 encoder: its MultiRes chain pools (widths 31 .. 511)
+#: and its ResPath taps' pyramids
+_MRB_D5 = [s[:3] + (c,) for s, c in zip(_TAP, (31, 63, 127, 255, 511))]
+_KSS_D5 = _pyramids(_TAP, 5)
+#: phase 31: path -> (decoder, depth, (forward calls, backward calls))
+DENSE_2D = {
+    "dense_UNet4P": ("UNet4P", 4, _pyramids(_TAP, 4)),
+    "dense_UNet4PV2": ("UNet4PV2", 4, (_pyramids(_TAP, 4)[0] + _FWD_DEC_3P,
+                                       _pyramids(_TAP, 4)[1] + _BWD_DEC_3P)),
+    "dense_AHNet": ("AHNet", 4, _ahnet_encoder(4)),
+    "dense_UNet4P_D5": ("UNet4P", 5, _pyramids(_TAP, 5)),
+    "dense_AHNet_D5": ("AHNet", 5, _ahnet_encoder(5)),
+    "dense_KSSNet_D5": ("KSSNet", 5, (
+        [(_BF16, s, 1, (1,)) for s in _MRB_D5] + _KSS_D5[0],
+        [(_BF16, s, 2) for s in _MRB_D5] + _KSS_D5[1])),
+}
+DENSE_STEPS = 10
+#: phase 31's references: W8/D3 float32 card vs CPU (pool launches a step)
+DENSE_REF = {"UNet4P": (3, 6), "UNet4PV2": (5, 9), "AHNet": (9, 9)}
+#: phase 32: the backbones the port added (every name but EfficientNet V1)
+NEW_BACKBONES = tuple(
+    n for n in ("ResNet50", "ResNet101", "ResNet152", "ResNet50V2",
+                "ResNet101V2", "ResNet152V2", "VGG16", "VGG19", "DenseNet121",
+                "DenseNet169", "DenseNet201", "CheXNet", "MobileNet",
+                "MobileNetV2", "MobileNetV3Small", "MobileNetV3Large",
+                "InceptionV3", "InceptionResNetV2", "EfficientNetV2B0",
+                "EfficientNetV2B1", "EfficientNetV2B2", "EfficientNetV2B3",
+                "EfficientNetV2S", "EfficientNetV2M", "EfficientNetV2L"))
+#: one name a backbone class: 10 counted steps, then frozen
+BACKBONE_CLASSES = ("ResNet50", "ResNet50V2", "VGG16", "DenseNet121",
+                    "MobileNet", "MobileNetV2", "MobileNetV3Large",
+                    "InceptionV3", "InceptionResNetV2", "EfficientNetV2S")
+BACKBONE_STEPS = 5
+#: phase 32's gated projector families on ResNet50, W32: path -> (decoder,
+#: depth, (forward, backward calls)); MultiResUNet and the UNet with
+#: ``a_e = 1`` pool nothing
+_PROJ_PYR = _pyramids(_TAP, 4)
+PROJECTORS_2D = {
+    "proj_MultiResUNet": ("MultiResUNet", 4, ([], [])),
+    "proj_MultiResUNet3P": ("MultiResUNet3P", 4, (_FWD_DEC_3P, _BWD_DEC_3P)),
+    "proj_KSSNet": ("KSSNet", 4, _PROJ_PYR),
+    "proj_UNet4P": ("UNet4P", 4, _PROJ_PYR),
+    "proj_UNet4PV2": ("UNet4PV2", 4, (_PROJ_PYR[0] + _FWD_DEC_3P,
+                                      _PROJ_PYR[1] + _BWD_DEC_3P)),
+    "proj_AHNet": ("AHNet", 4, _ahnet_projectors(4)),
+    "proj_UNet4P_D5": ("UNet4P", 5, _PROJ_PYR),
+    "proj_UNet_ae": ("UNet", 4, ([], [])),
+}
+PROJ_BACKBONE = "ResNet50"
+#: AHNet's projectors run ResPaths W * 16 = 512 wide at the input's full
+#: resolution (the JAX graph's): at batch 16 the step ran out of the
+#: card's 80 GB (an NVIDIA H100 80GB HBM3), so that path trains on
+#: batch 4
+PROJ_BATCH = {"proj_AHNet": 4}
+for _table in (DENSE_2D, PROJECTORS_2D):
+    for _path, (_, _, (_f, _b)) in _table.items():
+        if _f or _b:
+            FWD_PATHS[_path] = _f
+            BWD_PATHS[_path] = _b
+FWD_PATHS["train_AHNet"] = DENSE_2D["dense_AHNet"][2][0]
+BWD_PATHS["train_AHNet"] = DENSE_2D["dense_AHNet"][2][1]
+FWD_PATHS["train_UNet4PV2_ResNet50"] = FWD_PATHS["proj_UNet4PV2"]
+BWD_PATHS["train_UNet4PV2_ResNet50"] = BWD_PATHS["proj_UNet4PV2"]
+#: every level-5 call and every pool by 32 takes a 16-byte kernel
+FWD_ROUTES.update({c: "pyramid_vec_kernel" for cs in FWD_PATHS.values()
+                   for c in cs if c[2] == 5})
+BWD_ROUTES.update({c: BWD_ROWS for cs in BWD_PATHS.values() for c in cs
+                   if c[2] >= 4})
 #: timed beside the paths' calls: the same calls in bf16
 FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"]
 BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"]
@@ -1034,7 +1205,7 @@ def phase_kernels() -> dict:
             fns["per_level"] = lambda: [pyramid.maxpool_level(x, lvl)
                                         for lvl in wanted]
         spread = {}
-        t = _in_turns(fns, flush, spread)
+        t = _timed_turns(fns, flush, spread)
         calls = {name: _call_ms(fns[name], flush)
                  for name in ("kernel", "plain")}
         host = _host_ms(fns["kernel"])
@@ -1157,7 +1328,7 @@ def phase_pool_backward() -> dict:
                 g, x, [f, f], [f, f], [0, 0], [1, 1], False, idx),
         }
         spread = {}
-        t = _in_turns(fns, flush, spread)
+        t = _timed_turns(fns, flush, spread)
         nbytes = _bytes(x, g, got)
         measured[case] = {**t, "bytes": nbytes}
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
@@ -1923,7 +2094,8 @@ def _largest_grad(model) -> float:
 
 def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
                       skip_zero_grads: bool = False,
-                      relative_bar: "float | None" = None) -> dict:
+                      relative_bar: "float | None" = None,
+                      stats_relative: bool = False) -> dict:
     """How the card's step (``gpu``, ``loss_g``) differs from a CPU step
     (``ref``, ``loss_r``), and whether that is within phase 7's
     tolerances: loss 1e-5, gradients 1e-4, running statistics 1e-5, every
@@ -1938,7 +2110,11 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
     float32 step computes rounding, which Adam's first update scales up to
     about lr.  With ``relative_bar`` (phases 26-27) the gradients'
     largest distance is taken in units of the largest gradient of the CPU
-    step, and held to that bar instead."""
+    step, and held to that bar instead.  With ``stats_relative`` (phase
+    32) each running statistic's distance is taken in units of its size
+    where that is above 1, the CPU tests' bar for the backbones (a
+    backbone's BatchNorms hold variances up to 1e2-1e4, which float32
+    rounds by more than 1e-5)."""
     import torch
 
     gp = dict(gpu.named_parameters())
@@ -1955,7 +2131,9 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
          "grads": max(float((p.grad - gp[k].grad.cpu()).abs().max())
                       for k, p in ref.named_parameters()) / (
              _largest_grad(ref) if relative_bar else 1.0),
-         "stats": max((float((v - gs[k].cpu()).abs().max())
+         "stats": max((float((v - gs[k].cpu()).abs().max()) / (
+                           max(float(v.abs().max()), 1.0)
+                           if stats_relative else 1.0)
                        for k, v in ref.state_dict().items()
                        if "running" in k), default=0.0),
          "params": float(diffs.max()),
@@ -1968,7 +2146,9 @@ def _reference_errors(ref, loss_r, gpu, loss_g, lr: float,
     e["text"] = (
         f"loss {e['loss']:.3g} <= 1e-5, grads max-abs "
         f"{'(of the largest) ' if relative_bar else ''}{e['grads']:.3g} <= "
-        f"{grads_bar:.3g}, running stats {e['stats']:.3g} <= 1e-5, params "
+        f"{grads_bar:.3g}, running stats "
+        f"{'(of their size) ' if stats_relative else ''}{e['stats']:.3g} "
+        f"<= 1e-5, params "
         f"max-abs {e['params']:.3g} <= 2 lr with {e['share']:.3g} of them "
         f"beyond 1e-5 (<= 1e-3")
     e["text"] += (f"; {e['no_grad']} without a gradient left out)"
@@ -1989,27 +2169,53 @@ def _relu_masks(masks: list, replay: bool, flips: "list | None" = None):
     ``masks`` or, with ``replay``, applying the recorded masks in call
     order instead of its own (every recorded mask used, the shapes
     equal); ``flips`` gets the count of elements whose own mask differs
-    from the replayed one."""
+    from the replayed one.  The backbones' ``relu6`` (MobileNet V1/V2 and,
+    inside hard-swish and hard-sigmoid, V3) is recorded and replayed the
+    same way, by its three pieces: 0 at x <= 0, x inside, 6 at x >= 6,
+    so its kinks at 0 and 6 (hard-swish's at -3 and 3) cannot differ
+    between the card's step and the CPU's either.  Its pieces are
+    replayed, not counted in ``flips``: MAX_RELU_FLIPS was set on ReLU's
+    kink at 0, and float32 rounds a value near 3 or 6 by more than one
+    near 0."""
     import torch
 
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models.backbones import (
+        base, convnets)
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops import blocks
 
-    real = torch.relu
+    real, real6 = torch.relu, base.relu6
     given = iter(masks)
+
+    def take(x, kind):
+        got = next(given, None)
+        _check(got is not None and got[0] == kind
+               and got[1].shape == x.shape, "the replayed ReLU calls differ")
+        return got[1].to(x.device)
 
     def relu(x):
         if not replay:
-            masks.append((x > 0).detach().cpu())
+            masks.append(("relu", (x > 0).detach().cpu()))
             return real(x)
-        mask = next(given)
-        _check(mask.shape == x.shape, "the replayed ReLU calls differ")
+        mask = take(x, "relu")
         if flips is not None:
-            flips.append(int((mask != (x > 0).cpu()).sum()))
-        return torch.where(mask.to(x.device), x, torch.zeros((), dtype=x.dtype,
-                                                             device=x.device))
+            flips.append(int((mask != (x > 0)).sum()))
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+    def relu6(x):
+        piece = ((x > 0).to(torch.int8) + (x >= 6).to(torch.int8)).detach()
+        if not replay:
+            masks.append(("relu6", piece.cpu()))
+            return real6(x)
+        want = take(x, "relu6")
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        return torch.where(want == 0, zero,
+                           torch.where(want == 2, zero + 6.0, x))
 
     with mock.patch.object(torch, "relu", relu), \
-            mock.patch.dict(blocks._ACTIVATIONS, {"relu": relu}):
+            mock.patch.dict(blocks._ACTIVATIONS, {"relu": relu}), \
+            mock.patch.object(base, "relu6", relu6), \
+            mock.patch.object(convnets, "relu6", relu6):
         yield
     _check(not replay or next(given, None) is None,
            "the replayed step made fewer ReLU calls")
@@ -2036,7 +2242,8 @@ def _train_forward(model, x, targets, loss, weights) -> tuple:
 def _train_reference(phase: str, what: str, cpu, targets, weights,
                      want_launches: tuple, cpu64=None,
                      shape: tuple = (2, 64, 64, 3), loss=None,
-                     control=None, x_scale: float = 1.0) -> None:
+                     control=None, x_scale: float = 1.0,
+                     stats_relative: bool = False) -> None:
     """One float32 train step of ``cpu`` on the card (the kernels, cuDNN
     without TF32, deterministic) against the same step on the CPU (the
     plain versions) from the same weights, batch and Adam state, within
@@ -2075,7 +2282,10 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
       step's distance from its float64 step is printed beside them);
     - the same step of ``control`` on the card must miss that bar
       against both CPU steps, which shows that the bar tells a float32
-      step from a bfloat16 one."""
+      step from a bfloat16 one.
+
+    ``stats_relative`` (phase 32) holds the running statistics to 1e-5
+    of their size where that is above 1 (``_reference_errors``)."""
     import copy
 
     import torch
@@ -2150,13 +2360,13 @@ def _train_reference(phase: str, what: str, cpu, targets, weights,
     _check(launched == want_launches, f"the card's step launched {launched}")
     errs = [_reference_errors(ref, loss, gpu, loss_g, lr,
                               skip_zero_grads=cpu64 is not None,
-                              relative_bar=bar)
+                              relative_bar=bar, stats_relative=stats_relative)
             for ref, loss in zip(refs, loss_c)]
     names = ("float32", "float64")
     readings = [f"vs CPU (plain versions) in {name}"
                 + (f" with the card's ReLU masks ({sum(f)} of "
-                   f"{sum(m.numel() for m in masks)} pre-activations on the "
-                   f"other side of 0 there, <= {MAX_RELU_FLIPS})"
+                   f"{sum(m.numel() for _, m in masks)} pre-activations on "
+                   f"the other side of a kink there, <= {MAX_RELU_FLIPS})"
                    if control is not None else "")
                 + f": {e['text']}" + ("" if e["ok"] else " (not met)")
                 for name, e, f in zip(names, errs, flips)]
@@ -3696,10 +3906,10 @@ def phase_config5_2d(tmp: str) -> None:
           flush=True)
 
 
-def _calibrate_backbone(model, shape: tuple) -> None:
+def _calibrate_backbone(model, shape: tuple, x=None) -> None:
     """Set the running statistics of ``model``'s backbone to those of one
-    uniform batch of ``shape``, as a pretrained backbone's describe its
-    inputs.  With its initial ones (mean 0, variance 1) a frozen
+    uniform batch of ``shape`` (or of the NHWC batch ``x``, on the model's
+    device), as a pretrained backbone's describe its inputs.  With its initial ones (mean 0, variance 1) a frozen
     backbone's BatchNorms do not normalize: its activations and gradients
     grow through its blocks (BatchNorm bias gradients near 60 at W8/D3),
     and float32 rounds them by more than phase 7's absolute bars (the
@@ -3711,13 +3921,14 @@ def _calibrate_backbone(model, shape: tuple) -> None:
 
     bb = getattr(model, model._encoder)
     bns = [m for m in bb.modules() if isinstance(m, BatchNorm)]
-    x = torch.from_numpy(np.random.default_rng(SEED + 26).uniform(
-        size=shape).astype(np.float32))
+    if x is None:
+        x = torch.from_numpy(np.random.default_rng(SEED + 26).uniform(
+            size=shape).astype(np.float32))
     for m in bns:
         m.momentum = 0.0  # the running statistics become the batch's
     torch.nn.Module.train(bb)  # past a frozen backbone's eval mode
     with torch.no_grad():
-        bb(x.permute(0, 3, 1, 2).contiguous(
+        bb(x.permute(0, 3, 1, 2).to(model.dtype).contiguous(
             memory_format=torch.channels_last))
     for m in bns:
         m.momentum = 0.99
@@ -4220,6 +4431,275 @@ def phase_zoo_1d_specials_reference() -> None:
             control=control)
 
 
+def _model_steps(phase: str, path: str, model, x, y, steps: int,
+                 what: str, must_fall: bool = True,
+                 calls: "tuple | None" = None):
+    """``steps`` counted fixed-batch steps of ``model`` (BCEDice, Adam lr
+    1e-4, on the card) on the NHWC batch ``x`` and mask ``y``, exactly
+    ``path``'s pool launches a step (or ``calls``); returns (the run,
+    the trainer)."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import Trainer
+
+    print(f"{phase} {path}: {what}, "
+          f"{sum(p.numel() for p in model.parameters())} params, BCEDice, "
+          f"Adam lr 1e-4, batch {x.shape[0]}", flush=True)
+    trainer = Trainer(model, loss="BCEDiceLoss", optimizer="Adam",
+                      learning_rate=1e-4, device="cuda")
+    run = _counted_steps(phase, path, trainer, trainer.to_device(x),
+                         trainer.to_device(y), steps, must_fall=must_fall,
+                         calls=calls)
+    return run, trainer
+
+
+def _verbs_test_predict(phase: str, tmp: str, cfg, per_batch: int,
+                        factor: float = 255.0) -> None:
+    """``test`` and ``predict`` on phase 12's PNGs with the fold ``cfg``
+    trained: best.pt restored, every pixel counted, a mask an image,
+    ``per_batch`` pyramid launches a batch (predict's warm-up batch
+    too)."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pyramid)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TestConfig)
+
+    test = TestConfig(test_dir=os.path.join(tmp, "Data", "Test"),
+                      imheight=SIZE, imwidth=SIZE, batch_size=TEST_BATCH,
+                      threshold=THRESHOLD, save_dir=cfg.save_dir,
+                      normalizing_factor_img=factor)
+    batches = -(-N_TEST // TEST_BATCH)
+    pyramid.launches.reset()  # the main path's run starts here
+    t0 = time.perf_counter()
+    rep = drivers.test(config=test, device="cuda")[1]
+    tested = pyramid.launches.value
+    masks = drivers.predict(cfg, input_path=os.path.join(test.test_dir,
+                                                         "images"),
+                            out_dir=os.path.join(cfg.save_dir, "masks"),
+                            batch=TEST_BATCH, device="cuda")
+    verbs_s = time.perf_counter() - t0
+    predicted = pyramid.launches.value - tested  # ... and ends here
+    cm = rep["confusion_matrix"]
+    _check(rep["checkpoint_restored"] is True, "best.pt not restored")
+    _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
+           f"confusion matrix counts {int(cm.sum())} pixels")
+    _check(len(masks) == N_TEST, f"predict wrote {len(masks)} masks")
+    _check((tested, predicted) == (per_batch * batches,
+                                   per_batch * (batches + 1)),
+           f"test and predict launched {tested} and {predicted}, not "
+           f"{per_batch} x {batches} batches and {per_batch} x ({batches} "
+           f"+ a warm-up one)")
+    print(f"{phase}: drivers.test and drivers.predict in {verbs_s:.2f} s; "
+          f"test {rep['images_per_sec']:.1f} img/s, confusion matrix "
+          f"{cm.astype(np.int64).tolist()} ({int(cm.sum())} pixels); "
+          f"{len(masks)} masks; maxpool_pyramid.launches = {tested} + "
+          f"{predicted} = {per_batch} x {batches} batches + {per_batch} x "
+          f"({batches} + predict's warm-up one)", flush=True)
+
+
+def phase_dense_2d(tmp: str) -> dict:
+    """Phase 31: the dense-input family from scratch at the flagship's size
+    (W32, 256x256, batch 16 of phase 11's images, bf16): UNet4P, UNet4PV2
+    and AHNet at D4, UNet4P, AHNet and KSSNet at D5 (the INI's default
+    depth: tap 1 pooled by 32), DENSE_STEPS counted steps each with the
+    loss falling and exactly DENSE_2D's pool launches a step (UNet4P D4 4
+    + 10, UNet4PV2 7 + 16, AHNet 14 + 14; D5: 5 + 15, 20 + 20, 10 + 20),
+    p50 and peak memory printed; then the ``train`` verb one epoch on
+    phase 6's folders with AHNet at D4 (best.pt served), ``test`` and
+    ``predict`` on phase 12's PNGs (14 launches a batch).  Returns {path:
+    launches}."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    counts = {}
+    for path, (dec, depth, _) in DENSE_2D.items():
+        model = SegModel(dec, 32, depth, output_nums=1,
+                         final_activation="sigmoid", dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED))
+        counts[path], trainer = _model_steps(
+            "phase 31", path, model, x, y, DENSE_STEPS,
+            f"W32/D{depth} {dec} {SIZE}x{SIZE}x3 bf16")
+        del model, trainer
+        torch.cuda.empty_cache()
+    cfg = _train_config(tmp, "ResultsAHNet", decoder_name="AHNet",
+                        num_epochs=1)
+    print(f"phase 31 verbs: W32/D4 AHNet bf16, BCEDice, Adam lr "
+          f"{cfg.learning_rate}, batch {TRAIN_BATCH}, 1 epoch", flush=True)
+    counts["train_AHNet"] = _run_train_verb("phase 31 verbs", cfg,
+                                            "train_AHNet")
+    _verbs_test_predict("phase 31 verbs", tmp, cfg,
+                        len(FWD_PATHS["train_AHNet"]))
+    return counts
+
+
+def phase_dense_2d_reference() -> None:
+    """Phase 31's reference: phase 26's check (the card's float32 step
+    against the CPU's float32 and float64 steps on the card's ReLU masks,
+    gradients within RELATIVE_BAR, a bfloat16 control that must miss it)
+    on W8/D3 UNet4P, UNet4PV2 and AHNet (DENSE_REF's launches) on (2, 64,
+    64, 3); at depth 5 (tap 1 pooled by 32) on W8 UNet4P (5 + 15) and W2
+    KSSNet (10 + 20) on (2, 128, 128, 3).  At 64 x 64 a depth-5 model's
+    bottom is 2 x 2, whose training-mode BatchNorms normalize 8 values a
+    channel: KSSNet's card and CPU float32 steps then stood 2.7e-3 of the
+    largest gradient apart at W4, 0.19% of its parameters apart after
+    Adam's first update at W8; at 128 x 128 W4 and W8 put 7-12 of their
+    4.7-9.2 million ReLU pre-activations across 0 (MAX_RELU_FLIPS is 4),
+    W2 passes (NVIDIA H100 80GB HBM3, 700 W)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    cases = [(dec, 8, 3, 64, want) for dec, want in DENSE_REF.items()]
+    cases += [("UNet4P", 8, 5, 128, (5, 15)), ("KSSNet", 2, 5, 128, (10, 20))]
+    for dec, width, depth, size, want in cases:
+        cpu = SegModel(dec, width, depth,
+                       generator=torch.Generator().manual_seed(SEED + 31))
+        cpu64 = SegModel(dec, width, depth, dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = SegModel(dec, width, depth, dtype=torch.bfloat16)
+        control.load_state_dict(cpu.state_dict())
+        _train_reference("phase 31 reference", f"W{width}/D{depth} {dec}",
+                         cpu, lambda y: y, None, want, cpu64,
+                         shape=(2, size, size, 3), control=control)
+
+
+def _backbone_model(dec: str, depth: int, name: str, trainable: bool,
+                    width: int = 32, dtype=None, **kw):
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+
+    return SegModel(dec, width, depth, output_nums=1,
+                    final_activation="sigmoid",
+                    dtype=dtype or torch.bfloat16,
+                    train_mode="pretrained_encoder", backbone=name,
+                    backbone_trainable=trainable,
+                    generator=torch.Generator().manual_seed(SEED), **kw)
+
+
+def phase_backbones_2d(tmp: str) -> dict:
+    """Phase 32: the backbones the port added, each under the W32/D4 UNet
+    (``encoder_weights = none``, ``encoder_trainable = 1``) on phase 11's
+    images at pixel values (x 255), batch 16, bf16: BACKBONE_STEPS steps
+    with finite losses (DENSE_STEPS for one name a class,
+    BACKBONE_CLASSES) and no pool launch, an eval forward of the right
+    shape; one name a class then frozen (``encoder_trainable = 0``, its
+    statistics calibrated on the batch): 3 steps, the statistics stay.
+    The gated projector families on ResNet50 at D4 (PROJECTORS_2D:
+    MultiResUNet 0 + 0, MultiResUNet3+ 3 + 6, KSSNet and UNet4P 4 + 10,
+    UNet4PV2 7 + 16, AHNet 10 + 10), UNet4P at D5 (the stride-32 tap its
+    bottom, 4 + 10) and the UNet with ``a_e = 1``, BACKBONE_STEPS counted
+    steps each (AHNet on batch 4: PROJ_BATCH); then UNet4PV2 on ResNet50
+    through the ``train`` verb (7 + 16 a step, best.pt served).  Returns
+    {path: launches}."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        synthetic_images)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    x = x * 255.0
+    for name in NEW_BACKBONES:
+        path = f"bb_{name}"
+        steps = DENSE_STEPS if name in BACKBONE_CLASSES else BACKBONE_STEPS
+        model = _backbone_model("UNet", 4, name, True)
+        _, trainer = _model_steps(
+            "phase 32", path, model, x, y, steps,
+            f"W32/D4 UNet on {name} {SIZE}x{SIZE}x3 (x 255) bf16",
+            must_fall=False, calls=(0, 0))
+        xd = trainer.to_device(x)
+        with torch.no_grad():
+            out = trainer.model.eval()(xd)["out"]
+        _check(tuple(out.shape) == (TRAIN_BATCH, SIZE, SIZE, 1)
+               and bool(out.isfinite().all()),
+               f"{path}: eval forward {tuple(out.shape)}")
+        if name in BACKBONE_CLASSES:
+            tm = trainer.model
+            bb = getattr(tm, tm._encoder)
+            bb.trainable = False
+            _calibrate_backbone(tm, None, x=xd)
+            before = _backbone_stats(tm)
+            losses = [float(trainer.train_step(xd, trainer.to_device(y))[0])
+                      for _ in range(3)]
+            after = _backbone_stats(tm)
+            _check(all(torch.equal(before[k], after[k]) for k in before)
+                   and all(np.isfinite(losses)) and not bb.training,
+                   f"{path} frozen: statistics moved or losses {losses}")
+            print(f"phase 32 {path}: frozen (encoder_trainable = 0, "
+                  f"calibrated on the batch): 3 steps, losses {losses}, "
+                  f"the backbone's {len(before)} running statistics "
+                  f"unchanged", flush=True)
+        del model, trainer, xd
+        torch.cuda.empty_cache()
+
+    counts = {}
+    for path, (dec, depth, (fwd, bwd)) in PROJECTORS_2D.items():
+        ae = path.endswith("_ae")
+        b = PROJ_BATCH.get(path, TRAIN_BATCH)
+        model = _backbone_model(dec, depth, PROJ_BACKBONE, True, ae=int(ae),
+                                input_size=(SIZE, SIZE))
+        run, trainer = _model_steps(
+            "phase 32", path, model, x[:b], y[:b], BACKBONE_STEPS,
+            f"W32/D{depth} {dec}{' a_e=1' if ae else ''} on {PROJ_BACKBONE}"
+            f" {SIZE}x{SIZE}x3 (x 255) bf16", must_fall=False,
+            calls=None if path in FWD_PATHS else (0, 0))
+        if path in FWD_PATHS:
+            counts[path] = run
+        del model, trainer
+        torch.cuda.empty_cache()
+
+    cfg = _train_config(tmp, "ResultsUNet4PV2", decoder_name="UNet4PV2",
+                        encoder_mode="pretrained_encoder",
+                        encoder_name=PROJ_BACKBONE, encoder_weights="none",
+                        encoder_trainable=True, normalizing_factor_img=1.0,
+                        num_epochs=1)
+    print(f"phase 32 verbs: W32/D4 UNet4PV2 on {PROJ_BACKBONE} bf16, "
+          f"encoder_weights = none, encoder_trainable = 1, pixel-valued "
+          f"inputs, BCEDice, Adam lr {cfg.learning_rate}, batch "
+          f"{TRAIN_BATCH}, 1 epoch", flush=True)
+    counts["train_UNet4PV2_ResNet50"] = _run_train_verb(
+        "phase 32 verbs", cfg, "train_UNet4PV2_ResNet50")
+    return counts
+
+
+def phase_backbones_2d_reference() -> None:
+    """Phase 32's reference: phase 26's check (the card's float32 step
+    against the CPU's float32 and float64 steps on the card's ReLU and
+    ReLU6 pieces, gradients within RELATIVE_BAR, a bfloat16 control that
+    must miss it) on the W8/D3 UNet on one backbone a class
+    (BACKBONE_CLASSES, trainable, pruned at tap 3) on (2, 64, 64, 3),
+    uniform in [0, 1) or, for the backbones that rescale pixel values
+    themselves, times 255 (MobileNetV3 by 1 / 127.5, EfficientNetV2 by
+    1 / 255: on [0, 1) MobileNetV3's image is nearly constant after
+    that, which left its card and CPU float32 steps 1.3e-3 of the
+    largest gradient apart; on x 255 the others' first BatchNorms hold
+    variances near 1e4; NVIDIA H100 80GB HBM3, 700 W), no pool launch;
+    and on W8/D3 AHNet on ResNet50 (its four projectors' pools, 6 + 6).
+    The running statistics are held to 1e-5 of their size where that is
+    above 1 (``stats_relative``: MobileNetV3Large's were 3.8e-5 apart
+    in absolute terms, its gradients 1.3e-6 of the largest)."""
+    import torch
+
+    cases = [("UNet", name, (0, 0)) for name in BACKBONE_CLASSES]
+    cases.append(("AHNet", PROJ_BACKBONE, (6, 6)))
+    for dec, name, want in cases:
+        cpu = _backbone_model(dec, 3, name, True, width=8,
+                              dtype=torch.float32)
+        cpu64 = _backbone_model(dec, 3, name, True, width=8,
+                                dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = _backbone_model(dec, 3, name, True, width=8)
+        control.load_state_dict(cpu.state_dict())
+        pixels = name.startswith(("MobileNetV3", "EfficientNet"))
+        _train_reference("phase 32 reference", f"W8/D3 {dec} on {name}",
+                         cpu, lambda y: y, None, want, cpu64,
+                         control=control, x_scale=255.0 if pixels else 1.0,
+                         stats_relative=True)
+
+
 def _time_phases() -> None:
     """Make every ``phase_*`` function print its wall time when it ends,
     and the script's so far."""
@@ -4299,6 +4779,10 @@ def main() -> int:
         phase_self_1d_reference()
         trained.update(phase_zoo_1d_specials(tmp))
         phase_zoo_1d_specials_reference()
+        trained.update(phase_dense_2d(tmp))
+        phase_dense_2d_reference()
+        trained.update(phase_backbones_2d(tmp))
+        phase_backbones_2d_reference()
     pyr["serve"]["launches"] = served["launches"]
     pyr["test"]["launches"] = tested["pyramid"]
     pyr["predict"]["launches"] = predicted["pyramid"]

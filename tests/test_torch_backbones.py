@@ -287,17 +287,28 @@ def test_b1_to_b7_build_and_run():
 
 
 def test_unported_pretrained_settings_raise():
+    """Every name of the JAX registry builds now (here pruned at tap 1:
+    tests/test_torch_backbones_zoo.py maps each leaf for leaf), and every
+    decoder family on a backbone, the gated projectors included; what
+    still raises: an unknown name (the JAX ``ValueError``), a depth out of
+    1 to 5, and ``encoder_weights`` other than ``none`` in the train verb
+    (no ImageNet or .h5 weights are in the repository)."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.utils.config import (
+        TrainConfig, unported_train_keys)
+
     for name in BACKBONE_NAMES:
-        if not name.startswith("EfficientNetB"):
-            with pytest.raises(NotImplementedError, match=name):
-                get_backbone(name)
+        assert len(get_backbone(name, max_tap=1).tap_features) == 2, name
     with pytest.raises(ValueError, match="Unknown backbone"):
         get_backbone("ResNet9000")
     for decoder in ("MultiResUNet", "MultiResUNet3P", "KSSNet", "UNet4P",
                     "AHNet", "UNet4PV2"):
-        with pytest.raises(NotImplementedError):
-            SegModel(decoder, 4, 2, train_mode="pretrained_encoder",
-                     backbone="EfficientNetB0")
+        model = SegModel(decoder, 4, 2, train_mode="pretrained_encoder",
+                         backbone="EfficientNetB0")
+        assert [type(getattr(model, f"PretrainedTapProjector_{k}")).__name__
+                for k in range(3)] == ["PretrainedTapProjector"] * 3
     with pytest.raises(ValueError, match="1 to 5"):
         SegModel("UNet", 4, 6, train_mode="pretrained_encoder",
                  backbone="EfficientNetB0")
+    cfg = TrainConfig(encoder_mode="pretrained_encoder",
+                      encoder_name="ResNet50", encoder_weights="imagenet")
+    assert unported_train_keys(cfg) == ["encoder_weights = 'imagenet'"]

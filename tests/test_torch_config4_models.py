@@ -101,20 +101,23 @@ def test_w32_d4_parameter_tree_maps_leaf_for_leaf(name, ag):
 
 
 def test_lstm_and_other_families_still_raise():
-    """The UNet4P/AHNet encoders, the MultiRes tap projector and the
-    backbones but EfficientNet V1 raise while the model is built, with
-    ConvLSTM fusion and gates too (the chains and grids build it); UNet3+
-    and MultiResUNet3+ ignore ``ag`` and ``lstm``, as the JAX decoder
-    does."""
+    """The UNet4P/AHNet encoders, the MultiRes tap projector and every
+    backbone build now, with ConvLSTM fusion and gates too: the 4P and AH
+    grids gate and fuse their skips (new keys), UNet3+, UNet4PV2 and
+    MultiResUNet3+ ignore ``ag`` and ``lstm``, as the JAX decoder does.
+    What still raises is a pool by 64: a dense-input encoder at depth 6,
+    with or without gates."""
     b0 = dict(train_mode="pretrained_encoder", backbone="EfficientNetB0")
     for name, kw in (("UNet4P", {}), ("UNet4PV2", {}), ("AHNet", {}),
                      ("MultiResUNet", b0),
                      ("UNet", dict(b0, backbone="ResNet50"))):
-        with pytest.raises(NotImplementedError):
-            SegModel(name, 4, 2, ag=1, lstm=1, **kw)
-        with pytest.raises(NotImplementedError):
-            SegModel(name, 4, 2, **kw)
-    for name in ("UNet3P", "MultiResUNet3P"):
+        gated = set(SegModel(name, 4, 2, ag=1, lstm=1, **kw).state_dict())
+        plain = set(SegModel(name, 4, 2, **kw).state_dict())
+        assert plain <= gated and (gated == plain) == (name == "UNet4PV2")
+        if not kw:
+            with pytest.raises(NotImplementedError, match="pools by 64"):
+                SegModel(name, 4, 6, ag=1, lstm=1)
+    for name in ("UNet3P", "MultiResUNet3P", "UNet4PV2"):
         assert sorted(SegModel(name, 4, 2, ag=1, lstm=1).state_dict()) == \
             sorted(SegModel(name, 4, 2).state_dict())
 

@@ -185,13 +185,25 @@ def test_efficientnet_unet_through_the_2d_verbs(tmp_path, capsys):
     assert not bool(((a != b) & ~near).any())
 
 
-@pytest.mark.parametrize("over,match", [
-    (dict(encoder_weights="imagenet"), "set encoder_weights = none"),
-    (dict(encoder_weights="/some/weights.h5"), "encoder_weights"),
-    (dict(encoder_name="EfficientNetV2B0"), "EfficientNetV2B0"),
-    (dict(encoder_name="ResNet50"), "ResNet50"),
-    (dict(decoder_name="MultiResUNet"), "tap projector"),
-])
+#: (settings, the refusal's words, the case's id); the EfficientNetV2B0
+#: and ResNet50 encoders and the MultiRes tap projector are ported (the
+#: verbs run them below), and with ImageNet or .h5 weights they still raise
+UNPORTED = [
+    (dict(encoder_weights="imagenet"), "set encoder_weights = none",
+     "over0-set encoder_weights = none"),
+    (dict(encoder_weights="/some/weights.h5"), "encoder_weights",
+     "over1-encoder_weights"),
+    (dict(encoder_name="EfficientNetV2B0", encoder_weights="imagenet"),
+     "encoder_weights", "over2-EfficientNetV2B0"),
+    (dict(encoder_name="ResNet50", encoder_weights="imagenet"),
+     "encoder_weights", "over3-ResNet50"),
+    (dict(decoder_name="MultiResUNet", encoder_weights="/some/x.h5"),
+     "encoder_weights", "over4-tap projector"),
+]
+
+
+@pytest.mark.parametrize("over,match", [c[:2] for c in UNPORTED],
+                         ids=[c[2] for c in UNPORTED])
 def test_unported_pretrained_settings_write_nothing(tmp_path, over, match):
     tmp = str(tmp_path)
     cfg = _effnet_cfg(tmp, **over)
@@ -210,3 +222,34 @@ def test_unported_pretrained_settings_write_nothing(tmp_path, over, match):
                      train_config=cfg, device="cpu")
     assert not os.path.exists(os.path.join(tmp, "masks"))
     assert not os.path.exists(cfg.save_dir)
+
+
+@pytest.mark.parametrize("over", [dict(encoder_name="EfficientNetV2B0"),
+                                  dict(encoder_name="ResNet50"),
+                                  dict(decoder_name="MultiResUNet"),
+                                  dict(decoder_name="AHNet",
+                                       encoder_name="MobileNetV3Small")],
+                         ids=["EfficientNetV2B0", "ResNet50",
+                              "MultiResUNet_B0", "AHNet_MobileNetV3Small"])
+def test_new_encoders_and_projectors_through_the_2d_verbs(tmp_path, over):
+    """What the refusals above held before: ``train`` writes best.pt,
+    ``test`` restores it and counts every pixel, ``predict`` writes a
+    mask an image, on the CPU, with the encoder frozen."""
+    tmp = str(tmp_path)
+    x, y = synthetic.synthetic_images(3, SIZE, seed=0)
+    synthetic.write_image_folder(os.path.join(tmp, "Data"), x, y)
+    cfg = _effnet_cfg(tmp, **over)
+    drivers.train(config=cfg, device="cpu")
+    assert os.path.isfile(os.path.join(cfg.save_dir, "Fold_1",
+                                       drivers.BEST_WEIGHTS))
+    rep = drivers.test(config=EvalConfig(
+        test_dir=os.path.join(tmp, "Data"), imheight=SIZE, imwidth=SIZE,
+        batch_size=2, save_dir=cfg.save_dir), train_config=cfg,
+        device="cpu")[1]
+    assert rep["checkpoint_restored"] is True
+    assert int(rep["confusion_matrix"].sum()) == 3 * SIZE * SIZE
+    masks = drivers.predict(cfg, input_path=os.path.join(tmp, "Data",
+                                                         "images"),
+                            out_dir=os.path.join(tmp, "masks"), batch=2,
+                            device="cpu")
+    assert len(masks) == 3

@@ -66,6 +66,9 @@ def _assert_same(got, want):
     (torch.bfloat16, (2, 37, 53, 16), 3, (1, 3)),  # levels 1 and 3 only
     (torch.float32, (2, 40, 70, 4), 4, None),
     (torch.bfloat16, (16, 256, 256, 32), 3, None),  # UNet3+'s skip 0
+    (torch.bfloat16, (16, 256, 256, 32), 5, None),  # a D5 tap: 16 lanes
+    (torch.bfloat16, (16, 256, 256, 32), 5, (5,)),  # the pool by 32
+    (torch.float32, (3, 129, 200, 24), 5, (1, 4, 5)),  # ragged, f32
 ])
 def test_cuda_c1_and_multilevel_kernels_equal_plain_version(dtype, shape,
                                                             levels, wanted):
@@ -232,6 +235,8 @@ def test_cuda_pool_backward_equals_plain_version(dtype, shape):
     (torch.float32, (2, 19, 23, 3), 4),       # ragged, one channel a thread
     (torch.float32, (2, 33, 17, 4), 16),
     (torch.bfloat16, (1, 3, 3, 8), 4),        # nothing pooled: all zeros
+    (torch.bfloat16, (16, 256, 256, 32), 32),  # a D5 tap pooled by 32
+    (torch.float32, (2, 70, 66, 3), 32),      # ragged, one channel a thread
 ])
 def test_cuda_pool_backward_by_factor_equals_plain_version(dtype, shape,
                                                            factor):
@@ -316,6 +321,7 @@ def test_cuda_odd_channel_pool_routes_and_equals_plain_version(
 @pytest.mark.parametrize("dtype,shape,factor,kernel", [
     (torch.bfloat16, (16, 256, 256, 32), 16, "pool_backward_rows_kernel"),
     (torch.bfloat16, (2, 32, 32, 32), 16, "pool_backward_rows_kernel"),
+    (torch.bfloat16, (2, 64, 64, 32), 32, "pool_backward_rows_kernel"),
     (torch.bfloat16, (2, 37, 53, 16), 8, "pool_backward_rows_kernel"),
     (torch.float32, (2, 19, 23, 3), 4, "pool_backward_rows_kernel<V=1>"),
     (torch.bfloat16, (16, 256, 256, 32), 2, "pool_backward_kernel"),
@@ -698,3 +704,53 @@ def test_cuda_model_1d_step_launches_and_matches_cpu():
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert abs(losses[0] - losses[1]) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 192, 15, 15), (2, 7, 9, 9)])
+def test_cuda_inception_average_pool_gradient_equals_cpu(shape):
+    """The backbones' SAME average pool on a channels_last card tensor:
+    forward and gradient equal the CPU's (PyTorch's channels_last
+    ``avg_pool2d`` backward at stride 1 with padding was wrong on the
+    card, so ``base.avgpool_same`` pools NCHW memory)."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models.backbones import (
+        base)
+
+    g0 = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=g0)
+    g = torch.randn(shape, generator=g0)
+    out = []
+    for dev in ("cpu", "cuda"):
+        xt = x.to(dev).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        y = base.avgpool_same(xt)
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        y.backward(g.to(dev))
+        out.append((y.detach().cpu(), xt.grad.cpu()))
+    assert torch.allclose(out[0][0], out[1][0], atol=1e-6)
+    assert torch.allclose(out[0][1], out[1][1], atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_cuda_mlmrsnet_average_pool_gradient_equals_cpu(stride):
+    """MLMRSNet's window-3 SAME average along a (B, C, 1, L) channels_last
+    signal (``avg_pool2d`` at padding 0 after ``F.pad``): forward and
+    gradient on the card equal the CPU's."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models.mlmrsnet import (
+        pool_same)
+
+    g0 = torch.Generator().manual_seed(5)
+    x = torch.randn(4, 32, 1, 1024, generator=g0)
+    out = []
+    for dev in ("cpu", "cuda"):
+        xt = x.to(dev).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        y = pool_same(xt, stride, "avg")
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(6))
+        y.backward(g.to(dev))
+        out.append((y.detach().cpu(), xt.grad.cpu()))
+    assert torch.allclose(out[0][0], out[1][0], atol=1e-6)
+    assert torch.allclose(out[0][1], out[1][1], atol=1e-6)

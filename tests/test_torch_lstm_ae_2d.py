@@ -125,9 +125,12 @@ def test_train_verb_sizes_the_bottleneck_by_the_input_it_trains_on():
                                   patch_height=24)
     assert drivers._build_model(patched).FeatureExtractionBlock_0.spatial \
         == (4, 6)
-    with pytest.raises(NotImplementedError, match="ae = 1"):
-        SegModel("UNet", 4, 2, ae=1, input_size=(64, 64),
-                 train_mode="pretrained_encoder", backbone="EfficientNetB0")
+    # on a backbone (ported): sized by the backbone's tap D for the input
+    # (InceptionV3's stride-4 tap of a 48 x 40 image: 12 x 10)
+    on_bb = SegModel("UNet", 4, 2, ae=1, input_size=(48, 40),
+                     feature_number=8, train_mode="pretrained_encoder",
+                     backbone="InceptionV3")
+    assert on_bb.FeatureExtractionBlock_0.spatial == (12, 10)
 
 
 @pytest.mark.parametrize("name", ["tanh", "gelu", "elu", "selu"])

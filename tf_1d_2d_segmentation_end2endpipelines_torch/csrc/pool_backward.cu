@@ -1,4 +1,4 @@
-// Gradient of the max pool with window = stride = F = 2^m (m = 1..4),
+// Gradient of the max pool with window = stride = F = 2^m (m = 1..5),
 // VALID floor truncation, on NHWC memory (a channels_last NCHW tensor):
 // dx = the output gradient g routed to one element of each F x F window.
 //
@@ -40,7 +40,7 @@
 // pointer) takes the same kernel with one channel per thread.
 // - pool_backward_kernel, F = 2: one thread per window and channel group
 //   walks the window (4 loads) and writes it (4 stores).
-// - pool_backward_rows_kernel, F >= 4: one thread per window, channel
+// - pool_backward_rows_kernel, F = 4 .. 32: one thread per window, channel
 //   group and window row.  A thread for the whole window left few threads
 //   (16,384 for a (16,256,256,32) input at F = 16: 64 blocks on 132 SMs)
 //   each with F^2 dependent compare steps (41% of the bound at F = 16).
@@ -53,7 +53,11 @@
 //   walk this design wins at F = 8 and 16 and gives back a few percent at
 //   F = 4 on the smaller inputs, where a thread's 4 loads pay for the
 //   barriers; the window's rows as lanes of one warp, joined by shuffles
-//   with no barrier, were slower at every F (PERF.md).
+//   with no barrier, were slower at every F (PERF.md).  At F = 32 (the
+//   pool by 32 of a dense-input encoder at depth 5) a block is 8 windows
+//   of 32 rows, a thread walks its row 16 pixels at a time (16 loads in
+//   flight, as at F = 16, registers bounded), and the window's choice,
+//   up to 1023, takes 16 bits.
 // The ragged last rows and columns are covered by threads of the windows
 // just past the pooled region, which write zeros to the elements that
 // exist.
@@ -61,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -168,12 +174,15 @@ __global__ void __launch_bounds__(256)
                               const T* __restrict__ g, T* __restrict__ dx,
                               int H, int W, int C) {
   using P = Pack<T, V>;
+  using Sel = typename std::conditional<(F * F > 256), unsigned short,
+                                        unsigned char>::type;
   constexpr int X = 256 / F;
+  constexpr int G = F < 16 ? F : 16;  // pixels of a row loaded together
   // row i's summary per channel: the walk's value, and its column with
   // bit 7 set if the row held a NaN; then the window's choice, i * F + j
   __shared__ float sval[F][V][X];
   __shared__ unsigned char scode[F][V][X];
-  __shared__ unsigned char ssel[V][X];
+  __shared__ Sel ssel[V][X];
   const int groups = C / V;
   const int wc = (W + F - 1) / F;  // window columns, the ragged one included
   const int tx = threadIdx.x, i = threadIdx.y;
@@ -190,28 +199,40 @@ __global__ void __launch_bounds__(256)
       ((b * H + (int64_t)F * yw + i) * W + (int64_t)F * xw) * C + c0;
 
   P gv;  // read before the barriers, so that its latency hides behind them
-  if (full) {  // the row's walk, per channel
-    P q[F];
-#pragma unroll
-    for (int j = 0; j < F; ++j)
-      q[j] = *reinterpret_cast<const P*>(x + base + (int64_t)j * C);
+  if (full) {  // the row's walk, per channel, G pixels at a time
+    float s[V];
+    int sel[V];
+    bool nan[V];
     gv = *reinterpret_cast<const P*>(g + ((b * hf + yw) * wf + xw) * C + c0);
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      float s = to_f(q[0].v[k]);
-      int sel = 0;
-      bool nan = s != s;
+    for (int j0 = 0; j0 < F; j0 += G) {
+      P q[G];
 #pragma unroll
-      for (int j = 1; j < F; ++j) {
-        const float e = to_f(q[j].v[k]);
-        nan = nan || e != e;
-        if (!(s >= e)) {
-          s = e;
-          sel = j;
+      for (int j = 0; j < G; ++j)
+        q[j] = *reinterpret_cast<const P*>(x + base + (int64_t)(j0 + j) * C);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float e = to_f(q[j].v[k]);
+          if (j0 + j == 0) {
+            s[k] = e;
+            sel[k] = 0;
+            nan[k] = e != e;
+            continue;
+          }
+          nan[k] = nan[k] || e != e;
+          if (!(s[k] >= e)) {
+            s[k] = e;
+            sel[k] = j0 + j;
+          }
         }
       }
-      sval[i][k][tx] = s;
-      scode[i][k][tx] = (unsigned char)(sel | (nan ? 0x80 : 0));
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      sval[i][k][tx] = s[k];
+      scode[i][k][tx] = (unsigned char)(sel[k] | (nan[k] ? 0x80 : 0));
     }
   }
   __syncthreads();
@@ -228,7 +249,7 @@ __global__ void __launch_bounds__(256)
           sel = r * F + (code & 0x7f);
         }
       }
-      ssel[k][tx] = (unsigned char)sel;
+      ssel[k][tx] = (Sel)sel;
     }
   }
   __syncthreads();
@@ -303,8 +324,11 @@ void launch_v(int64_t B, int H, int W, int C, int F, cudaStream_t s,
     case 8:
       launch_rows<T, V, 8>(B, H, W, C, s, x, g, dx);
       break;
-    default:
+    case 16:
       launch_rows<T, V, 16>(B, H, W, C, s, x, g, dx);
+      break;
+    default:
+      launch_rows<T, V, 32>(B, H, W, C, s, x, g, dx);
   }
 }
 
@@ -328,14 +352,15 @@ int launch(const void* x, const void* g, void* dx, int64_t B, int H, int W,
 
 bool valid(int64_t B, int H, int W, int C, int dtype, int factor) {
   return !(B < 0 || H < 0 || W < 0 || C < 1 || (dtype != 0 && dtype != 1) ||
-           (factor != 2 && factor != 4 && factor != 8 && factor != 16));
+           (factor != 2 && factor != 4 && factor != 8 && factor != 16 &&
+            factor != 32));
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8 or 16.  x and dx: NHWC
+// dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16 or 32.  x and dx: NHWC
 // (B, H, W, C); g: NHWC (B, H / factor, W / factor, C).  Launches on
 // `stream` and returns cudaGetLastError() (0 on success); launches
 // nothing for an empty x.

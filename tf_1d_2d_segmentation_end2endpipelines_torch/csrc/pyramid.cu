@@ -27,7 +27,13 @@
 //   encoder pool of the UNet family): one thread per output pixel and
 //   16-byte channel group, one 16-byte load per pixel of its 2^L x 2^L
 //   window and one 16-byte store.  This is the serving path's kernel.
-// - pool_rows_kernel, level L alone for L <= 4 with C not a multiple of
+//   At L = 5 (the pool by 32 of a dense-input encoder at depth 5) a
+//   thread a window left 4,096 threads for a (16, 256, 256, 32) bf16
+//   input, each with 1,024 loads in turn: 0.2087 ms against a bound of
+//   0.0201 and the plain version's 0.0817 on an NVIDIA H100 80GB HBM3
+//   at 700 W (PERF.md).  Level 5 alone takes pyramid_vec_kernel instead,
+//   storing that level only.
+// - pool_rows_kernel, level L alone for L <= 5 with C not a multiple of
 //   16 bytes (the MultiRes encoder pools: 31 .. 255 and 51 .. 426
 //   channels) when every input and output row starts on 16 bytes (W * C
 //   and (W >> L) * C elements multiples of 16 bytes, aligned pointers).
@@ -41,14 +47,21 @@
 //   into shared memory and writes 16 bytes of consecutive output elements
 //   a thread, one division per 16 bytes.
 // - pyramid_vec_kernel, several levels stored, C a multiple of 16 bytes,
-//   2 <= L <= 4 (UNet3+'s decoder pools each skip to every level it
-//   needs in one launch): one thread owns one 16-byte channel group of a
-//   2^L x 2^L patch, reads it a level-2 cell (4 x 4 pixels, 16 loads) at
-//   a time, folds the levels in registers in Morton order, V channels
-//   wide, and writes each stored cell with one 16-byte store.
+//   2 <= L <= 5 (UNet3+'s decoder pools each skip to every level it
+//   needs in one launch; the dense-input encoders pool each tap to every
+//   level a deeper block reads, 1 .. 5 at depth 5): one thread owns one
+//   16-byte channel group of a 2^L x 2^L patch, reads it a level-2 cell
+//   (4 x 4 pixels, 16 loads) at a time, folds the levels in registers in
+//   Morton order, V channels wide, and writes each stored cell with one
+//   16-byte store.  At L = 5 a patch is 64 such cells, and a thread a
+//   patch left 4,096 threads for a (16, 256, 256, 32) bf16 input, each
+//   with 64 rounds of loads in turn; there the 16 lanes of a warp share a
+//   patch, each folds an 8 x 8 quarter of a quarter (levels 1-3, four
+//   rounds), and levels 4 and 5 are folded across the lanes with
+//   __shfl_xor_sync (65,536 threads).  It takes level 5 alone too.
 // - pyramid_kernel, any L, any C (the rest: several levels stored at a C
 //   that is not a multiple of 16 bytes, rows that do not start on 16
-//   bytes, L > 4): one thread owns one 2^L x 2^L patch of one channel,
+//   bytes, L > 5): one thread owns one 2^L x 2^L patch of one channel,
 //   reads it once, folds every level from the level below it in
 //   registers (Morton order), and writes each level as soon as a cell of
 //   it is complete.  Neighbouring threads take neighbouring channels, so
@@ -306,49 +319,71 @@ __device__ __forceinline__ void load_cell(const T* __restrict__ x, int64_t b,
 }
 
 // Several levels of a C that is a multiple of V = 16 / sizeof(T), 2 <= L
-// <= 4: grid as pyramid_kernel's, a thread per (patch, channel group).
-template <typename T, int V, int L>
+// <= 5: grid as pyramid_kernel's, (1 << 2Q) consecutive threads per
+// (patch, channel group).  With Q = 0 a thread folds its whole patch.
+// With Q > 0 the patch is split into 4^Q sub-patches of side 2^(L - Q),
+// one a lane, numbered in Morton order by the lane's low 2Q bits; each
+// lane folds levels 1 .. L - Q of its own, and the last Q levels are
+// folded across the lanes (xor 1 and 2 give level L - Q + 1, xor 4 and 8
+// the next), the lane whose low bits are 0 storing the cell.  No thread
+// returns early there: every lane of a patch runs the shuffles, and a
+// lane past the grid's patches folds -inf and stores nothing.
+template <typename T, int V, int L, int Q>
 __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
                                    int H, int W, int C, int tiles_w) {
   using P = Pack<T, V>;
-  constexpr int S = 1 << (L - 2);  // level-2 cells per patch side
+  constexpr int LT = L - Q;         // levels a lane folds on its own
+  constexpr int S = 1 << (LT - 2);  // level-2 cells per sub-patch side
   const int groups = C / V;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= tiles_w * groups) return;
-  const int64_t cg = (int64_t)(t % groups) * V;
-  const int tx = t / groups;
+  const int sub = t & ((1 << (2 * Q)) - 1);
+  const int patch = t >> (2 * Q);
+  const bool live = patch < tiles_w * groups;
+  if (Q == 0 && !live) return;
+  const int64_t cg = (int64_t)(patch % groups) * V;
+  const int tx = patch / groups;
   const int ty = blockIdx.y;
+  int sy = 0, sx = 0;  // the sub-patch in the patch (Morton order)
+#pragma unroll
+  for (int bit = 0; bit < Q; ++bit) {
+    sx |= ((sub >> (2 * bit)) & 1) << bit;
+    sy |= ((sub >> (2 * bit + 1)) & 1) << bit;
+  }
+  const int py = (ty << Q) + sy, px = (tx << Q) + sx;  // level-LT cell
   const int64_t b = blockIdx.z;
   const int64_t row = (int64_t)W * C;
   const int h1 = H >> 1, w1 = W >> 1, h2 = H >> 2, w2 = W >> 2;
-  // acc[l] (l = 2..L-1): running max of the level-l cells of the
-  // level-(l+1) cell being folded, V channels
-  float acc[L + 1][V];
+  // acc[l] (l = 2..LT-1): running max of the level-l cells of the
+  // level-(l+1) cell being folded, V channels; top: the level-LT cell
+  float acc[LT + 1][V];
+  float top[V];
 #pragma unroll
-  for (int l = 0; l <= L; ++l)
+  for (int l = 0; l <= LT; ++l)
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[l][k] = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < V; ++k) top[k] = -INFINITY;
 
 #pragma unroll 1
   for (int k2 = 0; k2 < S * S; ++k2) {
     // Morton order: every 4^(l-2) consecutive k2 complete a level-l cell
     int i = 0, j = 0;
 #pragma unroll
-    for (int bit = 0; bit < L - 2; ++bit) {
+    for (int bit = 0; bit < LT - 2; ++bit) {
       j |= ((k2 >> (2 * bit)) & 1) << bit;
       i |= ((k2 >> (2 * bit + 1)) & 1) << bit;
     }
-    const int y2 = ty * S + i, x2 = tx * S + j;
+    const int y2 = py * S + i, x2 = px * S + j;
     // the level-2 cell's four level-1 cells (row-major), 2 x 2 pixels
     // each: all 16 loads first, with no branch between them when the
     // level-2 cell (and so each of its children) is in bounds
     P q[4][4];
     bool in[4];
-    const bool all_in = y2 < h2 && x2 < w2;
+    const bool all_in = live && y2 < h2 && x2 < w2;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int y1 = 2 * y2 + (c >> 1), x1 = 2 * x2 + (c & 1);
-      in[c] = all_in || (y1 < h1 && x1 < w1);
+      in[c] = all_in || (live && y1 < h1 && x1 < w1);
     }
     if (all_in) {
 #pragma unroll
@@ -388,9 +423,12 @@ __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
       }
 #pragma unroll
       for (int k = 0; k < V; ++k) acc[2][k] = max_nan(acc[2][k], m2[k]);
+      if (LT == 2)
+#pragma unroll
+        for (int k = 0; k < V; ++k) top[k] = m2[k];
     }
 #pragma unroll
-    for (int l = 3; l <= L; ++l) {
+    for (int l = 3; l <= LT; ++l) {
       if ((k2 + 1) & ((1 << (2 * (l - 2))) - 1)) break;
       const int hl = H >> l, wl = W >> l;
       const int yl = y2 >> (l - 2), xl = x2 >> (l - 2);
@@ -400,7 +438,7 @@ __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
         m[k] = acc[l - 1][k];
         acc[l - 1][k] = -INFINITY;
       }
-      if (yl < hl && xl < wl) {
+      if (live && yl < hl && xl < wl) {
         T* o = static_cast<T*>(outs.p[l - 1]);
         if (o) {
           P r;
@@ -408,10 +446,37 @@ __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
           for (int k = 0; k < V; ++k) store_f(&r.v[k], m[k]);
           *reinterpret_cast<P*>(o + ((b * hl + yl) * wl + xl) * C + cg) = r;
         }
-        if (l < L)
 #pragma unroll
-          for (int k = 0; k < V; ++k) acc[l][k] = max_nan(acc[l][k], m[k]);
+        for (int k = 0; k < V; ++k) {
+          if (l < LT) acc[l][k] = max_nan(acc[l][k], m[k]);
+          else top[k] = m[k];
+        }
       }
+    }
+  }
+  // levels LT + 1 .. L across the lanes of the patch
+#pragma unroll
+  for (int q = 1; q <= Q; ++q) {
+    const int l = LT + q;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      top[k] = max_nan(top[k],
+                       __shfl_xor_sync(0xffffffffu, top[k], 1 << (2 * q - 2)));
+      top[k] = max_nan(top[k],
+                       __shfl_xor_sync(0xffffffffu, top[k], 1 << (2 * q - 1)));
+    }
+    const int hl = H >> l, wl = W >> l, yl = py >> q, xl = px >> q;
+    if (!(live && yl < hl && xl < wl)) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) top[k] = -INFINITY;
+      continue;
+    }
+    T* o = static_cast<T*>(outs.p[l - 1]);
+    if (o && (sub & ((1 << (2 * q)) - 1)) == 0) {
+      P r;
+#pragma unroll
+      for (int k = 0; k < V; ++k) store_f(&r.v[k], top[k]);
+      *reinterpret_cast<P*>(o + ((b * hl + yl) * wl + xl) * C + cg) = r;
     }
   }
 }
@@ -626,15 +691,15 @@ Route route(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
   if (C == 1) return L <= 5 ? kC1 : kScalar;
   if (stored == 1 && outs.p[L - 1]) {  // level L alone
     if ((H >> L) == 0 || (W >> L) == 0) return kNone;
-    if (L > 4 || !aligned16(x) || !aligned16(outs.p[L - 1])) return kScalar;
-    if (C % V == 0) return kVec;
+    if (L > 5 || !aligned16(x) || !aligned16(outs.p[L - 1])) return kScalar;
+    if (C % V == 0) return L == 5 ? kVecPyramid : kVec;
     const int64_t row_in = (int64_t)W * C * sizeof(T);
     const int64_t row_out = (int64_t)(W >> L) * C * sizeof(T);
     if (row_in % 16 == 0 && row_out % 16 == 0 && rows_span<T>(W, C, L) > 0)
       return kRows;
     return kScalar;
   }
-  if (L < 2 || L > 4 || C % V || !aligned16(x)) return kScalar;
+  if (L < 2 || L > 5 || C % V || !aligned16(x)) return kScalar;
   for (int l = 0; l < L; ++l)
     if (!aligned16(outs.p[l])) return kScalar;
   return kVecPyramid;
@@ -660,8 +725,11 @@ void launch_rows(const void* x, void* out, int64_t B, int H, int W, int C,
     case 3:
       pool_rows_kernel<T, 8><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
       break;
-    default:
+    case 4:
       pool_rows_kernel<T, 16><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      break;
+    default:
+      pool_rows_kernel<T, 32><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
   }
 }
 
@@ -721,30 +789,35 @@ void launch_c1(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
   }
 }
 
-// pyramid_vec_kernel (2 <= L <= 4, C a multiple of 16 bytes, every
-// pointer 16-byte aligned).
+// pyramid_vec_kernel (2 <= L <= 5, C a multiple of 16 bytes, every
+// pointer 16-byte aligned); at L = 5, 16 lanes a patch.
 template <typename T>
 void launch_vec_pyramid(const void* x, const OutPtrs& outs, int64_t B, int H,
                         int W, int C, int L, int tiles_h, int tiles_w,
                         cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  const int64_t n = (int64_t)tiles_w * (C / V);
+  const int lanes = L == 5 ? 16 : 1;
+  const int64_t n = (int64_t)tiles_w * (C / V) * lanes;
   const int threads = block_for(n);
   const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)tiles_h,
                   (unsigned)B);
   const T* xt = static_cast<const T*>(x);
   switch (L) {
     case 2:
-      pyramid_vec_kernel<T, V, 2><<<grid, threads, 0, s>>>(xt, outs, H, W, C,
-                                                           tiles_w);
+      pyramid_vec_kernel<T, V, 2, 0><<<grid, threads, 0, s>>>(xt, outs, H, W,
+                                                              C, tiles_w);
       break;
     case 3:
-      pyramid_vec_kernel<T, V, 3><<<grid, threads, 0, s>>>(xt, outs, H, W, C,
-                                                           tiles_w);
+      pyramid_vec_kernel<T, V, 3, 0><<<grid, threads, 0, s>>>(xt, outs, H, W,
+                                                              C, tiles_w);
+      break;
+    case 4:
+      pyramid_vec_kernel<T, V, 4, 0><<<grid, threads, 0, s>>>(xt, outs, H, W,
+                                                              C, tiles_w);
       break;
     default:
-      pyramid_vec_kernel<T, V, 4><<<grid, threads, 0, s>>>(xt, outs, H, W, C,
-                                                           tiles_w);
+      pyramid_vec_kernel<T, V, 5, 2><<<grid, threads, 0, s>>>(xt, outs, H, W,
+                                                              C, tiles_w);
   }
 }
 
@@ -796,7 +869,9 @@ int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
   const int side1 = 1 << (L - 1);
   call->tiles_h = ((H >> 1) + side1 - 1) / side1;
   call->tiles_w = ((W >> 1) + side1 - 1) / side1;
-  if ((int64_t)call->tiles_w * C > 0x7fffffffLL || call->tiles_h > 65535 ||
+  // threads along x: a patch and channel a thread, 16 at L = 5
+  if ((int64_t)call->tiles_w * C * (L == 5 ? 16 : 1) > 0x7fffffffLL ||
+      call->tiles_h > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidConfiguration;
   call->route = dtype == 0

@@ -1,6 +1,7 @@
-"""EfficientNet V1 (B0-B7) backbone of the port (JAX: tf_1d_2d_
-segmentation_end2endpipelines_tpu/models/backbones/efficientnet.py,
-``EfficientNetBackbone`` :62, ``InputNorm`` :44).
+"""EfficientNet V1 (B0-B7) and V2 (B0-B3, S, M, L) backbones of the port
+(JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/backbones/
+efficientnet.py, ``EfficientNetBackbone`` :62, ``InputNorm`` :44,
+``EfficientNetV2Backbone`` :138).
 
 keras.applications' structure: the input rescaled by 1/255 and
 normalized by ``InputNorm_0`` (trained parameters ``mean`` and ``var``),
@@ -15,8 +16,17 @@ as keras prunes the graph, so the parameters are flax's leaf for leaf.
 Every conv is a ``SameConv`` without bias (flax ``SAME``: at stride 2
 uneven, 0 before and 1 after for k = 3 on an even size, 1 and 2 for
 k = 5), named ``Conv_<k>`` in creation order, every BatchNorm
-``BatchNorm_<k>``, as flax's auto-names inside the one compact module.
-Swish is ``F.silu``.
+``BatchNorm_<k>``, as flax's auto-names inside the one compact module
+(``base.GraphBackbone`` builds both versions from their graphs).  Swish
+is ``F.silu``.
+
+V2 (``base.GraphBackbone``): keras's weightless preprocessing (B0-B3:
+x / 255 normalized by ImageNet's mean and deviation; S, M, L: x / 128 -
+1, both in float32), a 3x3 stride-2 stem, fused MBConv stages (a kxk
+expand conv, or the kxk conv alone at expansion 1) then MBConv stages
+with squeeze-and-excite at a quarter of the block's input width, a 1x1
+top to 1280.  Taps: stage 0's first block's activation, the expand
+activations of blocks (1, 1), (3, 0) and (5, 0), the top.
 """
 from __future__ import annotations
 
@@ -27,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops import BatchNorm, SameConv, spatial_mean
+from ...ops import spatial_mean
+from .base import GraphBackbone
 
 
 def _round_filters(f: float, width: float, divisor: int = 8) -> int:
@@ -63,18 +74,9 @@ class InputNorm(nn.Module):
                 / torch.sqrt(self.var.view(shape) + 1e-7)).to(self.dtype)
 
 
-class EfficientNetBackbone(nn.Module):
-    """EfficientNet V1 with compound ``width``/``depth`` scaling.
-    ``forward`` takes a (B, C, H, W) channels_last batch and returns the
-    taps 0 .. ``max_tap`` (``tap_features`` their widths; tap 0 is the
-    input, ``in_channels`` wide).
-
-    ``trainable`` False (the INI's ``encoder_trainable = 0``) keeps the
-    backbone in eval mode whatever mode the model is switched to, as the
-    JAX model calls it with ``train=False`` (segmodel.py:101): its
-    BatchNorms normalize with their running statistics and never advance
-    them.  Its parameters still take gradients and optimizer updates, as
-    the JAX ``train`` verb freezes none of them."""
+class EfficientNetBackbone(GraphBackbone):
+    """EfficientNet V1 with compound ``width``/``depth`` scaling
+    (``base.GraphBackbone``: taps 0 .. ``max_tap``, ``trainable``)."""
 
     # B0 base config: (kernel, repeats, cin, cout, expand, stride)
     _BASE = [(3, 1, 32, 16, 1, 1), (3, 2, 16, 24, 6, 2),
@@ -82,108 +84,159 @@ class EfficientNetBackbone(nn.Module):
              (5, 3, 80, 112, 6, 1), (5, 4, 112, 192, 6, 2),
              (3, 1, 192, 320, 6, 1)]
 
-    def __init__(self, width: float = 1.0, depth: float = 1.0,
-                 max_tap: int = 5, in_channels: int = 3,
-                 dtype: torch.dtype = torch.float32,
-                 generator: tp.Optional[torch.Generator] = None,
-                 trainable: bool = True):
-        super().__init__()
-        self.trainable = bool(trainable)
-        self._kw = dict(dtype=dtype, generator=generator)
-        self._counts = {"Conv": 0, "BatchNorm": 0}
-        self.InputNorm_0 = InputNorm(dtype=dtype)
-        stem = _round_filters(32, width)
-        self.stem = (self._conv(3, stem, 3, 2), self._bn(stem))
-        self.tap_features = [in_channels]
-        self.blocks: tp.List[tp.Dict[str, tp.Any]] = []
-        self.top = self._build(stem, width, depth, max_tap + 1)
-        self.train()  # a frozen backbone starts in eval mode
+    def __init__(self, width: float = 1.0, depth: float = 1.0, **kw):
+        self.width, self.depth = width, depth
+        super().__init__(**kw)
 
-    def _conv(self, cin: int, cout: int, k: int, stride: int = 1,
-              groups: int = 1, bias: bool = False) -> SameConv:
-        conv = SameConv(cin, cout, k, stride, groups, bias=bias, **self._kw)
-        self.add_module(f"Conv_{self._counts['Conv']}", conv)
-        self._counts["Conv"] += 1
-        return conv
-
-    def _bn(self, features: int) -> BatchNorm:
-        bn = BatchNorm(features)
-        self.add_module(f"BatchNorm_{self._counts['BatchNorm']}", bn)
-        self._counts["BatchNorm"] += 1
-        return bn
-
-    def _build(self, cin: int, width: float, depth: float, n_need: int
-               ) -> tp.Optional[tp.Tuple[SameConv, BatchNorm]]:
-        """The blocks up to the last tap; the top conv and BatchNorm when
-        tap 5 is needed, else None."""
-        for (k, r, _, cout, expand, stride) in self._BASE:
-            cout = _round_filters(cout, width)
-            for b in range(_round_repeats(r, depth)):
-                s = stride if b == 0 else 1
-                is_tap = s == 2 and b == 0 and expand != 1
-                tap_only = is_tap and len(self.tap_features) + 1 >= n_need
-                self.blocks.append(self._mbconv(cin, k, cout, expand, s,
-                                                is_tap, tap_only))
-                if is_tap:
-                    self.tap_features.append(cin * expand)
-                    if tap_only:
-                        return None
-                cin = cout
-        top = _round_filters(1280, width)
-        self.tap_features.append(top)
-        return self._conv(cin, top, 1), self._bn(top)
-
-    def _mbconv(self, cin: int, k: int, cout: int, expand: int,
-                stride: int, is_tap: bool, tap_only: bool
-                ) -> tp.Dict[str, tp.Any]:
-        c = cin * expand
-        blk: tp.Dict[str, tp.Any] = {
-            "tap": is_tap, "tap_only": tap_only,
-            "expand": ((self._conv(cin, c, 1), self._bn(c))
-                       if expand != 1 else None)}
-        if tap_only:  # the block's tap ends the backbone
-            return blk
-        blk["dw"] = (self._conv(c, c, k, stride, groups=c), self._bn(c))
-        # squeeze-excite at a quarter of the block's input width
-        se = max(1, int(cin * 0.25))
-        blk["se"] = (self._conv(c, se, 1, bias=True),
-                     self._conv(se, c, 1, bias=True))
-        blk["project"] = (self._conv(c, cout, 1), self._bn(cout))
-        blk["residual"] = stride == 1 and cin == cout
-        return blk
-
-    def train(self, mode: bool = True) -> "EfficientNetBackbone":
-        return super().train(mode and self.trainable)
-
-    @staticmethod
-    def _mbconv_forward(blk: tp.Dict[str, tp.Any], h: torch.Tensor):
+    def _mbconv(self, h: torch.Tensor, k: int, cout: int, expand: int,
+                stride: int, tap_only: bool):
+        cin = h.shape[1]
         y, act = h, None
-        if blk["expand"] is not None:
-            conv, bn = blk["expand"]
-            y = act = F.silu(bn(conv(y)))
-        if blk["tap_only"]:
-            return None, act
-        conv, bn = blk["dw"]
-        y = F.silu(bn(conv(y)))
-        reduce, excite = blk["se"]
+        if expand != 1:
+            y = act = F.silu(self.bn(self.conv(y, cin * expand, 1,
+                                               bias=False)))
+            if tap_only:  # the block's tap ends the backbone
+                return None, act
+        c = y.shape[1]
+        y = F.silu(self.bn(self.conv(y, c, k, stride, groups=c, bias=False)))
+        # squeeze-excite at a quarter of the block's input width
         s = spatial_mean(y, keepdim=True)
-        y = y * torch.sigmoid(excite(F.silu(reduce(s))))
-        conv, bn = blk["project"]
-        y = bn(conv(y))
-        if blk["residual"]:
+        s = F.silu(self.conv(s, max(1, int(cin * 0.25)), 1))
+        y = y * torch.sigmoid(self.conv(s, c, 1))
+        y = self.bn(self.conv(y, cout, 1, bias=False))
+        if stride == 1 and cin == cout:
             y = y + h
         return y, act
 
-    def forward(self, x: torch.Tensor) -> tp.List[torch.Tensor]:
+    def graph(self, x: torch.Tensor) -> tp.List[torch.Tensor]:
+        n_need = self.max_tap + 1
         taps = [x]
-        h = self.InputNorm_0(x).contiguous(memory_format=torch.channels_last)
-        conv, bn = self.stem
-        h = F.silu(bn(conv(h)))
-        for blk in self.blocks:
-            h, act = self._mbconv_forward(blk, h)
-            if blk["tap"]:
-                taps.append(act)
-        if self.top is not None:
-            conv, bn = self.top
-            taps.append(F.silu(bn(conv(h))))
+        norm = self._next("InputNorm", lambda: InputNorm(dtype=self.dtype))
+        h = norm(x).contiguous(memory_format=torch.channels_last)
+        h = F.silu(self.bn(self.conv(h, _round_filters(32, self.width), 3, 2,
+                                     bias=False)))
+        for (k, r, _, cout, expand, stride) in self._BASE:
+            cout = _round_filters(cout, self.width)
+            for b in range(_round_repeats(r, self.depth)):
+                s = stride if b == 0 else 1
+                is_tap = s == 2 and b == 0 and expand != 1
+                tap_only = is_tap and len(taps) + 1 >= n_need
+                h, act = self._mbconv(h, k, cout, expand, s, tap_only)
+                if is_tap:
+                    taps.append(act)
+                    if tap_only:
+                        return taps
+        taps.append(F.silu(self.bn(self.conv(
+            h, _round_filters(1280, self.width), 1, bias=False))))
+        return taps
+
+
+class EfficientNetV2Backbone(GraphBackbone):
+    """EfficientNet V2 of ``size`` b0, b1, b2, b3, s, m or l."""
+
+    #: (kernel, repeats, cout, expand, stride, fused, se ratio)
+    _CFG = {
+        "b0": [(3, 1, 16, 1, 1, True, 0), (3, 2, 32, 4, 2, True, 0),
+               (3, 2, 48, 4, 2, True, 0), (3, 3, 96, 4, 2, False, .25),
+               (3, 5, 112, 6, 1, False, .25), (3, 8, 192, 6, 2, False, .25)],
+        "b1": [(3, 2, 16, 1, 1, True, 0), (3, 3, 32, 4, 2, True, 0),
+               (3, 3, 48, 4, 2, True, 0), (3, 4, 96, 4, 2, False, .25),
+               (3, 6, 112, 6, 1, False, .25), (3, 9, 192, 6, 2, False, .25)],
+        "b2": [(3, 2, 16, 1, 1, True, 0), (3, 3, 32, 4, 2, True, 0),
+               (3, 3, 56, 4, 2, True, 0), (3, 4, 104, 4, 2, False, .25),
+               (3, 6, 120, 6, 1, False, .25),
+               (3, 10, 208, 6, 2, False, .25)],
+        "b3": [(3, 2, 16, 1, 1, True, 0), (3, 3, 40, 4, 2, True, 0),
+               (3, 3, 56, 4, 2, True, 0), (3, 5, 112, 4, 2, False, .25),
+               (3, 7, 136, 6, 1, False, .25),
+               (3, 12, 232, 6, 2, False, .25)],
+        "s": [(3, 2, 24, 1, 1, True, 0), (3, 4, 48, 4, 2, True, 0),
+              (3, 4, 64, 4, 2, True, 0), (3, 6, 128, 4, 2, False, .25),
+              (3, 9, 160, 6, 1, False, .25), (3, 15, 256, 6, 2, False, .25)],
+        "m": [(3, 3, 24, 1, 1, True, 0), (3, 5, 48, 4, 2, True, 0),
+              (3, 5, 80, 4, 2, True, 0), (3, 7, 160, 4, 2, False, .25),
+              (3, 14, 176, 6, 1, False, .25),
+              (3, 18, 304, 6, 2, False, .25), (3, 5, 512, 6, 1, False, .25)],
+        "l": [(3, 4, 32, 1, 1, True, 0), (3, 7, 64, 4, 2, True, 0),
+              (3, 7, 96, 4, 2, True, 0), (3, 10, 192, 4, 2, False, .25),
+              (3, 19, 224, 6, 1, False, .25),
+              (3, 25, 384, 6, 2, False, .25), (3, 7, 640, 6, 1, False, .25)],
+    }
+    #: keras.applications' stem filters per size
+    _STEM = {"b0": 32, "b1": 32, "b2": 32, "b3": 40, "s": 24, "m": 24,
+             "l": 32}
+    #: (stage, block) whose expand activation is a tap
+    _TAP_EXPAND = {(1, 1), (3, 0), (5, 0)}
+
+    def __init__(self, size: str = "b0", **kw):
+        if size not in self._CFG:
+            raise ValueError(f"unknown EfficientNetV2 size {size!r}")
+        self.size = size
+        super().__init__(**kw)
+
+    def _block(self, h: torch.Tensor, k: int, cout: int, expand: int,
+               stride: int, fused: bool, se_ratio: float, tap_only: bool):
+        cin = h.shape[1]
+        y, expand_act = h, None
+        if fused:
+            if expand != 1:
+                y = F.silu(self.bn(self.conv(y, cin * expand, k, stride,
+                                             bias=False)))
+                expand_act = y
+                if tap_only:
+                    return None, expand_act
+                y = self.bn(self.conv(y, cout, 1, bias=False))
+            else:
+                y = F.silu(self.bn(self.conv(y, cout, k, stride, bias=False)))
+                expand_act = y  # the pre-residual activation
+                if tap_only:
+                    return None, expand_act
+        else:
+            if expand != 1:
+                y = F.silu(self.bn(self.conv(y, cin * expand, 1, bias=False)))
+                expand_act = y
+                if tap_only:
+                    return None, expand_act
+            c = y.shape[1]
+            y = F.silu(self.bn(self.conv(y, c, k, stride, groups=c,
+                                         bias=False)))
+            if se_ratio:
+                s = spatial_mean(y, keepdim=True)
+                s = F.silu(self.conv(s, max(1, int(cin * se_ratio)), 1))
+                y = y * torch.sigmoid(self.conv(s, c, 1))
+            y = self.bn(self.conv(y, cout, 1, bias=False))
+        if stride == 1 and cin == cout:
+            y = y + h
+        return y, expand_act
+
+    def graph(self, x: torch.Tensor) -> tp.List[torch.Tensor]:
+        taps = [x]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.size.startswith("b"):
+            shape = (1, -1, 1, 1)
+            mean = xf.new_tensor([0.485, 0.456, 0.406]).view(shape)
+            std = xf.new_tensor([0.229, 0.224, 0.225]).view(shape)
+            h = ((xf / 255.0 - mean) / std).to(self.dtype)
+        else:
+            h = (xf / 128.0 - 1.0).to(self.dtype)
+        h = F.silu(self.bn(self.conv(h, self._STEM[self.size], 3, 2,
+                                     bias=False)))
+        n_need = self.max_tap + 1
+        for stage, (k, reps, cout, expand, stride, fused, se) in enumerate(
+                self._CFG[self.size]):
+            for b in range(reps):
+                is_tap = ((stage == 0 and b == 0)
+                          or (stage, b) in self._TAP_EXPAND)
+                tap_only = is_tap and len(taps) + 1 >= n_need
+                h, expand_act = self._block(h, k, cout, expand,
+                                            stride if b == 0 else 1, fused,
+                                            se, tap_only)
+                if stage == 0 and b == 0:
+                    taps.append(expand_act if expand_act is not None else h)
+                elif (stage, b) in self._TAP_EXPAND and \
+                        expand_act is not None:
+                    taps.append(expand_act)
+                if tap_only and len(taps) >= n_need:
+                    return taps
+        taps.append(F.silu(self.bn(self.conv(h, 1280, 1, bias=False))))
         return taps

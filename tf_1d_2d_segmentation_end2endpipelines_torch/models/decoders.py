@@ -3,13 +3,15 @@
 
 Ported, both with and without deep supervision, each upsampling by the 2D
 dialect's transposed conv or by bilinear resize (``is_transconv``): the
-UNet, MultiResUNet and KSSNet chains (``ChainDecoder`` styles ``unet``,
-``multires`` and ``kssnet``, :166) and the UNetE, UNetP, UNet++ and
-UNet4P grids (``GridDecoder`` variants ``E``, ``P``, ``PP`` and ``4P``,
-:223), each with or without attention gates (``A_G``) and ConvLSTM
-fusion (``LSTM``); the UNet3+ and MultiResUNet3+ full-scale decoders
-(``FullScaleDecoder``, :324), which ignore ``A_G`` and ``LSTM`` as the
-JAX module does.  Nodes of the ``conv``, ``multires``, ``recurrent``,
+UNet, MultiResUNet, KSSNet and FPN chains (``ChainDecoder`` styles
+``unet``, ``multires``, ``kssnet`` and ``fpn``, :166) and the UNetE,
+UNetP, UNet++, UNet4P and AHNet grids (``GridDecoder`` variants ``E``,
+``P``, ``PP``, ``4P`` and ``AH``, :223), each with or without attention
+gates (``A_G``) and ConvLSTM fusion (``LSTM``); the UNet3+, UNet4PV2 and
+MultiResUNet3+ full-scale decoders (``FullScaleDecoder``, :324), which
+ignore ``A_G`` and ``LSTM`` as the JAX module does; and the Self-ONN
+decoders.  ``build_decoder`` has every name of the JAX
+``DECODER_NAMES``.  Nodes of the ``conv``, ``multires``, ``recurrent``,
 ``r2``, ``convmixer`` and ``multires_mixer`` families (JAX
 ``_node_block``, :114) serve the 1D zoo's RUNet, R2UNet and ConvMixer
 archs.
@@ -261,8 +263,7 @@ class ChainDecoder(_DecoderBase):
                  bottom_features: tp.Optional[int] = None,
                  merge: str = "concat"):
         if style not in self.STYLES:
-            raise NotImplementedError(
-                f"ChainDecoder style {style!r} is not ported yet")
+            raise ValueError(f"unknown ChainDecoder style {style!r}")
         super().__init__(model_width, model_depth, D_S=D_S,
                          is_transconv=is_transconv,
                          node=("multires" if style in ("multires", "kssnet")
@@ -339,6 +340,9 @@ class GridDecoder(_DecoderBase):
       earlier nodes (D - m, m), m in 1..i-2, resized to the row (2D: their
       sigmoids; the 1D dialect concatenates them ungated, decoders.py:
       300-318);
+    - ``AH`` (AHNet, :523): as ``4P``, each of those diagonal nodes first
+      through its own ``ResPath(j, W, kernel)`` (``ResPath_<r>``, numbered
+      in the order the nodes and m run), then resized;
     - ``P`` (UNetP, :217): node (j, i-1) for i > 1, else encoder tap j;
     - ``E`` (UNetE, :157): encoder tap j.  Without deep supervision only
       the nodes with i + j == D are built: the others feed only the heads
@@ -370,9 +374,8 @@ class GridDecoder(_DecoderBase):
                  dialect: str = "2d", node: str = "conv", t: int = 2,
                  bottom_features: tp.Optional[int] = None,
                  merge: str = "concat"):
-        if variant not in ("E", "P", "PP", "4P"):
-            raise NotImplementedError(
-                f"GridDecoder variant {variant!r} is not ported yet")
+        if variant not in ("E", "P", "PP", "4P", "AH"):
+            raise ValueError(f"unknown GridDecoder variant {variant!r}")
         super().__init__(model_width, model_depth, D_S=D_S,
                          is_transconv=is_transconv, node=node, alpha=alpha,
                          dtype=dtype, kernel=kernel,
@@ -385,11 +388,13 @@ class GridDecoder(_DecoderBase):
         self.A_G = A_G
         self.LSTM = LSTM
         W, D = model_width, model_depth
-        dense = variant in ("PP", "4P")
+        dense = variant in ("PP", "4P", "AH")
         #: node (i, j) -> the numbers of its skips' attention gates
         self._gates: tp.Dict[tp.Tuple[int, int], tp.List[int]] = {}
         #: node (i, j) -> the diagonal nodes (D - m, m) it concatenates
         self._paths: tp.Dict[tp.Tuple[int, int], tp.List[int]] = {}
+        #: AH: (i, j, m) -> the ResPath on diagonal node (D - m, m)
+        self._path_blocks: tp.Dict[tp.Tuple[int, int, int], nn.Module] = {}
         width = {}  # node (j, i) -> its output width
         if D_S:
             self._add_ds_head(W, D)
@@ -415,9 +420,16 @@ class GridDecoder(_DecoderBase):
             if LSTM:
                 cin = self._add_fusion(n, cin, max(int(W * 2.0 ** (j - 1)),
                                                    1))
-            if variant == "4P" and i > 1 and i + j == D and j != D - 1:
+            if variant in ("4P", "AH") and i > 1 and i + j == D and j != D - 1:
                 self._paths[(i, j)] = list(range(1, i - 1))
-                cin += sum(width[(D - m, m)] for m in self._paths[(i, j)])
+                for m in self._paths[(i, j)]:
+                    if variant == "AH":
+                        path = self._add(ResPath(width[(D - m, m)], j, W,
+                                                 kernel, **self._kw()))
+                        self._path_blocks[(i, j, m)] = path
+                        cin += W
+                    else:
+                        cin += width[(D - m, m)]
             width[(j, i)] = self._add_node(cin, width_j)
             if D_S and j == 0 and i < D:
                 self._add_ds_head(width[(0, i)], D - i)
@@ -438,7 +450,7 @@ class GridDecoder(_DecoderBase):
         deconvs: tp.Dict[tp.Tuple[int, int], torch.Tensor] = {}
         for n, (i, j) in enumerate(self._nodes_ij()):
             src = skips[j + 1] if i == 1 else deconvs[(j + 1, i - 1)]
-            if self.variant in ("PP", "4P"):
+            if self.variant in ("PP", "4P", "AH"):
                 terms = [deconvs[(j, k)] for k in range(1, i)] + [skips[j]]
             elif self.variant == "P" and i > 1:
                 terms = [deconvs[(j, i - 1)]]
@@ -461,7 +473,10 @@ class GridDecoder(_DecoderBase):
             else:
                 merged = concat(up, *terms)
             for m in self._paths.get((i, j), ()):
-                path = self._resize(deconvs[(D - m, m)], 2 ** (i - m))
+                path = deconvs[(D - m, m)]
+                if self.variant == "AH":
+                    path = self._path_blocks[(i, j, m)](path)
+                path = self._resize(path, 2 ** (i - m))
                 merged = concat(merged, torch.sigmoid(path)
                                 if self.rank == 2 else path)
             deconvs[(j, i)] = self._run_node(n, merged)
@@ -813,6 +828,9 @@ _DECODERS: tp.Dict[str, tp.Callable[..., nn.Module]] = {
     "UNetP": lambda **kw: GridDecoder(variant="P", **kw),
     "UNetPP": lambda **kw: GridDecoder(variant="PP", **kw),
     "UNet3P": lambda **kw: FullScaleDecoder(multires=False, **kw),
+    "UNet4P": lambda **kw: GridDecoder(variant="4P", **kw),
+    "UNet4PV2": lambda **kw: FullScaleDecoder(multires=False, **kw),
+    "AHNet": lambda **kw: GridDecoder(variant="AH", **kw),
     "MultiResUNet": lambda **kw: ChainDecoder(style="multires", **kw),
     "MultiResUNet3P": lambda **kw: FullScaleDecoder(multires=True, **kw),
     "KSSNet": lambda **kw: ChainDecoder(style="kssnet", **kw),
@@ -825,12 +843,11 @@ _DECODERS: tp.Dict[str, tp.Callable[..., nn.Module]] = {
 
 
 def build_decoder(decoder_name: str, q: int = 3, **kw) -> nn.Module:
-    """The decoder of ``decoder_name`` (JAX ``build_decoder``, :542); the
-    Self-ONN decoders take the order ``q``."""
+    """The decoder of ``decoder_name`` (JAX ``build_decoder``, :542; an
+    unknown name its ``ValueError``); the Self-ONN decoders take the order
+    ``q``."""
     if decoder_name not in _DECODERS:
-        raise NotImplementedError(
-            f"decoder {decoder_name!r} is not ported yet (ported: "
-            f"{', '.join(_DECODERS)})")
+        raise ValueError(f"Unknown decoder: {decoder_name!r}")
     if decoder_name.startswith("Self"):
         kw["q"] = q
     return _DECODERS[decoder_name](**kw)

@@ -1,14 +1,15 @@
 """Top-level segmentation model of the port
 (JAX: tf_1d_2d_segmentation_end2endpipelines_tpu/models/segmodel.py).
 
-Ported: the UNet and FPN genres, with or without deep supervision, with
-any decoder that ``decoders.build_decoder`` has (UNet, UNetE, UNetP,
-UNet++, UNet3+, MultiResUNet, MultiResUNet3+, KSSNet, FPN and the
-Self-ONN SelfUNet, SelfUNetPP, SelfUNet3P and SelfFPN so far), attention
-gates and ConvLSTM fusion on the chains and grids; the encoder from
-scratch, with or without the autoencoder bottleneck, or, ``train_mode =
-"pretrained_encoder"``, an EfficientNet V1 backbone (``backbones``) with
-the default and Self-ONN tap projectors, or the FPN genre's.
+Every (decoder, encoder) pair of the JAX ``SegModel``: the UNet and FPN
+genres, with or without deep supervision, with each of the 16 decoders
+of ``decoders.build_decoder`` (UNet, UNetE, UNetP, UNet++, UNet3+,
+UNet4P, UNet4PV2, AHNet, MultiResUNet, MultiResUNet3+, KSSNet, FPN and
+the Self-ONN SelfUNet, SelfUNetPP, SelfUNet3P and SelfFPN), attention
+gates and ConvLSTM fusion on the chains and grids, the autoencoder
+bottleneck; the encoder from scratch or, ``train_mode =
+"pretrained_encoder"``, any of the 33 backbones (``backbones``) with
+every branch of the tap projectors, or the FPN genre's.
 """
 from __future__ import annotations
 
@@ -19,9 +20,31 @@ from torch import nn
 
 from ..ops import (ConvBlock, FeatureExtractionBlock, HeadConv, Oper,
                    apply_activation, pooled_size, set_block_remat)
+from ..ops.kernels import pool_backward, pyramid
 from .decoders import build_decoder
 from .backbones import get_backbone
-from .encoders import LatentLayer, PretrainedTapProjector, ScratchEncoder
+from .encoders import (DENSE_INPUT_FAMILIES, LatentLayer,
+                       PretrainedTapProjector, ScratchEncoder)
+
+
+#: the decoders that pool encoder tap 0 to level D - 1 (JAX
+#: ``FullScaleDecoder``, ``SelfFullScaleDecoder``)
+_FULL_SCALE = ("UNet3P", "UNet4PV2", "MultiResUNet3P", "SelfUNet3P")
+
+
+def deepest_pool(decoder_name: str, depth: int, pretrained: bool) -> int:
+    """The deepest level m of the max pools by 2**m the model runs: D for
+    a from-scratch KSSNet, UNet4P, UNet4PV2 or AHNet encoder (tap 1 to
+    the bottom), D - 1 for a full-scale decoder (tap 1 to the deepest
+    step), else 1 (a pretrained model's gated projectors pool by 16 at
+    most)."""
+    level = 1
+    if not pretrained and (decoder_name == "KSSNet"
+                           or decoder_name in DENSE_INPUT_FAMILIES):
+        level = depth
+    if decoder_name in _FULL_SCALE:
+        level = max(level, depth - 1)
+    return level
 
 
 class SegModel(nn.Module):
@@ -43,16 +66,22 @@ class SegModel(nn.Module):
     of the same architecture.  ``ae = 1`` (from scratch) puts the
     autoencoder bottleneck after the latent (``FeatureExtractionBlock_0``,
     W * 2**D wide, ``feature_number`` features; JAX segmodel.py:141-143),
-    sized by ``input_size``, the (H, W) of the images it takes.
+    sized by ``input_size``, the (H, W) of the images it takes (on a
+    backbone, by the grid of its tap at depth D for such an image, found
+    by one forward of a zero image through it when the model is built).
 
     ``train_mode = "pretrained_encoder"`` (depth 1 to 5) encodes with the
     ``backbone`` named (``<Backbone>_0``, its taps 0 .. min(D, 5)), each
     tap but the deepest at depth 5 projected to its level's width
-    (``PretrainedTapProjector_<k>``, min(D + 1, 5) of them); the latent
-    reads projected tap D, or at depth 5 the backbone's raw top (JAX
-    segmodel.py:76-125).  ``backbone_trainable`` False keeps the
-    backbone's BatchNorms on their running statistics in training
-    (``EfficientNetBackbone.trainable``); its parameters still train.
+    (``PretrainedTapProjector_<k>``, min(D + 1, 5) of them, each on the
+    decoder's branch; the gated ones of KSSNet and UNet4P/UNet4PV2 read
+    the shallower projected taps' max pools, each tap pooled to every
+    level a deeper projector reads by one ``pyramid.maxpool_levels``
+    launch, AHNet's the taps themselves); the latent reads projected tap
+    D, or at depth 5 the backbone's raw top (JAX segmodel.py:76-125).
+    ``backbone_trainable`` False keeps the backbone's BatchNorms on their
+    running statistics in training (each backbone's ``trainable``); its
+    parameters still train.
 
     ``genre = "FPN"`` has no latent layer: the decoder's bottleneck is the
     encoder's deepest output (JAX segmodel.py:133-140); on a pretrained
@@ -93,10 +122,11 @@ class SegModel(nn.Module):
             raise ValueError("The depth of the model cannot be less than 1")
         if genre not in ("UNet", "FPN"):
             raise ValueError(f"Unknown model genre {genre!r}")
-        if ae and self.pretrained:
+        level = deepest_pool(decoder_name, D, self.pretrained)
+        if level > len(pool_backward.FACTORS):
             raise NotImplementedError(
-                "ae = 1 (the autoencoder bottleneck) on a pretrained "
-                "encoder is not ported yet (ported: from scratch)")
+                f"{decoder_name} at depth {D} pools by {2 ** level}; the "
+                f"port's max pools go up to {pool_backward.FACTORS[-1]}")
         if ae and not input_size:
             raise ValueError("ae = 1 needs the input size: the autoencoder "
                              "bottleneck's Dense is sized by it")
@@ -117,8 +147,8 @@ class SegModel(nn.Module):
                 if not self.fpn:
                     name = f"PretrainedTapProjector_{lvl - 1}"
                     proj: nn.Module = PretrainedTapProjector(
-                        decoder_name, lvl, cin, W, q=q, dtype=dtype,
-                        generator=generator)
+                        decoder_name, lvl, cin, W, D, alpha=alpha, q=q,
+                        dtype=dtype, generator=generator)
                 elif self_onn:
                     name, proj = f"Oper_{lvl - 1}", Oper(
                         cin, feats, 1, q=q, dtype=dtype, generator=generator)
@@ -129,6 +159,10 @@ class SegModel(nn.Module):
                 self.add_module(name, proj)
                 self._projectors.append(name)
             bottom = bb.tap_features[5] if D == 5 else W * 2 ** D
+            #: KSSNet, UNet4P and UNet4PV2 pool each projected tap k to
+            #: levels 1 .. n_proj - k for the deeper projectors
+            self._tap_pyramids = (not self.fpn and decoder_name in (
+                "KSSNet", "UNet4P", "UNet4PV2"))
         else:
             self._encoder = "ScratchEncoder_0"
             self.ScratchEncoder_0 = ScratchEncoder(
@@ -139,13 +173,16 @@ class SegModel(nn.Module):
             self.LatentLayer_0 = LatentLayer(
                 decoder_name, W, D, dense_loop, alpha=alpha, q=q, dtype=dtype,
                 generator=generator,
-                in_features=bottom if self.pretrained and D == 5 else None)
+                in_features=bottom if self.pretrained else None)
             bottom = self.LatentLayer_0.out_features
         self.ae = bool(ae)
         if ae:
+            grid = (self._backbone_grid(in_channels, input_size)
+                    if self.pretrained
+                    else tuple(pooled_size(n, D) for n in input_size))
             self.FeatureExtractionBlock_0 = FeatureExtractionBlock(
-                bottom, tuple(pooled_size(n, D) for n in input_size),
-                W * 2 ** D, feature_number, dtype=dtype, generator=generator)
+                bottom, grid, W * 2 ** D, feature_number, dtype=dtype,
+                generator=generator)
             bottom = W * 2 ** D
         decoder = build_decoder(decoder_name, q=q, model_width=W,
                                 model_depth=D, D_S=ds, A_G=ag, LSTM=lstm,
@@ -165,6 +202,21 @@ class SegModel(nn.Module):
             self._head_activation = final_activation
         set_block_remat(self, block_remat)
 
+    def _backbone_grid(self, in_channels: int,
+                       input_size: tp.Tuple[int, int]) -> tp.Tuple[int, int]:
+        """The (H, W) of the backbone's tap min(D, 5) for an input of
+        ``input_size``: its blocks' strides and paddings differ (SAME
+        convs round up, VALID pools down)."""
+        bb = getattr(self, self._encoder)
+        was = bb.training
+        nn.Module.train(bb, False)
+        with torch.no_grad():
+            x = torch.zeros((1, in_channels) + tuple(input_size)).contiguous(
+                memory_format=torch.channels_last)
+            shape = bb(x)[min(self.model_depth, 5)].shape
+        nn.Module.train(bb, was)
+        return int(shape[2]), int(shape[3])
+
     def reinitialized(self, generator: torch.Generator) -> "SegModel":
         """A new model of this architecture with weights drawn from
         ``generator``."""
@@ -180,8 +232,16 @@ class SegModel(nn.Module):
                         memory_format=torch.channels_last).copy_(x)
         if self.pretrained:
             raw = getattr(self, self._encoder)(x)
-            taps = [getattr(self, name)(tap)
-                    for name, tap in zip(self._projectors, raw[:5])]
+            taps: tp.List[torch.Tensor] = []
+            pools: tp.List[tp.List[torch.Tensor]] = []
+            n_proj = len(self._projectors)
+            for lvl, (name, tap) in enumerate(zip(self._projectors, raw[:5]),
+                                              1):
+                proj = getattr(self, name)
+                taps.append(proj(tap) if self.fpn else proj(tap, pools, taps))
+                if self._tap_pyramids and lvl < n_proj:
+                    pools.append(pyramid.maxpool_levels(taps[-1],
+                                                        n_proj - lvl))
             bottom = raw[5] if self.model_depth == 5 else taps[-1]
         else:
             taps, bottom = self.ScratchEncoder_0(x)

@@ -164,14 +164,17 @@ class BatchNorm(nn.Module):
     statistics with flax's ``momentum`` (the weight of the old value,
     0.99), biased variance included, once a forward: not again while the
     backward recomputes a checkpointed forward (``ops/remat.py``).
-    ``F.batch_norm`` is not used: it would store the unbiased variance."""
+    ``F.batch_norm`` is not used: it would store the unbiased variance.
+    ``use_scale`` False (flax ``use_scale=False``, the Inception
+    backbones') has no ``weight``."""
 
     def __init__(self, features: int, momentum: float = 0.99,
-                 epsilon: float = 1e-3):
+                 epsilon: float = 1e-3, use_scale: bool = True):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(features))
+        self.weight = (nn.Parameter(torch.ones(features)) if use_scale
+                       else None)
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
@@ -185,9 +188,12 @@ class BatchNorm(nn.Module):
                 (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
             if not _remat.recomputing():
                 self._advance(mean, var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        else:  # in xf's dtype: float64 where a reference computes in it
+            mean = self.running_mean.to(xf.dtype)
+            var = self.running_var.to(xf.dtype)
+        mul = torch.rsqrt(var + self.epsilon)
+        if self.weight is not None:
+            mul = mul * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
 
@@ -236,27 +242,35 @@ def same_pads(size: int, kernel: int, stride: int) -> tp.Tuple[int, int]:
 
 class SameConv(nn.Conv2d):
     """flax ``nn.Conv`` with ``SAME`` padding at any stride: a square
-    kernel (``rank`` 2) or a (1, k) one over a 1D signal (``rank`` 1),
-    ``groups`` (flax's ``feature_group_count``), bias optional.  The
-    padding depends on the input's size (``same_pads``); where it is
-    uneven (stride 2, or an even 1D kernel) the input is padded by
-    ``F.pad`` before a conv that pads nothing.  Casts input, kernel and
-    bias to ``dtype`` and adds the bias after the convolution, as flax.
+    kernel (``rank`` 2; a (kh, kw) tuple for a rectangular one) or a (1,
+    k) one over a 1D signal (``rank`` 1), ``groups`` (flax's
+    ``feature_group_count``), bias optional.  The padding depends on the
+    input's size (``same_pads``); where it is uneven (stride 2, or an
+    even 1D kernel) the input is padded by ``F.pad`` before a conv that
+    pads nothing.  ``padding`` p instead pads p on every side (flax's
+    explicit ``[(p, p), (p, p)]``, keras's ZeroPadding then VALID).
+    Casts input, kernel and bias to ``dtype`` and adds the bias after the
+    convolution, as flax.
     Init: ``init`` is ``lecun_normal`` (flax's default), ``he_uniform``,
     ``he_normal`` or ``orthogonal``; zero bias."""
 
-    def __init__(self, in_features: int, features: int, kernel: int,
+    def __init__(self, in_features: int, features: int,
+                 kernel: tp.Union[int, tp.Tuple[int, int]],
                  stride: int = 1, groups: int = 1, bias: bool = True,
                  init: str = "lecun_normal",
                  dtype: torch.dtype = torch.float32,
                  generator: tp.Optional[torch.Generator] = None,
-                 rank: int = 2):
-        ks = (kernel, kernel) if rank == 2 else (1, kernel)
+                 rank: int = 2, padding: tp.Optional[int] = None):
+        if isinstance(kernel, tuple):
+            ks = kernel
+        else:
+            ks = (kernel, kernel) if rank == 2 else (1, kernel)
         st = (stride, stride) if rank == 2 else (1, stride)
         super().__init__(in_features, features, ks, stride=st, groups=groups,
                          bias=bias)
         self.dtype = dtype
-        fan_in = in_features // groups * kernel ** rank
+        self.explicit = padding
+        fan_in = in_features // groups * ks[0] * ks[1]
         with torch.no_grad():
             if init == "orthogonal":
                 nn.init.orthogonal_(self.weight, generator=generator)
@@ -271,8 +285,11 @@ class SameConv(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
-        ph = same_pads(x.shape[2], kh, sh)
-        pw = same_pads(x.shape[3], kw, sw)
+        if self.explicit is not None:
+            ph = pw = (self.explicit, self.explicit)
+        else:
+            ph = same_pads(x.shape[2], kh, sh)
+            pw = same_pads(x.shape[3], kw, sw)
         x = x.to(self.dtype)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             padding = (ph[0], pw[0])
@@ -471,7 +488,8 @@ def downsample_pool(x: torch.Tensor, factor: int = 2,
     over H and W (``rank`` 2) or over the length axis of a (B, C, 1, L)
     signal (``rank`` 1).
 
-    Max pooling by ``2**m`` (m = 1..4) is level m of the max-pool pyramid,
+    Max pooling by ``2**m`` (m = 1..5; 1..4 at ``rank`` 1) is level m of
+    the max-pool pyramid,
     so it runs the pyramid kernel on a CUDA tensor (JAX:
     ``lax.reduce_window``), with XLA's first-max gradient
     (``pyramid.maxpool``, ``pyramid.maxpool1d``: the pool-backward kernels

@@ -1,8 +1,9 @@
 """Gradient of the max pool with window = stride = ``factor`` = 2**m,
-m = 1..4 (VALID floor truncation): each output gradient goes to one
-element of its window, chosen by XLA's ``select_and_scatter`` rule under
-the pool's VJP (the JAX package's ``downsample_pool``, ops/blocks.py;
-pinned there by tests/test_pool_impl.py):
+m = 1..5 (rank 1: m = 1..4; VALID floor truncation): each output
+gradient goes to one element of its window, chosen by XLA's
+``select_and_scatter`` rule under the pool's VJP (the JAX package's
+``downsample_pool``, ops/blocks.py; pinned there by
+tests/test_pool_impl.py):
 
 walk the whole window in row-major order keeping a selected element, and
 move to the next element ``e`` whenever ``not (selected >= e)``.
@@ -43,8 +44,10 @@ launches = Counter()
 #: path (autograd may hand ``g`` in another layout)
 g_copies = Counter()
 
-#: the window sides the kernel takes
-FACTORS = (2, 4, 8, 16)
+#: the window sides the kernel takes (rank 2)
+FACTORS = (2, 4, 8, 16, 32)
+#: the window sides the rank-1 kernel takes
+FACTORS_1D = (2, 4, 8, 16)
 
 
 def _check_shapes(x: torch.Tensor, g: torch.Tensor, factor: int) -> None:
@@ -135,7 +138,7 @@ def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
 def route(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
     """The name of the kernel that :func:`maxpool_backward` launches for
     the same CUDA tensors and factor: ``pool_backward_kernel`` (F = 2) or
-    ``pool_backward_rows_kernel`` (F >= 4), with ``<V=1>`` where it takes
+    ``pool_backward_rows_kernel`` (F = 4 .. 32), with ``<V=1>`` where it takes
     one channel a thread; "none" for an empty ``x``.  Launches nothing and
     counts no copy (a ``g`` the wrapper would copy is judged as its
     copy, which is aligned)."""
@@ -157,8 +160,8 @@ def route(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
 
 def maxpool_backward(x: torch.Tensor, g: torch.Tensor, factor: int
                      ) -> torch.Tensor:
-    """dx of the max pool by ``factor`` (2, 4, 8 or 16) of ``x`` (B, C, H,
-    W) for the output gradient ``g``.  On a CUDA tensor ``x`` must be
+    """dx of the max pool by ``factor`` (2, 4, 8, 16 or 32) of ``x`` (B, C,
+    H, W) for the output gradient ``g``.  On a CUDA tensor ``x`` must be
     float32 or bfloat16 in channels_last memory, and ``g`` of the same
     dtype (copied into channels_last if it is not); one launch of the
     kernel.  A CPU tensor goes through :func:`maxpool_backward_plain`.  dx
@@ -174,8 +177,8 @@ def maxpool_backward(x: torch.Tensor, g: torch.Tensor, factor: int
 # ------------------------------------------------------------------ rank 1
 
 def _check_shapes_1d(x: torch.Tensor, g: torch.Tensor, factor: int) -> None:
-    if factor not in FACTORS:
-        raise ValueError(f"pool factor must be one of {FACTORS}, got "
+    if factor not in FACTORS_1D:
+        raise ValueError(f"pool factor must be one of {FACTORS_1D}, got "
                          f"{factor}")
     if x.dim() != 4 or x.shape[2] != 1:
         raise ValueError(f"expected a (B, C, 1, L) input, got shape "

@@ -22,7 +22,7 @@ W and channel count; float32 and bfloat16.
   level that received a gradient (the CUDA kernel ``csrc/
   pool_backward.cu`` on a CUDA tensor), which routes each gradient to the
   first maximum of its window in row-major order, as XLA does.
-- :func:`maxpool` is the pool by 2**m (m = 1..4): ``maxpool_levels``
+- :func:`maxpool` is the pool by 2**m (m = 1..5): ``maxpool_levels``
   storing level m only.
 - :func:`fused_maxpool_pyramid` is the JAX package's NHWC entry point.
 - :func:`route` names the kernel a CUDA call launches.
@@ -45,7 +45,8 @@ import typing as tp
 import torch
 
 from ._common import DTYPE_CODES, Counter
-from .pool_backward import FACTORS, maxpool1d_backward, maxpool_backward
+from .pool_backward import (FACTORS, FACTORS_1D, maxpool1d_backward,
+                            maxpool_backward)
 
 #: kernel launches so far in this process (never counts the plain version)
 launches = Counter()
@@ -217,8 +218,10 @@ def maxpool_levels(x: torch.Tensor, levels: int,
                    wanted: tp.Optional[tp.Sequence[int]] = None
                    ) -> tp.List[torch.Tensor]:
     """``[maxpool(x, 2**l) for l in wanted]`` (default: l in 1..levels,
-    levels 1..4) of a (B, C, H, W) tensor from one pyramid launch,
-    differentiable (see :class:`MaxPoolLevels`)."""
+    levels 1..5) of a (B, C, H, W) tensor from one pyramid launch,
+    differentiable (see :class:`MaxPoolLevels`).  A pool by 64 (level 6,
+    a from-scratch dense-input encoder at depth 6 or more) raises
+    ``NotImplementedError``."""
     if levels not in range(1, len(FACTORS) + 1):
         raise NotImplementedError(
             f"max pools to level {levels}: only pools by {FACTORS} are "
@@ -227,8 +230,8 @@ def maxpool_levels(x: torch.Tensor, levels: int,
 
 
 def maxpool(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Differentiable max pool by ``factor`` (2, 4, 8 or 16) of a (B, C,
-    H, W) tensor: :func:`maxpool_levels` storing level log2(factor) only
+    """Differentiable max pool by ``factor`` (2, 4, 8, 16 or 32) of a (B,
+    C, H, W) tensor: :func:`maxpool_levels` storing level log2(factor) only
     (window = stride, VALID floor truncation; XLA's gradient)."""
     if factor not in FACTORS:
         raise NotImplementedError(
@@ -257,10 +260,10 @@ def _check_1d(x: torch.Tensor, levels: int) -> None:
     if x.dim() != 4 or x.shape[2] != 1:
         raise ValueError(f"expected a (B, C, 1, L) tensor, got shape "
                          f"{tuple(x.shape)}")
-    if levels not in range(1, len(FACTORS) + 1):
+    if levels not in range(1, len(FACTORS_1D) + 1):
         raise NotImplementedError(
-            f"1D max pools to level {levels}: only pools by {FACTORS} are "
-            "ported")
+            f"1D max pools to level {levels}: only pools by {FACTORS_1D} "
+            "are ported")
 
 
 def maxpool1d_level_plain(x: torch.Tensor, level: int) -> torch.Tensor:
@@ -368,8 +371,8 @@ def maxpool1d(x: torch.Tensor, factor: int) -> torch.Tensor:
     length axis of a (B, C, 1, L) tensor: :func:`maxpool1d_levels`
     storing level log2(factor) only (window = stride, VALID floor
     truncation; XLA's gradient)."""
-    if factor not in FACTORS:
+    if factor not in FACTORS_1D:
         raise NotImplementedError(
-            f"1D max pool by {factor}: only {FACTORS} are ported")
+            f"1D max pool by {factor}: only {FACTORS_1D} are ported")
     level = factor.bit_length() - 1
     return maxpool1d_levels(x, level, (level,))[0]
