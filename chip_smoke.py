@@ -42,17 +42,27 @@ kernel).  Phases, each printing lines:
    each path makes (the pyramid storing every level, some levels or one
    level alone for a pool by 2**m; the pool backward with windows 2, 4,
    8, 16 and 32) and at edge cases (bit-exact: max and its gradient
-   routing are exact), each line naming the kernel the launcher picked
-   (it must be ``pool_rows_kernel`` for every MultiRes encoder pool,
-   ``pyramid_vec_kernel`` for every call storing level 5 and
-   ``pool_backward_rows_kernel`` for every backward by 4 to 32 on a
-   path, and is held to the kernel named in ``FWD_ROUTES`` and
-   ``BWD_ROUTES`` at the edge cases), with CUDA-event device times of the
+   routing are exact; bit patterns compared, NaN as NaN, on inputs with
+   no -0.0), each line naming the kernel the launcher picked and
+   reported (one launch of it), which must be ``pool_rows_kernel`` for
+   every MultiRes encoder pool, ``pyramid_vec_kernel`` for every call
+   storing level 5, ``pool_rows_kernel<V=16B>`` for every level 2-4 alone
+   at a C of whole 16 bytes, ``pool_backward_rows_kernel`` for every
+   backward by 4 to 16
+   and ``pool_backward_block_kernel`` for every backward by 32 on a
+   path, and the kernel named in ``FWD_ROUTES`` and ``BWD_ROUTES`` at
+   the edge cases, with CUDA-event device times of the
    kernel (and the difference between its two turns), the plain version
    and the PyTorch library call that computes the same function (a
    yardstick the port never calls), and the bound: bytes moved at 3.35
    TB/s; beside each pooled UNet3+ skip, the earlier design of the same call
-   (one single-level launch per level); beside the DS targets' row, the
+   (one single-level launch per level); beside each call of
+   ``pool_rows_kernel<V=16B>`` and ``pool_backward_block_kernel``, the
+   kernel that call took before (``pool_vec_kernel``,
+   ``pool_backward_rows_kernel``, forced on the same call), checked and
+   timed in the same turns and then against the new kernel in
+   VERSUS_TURNS alternating turns;
+   beside the DS targets' row, the
    floor: the same kernel's time on a (1, 2, 2, 1) mask; then the 1D
    kernels (csrc/pool1d.cu) the same way at every 1D call (config 1's
    shapes, float32, and bfloat16 for its fixed batch and as twins of the
@@ -231,8 +241,12 @@ Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
 phases 21-32; the others run in their order.  Each phase's wall time is
 printed when it ends.
-The line before the last is one JSON object with a row for each kernel
-and each path that runs it (``path``: ``serve``, ``train``, ``train_ds``,
+The line before the last is one JSON object with a row for each CUDA
+kernel (``name``, the name the launcher reports) and each path that runs
+it, ``launches`` the launches its wrapper counted under that name in the
+path's run (the run fails if a kernel of the path's calls was launched no
+time, or if it launched a kernel none of them takes) (``path``:
+``serve``, ``train``, ``train_ds``,
 ``config3_UNetPP``, ``config3_UNet3P``, ``config2_UNet``,
 ``config2_UNetE``, ``config2_UNetP``, ``test``, ``config4_MultiResUNet``,
 ``config4_UNet_AG``, ``MultiResUNet3P``, ``KSSNet``, ``train_multires``,
@@ -241,8 +255,8 @@ paths of phases 27-28 (``lstm_*``, ``ae_UNet``, ``train_lstm``,
 ``self_*``, ``fpn_FPN``, ``train_self``), of phases 31-32
 (``dense_*``, ``train_AHNet``, ``proj_*``, ``train_UNet4PV2_ResNet50``),
 or a 1D path (phase 30's
-``1d_special_*``, ``1d_verbs_*`` among them) with the rows
-``maxpool1d_pyramid`` and ``maxpool1d_backward``): the launches of that
+``1d_special_*``, ``1d_verbs_*`` among them) with the rows of the
+``pool1d_kernel`` and ``pool1d_backward_kernel`` routes): the launches of that
 path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted
 runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
@@ -261,6 +275,7 @@ line.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -465,6 +480,26 @@ def _in_turns(fns: dict, flush, spreads: "dict | None" = None) -> dict:
     return {name: statistics.mean(v) for name, v in t.items()}
 
 
+#: alternating turns in which a redesigned kernel is timed against the
+#: kernel its calls took before (the calls near the launch floor differ by
+#: less than two turns' spread)
+VERSUS_TURNS = 6
+
+
+def _versus(new, old, flush) -> str:
+    """``new`` against ``old`` in VERSUS_TURNS alternating turns: the
+    medians of their device times and the turns ``new`` won."""
+    t = {"new": [], "old": []}
+    for turn in range(VERSUS_TURNS):
+        for name in (("new", "old") if turn % 2 == 0 else ("old", "new")):
+            t[name].append(_device_ms(new if name == "new" else old, flush))
+    wins = sum(a < b for a, b in zip(t["new"], t["old"]))
+    return (f"in {VERSUS_TURNS} alternating turns, medians "
+            f"{statistics.median(t['new']):.4f} ms against "
+            f"{statistics.median(t['old']):.4f} ms, won {wins} of "
+            f"{VERSUS_TURNS}")
+
+
 _BF16, _F32 = "bfloat16", "float32"
 _ENC = [(TRAIN_BATCH, 256, 256, 32), (TRAIN_BATCH, 128, 128, 64),
         (TRAIN_BATCH, 64, 64, 128), (TRAIN_BATCH, 32, 32, 256)]
@@ -582,9 +617,17 @@ FWD_PATHS.update({
 #: the MultiRes encoder pools' kernel (csrc/pyramid.cu): one level at a C
 #: that is not a multiple of 16 bytes, rows starting on 16 bytes
 POOL_ROWS = "pool_rows_kernel"
-#: the pool backward's kernel for windows of 4 and more (csrc/
+#: the pool backward's kernel for windows of 4 to 16 (csrc/
 #: pool_backward.cu), 16 bytes of channels a thread
 BWD_ROWS = "pool_backward_rows_kernel"
+#: the single-level pools by 4, 8 and 16 at a C of whole 16 bytes: the
+#: row kernel's 16-byte fold (csrc/pyramid.cu); they took EARLIER_FWD
+#: before, which phase 3 forces on the same calls and times beside it
+ROWS16 = "pool_rows_kernel<V=16B>"
+EARLIER_FWD = "pool_vec_kernel"
+#: the pool backward's kernel for windows of 32; F = 32 took BWD_ROWS
+#: before, which phase 3 forces on the same calls and times beside it
+BWD_BLOCK = "pool_backward_block_kernel"
 #: an offset channels_last view of the same shape: elements of storage
 #: before the view's first (1: no row starts on 16 bytes; 8 bf16: all do)
 _OFFSET_1 = (_BF16, (2, 8, 64, 31), 1, (1,))
@@ -612,7 +655,18 @@ FWD_EDGES = [
     (_BF16, (2, 70, 66, 16), 5, (5,)),      # level 5 alone, ragged
     (_BF16, (2, 64, 256, 31), 5, (5,)),     # odd C, 16-byte rows
     (_BF16, (2, 64, 64, 31), 5, (5,)),      # odd C, 62-byte output rows
+    (_BF16, (1, 16, 16, 2048), 4, (4,)),    # a pixel past its shared memory
 ]
+#: pool_rows_kernel<V=16B>'s edge cases, drawn with ReLU plateaus (ties
+#: everywhere)
+FWD_PLATEAUS = [
+    (_BF16, (3, 67, 45, 24), 2, (2,)),      # ragged, 3 vectors a pixel
+    (_F32, (2, 70, 130, 20), 3, (3,)),      # f32: ragged, 5 a pixel
+    (_BF16, (2, 50, 1000, 8), 2, (2,)),     # a row of several spans
+    (_F32, (2, 37, 41, 64), 4, (4,)),       # f32, ragged, one span
+    (_BF16, (1, 33, 40, 1024), 4, (4,)),    # one pixel a span
+]
+FWD_EDGES += FWD_PLATEAUS
 #: the kernel a call must reach, where phase 3 holds the launcher to it
 FWD_ROUTES = {
     **{c: POOL_ROWS for cs in _FWD_ENC_MRB.values() for c in cs},
@@ -626,6 +680,10 @@ FWD_ROUTES = {
     (_BF16, (2, 70, 66, 16), 5, (5,)): "pyramid_vec_kernel",
     (_BF16, (2, 64, 256, 31), 5, (5,)): POOL_ROWS,
     (_BF16, (2, 64, 64, 31), 5, (5,)): "pyramid_kernel",
+    (_BF16, (2, 37, 53, 16), 3, (3,)): ROWS16,
+    (_F32, (2, 33, 17, 4), 4, (4,)): ROWS16,
+    **{c: ROWS16 for c in FWD_PLATEAUS},
+    (_BF16, (1, 16, 16, 2048), 4, (4,)): "pool_vec_kernel",
 }
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
@@ -672,12 +730,19 @@ BWD_EDGES = [
     (_BF16, (2, 70, 66, 16), 32),    # F = 32, ragged, 16 bytes
     (_F32, (2, 70, 66, 3), 32),      # one channel a thread
     (_BF16, (2, 64, 64, 32), 32),    # NaN first, last and twice a window
+    (_F32, (2, 64, 96, 8), 32),      # f32: a chunk of 8 channels
+    (_BF16, (1, 33, 65, 24), 32),    # 24 channels, 3 vectors, ragged
+    (_BF16, (3, 100, 40, 64), 32),   # 2 chunks of 32 channels, ragged
+    (_BF16, (2, 32, 32, 8), 32),     # one window, all -inf but a NaN
 ]
 #: values planted in an input (NHWC index -> value) besides its NaN: for
 #: windows of 16, a NaN at window (0, 0)'s first element, at window (0,
 #: 1)'s last, and twice in batch 1's window (0, 0), the second one
 #: followed in its row by -5s, so that the row's walk ends below the rows
-#: above it and only the NaN decides the choice
+#: above it and only the NaN decides the choice; the same for windows of
+#: 32, and a window of -inf with a NaN last (channel 0) or first (1), and
+#: one of -1 with -0.0 before +0.0 (batch 1, channel 2: the walk keeps
+#: the first of two equal values)
 PLANTS = {(_BF16, (2, 32, 32, 32), 16): [
     ((0, 0, 0, 1), float("nan")), ((0, 15, 31, 2), float("nan")),
     ((1, 3, 4, 3), float("nan")), ((1, 9, 12, 3), float("nan")),
@@ -685,14 +750,18 @@ PLANTS = {(_BF16, (2, 32, 32, 32), 16): [
     (_BF16, (2, 64, 64, 32), 32): [
     ((0, 0, 0, 1), float("nan")), ((0, 31, 63, 2), float("nan")),
     ((1, 3, 4, 3), float("nan")), ((1, 20, 12, 3), float("nan")),
-    ((1, 20, slice(13, 32), 3), -5.0)]}
+    ((1, 20, slice(13, 32), 3), -5.0)],
+    (_BF16, (2, 32, 32, 8), 32): [
+    ((0, slice(None), slice(None), slice(None)), float("-inf")),
+    ((0, 31, 31, 0), float("nan")), ((0, 0, 0, 1), float("nan")),
+    ((1, slice(None), slice(None), 2), -1.0), ((1, 5, 6, 2), -0.0),
+    ((1, 5, 7, 2), 0.0)]}
 BWD_ROUTES = {
     **{c: BWD_ROWS for c in _BWD_DEC_3P + _BWD_TAPS_KSS if c[2] >= 4},
     (_BF16, (2, 32, 32, 32), 16): BWD_ROWS,
     (_BF16, (2, 37, 53, 16), 8): BWD_ROWS,
-    (_BF16, (2, 70, 66, 16), 32): BWD_ROWS,
-    (_F32, (2, 70, 66, 3), 32): BWD_ROWS + "<V=1>",
-    (_BF16, (2, 64, 64, 32), 32): BWD_ROWS,
+    **{c: BWD_BLOCK for c in BWD_EDGES if c[2] == 32},
+    (_F32, (2, 70, 66, 3), 32): BWD_BLOCK + "<V=1>",
 }
 
 # ---- the 1D pipeline (phases 21-23): BASELINE config 1 (BASELINE.md:28;
@@ -1046,11 +1115,17 @@ FWD_PATHS["train_AHNet"] = DENSE_2D["dense_AHNet"][2][0]
 BWD_PATHS["train_AHNet"] = DENSE_2D["dense_AHNet"][2][1]
 FWD_PATHS["train_UNet4PV2_ResNet50"] = FWD_PATHS["proj_UNet4PV2"]
 BWD_PATHS["train_UNet4PV2_ResNet50"] = BWD_PATHS["proj_UNet4PV2"]
-#: every level-5 call and every pool by 32 takes a 16-byte kernel
+#: every level-5 call takes a 16-byte kernel, every level 2-4 alone at a
+#: C of whole 16 bytes ROWS16; every pool backward by 4-16 the
+#: row kernel, by 32 the block kernel
 FWD_ROUTES.update({c: "pyramid_vec_kernel" for cs in FWD_PATHS.values()
                    for c in cs if c[2] == 5})
-BWD_ROUTES.update({c: BWD_ROWS for cs in BWD_PATHS.values() for c in cs
-                   if c[2] >= 4})
+FWD_ROUTES.update({
+    c: ROWS16 for cs in FWD_PATHS.values() for c in cs
+    if 2 <= c[2] <= 4 and c[3] == (c[2],)
+    and c[1][-1] * (4 if c[0] == _F32 else 2) % 16 == 0})
+BWD_ROUTES.update({c: BWD_ROWS if c[2] < 32 else BWD_BLOCK
+                   for cs in BWD_PATHS.values() for c in cs if c[2] >= 4})
 #: timed beside the paths' calls: the same calls in bf16
 FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"]
 BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"]
@@ -1089,16 +1164,46 @@ ALL_BWD_PATHS = {**BWD_PATHS, **BWD_PATHS_1D}
 
 def _kernel_row(name: str, path: str, source: str, replaces: str,
                 max_err: float, cases: list, measured: dict) -> dict:
-    """The kernel's row of the JSON line for one path: device times and
-    bound summed over the calls that path makes per batch or step."""
-    rows = [measured[c] for c in cases]
+    """The wrapper's calls for one path, per batch or step: under
+    ``by_kernel``, for each CUDA kernel the launcher picked for them, their
+    number and their device times and bound summed."""
+    kernels = {}
+    for c in cases:
+        kernels.setdefault(measured[c]["route"], []).append(measured[c])
     return {"name": name, "path": path, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": max_err,
-            "ms": sum(r["kernel"] for r in rows),
-            "plain_ms": sum(r["plain"] for r in rows),
-            "bound_ms": _bound_ms(sum(r["bytes"] for r in rows)),
-            "bound_by": "bytes",
-            "library_ms": sum(r["library"] for r in rows)}
+            "by_kernel": {k: {"ms": sum(r["kernel"] for r in rs),
+                              "plain_ms": sum(r["plain"] for r in rs),
+                              "bound_ms": _bound_ms(sum(r["bytes"]
+                                                        for r in rs)),
+                              "bound_by": "bytes",
+                              "library_ms": sum(r["library"] for r in rs)}
+                          for k, rs in kernels.items()}}
+
+
+def _kernel_rows(wrapper_rows: list, runs: dict) -> list:
+    """The JSON line's rows: one per (path, CUDA kernel), ``launches`` the
+    launches the wrappers counted under that kernel's name in the path's
+    run (``runs[path]["kernels"]``).  Fails, naming every such path, if a
+    kernel of the path was launched no time in its run, or if the run
+    launched a kernel that phase 3 did not measure at the path's calls."""
+    rows, named, faults = [], {}, []
+    for w in wrapper_rows:
+        counted = runs[w["path"]]["kernels"]
+        named.setdefault(w["path"], set()).update(w["by_kernel"])
+        for kernel, k in w["by_kernel"].items():
+            n = counted.get(kernel, 0)
+            if n == 0:
+                faults.append(f"{w['path']}: {kernel} launched no time in "
+                              f"the path's run (counted {dict(counted)})")
+            rows.append({**w, **k, "name": kernel, "launches": n})
+    for path, kernels in named.items():
+        extra = set(+runs[path]["kernels"]) - kernels
+        if extra:
+            faults.append(f"{path}: its run launched {sorted(extra)}, which "
+                          f"no call of the path measured takes")
+    _check(not faults, "; ".join(faults))
+    return rows
 
 
 def _print_paths(what: str, paths: dict, measured: dict) -> None:
@@ -1140,6 +1245,44 @@ def _check_route(what: str, got: str, want: "str | None") -> None:
            f"{what}: the launcher picked {got}, not {want}")
 
 
+def _bits(t):
+    """The bit patterns of ``t``, every NaN made one pattern (a kernel and
+    the plain version may carry different NaN payloads)."""
+    import torch
+
+    t = torch.where(t.isnan(), torch.full_like(t, float("nan")), t)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _reset_counts() -> None:
+    """Set the 2D and 1D wrappers' launch counts to 0, every kernel's."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+
+    pyramid.launches.reset()
+    pool_backward.launches.reset()
+
+
+def _kernel_counts() -> "collections.Counter":
+    """The launches the 2D and 1D wrappers counted since their counters'
+    last reset, by the name of the kernel the C launcher reported."""
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
+        pool_backward, pyramid)
+
+    return (collections.Counter(pyramid.launches.by_kernel)
+            + collections.Counter(pool_backward.launches.by_kernel))
+
+
+def _one_launch(what: str, counter, before: dict, kernel: str) -> None:
+    """Check that ``counter`` counted one launch since ``before`` (its
+    ``by_kernel`` then), of ``kernel``."""
+    after = collections.Counter(counter.by_kernel)
+    after.subtract(before)
+    _check(+after == collections.Counter({kernel: 1}),
+           f"{what}: launched {dict(+after)}, not one {kernel}")
+
+
 def phase_kernels() -> dict:
     """maxpool_pyramid (every level, some levels or one level alone)
     against its plain version at every call each path makes and at edge
@@ -1164,7 +1307,7 @@ def phase_kernels() -> dict:
     max_err, measured = 0.0, {}
     for case in on_path + FWD_EDGES:
         dtype, shape, levels, wanted = case
-        x = _case_input(dtype, shape, gen, plateaus=False,
+        x = _case_input(dtype, shape, gen, plateaus=case in FWD_PLATEAUS,
                         offset=OFFSETS.get(case, 0))
         fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels,
                                                               wanted),
@@ -1172,11 +1315,12 @@ def phase_kernels() -> dict:
                # the yardstick: PyTorch's own pool, one call per level
                "library": lambda: [F.max_pool2d(x, 1 << lvl)
                                    for lvl in wanted]}
-        before = pyramid.launches.value
+        before = dict(pyramid.launches.by_kernel)
         got, want = fns["kernel"](), fns["plain"]()
         torch.cuda.synchronize()
-        _check(pyramid.launches.value == before + 1,
-               f"pyramid {shape} {wanted}: not one launch")
+        kernel = pyramid.route(x, levels, wanted)
+        _one_launch(f"pyramid {shape} {wanted}", pyramid.launches, before,
+                    kernel)
         for k, p in zip(got, want):
             _check(k.shape == p.shape and k.dtype == p.dtype,
                    f"pyramid {shape} {wanted}: {k.shape} vs {p.shape}")
@@ -1186,6 +1330,8 @@ def phase_kernels() -> dict:
             err = float((k[fin].float() - p[fin].float()).abs().max()) \
                 if bool(fin.any()) else 0.0
             _check(err == 0.0, f"pyramid {shape} {wanted}: max-abs {err}")
+            _check(torch.equal(_bits(k), _bits(p)),
+                   f"pyramid {shape} {wanted}: bit patterns differ")
             max_err = max(max_err, err)
         what = (f"maxpool_level {dtype} {tuple(shape)} L={levels} (pool by "
                 f"{1 << levels})" if wanted == (levels,) else
@@ -1193,7 +1339,6 @@ def phase_kernels() -> dict:
                 f"{list(wanted)}")
         if case in OFFSETS:
             what += f", view {OFFSETS[case]} element(s) into its storage"
-        kernel = pyramid.route(x, levels, wanted)
         _check_route(what, kernel, FWD_ROUTES.get(case))
         what += f" [{kernel}]"
         if case not in on_path:
@@ -1204,18 +1349,31 @@ def phase_kernels() -> dict:
             # the earlier design of the same call: one launch per level
             fns["per_level"] = lambda: [pyramid.maxpool_level(x, lvl)
                                         for lvl in wanted]
+        if kernel == ROWS16:
+            # the kernel this call took before, forced on the same input
+            fns["earlier"] = lambda: pyramid._maxpool_pyramid_cuda(
+                x, levels, [levels], force=EARLIER_FWD)
+            before = dict(pyramid.launches.by_kernel)
+            _check(torch.equal(_bits(fns["earlier"]()[0]), _bits(want[0])),
+                   f"{what}: {EARLIER_FWD} differs from plain")
+            _one_launch(what, pyramid.launches, before, EARLIER_FWD)
         spread = {}
         t = _timed_turns(fns, flush, spread)
         calls = {name: _call_ms(fns[name], flush)
                  for name in ("kernel", "plain")}
         host = _host_ms(fns["kernel"])
         nbytes = _bytes(x, *got)
-        measured[case] = {**t, "bytes": nbytes}
+        measured[case] = {**t, "bytes": nbytes, "route": kernel}
         lib = (f"{len(wanted)} F.max_pool2d call(s), one per level, "
                f"{t['library']:.4f} ms")
         if "per_level" in t:
             lib += (f"; {len(wanted)} single-level launches "
                     f"{t['per_level']:.4f} ms")
+        if "earlier" in t:
+            lib += (f"; the earlier kernel ({EARLIER_FWD}) "
+                    f"{t['earlier']:.4f} ms (turns differ by "
+                    f"{spread['earlier']:.4f}); {ROWS16} against it "
+                    f"{_versus(fns['kernel'], fns['earlier'], flush)}")
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
               f"kept); device time kernel {t['kernel']:.4f} ms (turns "
               f"differ by {spread['kernel']:.4f}), plain "
@@ -1296,20 +1454,21 @@ def phase_pool_backward() -> dict:
         b, c, h, w = x.shape
         g = torch.randn((b, h // f, w // f, c), generator=gen).to(
             "cuda", x.dtype).permute(0, 3, 1, 2)
-        before = pool_backward.launches.value
+        before = dict(pool_backward.launches.by_kernel)
         got = pool_backward.maxpool_backward(x, g, f)
         want = pool_backward.maxpool_backward_plain(x, g, f)
         torch.cuda.synchronize()
-        _check(pool_backward.launches.value == before + 1,
-               f"pool backward {shape} f={f}: not one launch")
+        kernel = pool_backward.route(x, g, f)
+        _one_launch(f"pool backward {shape} f={f}", pool_backward.launches,
+                    before, kernel)
         _check(got.shape == want.shape and got.dtype == want.dtype and
                got.is_contiguous(memory_format=torch.channels_last),
                f"pool backward {shape} f={f}: {got.shape} {got.dtype}")
         err = float((got.float() - want.float()).abs().max())
-        _check(torch.equal(got, want),
-               f"pool backward {shape} f={f}: max-abs {err}")
+        _check(torch.equal(_bits(got), _bits(want)),
+               f"pool backward {shape} f={f}: max-abs {err}, or the bit "
+               f"patterns differ")
         max_err = max(max_err, err)
-        kernel = pool_backward.route(x, g, f)
         what = f"maxpool_backward {dtype} {tuple(shape)} f={f}"
         _check_route(what, kernel, BWD_ROUTES.get(case))
         what += f" [{kernel}]"
@@ -1327,13 +1486,27 @@ def phase_pool_backward() -> dict:
             "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 g, x, [f, f], [f, f], [0, 0], [1, 1], False, idx),
         }
+        earlier = ""
+        if kernel == BWD_BLOCK:
+            # the kernel this call took before, forced on the same inputs
+            fns["earlier"] = lambda: pool_backward._maxpool_backward_cuda(
+                x, g, f, force=BWD_ROWS)
+            before = dict(pool_backward.launches.by_kernel)
+            _check(torch.equal(_bits(fns["earlier"]()), _bits(want)),
+                   f"{what}: {BWD_ROWS} differs from plain")
+            _one_launch(what, pool_backward.launches, before, BWD_ROWS)
         spread = {}
         t = _timed_turns(fns, flush, spread)
+        if "earlier" in t:
+            earlier = (f", the earlier kernel ({BWD_ROWS}) "
+                       f"{t['earlier']:.4f} ms (turns differ by "
+                       f"{spread['earlier']:.4f}); {BWD_BLOCK} against it "
+                       f"{_versus(fns['kernel'], fns['earlier'], flush)}")
         nbytes = _bytes(x, g, got)
-        measured[case] = {**t, "bytes": nbytes}
+        measured[case] = {**t, "bytes": nbytes, "route": kernel}
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
               f"and a NaN); device time kernel {t['kernel']:.4f} ms (turns "
-              f"differ by {spread['kernel']:.4f}), plain "
+              f"differ by {spread['kernel']:.4f}){earlier}, plain "
               f"{t['plain']:.4f} ms, library max_pool2d_with_indices_"
               f"backward {t['library']:.4f} ms, bound "
               f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s) (CUDA "
@@ -1420,7 +1593,7 @@ def phase_serve(tmp: str) -> dict:
     serving = threading.Thread(target=server.serve_forever, daemon=True)
     serving.start()
     try:
-        pyramid.launches.reset()  # the main path's run starts here
+        _reset_counts()  # the main path's run starts here
         clients = [threading.Thread(target=client, args=(c,))
                    for c in range(N_CLIENTS)]
         for th in clients:
@@ -1428,6 +1601,7 @@ def phase_serve(tmp: str) -> dict:
         for th in clients:
             th.join(timeout=600)
         launches = pyramid.launches.value  # ... and ends here
+        kernels = _kernel_counts()
         _check(not any(th.is_alive() for th in clients), "clients hung")
     finally:
         server.shutdown()
@@ -1488,7 +1662,7 @@ def phase_serve(tmp: str) -> dict:
           f"requests; p50 forward of one padded batch of {BATCH} "
           f"{statistics.median(fwd) * 1e3:.3f} ms (host clock, "
           f"synchronized, {REPS} runs)", flush=True)
-    return {"model": model, "launches": launches}
+    return {"model": model, "launches": launches, "kernels": kernels}
 
 
 def phase_reference(model) -> None:
@@ -1616,6 +1790,7 @@ def _run_train_verb(phase: str, cfg, path: str,
     train_s = time.perf_counter() - t0
     fwd, bwd, copies = (pyramid.launches.value, pool_backward.launches.value,
                         pool_backward.g_copies.value)  # ... and ends here
+    kernels = _kernel_counts()
     steps = cfg.num_epochs * -(-N_TRAIN // cfg.batch_size)
     val_batches = cfg.num_epochs * -(-N_VAL // cfg.batch_size)
     n_fwd, n_bwd = calls or (len(FWD_PATHS[path]), len(BWD_PATHS[path]))
@@ -1640,7 +1815,8 @@ def _run_train_verb(phase: str, cfg, path: str,
     print(f"{phase}: {drivers.BEST_WEIGHTS} written; make_server loaded it "
           f"and answered {requests} PNG request(s) with {status}",
           flush=True)
-    return {"hist": hist, "pyramid": fwd, "backward": bwd}
+    return {"hist": hist, "pyramid": fwd, "backward": bwd,
+            "kernels": kernels}
 
 
 def _fixed_batch(phase: str, trainer, x, y, steps: int = FIXED_STEPS,
@@ -1764,6 +1940,7 @@ def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
     fwd, bwd, copies = (pyramid.launches.value,
                         pool_backward.launches.value,
                         pool_backward.g_copies.value)  # ... and ends here
+    kernels = _kernel_counts()
     n_fwd, n_bwd = calls or (len(ALL_FWD_PATHS[path]),
                              len(ALL_BWD_PATHS[path]))
     _check((fwd, bwd) == (n_fwd * steps, n_bwd * steps),
@@ -1773,7 +1950,7 @@ def _counted_steps(phase: str, path: str, trainer, x, targets, steps: int,
           f"{steps} steps; maxpool_backward.launches = {bwd} = {n_bwd} x "
           f"{steps}; gradient layout copies {copies}; p50 "
           f"{p50 * 1e3:.3f} ms", flush=True)
-    return {"pyramid": fwd, "backward": bwd, "p50": p50}
+    return {"pyramid": fwd, "backward": bwd, "kernels": kernels, "p50": p50}
 
 
 def phase_config3() -> dict:
@@ -1933,7 +2110,7 @@ def phase_multires_verbs(tmp: str) -> dict:
     _check_mrb_widths(model, 1.67)
     del model
     batches = -(-N_TEST // TEST_BATCH)
-    pyramid.launches.reset()  # the main path's run starts here
+    _reset_counts()  # the main path's run starts here
     t0 = time.perf_counter()
     rep = drivers.test(config=test, device="cuda")[1]
     verb_s = time.perf_counter() - t0
@@ -1984,12 +2161,13 @@ def phase_test_verb(tmp: str, train_cfg) -> dict:
     batches = -(-N_TEST // TEST_BATCH)
     runs = {}
     for views in ("", TEST_TTA):
-        pyramid.launches.reset()  # the main path's run starts here
+        _reset_counts()  # the main path's run starts here
         t0 = time.perf_counter()
         rep = drivers.test(config=dataclasses.replace(cfg, tta=views),
                            device="cuda")[1]
         verb_s = time.perf_counter() - t0
         launches = pyramid.launches.value  # ... and ends here
+        kernels = _kernel_counts()
         cm = rep["confusion_matrix"]
         _check(rep["checkpoint_restored"] is True, "best.pt not restored")
         _check(int(cm.sum()) == N_TEST * SIZE * SIZE,
@@ -2004,7 +2182,8 @@ def phase_test_verb(tmp: str, train_cfg) -> dict:
               f"included); maxpool_pyramid.launches = {launches} = 4 x "
               f"{batches} batches; overall accuracy "
               f"{rep['overall_accuracy']}%", flush=True)
-        runs[views] = {"report": rep, "launches": launches, "masks": np.stack(
+        runs[views] = {"report": rep, "launches": launches,
+                       "kernels": kernels, "masks": np.stack(
             [np.asarray(Image.open(os.path.join(
                 cfg.save_dir, "test_results", "fold_1", "masks",
                 f"pred_{i}.png"))) // 255 for i in range(N_TEST)])}
@@ -2073,7 +2252,7 @@ def phase_test_verb(tmp: str, train_cfg) -> dict:
               f"included)", flush=True)
     del model, trainer
     torch.cuda.empty_cache()
-    return {"pyramid": runs[""]["launches"]}
+    return {"pyramid": runs[""]["launches"], "kernels": runs[""]["kernels"]}
 
 
 #: phases 26-27: the bar of the card's float32 step against a CPU step
@@ -2612,7 +2791,7 @@ def phase_registries(tmp: str) -> dict:
           f"{clips['clipnorm']:.6g} (the median parameter norm after it), "
           f"clipvalue {clips['clipvalue']:.6g} (the 99th percentile of the "
           f"absolute elements after both)", flush=True)
-    counts = {"pyramid": 0, "backward": 0}
+    counts = {"pyramid": 0, "backward": 0, "kernels": collections.Counter()}
     step_ms = {}
     for name in OPTIMIZER_NAMES:
         trainer = _trainer_for(_train_config(
@@ -2807,12 +2986,13 @@ def phase_predict(tmp: str, train_cfg) -> dict:
     out = os.path.join(tmp, "PredictMasks")
     ini = os.path.join(train_cfg.save_dir, "Train_Configs.ini")
     batches = -(-N_PREDICT // PREDICT_BATCH) + 1  # and the warm-up
-    pyramid.launches.reset()  # the main path's run starts here
+    _reset_counts()  # the main path's run starts here
     t0 = time.perf_counter()
     cli(["predict", ini, "--input", images, "--out", out, "--batch",
          str(PREDICT_BATCH), "--tta", "all", "--threshold", repr(threshold)])
     verb_s = time.perf_counter() - t0
     launches = pyramid.launches.value  # ... and ends here
+    kernels = _kernel_counts()
     want = [os.path.join(out, os.path.splitext(os.path.basename(p))[0]
                          + "_mask.png") for p in paths]
     _check(sorted(os.listdir(out)) == sorted(os.path.basename(w)
@@ -2860,7 +3040,7 @@ def phase_predict(tmp: str, train_cfg) -> dict:
               f"runs)", flush=True)
     del model, with_views, no_views
     torch.cuda.empty_cache()
-    return {"pyramid": launches}
+    return {"pyramid": launches, "kernels": kernels}
 
 
 def _option_steps(label: str, cfg, want: tuple, x, y) -> dict:
@@ -3066,7 +3246,8 @@ def _options_config(tmp: str, results: str):
 def _counted_verb(cfg, loader_call=None) -> tuple:
     """The train verb on the card, the counts set to 0 just before it and
     read just after; ``loader_call`` replaces ``PrefetchLoader.__call__``
-    for the run.  Returns (history, pyramid, backward, seconds)."""
+    for the run.  Returns (history, pyramid, backward, launches by
+    kernel, seconds)."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch import drivers
@@ -3082,7 +3263,8 @@ def _counted_verb(cfg, loader_call=None) -> tuple:
         t0 = time.perf_counter()
         hist = drivers.train(config=cfg, device="cuda")[1]
         torch.cuda.synchronize()
-        counts = (pyramid.launches.value, pool_backward.launches.value)
+        counts = (pyramid.launches.value, pool_backward.launches.value,
+                  _kernel_counts())
     return (hist, *counts, time.perf_counter() - t0)  # ... and ends here
 
 
@@ -3243,7 +3425,7 @@ def phase_train_options(tmp: str) -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         cfg_a = _options_config(tmp, "ResultsOptA")
-        hist, fwd, bwd, secs = _counted_verb(cfg_a)
+        hist, fwd, bwd, kernels, secs = _counted_verb(cfg_a)
         _check(len(hist["loss"]) == OPT_EPOCHS
                and all(np.isfinite(hist["loss"] + hist["val_loss"])),
                f"non-finite or missing losses {hist}")
@@ -3259,7 +3441,7 @@ def phase_train_options(tmp: str) -> dict:
               f"launches = {bwd} = {OPT_EPOCHS} x {bwd_step} x {steps}; "
               f"loss {hist['loss']}, val_loss {hist['val_loss']}, steps/s "
               f"{hist['steps_per_sec']}", flush=True)
-        counts = {"pyramid": fwd, "backward": bwd}
+        counts = {"pyramid": fwd, "backward": bwd, "kernels": kernels}
 
         real = drivers.PrefetchLoader.__call__
         epochs_seen = {"n": 0}
@@ -3280,13 +3462,13 @@ def phase_train_options(tmp: str) -> dict:
 
         cfg_b = _options_config(tmp, "ResultsOptB")
         meta_path = os.path.join(cfg_b.save_dir, "Fold_1", "last.meta.json")
-        hist_b, fwd_b, _, _ = _counted_verb(cfg_b, preempting)
+        hist_b, fwd_b, _, _, _ = _counted_verb(cfg_b, preempting)
         with open(meta_path) as f:
             meta = json.load(f)
         _check(meta["epoch"] == 1 and len(hist_b["loss"]) == 1,
                f"after the SIGTERM: meta epoch {meta['epoch']}, "
                f"{len(hist_b['loss'])} epochs in the history")
-        hist_c, fwd_c, bwd_c, _ = _counted_verb(cfg_b)
+        hist_c, fwd_c, bwd_c, _, _ = _counted_verb(cfg_b)
         resumed = OPT_EPOCHS - 1
         _check((fwd_c, bwd_c) == (
             resumed * (fwd_step * steps + 4 * val_batches),
@@ -3327,7 +3509,8 @@ def phase_train_patchify(tmp: str) -> dict:
                         patch_width=OPT_PATCH, patch_height=OPT_PATCH,
                         augment=augment)
     run = _run_train_verb("phase 20 patchify", cfg, "train_patchify")
-    return {"pyramid": run["pyramid"], "backward": run["backward"]}
+    return {"pyramid": run["pyramid"], "backward": run["backward"],
+            "kernels": run["kernels"]}
 
 
 def _max_err(got, want, what: str) -> float:
@@ -3402,7 +3585,7 @@ def phase_kernels_1d() -> tuple:
             "library": lambda: [F.max_pool1d(x1, 1 << lvl)
                                 for lvl in wanted]}, flush)
         nbytes = _bytes(x, *got)
-        measured[case] = {**t, "bytes": nbytes}
+        measured[case] = {**t, "bytes": nbytes, "route": kernel}
         line = (f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
                 f"kept); device time kernel {t['kernel']:.4f} ms, plain "
                 f"{t['plain']:.4f} ms, library {len(wanted)} F.max_pool1d "
@@ -3447,7 +3630,7 @@ def phase_kernels_1d() -> tuple:
                 g1.unsqueeze(2), x1.unsqueeze(2), [1, f], [1, f], [0, 0],
                 [1, 1], False, idx.unsqueeze(2))}, flush)
         nbytes = _bytes(x, g, got)
-        measured[case] = {**t, "bytes": nbytes}
+        measured[case] = {**t, "bytes": nbytes, "route": kernel}
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
               f"and a NaN); device time kernel {t['kernel']:.4f} ms, plain "
               f"{t['plain']:.4f} ms, library max_pool1d's backward "
@@ -3559,9 +3742,10 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
         main(argv)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0, pyramid.launches.value,
-                pool_backward.launches.value)  # ... and ends here
+                pool_backward.launches.value,
+                _kernel_counts())  # ... and ends here
 
-    train_s, fwd, bwd = counted(["train1d", ini])
+    train_s, fwd, bwd, kernels = counted(["train1d", ini])
     steps = SIG_EPOCHS * -(-N_SIG_TRAIN // SIG_BATCH)
     val = SIG_EPOCHS * -(-N_SIG_VAL // SIG_BATCH)
     n, n_bwd = len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])
@@ -3585,7 +3769,7 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
           f"({SIG_BATCH * hist['steps_per_sec'][-1]:.1f} signals/s, copies "
           f"included)", flush=True)
 
-    test_s, tfwd, tbwd = counted(["test1d", ini])
+    test_s, tfwd, tbwd, _ = counted(["test1d", ini])
     with open(os.path.join(save_dir, "test_metrics_1d.json")) as f:
         metrics = json.load(f)
     batches = -(-N_SIG_TEST // SIG_BATCH)
@@ -3601,7 +3785,7 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
           flush=True)
 
     npz = os.path.join(tmp, f"predictions_{path}.npz")
-    pred_s, pfwd, _ = counted(["predict1d", ini, "--out", npz])
+    pred_s, pfwd, _, _ = counted(["predict1d", ini, "--out", npz])
     got = np.load(npz)["output"]
     _check(got.shape == (N_SIG_TEST, SIG_LEN, 1) and pfwd == n * batches,
            f"predict1d: {got.shape}, {pfwd} launches")
@@ -3614,7 +3798,8 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
     print(f"{phase} predict1d ({path}): {pred_s:.2f} s; {got.shape} outputs "
           f"within {err:.3g} (<= 1e-5) of best.pt's plain-pool forward; "
           f"maxpool1d_pyramid.launches = {pfwd}", flush=True)
-    return {"pyramid": fwd, "backward": bwd, "verb_ms": verb_ms}
+    return {"pyramid": fwd, "backward": bwd, "kernels": kernels,
+            "verb_ms": verb_ms}
 
 
 def phase_signal_verbs(tmp: str) -> dict:
@@ -4084,7 +4269,7 @@ def phase_lstm_ae_2d(tmp: str) -> dict:
                       imheight=SIZE, imwidth=SIZE, batch_size=TEST_BATCH,
                       threshold=THRESHOLD, save_dir=cfg.save_dir)
     batches = -(-N_TEST // TEST_BATCH)
-    pyramid.launches.reset()  # the main path's run starts here
+    _reset_counts()  # the main path's run starts here
     t0 = time.perf_counter()
     rep = drivers.test(config=test, device="cuda")[1]
     tested = pyramid.launches.value
@@ -4211,7 +4396,7 @@ def phase_self_2d(tmp: str) -> dict:
                       threshold=THRESHOLD, save_dir=cfg.save_dir,
                       normalizing_factor_img=factor)
     batches = -(-N_TEST // TEST_BATCH)
-    pyramid.launches.reset()  # the main path's run starts here
+    _reset_counts()  # the main path's run starts here
     t0 = time.perf_counter()
     rep = drivers.test(config=test, device="cuda")[1]
     tested = pyramid.launches.value
@@ -4468,7 +4653,7 @@ def _verbs_test_predict(phase: str, tmp: str, cfg, per_batch: int,
                       threshold=THRESHOLD, save_dir=cfg.save_dir,
                       normalizing_factor_img=factor)
     batches = -(-N_TEST // TEST_BATCH)
-    pyramid.launches.reset()  # the main path's run starts here
+    _reset_counts()  # the main path's run starts here
     t0 = time.perf_counter()
     rep = drivers.test(config=test, device="cuda")[1]
     tested = pyramid.launches.value
@@ -4783,13 +4968,9 @@ def main() -> int:
         phase_dense_2d_reference()
         trained.update(phase_backbones_2d(tmp))
         phase_backbones_2d_reference()
-    pyr["serve"]["launches"] = served["launches"]
-    pyr["test"]["launches"] = tested["pyramid"]
-    pyr["predict"]["launches"] = predicted["pyramid"]
-    for path, run in trained.items():
-        pyr[path]["launches"] = run["pyramid"]
-        bwd[path]["launches"] = run["backward"]
-    rows = list(pyr.values()) + list(bwd.values())
+    runs = {"serve": served, "test": tested, "predict": predicted,
+            **trained}
+    rows = _kernel_rows(list(pyr.values()) + list(bwd.values()), runs)
     keys = ("name", "path", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -5,6 +5,8 @@ without JAX:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import collections
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -321,7 +323,7 @@ def test_cuda_odd_channel_pool_routes_and_equals_plain_version(
 @pytest.mark.parametrize("dtype,shape,factor,kernel", [
     (torch.bfloat16, (16, 256, 256, 32), 16, "pool_backward_rows_kernel"),
     (torch.bfloat16, (2, 32, 32, 32), 16, "pool_backward_rows_kernel"),
-    (torch.bfloat16, (2, 64, 64, 32), 32, "pool_backward_rows_kernel"),
+    (torch.bfloat16, (2, 64, 64, 32), 32, "pool_backward_block_kernel"),
     (torch.bfloat16, (2, 37, 53, 16), 8, "pool_backward_rows_kernel"),
     (torch.float32, (2, 19, 23, 3), 4, "pool_backward_rows_kernel<V=1>"),
     (torch.bfloat16, (16, 256, 256, 32), 2, "pool_backward_kernel"),
@@ -329,8 +331,9 @@ def test_cuda_odd_channel_pool_routes_and_equals_plain_version(
 ])
 def test_cuda_pool_backward_routes_and_equals_plain_version(dtype, shape,
                                                             factor, kernel):
-    """Windows of 4 and more take the row-split kernel, windows of 2 the
-    whole-window walk; the gradient equals the plain version bit for bit
+    """Windows of 4 to 16 take the row-split kernel, windows of 32 the
+    block kernel, windows of 2 the whole-window walk; the gradient equals
+    the plain version bit for bit
     on plateaus with NaNs at a window's first and last elements and twice
     in one window."""
     _need_cuda()
@@ -754,3 +757,218 @@ def test_cuda_mlmrsnet_average_pool_gradient_equals_cpu(stride):
         out.append((y.detach().cpu(), xt.grad.cpu()))
     assert torch.allclose(out[0][0], out[1][0], atol=1e-6)
     assert torch.allclose(out[0][1], out[1][1], atol=1e-6)
+
+
+def _plateau_input(shape, seed, dtype, plants=()):
+    """An NHWC input with ReLU plateaus (ties everywhere) and one NaN, the
+    ``plants`` (index, value) set after them, as a (B, C, H, W)
+    channels_last card tensor."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(seed))
+    x = torch.where(x < 0.3, torch.zeros_like(x), x)
+    x.view(-1)[x.numel() // 3] = float("nan")
+    for idx, value in plants:
+        x[idx] = value
+    return x.to("cuda", dtype).permute(0, 3, 1, 2)
+
+
+def _bits(t):
+    """The bit patterns of ``t``, every NaN made one pattern (a kernel and
+    the plain version may carry different NaN payloads)."""
+    t = torch.where(t.isnan(), torch.full_like(t, float("nan")), t)
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+_ROWS16 = "pool_rows_kernel<V=16B>"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,level,kernel", [
+    (torch.bfloat16, (16, 256, 256, 32), 4, _ROWS16),  # AHNet
+    (torch.bfloat16, (16, 128, 128, 32), 3, _ROWS16),
+    (torch.bfloat16, (4, 64, 64, 512), 2, _ROWS16),  # projector
+    (torch.bfloat16, (3, 67, 45, 24), 2, _ROWS16),   # ragged
+    (torch.float32, (2, 70, 130, 20), 3, _ROWS16),   # f32
+    (torch.float32, (2, 37, 41, 64), 4, _ROWS16),
+    (torch.bfloat16, (2, 50, 1000, 8), 2, _ROWS16),  # spans
+    (torch.bfloat16, (1, 33, 40, 1024), 4, _ROWS16),  # 1 px
+    (torch.bfloat16, (1, 16, 16, 2048), 4, "pool_vec_kernel"),  # too wide
+    (torch.bfloat16, (2, 37, 53, 16), 1, "pool_vec_kernel"),    # level 1
+])
+def test_cuda_single_level_pools_equal_plain_version(dtype, shape, level,
+                                                     kernel):
+    """A single-level pool by 4, 8 or 16 at a C of whole 16 bytes takes
+    the row kernel's 16-byte fold (a C whose folded row passes its shared
+    memory, and level 1, the one-window-a-thread kernel): one launch,
+    counted under that kernel's name, equal to the plain version bit for
+    bit on inputs with ReLU plateaus of +0.0 and a NaN; the kernel these
+    pools took before, forced on the same call, equals it too."""
+    _need_cuda()
+    x = _plateau_input(shape, 11, dtype)
+    assert pyramid.route(x, level, (level,)) == kernel
+    pyramid.launches.reset()
+    got = pyramid.maxpool_level(x, level)
+    torch.cuda.synchronize()
+    assert pyramid.launches.by_kernel == {kernel: 1}
+    want = pyramid.maxpool_level_plain(x, level)
+    _assert_same(got, want)
+    assert torch.equal(_bits(got), _bits(want))
+    earlier = pyramid._maxpool_pyramid_cuda(x, level, [level],
+                                            force="pool_vec_kernel")[0]
+    assert pyramid.launches.by_kernel == dict(
+        collections.Counter([kernel, "pool_vec_kernel"]))
+    assert torch.equal(_bits(earlier), _bits(want))
+
+
+@pytest.mark.cuda
+def test_cuda_forced_routes_refuse_calls_they_do_not_take():
+    """The forced routes take only the calls their kernels take: not
+    several levels, not a C of part of 16 bytes, not level 5, not a
+    backward by 2, no other kernel's name; a refusal launches nothing."""
+    _need_cuda()
+    x = _plateau_input((2, 64, 64, 32), 11, torch.bfloat16)
+    odd = _plateau_input((2, 64, 64, 31), 11, torch.bfloat16)
+    pyramid.launches.reset()
+    pool_backward.launches.reset()
+    for args in ((x, 3, [2, 3], "pool_vec_kernel"),
+                 (odd, 2, [2], "pool_vec_kernel"),
+                 (x, 5, [5], "pool_vec_kernel"),
+                 (x, 2, [2], "pyramid_kernel")):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            pyramid._maxpool_pyramid_cuda(*args[:3], force=args[3])
+    g = torch.zeros((2, 32, 32, 32), device="cuda", dtype=torch.bfloat16
+                    ).permute(0, 3, 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pool_backward._maxpool_backward_cuda(
+            x, g, 2, force="pool_backward_rows_kernel")
+    assert pyramid.launches.value == pool_backward.launches.value == 0
+
+
+#: NHWC plants for the F = 32 backward: NaNs first, last and twice in a
+#: window (the second followed by -5s), a window of -inf with a NaN last
+#: (channel 4) or first (5), and one of -1 with -0.0 before +0.0 (6)
+_PLANTS_32 = (
+    ((0, 0, 0, 1), float("nan")), ((0, 31, 63, 2), float("nan")),
+    ((1, 3, 4, 3), float("nan")), ((1, 20, 12, 3), float("nan")),
+    ((1, 20, slice(13, 32), 3), -5.0),
+    ((0, slice(0, 32), slice(0, 32), slice(4, 6)), float("-inf")),
+    ((0, 31, 31, 4), float("nan")), ((0, 0, 0, 5), float("nan")),
+    ((1, slice(0, 32), slice(0, 32), 6), -1.0), ((1, 5, 6, 6), -0.0),
+    ((1, 5, 7, 6), 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,plants,kernel", [
+    (torch.bfloat16, (16, 256, 256, 32), (), "pool_backward_block_kernel"),
+    (torch.bfloat16, (2, 64, 64, 32), _PLANTS_32,
+     "pool_backward_block_kernel"),
+    (torch.float32, (2, 70, 66, 8), _PLANTS_32,
+     "pool_backward_block_kernel"),                      # f32, ragged
+    (torch.bfloat16, (3, 100, 40, 64), (), "pool_backward_block_kernel"),
+    (torch.bfloat16, (1, 33, 65, 24), (), "pool_backward_block_kernel"),
+    (torch.float32, (2, 70, 66, 7), _PLANTS_32,
+     "pool_backward_block_kernel<V=1>"),                 # odd C
+])
+def test_cuda_pool_backward_by_32_equals_plain_version(dtype, shape, plants,
+                                                       kernel):
+    """The pool backward by 32 takes the block kernel: one launch, counted
+    under its name, equal to the plain version (the walk's first maximum,
+    NaN as select_and_scatter) bit for bit, zeros past the floor; the row
+    kernel that took it before, forced on the same call, equals it too."""
+    _need_cuda()
+    x = _plateau_input(shape, 12, dtype, plants)
+    b, c, h, w = x.shape
+    g = torch.randn((b, c, h // 32, w // 32), generator=torch.Generator()
+                    .manual_seed(13)).to("cuda", dtype).contiguous(
+        memory_format=torch.channels_last)
+    assert pool_backward.route(x, g, 32) == kernel
+    pool_backward.launches.reset()
+    got = pool_backward.maxpool_backward(x, g, 32)
+    torch.cuda.synchronize()
+    assert pool_backward.launches.by_kernel == {kernel: 1}
+    want = pool_backward.maxpool_backward_plain(x, g, 32)
+    assert torch.equal(_bits(got), _bits(want))
+    earlier = pool_backward._maxpool_backward_cuda(
+        x, g, 32, force="pool_backward_rows_kernel")
+    assert pool_backward.launches.by_kernel == {
+        kernel: 1, kernel.replace("block", "rows"): 1}
+    assert torch.equal(_bits(earlier), _bits(want))
+
+
+def _library_pools():
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models.backbones import (
+        base, convnets)
+    import torch.nn.functional as F
+
+    return {
+        "maxpool_same_s2": lambda x: base.maxpool(x, 3, 2, "SAME"),
+        "maxpool_same_s1": lambda x: base.maxpool(x, 3, 1, "SAME"),
+        "maxpool_valid_s2": lambda x: base.maxpool(x, 3, 2, "VALID"),
+        "resnet_stem": convnets._stem_pool,
+        "densenet_transition": lambda x: F.avg_pool2d(x, 2, 2),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool", ["maxpool_same_s2", "maxpool_same_s1",
+                                  "maxpool_valid_s2", "resnet_stem",
+                                  "densenet_transition"])
+def test_cuda_backbone_library_pools_equal_cpu(pool, dtype):
+    """The backbones' PyTorch pools on a channels_last card tensor with
+    plateaus (ties that the max must route to the first maximum, as on
+    the CPU): forward and gradient equal the CPU's.  The max pools are
+    exact; the average may round in another order (within 1e-6 in
+    float32, one bf16 rounding in bfloat16), and a gradient summed over up
+    to 9 overlapping windows too: within 1e-6 of the largest in float32,
+    2**-5 of it in bfloat16 (a bf16 rounding after each of the sums).  An
+    O(1) error, as PyTorch's channels_last ``avg_pool2d`` backward at
+    stride 1 with padding gave (ROADMAP C.5), fails."""
+    _need_cuda()
+    fn = _library_pools()[pool]
+    g0 = torch.Generator().manual_seed(14)
+    x = torch.randn(2, 24, 29, 33, generator=g0)
+    x = torch.where(x < 0.3, torch.zeros_like(x), x).to(dtype)
+    out = []
+    for dev in ("cpu", "cuda"):
+        xt = x.to(dev).contiguous(
+            memory_format=torch.channels_last).requires_grad_()
+        y = fn(xt)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(15))
+        y.backward(g.to(dev, dtype))
+        out.append((y.detach().float().cpu(), xt.grad.float().cpu()))
+    (y_cpu, dx_cpu), (y_card, dx_card) = out
+    f32 = dtype == torch.float32
+    if pool.startswith("densenet"):
+        tol = 1e-6 if f32 else 2.0 ** -8
+        assert torch.allclose(y_card, y_cpu, atol=tol, rtol=tol)
+    else:
+        assert torch.equal(y_card, y_cpu)
+    scale = max(float(dx_cpu.abs().max()), 1.0)
+    assert float((dx_card - dx_cpu).abs().max()) <= (
+        1e-6 if f32 else 2.0 ** -5) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_dropblock_max_pool_equals_cpu(dtype):
+    """DropBlock's stride-1 SAME max pool along a (B, C, 1, L)
+    channels_last signal (forward only: the mask takes no gradient) on
+    the card equals the CPU's for the same draws, the block size even
+    (asymmetric pads) and odd."""
+    _need_cuda()
+    from tf_1d_2d_segmentation_end2endpipelines_torch.ops.stochastic import (
+        DropBlock)
+
+    x = torch.randn(4, 32, 1, 1024, generator=torch.Generator().manual_seed(16)
+                    ).to(dtype)
+    draws = torch.rand(x.shape, generator=torch.Generator().manual_seed(17)
+                       ) < 0.02
+    for block_size in (7, 4):
+        masks = []
+        for dev in ("cpu", "cuda"):
+            layer = DropBlock(block_size=block_size, keep_prob=0.9)
+            layer.replayed = draws
+            masks.append(layer.block_mask(x.to(dev).contiguous(
+                memory_format=torch.channels_last)).cpu())
+        assert torch.equal(masks[0], masks[1])

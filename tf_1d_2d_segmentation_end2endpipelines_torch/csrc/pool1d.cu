@@ -359,13 +359,15 @@ extern "C" {
 // host array of L (1..4) device pointers, level 1 first, each a (B,
 // Len >> l, C) buffer, or null for a level the caller does not want.
 // Launches on `stream` and returns cudaGetLastError() (0 on success);
-// launches nothing when there is nothing to pool.
+// launches nothing when there is nothing to pool.  Sets *launched to the
+// name of the kernel it launched ("none" if it launched nothing).
 int tpuseg_maxpool1d_pyramid(const void* x, const void* out_ptrs, int dtype,
                              int64_t B, int Len, int C, int L,
-                             void* stream) {
+                             const char** launched, void* stream) {
   OutPtrs1d outs;
   int spans;
   Route1d r;
+  *launched = kPyramid1dNames[kNone1d];
   const int err =
       prepare_pyramid(x, out_ptrs, dtype, B, Len, C, L, &outs, &spans, &r);
   if (err) return err;
@@ -375,6 +377,7 @@ int tpuseg_maxpool1d_pyramid(const void* x, const void* out_ptrs, int dtype,
     launch_pyramid<float>(r, x, outs, B, Len, C, L, spans, s);
   else
     launch_pyramid<__nv_bfloat16>(r, x, outs, B, Len, C, L, spans, s);
+  *launched = kPyramid1dNames[r];
   return (int)cudaGetLastError();
 }
 
@@ -393,11 +396,14 @@ const char* tpuseg_maxpool1d_pyramid_route(const void* x,
 
 // dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8 or 16.  x and dx:
 // (B, Len, C) memory; g: (B, Len / factor, C).  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// returns cudaGetLastError() (0 on success); sets *launched to the name
+// of the kernel it launched ("none" if it launched nothing).
 int tpuseg_maxpool1d_backward(const void* x, const void* g, void* dx,
                               int dtype, int64_t B, int Len, int C,
-                              int factor, void* stream) {
+                              int factor, const char** launched,
+                              void* stream) {
   Route1d r;
+  *launched = kBackward1dNames[kNone1d];
   const int err = prepare_backward(x, g, dx, dtype, B, Len, C, factor, &r);
   if (err) return err;
   if (r == kNone1d) return (int)cudaSuccess;
@@ -406,6 +412,7 @@ int tpuseg_maxpool1d_backward(const void* x, const void* g, void* dx,
     launch_backward<float>(r, x, g, dx, B, Len, C, factor, s);
   else
     launch_backward<__nv_bfloat16>(r, x, g, dx, B, Len, C, factor, s);
+  *launched = kBackward1dNames[r];
   return (int)cudaGetLastError();
 }
 

@@ -33,14 +33,20 @@
 //
 // Bound: device-memory bandwidth.  The kernels read x and g once and
 // write dx once, about (2 + 1/F^2)x the bytes of x, with one compare per
-// element.  Both write every element of a window, zeros included, one
-// 16-byte store each, so dx needs no memset, and recompute the choice
-// from x (y is not read).  Both move 16 bytes of channels (8 bf16 or 4
-// f32) a thread; a C that is not a multiple of 16 bytes (or a misaligned
-// pointer) takes the same kernel with one channel per thread.
+// element.  Each kernel writes every element of a window, zeros included,
+// one 16-byte store each, so dx needs no memset, and recomputes the
+// choice from x (y is not read).  Each moves 16 bytes of channels (8 bf16
+// or 4 f32) a thread; a C that is not a multiple of 16 bytes (or a
+// misaligned pointer) takes the same kernel with one channel per thread.
+// The launcher (`route`; tpuseg_maxpool_backward_route names it, and
+// tpuseg_maxpool_backward reports the one it launched) takes
+// pool_backward_kernel at F = 2, pool_backward_rows_kernel at F = 4 .. 16
+// and pool_backward_block_kernel at F = 32.  A caller may force
+// pool_backward_rows_kernel at F = 32, the kernel that took it before, to
+// time it beside the block kernel.
 // - pool_backward_kernel, F = 2: one thread per window and channel group
 //   walks the window (4 loads) and writes it (4 stores).
-// - pool_backward_rows_kernel, F = 4 .. 32: one thread per window, channel
+// - pool_backward_rows_kernel, F = 4 .. 16: one thread per window, channel
 //   group and window row.  A thread for the whole window left few threads
 //   (16,384 for a (16,256,256,32) input at F = 16: 64 blocks on 132 SMs)
 //   each with F^2 dependent compare steps (41% of the bound at F = 16).
@@ -53,18 +59,45 @@
 //   walk this design wins at F = 8 and 16 and gives back a few percent at
 //   F = 4 on the smaller inputs, where a thread's 4 loads pay for the
 //   barriers; the window's rows as lanes of one warp, joined by shuffles
-//   with no barrier, were slower at every F (PERF.md).  At F = 32 (the
-//   pool by 32 of a dense-input encoder at depth 5) a block is 8 windows
-//   of 32 rows, a thread walks its row 16 pixels at a time (16 loads in
-//   flight, as at F = 16, registers bounded), and the window's choice,
-//   up to 1023, takes 16 bits.
+//   with no barrier, were slower at every F (PERF.md).  It took F = 32
+//   too (a block of 8 windows of 32 rows, 16 loads in flight a thread):
+//   there a warp's load touches 8 windows 2 KB apart, and 8 of a window's
+//   32 threads join its 32 row summaries serially while the other 24 wait
+//   (0.0894 ms against a bound of 0.0401 at (16, 256, 256, 32) bf16 on an
+//   NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+// - pool_backward_block_kernel, F = 32 (the pool by 32 of a dense-input
+//   encoder or a full-scale decoder at depth 5): one block of 256 threads
+//   per window and chunk of up to 32 channels.  The chunk's 32 x 32
+//   pixels (64 KB at 32 bf16 channels) come into shared memory by
+//   cp.async, neighbouring threads on neighbouring 16-byte vectors (a
+//   warp copies 512 contiguous bytes of a row), every copy of the block
+//   in flight at once; three blocks share an SM.  Then warp w walks
+//   window rows 4w .. 4w + 3 and lane c channel c, the four rows side by
+//   side (four independent chains, conflict-free 2- or 4-byte reads); the
+//   thread joins its four row summaries in row order by the rule above,
+//   and lane c of warp 0 the 8 warps' in warp order.  It reads g, marks
+//   the chosen pixel in a bitmap of the window, and every thread then
+//   writes its vectors with 16-byte stores: zeros, or the gradient where
+//   the bitmap marks a choice.  Designs with no shared-memory stage were
+//   slower at (16, 256, 256, 32) bf16: a thread holding 16 pixels of one
+//   channel group in registers and choosing by order-free maxima of
+//   (value, index) keys, and the same folding its keys as the loads
+//   arrived (PERF.md).
 // The ragged last rows and columns are covered by threads of the windows
 // just past the pooled region, which write zeros to the elements that
 // exist.
+//
+// Checks: the CPU tests run the plain versions against the JAX package
+// (`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`); on a card,
+// `python3 chip_smoke.py` builds this file, holds every call of every path
+// and the edge cases to the plain version bit for bit, names the kernel
+// each takes and times it (phase 3), and `python3 -m pytest --noconftest
+// -q tests/test_torch_cuda.py` runs the `cuda`-marked tests.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -275,15 +308,174 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// cp.async of 16 bytes from global into shared memory, and the wait for
+// every such copy of the thread.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The walk's summary of a run of elements: the selected value and index,
+// and whether the run held a NaN.  join(a, b) is the walk over a then b
+// (the rule above).
+struct Walk {
+  float val;
+  int idx;
+  bool nan;
+};
+__device__ __forceinline__ Walk join(const Walk& a, const Walk& b) {
+  const bool take = b.nan || !(a.val >= b.val);
+  return {take ? b.val : a.val, take ? b.idx : a.idx, a.nan || b.nan};
+}
+
+// F = 32: a block per window and chunk of up to 32 channels (grid: x over
+// (window column, chunk), the ragged window column included; y over window
+// rows, the ragged one included; z over the batch), 256 threads, the
+// chunk's 1,024 pixels staged in shared memory as [pixel][32 channels].
+// Warp w walks rows 4w .. 4w + 3, lane c channel c, the four rows side by
+// side; the row summaries join in row order in the thread, the 8 warps'
+// in warp order in lane c of warp 0.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+    pool_backward_block_kernel(const T* __restrict__ x,
+                               const T* __restrict__ g, T* __restrict__ dx,
+                               int H, int W, int C) {
+  constexpr int F = 32, CB = 32;  // window side, channels of a chunk
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);                     // [F * F][CB]
+  float* sval = reinterpret_cast<float*>(xs + F * F * CB);  // [8][CB]
+  int* sidx = reinterpret_cast<int*>(sval + 8 * CB);      // [8][CB]
+  int* snan = sidx + 8 * CB;                              // [8][CB]
+  int* sel = snan + 8 * CB;                               // [CB]
+  unsigned* hit = reinterpret_cast<unsigned*>(sel + CB);  // [F * F]
+  T* gsel = reinterpret_cast<T*>(hit + F * F);            // [CB]
+  const int chunks = (C + CB - 1) / CB;
+  const int chunk = blockIdx.x % chunks;
+  const int cb = min(CB, C - chunk * CB);  // channels of this chunk
+  const int xw = blockIdx.x / chunks, yw = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int hf = H / F, wf = W / F;
+  const int64_t base = ((b * H + (int64_t)F * yw) * W + (int64_t)F * xw) * C +
+                       (int64_t)chunk * CB;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int vpp = cb / V;  // vectors of a pixel in the chunk
+  // (pixel, vector) of vector t and the step of a 256-vector stride
+  const int px0 = t / vpp, vi0 = t - px0 * vpp;
+  const int dpx = 256 / vpp, dvi = 256 - dpx * vpp;
+  P zero;
+#pragma unroll
+  for (int k = 0; k < V; ++k) zero.v[k] = from_f<T>(0.0f);
+  if (yw >= hf || xw >= wf) {
+    // a window the floor cut off: zero the elements that exist
+    for (int v = t, px = px0, vi = vi0; v < F * F * vpp; v += 256) {
+      const int i = px / F, j = px % F;
+      if (F * yw + i < H && F * xw + j < W)
+        *reinterpret_cast<P*>(dx + base + ((int64_t)i * W + j) * C + vi * V) =
+            zero;
+      px += dpx;
+      vi += dvi;
+      if (vi >= vpp) {
+        vi -= vpp;
+        ++px;
+      }
+    }
+    return;
+  }
+  // the chunk's window into shared memory, every copy in flight at once
+  for (int v = t, px = px0, vi = vi0; v < F * F * vpp; v += 256) {
+    const T* src = x + base + ((int64_t)(px / F) * W + px % F) * C + vi * V;
+    T* dst = xs + px * CB + vi * V;
+    if (V * sizeof(T) == 16)
+      cp_async16(dst, src);
+    else
+      *reinterpret_cast<P*>(dst) = *reinterpret_cast<const P*>(src);
+    px += dpx;
+    vi += dvi;
+    if (vi >= vpp) {
+      vi -= vpp;
+      ++px;
+    }
+  }
+  for (int px = t; px < F * F; px += 256) hit[px] = 0;
+  cp_async_wait_all();
+  __syncthreads();
+  if (lane < cb) {
+    Walk r[4];
+    const T* col = xs + lane;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float e = to_f(col[(4 * warp + q) * F * CB]);
+      r[q] = {e, (4 * warp + q) * F, e != e};
+    }
+#pragma unroll 4
+    for (int j = 1; j < F; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int p = (4 * warp + q) * F + j;
+        const float e = to_f(col[p * CB]);
+        r[q].nan = r[q].nan || e != e;
+        if (!(r[q].val >= e)) {
+          r[q].val = e;
+          r[q].idx = p;
+        }
+      }
+    const Walk w = join(join(r[0], r[1]), join(r[2], r[3]));
+    sval[warp * CB + lane] = w.val;
+    sidx[warp * CB + lane] = w.idx;
+    snan[warp * CB + lane] = w.nan;
+  }
+  __syncthreads();
+  if (warp == 0 && lane < cb) {
+    Walk w = {sval[lane], sidx[lane], snan[lane] != 0};
+#pragma unroll
+    for (int k = 1; k < 8; ++k)
+      w = join(w, {sval[k * CB + lane], sidx[k * CB + lane],
+                   snan[k * CB + lane] != 0});
+    sel[lane] = w.idx;
+    gsel[lane] = g[((b * hf + yw) * wf + xw) * C + chunk * CB + lane];
+    atomicOr(&hit[w.idx], 1u << (lane / V));
+  }
+  __syncthreads();
+  // every element of the window: the gradient where chosen, else zero
+  for (int v = t, px = px0, vi = vi0; v < F * F * vpp; v += 256) {
+    P out = zero;
+    if (hit[px] & (1u << vi))
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        if (sel[vi * V + k] == px) out.v[k] = gsel[vi * V + k];
+    *reinterpret_cast<P*>(dx + base + ((int64_t)(px / F) * W + px % F) * C +
+                          vi * V) = out;
+    px += dpx;
+    vi += dvi;
+    if (vi >= vpp) {
+      vi -= vpp;
+      ++px;
+    }
+  }
+}
+
+// Shared memory of a pool_backward_block_kernel block.
+template <typename T>
+constexpr int block_smem() {
+  return 32 * 32 * 32 * sizeof(T) + 3 * 8 * 32 * 4 + 32 * 4 + 32 * 32 * 4 +
+         32 * sizeof(T);
+}
+
 // The kernel the launcher picks for a call.
-enum Route { kNone, kWindow, kRows };
+enum Route { kNone, kWindow, kRows, kBlock };
 
 const char* const kRouteNames[] = {"none", "pool_backward_kernel",
-                                   "pool_backward_rows_kernel"};
+                                   "pool_backward_rows_kernel",
+                                   "pool_backward_block_kernel"};
 
 Route route(int64_t B, int H, int W, int F) {
   if (B == 0 || H == 0 || W == 0) return kNone;
-  return F == 2 ? kWindow : kRows;
+  return F == 2 ? kWindow : F == 32 ? kBlock : kRows;
 }
 
 // 16-byte channel groups when C and every pointer allow them.
@@ -307,34 +499,54 @@ void launch_rows(int64_t B, int H, int W, int C, cudaStream_t s, const T* x,
 }
 
 template <typename T, int V>
-void launch_v(int64_t B, int H, int W, int C, int F, cudaStream_t s,
-              const T* x, const T* g, T* dx) {
-  switch (F) {
-    case 2: {
-      const int threads = 256;
-      const int64_t n = (int64_t)((W + 1) / 2) * (C / V);
-      const dim3 grid((unsigned)((n + threads - 1) / threads),
-                      (unsigned)((H + 1) / 2), (unsigned)B);
-      pool_backward_kernel<T, V><<<grid, threads, 0, s>>>(x, g, dx, H, W, C);
-      break;
+int launch_block(int64_t B, int H, int W, int C, cudaStream_t s, const T* x,
+                 const T* g, T* dx) {
+  constexpr int smem = block_smem<T>();
+  // the opt-in above 48 KB, a setting of the current device: every launch
+  const cudaError_t err =
+      cudaFuncSetAttribute(pool_backward_block_kernel<T, V>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((int64_t)((W + 31) / 32) * ((C + 31) / 32)),
+                  (unsigned)((H + 31) / 32), (unsigned)B);
+  pool_backward_block_kernel<T, V><<<grid, 256, smem, s>>>(x, g, dx, H, W, C);
+  return (int)cudaSuccess;
+}
+
+// The kernel of route r (kRows for F = 4 .. 32); returns a CUDA error code
+// from before the launch (0 if there was none).
+template <typename T, int V>
+int launch_v(Route r, int64_t B, int H, int W, int C, int F, cudaStream_t s,
+             const T* x, const T* g, T* dx) {
+  if (r == kWindow) {
+    const int threads = 256;
+    const int64_t n = (int64_t)((W + 1) / 2) * (C / V);
+    const dim3 grid((unsigned)((n + threads - 1) / threads),
+                    (unsigned)((H + 1) / 2), (unsigned)B);
+    pool_backward_kernel<T, V><<<grid, threads, 0, s>>>(x, g, dx, H, W, C);
+  } else if (r == kBlock) {
+    return launch_block<T, V>(B, H, W, C, s, x, g, dx);
+  } else {
+    switch (F) {
+      case 4:
+        launch_rows<T, V, 4>(B, H, W, C, s, x, g, dx);
+        break;
+      case 8:
+        launch_rows<T, V, 8>(B, H, W, C, s, x, g, dx);
+        break;
+      case 16:
+        launch_rows<T, V, 16>(B, H, W, C, s, x, g, dx);
+        break;
+      default:
+        launch_rows<T, V, 32>(B, H, W, C, s, x, g, dx);
     }
-    case 4:
-      launch_rows<T, V, 4>(B, H, W, C, s, x, g, dx);
-      break;
-    case 8:
-      launch_rows<T, V, 8>(B, H, W, C, s, x, g, dx);
-      break;
-    case 16:
-      launch_rows<T, V, 16>(B, H, W, C, s, x, g, dx);
-      break;
-    default:
-      launch_rows<T, V, 32>(B, H, W, C, s, x, g, dx);
   }
+  return (int)cudaSuccess;
 }
 
 template <typename T>
-int launch(const void* x, const void* g, void* dx, int64_t B, int H, int W,
-           int C, int F, cudaStream_t s) {
+int launch(Route r, const void* x, const void* g, void* dx, int64_t B, int H,
+           int W, int C, int F, cudaStream_t s) {
   constexpr int V16 = 16 / sizeof(T);
   const bool vec = vector_path<T>(x, g, dx, C);
   const int64_t n = (int64_t)((W + F - 1) / F) * (C / (vec ? V16 : 1));
@@ -343,11 +555,9 @@ int launch(const void* x, const void* g, void* dx, int64_t B, int H, int W,
   const T* xt = static_cast<const T*>(x);
   const T* gt = static_cast<const T*>(g);
   T* dt = static_cast<T*>(dx);
-  if (vec)
-    launch_v<T, V16>(B, H, W, C, F, s, xt, gt, dt);
-  else
-    launch_v<T, 1>(B, H, W, C, F, s, xt, gt, dt);
-  return (int)cudaGetLastError();
+  const int err = vec ? launch_v<T, V16>(r, B, H, W, C, F, s, xt, gt, dt)
+                      : launch_v<T, 1>(r, B, H, W, C, F, s, xt, gt, dt);
+  return err ? err : (int)cudaGetLastError();
 }
 
 bool valid(int64_t B, int H, int W, int C, int dtype, int factor) {
@@ -356,38 +566,59 @@ bool valid(int64_t B, int H, int W, int C, int dtype, int factor) {
             factor != 32));
 }
 
+// The name of route r's kernel for these arguments, with "<V=1>" where it
+// takes one channel a thread.
+const char* route_name(Route r, const void* x, const void* g,
+                       const void* dx, int dtype, int C) {
+  static const char* const kScalarNames[] = {
+      "none", "pool_backward_kernel<V=1>", "pool_backward_rows_kernel<V=1>",
+      "pool_backward_block_kernel<V=1>"};
+  const bool vec = dtype == 0 ? vector_path<float>(x, g, dx, C)
+                              : vector_path<__nv_bfloat16>(x, g, dx, C);
+  return (vec ? kRouteNames : kScalarNames)[r];
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16 or 32.  x and dx: NHWC
-// (B, H, W, C); g: NHWC (B, H / factor, W / factor, C).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); launches
-// nothing for an empty x.
+// (B, H, W, C); g: NHWC (B, H / factor, W / factor, C).  force: null, or
+// "pool_backward_rows_kernel" to launch that kernel in place of the
+// launcher's choice at a factor of 4 or more (to time it beside the
+// launcher's).  Launches on `stream`, sets *launched to the name of the
+// kernel it launched ("none" for an empty x) and returns
+// cudaGetLastError() (0 on success).
 int tpuseg_maxpool_backward(const void* x, const void* g, void* dx, int dtype,
                             int64_t B, int H, int W, int C, int factor,
+                            const char* force, const char** launched,
                             void* stream) {
+  *launched = kRouteNames[kNone];
   if (!valid(B, H, W, C, dtype, factor)) return (int)cudaErrorInvalidValue;
-  if (route(B, H, W, factor) == kNone) return (int)cudaSuccess;
+  Route r = route(B, H, W, factor);
+  if (r == kNone) return (int)cudaSuccess;
+  if (force) {
+    if (strcmp(force, kRouteNames[kRows]) || factor < 4)
+      return (int)cudaErrorInvalidValue;
+    r = kRows;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch<float>(x, g, dx, B, H, W, C, factor, s)
-                    : launch<__nv_bfloat16>(x, g, dx, B, H, W, C, factor, s);
+  const int err = dtype == 0
+      ? launch<float>(r, x, g, dx, B, H, W, C, factor, s)
+      : launch<__nv_bfloat16>(r, x, g, dx, B, H, W, C, factor, s);
+  *launched = route_name(r, x, g, dx, dtype, C);
+  return err;
 }
 
-// The kernel tpuseg_maxpool_backward launches for the same arguments
-// ("none" if it launches nothing), with "<V=1>" where it takes one
-// channel a thread; null if it refuses them.
+// The kernel tpuseg_maxpool_backward launches for the same arguments and
+// no force ("none" if it launches nothing), with "<V=1>" where it takes
+// one channel a thread; null if it refuses them.
 const char* tpuseg_maxpool_backward_route(const void* x, const void* g,
                                           const void* dx, int dtype,
                                           int64_t B, int H, int W, int C,
                                           int factor) {
-  static const char* const kScalarNames[] = {
-      "none", "pool_backward_kernel<V=1>", "pool_backward_rows_kernel<V=1>"};
   if (!valid(B, H, W, C, dtype, factor)) return nullptr;
-  const Route r = route(B, H, W, factor);
-  const bool vec = dtype == 0 ? vector_path<float>(x, g, dx, C)
-                              : vector_path<__nv_bfloat16>(x, g, dx, C);
-  return (vec ? kRouteNames : kScalarNames)[r];
+  return route_name(route(B, H, W, factor), x, g, dx, dtype, C);
 }
 
 }  // extern "C"

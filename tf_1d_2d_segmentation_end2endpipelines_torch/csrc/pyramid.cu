@@ -22,30 +22,40 @@
 //   whose start is not 16-byte aligned (W * sizeof(T) not a multiple of
 //   16, or an offset base pointer), and the ragged last vector of a row,
 //   are read element by element in the same kernel.
-// - pool_vec_kernel, level L alone (L == 1, or every level below L
-//   null) for L <= 4, with C a multiple of 16 bytes of channels (every
-//   encoder pool of the UNet family): one thread per output pixel and
-//   16-byte channel group, one 16-byte load per pixel of its 2^L x 2^L
-//   window and one 16-byte store.  This is the serving path's kernel.
-//   At L = 5 (the pool by 32 of a dense-input encoder at depth 5) a
-//   thread a window left 4,096 threads for a (16, 256, 256, 32) bf16
-//   input, each with 1,024 loads in turn: 0.2087 ms against a bound of
-//   0.0201 and the plain version's 0.0817 on an NVIDIA H100 80GB HBM3
-//   at 700 W (PERF.md).  Level 5 alone takes pyramid_vec_kernel instead,
-//   storing that level only.
-// - pool_rows_kernel, level L alone for L <= 5 with C not a multiple of
-//   16 bytes (the MultiRes encoder pools: 31 .. 255 and 51 .. 426
-//   channels) when every input and output row starts on 16 bytes (W * C
-//   and (W >> L) * C elements multiples of 16 bytes, aligned pointers).
-//   Its floor is the same: one read of the input, one write of the
-//   output.  pyramid_kernel took these calls before, one 2-byte load per
-//   thread and instruction with a 32-bit division each, and was bound by
-//   its load and store instructions, not by bytes (20% of the bound,
-//   slower than F.max_pool2d).  This kernel works on the contiguous NHWC
-//   row instead of the channel: a block reads a band of 2^L rows over a
-//   span of output pixels with 16-byte loads, folds the rows in registers
-//   into shared memory and writes 16 bytes of consecutive output elements
-//   a thread, one division per 16 bytes.
+// - pool_vec_kernel, level 1 alone, with C a multiple of 16 bytes of
+//   channels (every encoder pool of the UNet family): one thread per
+//   output pixel and 16-byte channel group, one 16-byte load per pixel of
+//   its 2 x 2 window and one 16-byte store.  This is the serving path's
+//   kernel.  It took levels 2-4 alone too, where a thread walks its whole
+//   2^L x 2^L window one 16-byte load at a time and a warp's load touches
+//   8 windows 2^L pixels apart: at L = 4 on a (16, 256, 256, 32) bf16
+//   input that is 16,384 threads of 256 loads each; at L = 5 it took
+//   0.2087 ms against a bound of 0.0201 (NVIDIA H100 80GB HBM3, 700 W;
+//   PERF.md).  It stays the route for a C so wide that one output pixel's
+//   folded band row passes pool_rows_kernel's shared memory.
+// - pool_rows_kernel, level L alone, on the contiguous NHWC rows: a block
+//   reads the band of 2^L input rows of one output row over a span of
+//   whole output pixels and all their channels (about 32 KB of input)
+//   with 16-byte loads, neighbouring threads on neighbouring 16-byte
+//   vectors (a warp's load is 512 contiguous bytes), 8 loads in flight a
+//   thread; it folds the band's rows in registers (bf16 pairs by
+//   __hmax2_nan) into shared memory, then the columns.  Its floor is one
+//   read of the input and one write of the output.  Two variants:
+//   * <V=16B>, L = 2..4 with C a multiple of 16 bytes (AHNet's ResPaths
+//     pool each encoder tap by 2^(i-k), its tap projectors on a backbone
+//     likewise): the columns fold whole 16-byte vectors, and each output
+//     vector leaves with one 16-byte store.  Four blocks of 256 threads
+//     share an SM, up to 128 KB of loads in flight there.
+//   * the element fold, L <= 5 with C not a multiple of 16 bytes (the
+//     MultiRes encoder pools: 31 .. 255 and 51 .. 426 channels) when
+//     every input and output row starts on 16 bytes (W * C and (W >> L)
+//     * C elements multiples of 16 bytes, aligned pointers): the columns
+//     fold element by element into a second shared buffer, and the span
+//     leaves 16 bytes of consecutive output elements a thread, one
+//     division per 16 bytes.  pyramid_kernel took these calls before,
+//     one 2-byte load per thread and instruction with a 32-bit division
+//     each, and was bound by its load and store instructions, not by
+//     bytes (20% of the bound, slower than F.max_pool2d).
 // - pyramid_vec_kernel, several levels stored, C a multiple of 16 bytes,
 //   2 <= L <= 5 (UNet3+'s decoder pools each skip to every level it
 //   needs in one launch; the dense-input encoders pool each tap to every
@@ -68,8 +78,11 @@
 //   a warp's accesses are contiguous runs of NHWC memory.
 //
 // The launcher picks one from the shape, the levels stored and the
-// pointers' alignment (`route`; tpuseg_maxpool_pyramid_route names it);
-// nothing falls back at run time.
+// pointers' alignment (`route`; tpuseg_maxpool_pyramid_route names it,
+// and tpuseg_maxpool_pyramid reports the one it launched); nothing falls
+// back at run time.  A caller may force pool_vec_kernel on a call it
+// takes (a single level 1..4 at a C of whole 16 bytes), to time it
+// beside the kernel the launcher picks.
 //
 // Ragged edges: level l has H >> l rows (floor(floor(H/2)/2) == H >> 2,
 // so one pass gives the reduce_window chain's answer).  The grids cover
@@ -82,11 +95,23 @@
 // only).
 //
 // Max propagates NaN, as XLA's max and torch.amax do (fmaxf drops it).
+// Which of +0.0 and -0.0 comes out of a window holding both depends on
+// the order of the comparisons, here as in torch.amax; every other
+// output is exact.
+//
+// Checks: the CPU tests run the plain versions against the JAX package
+// (`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`); on a card,
+// `python3 chip_smoke.py` builds this file, holds every call of every path
+// and the edge cases to the plain version bit for bit (their inputs hold
+// no -0.0), names the kernel each takes and times it (phase 3), and
+// `python3 -m pytest --noconftest -q tests/test_torch_cuda.py` runs the
+// `cuda`-marked tests.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -543,38 +568,45 @@ __device__ __forceinline__ void vmax16(Pack<__nv_bfloat16, 8>& r,
   for (int k = 0; k < 4; ++k) a[k] = __hmax2_nan(a[k], b[k]);
 }
 
-// Level L alone (F = 2^L) with C not a multiple of 16 bytes but every input
-// and output row starting on 16 bytes (W * C and (W / F) * C elements are
-// multiples of 16 bytes, both pointers aligned).  A row of NHWC memory is
-// one contiguous run of W * C elements whatever C is, so the kernel works
-// on rows, not channels.  A block owns one band of F input rows of one
-// image over a span of `span` output pixels (a multiple of 8, so every
-// span, and the last one cut by the row's end, starts and ends on 16
-// bytes), in three steps with a barrier between them:
+// Level L alone (F = 2^L) with every input and output row starting on
+// 16 bytes (W * C and (W / F) * C elements multiples of 16 bytes, both
+// pointers aligned).  A row of NHWC memory is one contiguous run of W * C
+// elements whatever C is, so the kernel works on rows, not channels.  A
+// block owns one band of F input rows of one image over a span of `span`
+// output pixels (rows_span), in two or three steps with a barrier after
+// the first and second:
 // 1. vertical fold: each thread reads 16 bytes of the span in each of the
-//    F rows (at most 8 16-byte loads in flight a thread, so registers stay
-//    under 64 and four blocks share an SM), folds them in registers and
-//    writes the folded row to shared memory;
-// 2. horizontal fold: output element e (pixel px = e / C, channel c) is
-//    the max over j < F of row[e + (F - 1) * px * C + j * C].  Neighbouring
-//    lanes take neighbouring elements, so their shared-memory reads fall
-//    on neighbouring 2- or 4-byte words (no bank conflicts); a thread
-//    steps (px, c) by whole blocks with no division in the loop.  The
-//    results go to a second buffer in shared memory;
-// 3. the span's output leaves with one 16-byte store a thread.
+//    F rows (8 16-byte loads in flight a thread, F rows of one vector or
+//    8 rows of F / 8 vectors, so registers stay under 64 and four blocks
+//    share an SM), folds them in registers and writes the folded row to
+//    shared memory;
+// 2. horizontal fold, VEC (C a multiple of V = 16 / sizeof(T), G = C / V
+//    vectors a pixel): output vector o (pixel o / G, group o % G) is the
+//    max of the F folded vectors (F * (o / G) + j) * G + o % G, j < F,
+//    read 16 bytes a lane, and leaves with one 16-byte store;
+//    otherwise (the span a multiple of 8 pixels, so every span, and the
+//    last one cut by the row's end, starts and ends on 16 bytes): output
+//    element e (pixel px = e / C, channel c) is the max over j < F of
+//    row[e + (F - 1) * px * C + j * C].  Neighbouring lanes take
+//    neighbouring elements, so their shared-memory reads fall on
+//    neighbouring 2- or 4-byte words (no bank conflicts); a thread steps
+//    (px, c) by whole blocks with no division in the loop.  The results go
+//    to a second buffer in shared memory;
+// 3. (element fold only) the span's output leaves with one 16-byte store
+//    a thread.
 // Max stays in T (bf16's own max instructions): converting each element
 // to float and back made an earlier version of this kernel bound by its
-// conversion instructions, not by bytes.  The order of
-// comparisons (rows, then columns) is not pyramid_kernel's: no NaN-free
-// maximum changes, NaN still wins, and only which of +0.0 and -0.0 comes
-// out of a window holding both may.
-template <typename T, int F>
+// conversion instructions, not by bytes.  The order of comparisons (rows,
+// then columns) is not the plain version's: no NaN-free maximum changes,
+// NaN still wins, and only which of +0.0 and -0.0 comes out of a window
+// holding both may.
+template <typename T, int F, bool VEC>
 __global__ void __launch_bounds__(256, 4)
     pool_rows_kernel(const T* __restrict__ x, T* __restrict__ out, int H,
                      int W, int C, int span) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int G = F < 8 ? F : 8;  // rows loaded together
-  constexpr int U = 8 / G;          // 16-byte columns folded together
+  constexpr int R = F < 8 ? F : 8;  // rows loaded together
+  constexpr int U = 8 / R;          // 16-byte columns folded together
   using P = Pack<T, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int wo = W / F;
@@ -586,28 +618,27 @@ __global__ void __launch_bounds__(256, 4)
   const T* src = x + ((b * H + (int64_t)F * yo) * W + (int64_t)F * x0) * C;
   T* dst = out + ((b * (H / F) + yo) * wo + x0) * (int64_t)C;
   T* row = reinterpret_cast<T*>(smem);  // the band folded over its rows
-  T* folded = row + F * n * C;          // the span's output (16-byte start)
   const int n_out = n * C;
   const int nv_in = F * n_out / V;      // 16-byte columns of the band
   const int step = blockDim.x;
   for (int v0 = threadIdx.x; v0 < nv_in; v0 += U * step) {
     P r[U];
 #pragma unroll
-    for (int g = 0; g < F; g += G) {
-      P q[U][G];
+    for (int g = 0; g < F; g += R) {
+      P q[U][R];
       const T* p0 = src + (int64_t)g * in_row + (int64_t)v0 * V;
 #pragma unroll
       for (int u = 0; u < U; ++u)
         if (v0 + u * step < nv_in)
 #pragma unroll
-          for (int i = 0; i < G; ++i)
+          for (int i = 0; i < R; ++i)
             q[u][i] = *reinterpret_cast<const P*>(p0 + i * in_row +
                                                   (int64_t)u * step * V);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (g == 0) r[u] = q[u][0];
 #pragma unroll
-        for (int i = g == 0 ? 1 : 0; i < G; ++i) vmax16(r[u], q[u][i]);
+        for (int i = g == 0 ? 1 : 0; i < R; ++i) vmax16(r[u], q[u][i]);
       }
     }
 #pragma unroll
@@ -616,6 +647,21 @@ __global__ void __launch_bounds__(256, 4)
         *reinterpret_cast<P*>(row + (v0 + u * step) * V) = r[u];
   }
   __syncthreads();
+  if (VEC) {
+    const int G = C / V;
+    const P* folded = reinterpret_cast<const P*>(row);
+    P* to = reinterpret_cast<P*>(dst);
+    for (int o = threadIdx.x; o < n * G; o += step) {
+      const int px = o / G;
+      const P* p = folded + (F * px * G + (o - px * G));
+      P m = p[0];
+#pragma unroll
+      for (int j = 1; j < F; ++j) vmax16(m, p[j * G]);
+      to[o] = m;
+    }
+    return;
+  }
+  T* folded = row + F * n_out;  // the span's output (16-byte start)
   int px = threadIdx.x / C, c = threadIdx.x - px * C;
   const int dpx = step / C, dc = step - dpx * C;
   for (int e = threadIdx.x; e < n_out; e += step) {
@@ -637,26 +683,36 @@ __global__ void __launch_bounds__(256, 4)
         *reinterpret_cast<const P*>(folded + ov * V);
 }
 
-// Shared memory pool_rows_kernel may give one span (the folded row and
-// the output), and what a span aims at: about 128 pixels at 31 channels,
-// where four blocks share an SM.
+// Shared memory pool_rows_kernel may give one span, and the input a block
+// aims at.  Blocks of 256 threads with 32 KB of input measured as fast as
+// 64 KB on AHNet's large single-level calls and faster on the small ones,
+// and faster than blocks cut to the threads the band's vectors keep busy
+// (at L = 4 on 32 bf16 channels, 128 of the 256) (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md).  At L = 1 this aim gives the MultiRes pools' spans
+// (about 128 pixels at 31 channels) as before.
 constexpr int kRowsSmemMax = 48 * 1024;
-constexpr int kRowsSmemAim = 24 * 1024;
+constexpr int kRowsInAim = 32 * 1024;
 
-// Output pixels of one pool_rows_kernel span: the row cut into as few
-// spans as keep each near kRowsSmemAim bytes, of equal widths rounded up
-// to a multiple of 8 (not 88 + 40 pixels, which leave the second block
-// half idle); 0 if 8 pixels pass kRowsSmemMax.
+// Output pixels of one pool_rows_kernel span: about kRowsInAim bytes of
+// input a block, the row cut into spans of equal widths (not 88 + 40
+// pixels, which leave the second block half idle), a multiple of 8
+// pixels where C is not a multiple of 16 bytes; 0 if the least span's
+// shared memory (the folded row, and for the element fold the output)
+// passes kRowsSmemMax.
 template <typename T>
 int rows_span(int W, int C, int L) {
-  // an output pixel's share: F pixels of the folded row and itself
-  const int64_t px_bytes = (((int64_t)C << L) + C) * sizeof(T);
-  if (8 * px_bytes > kRowsSmemMax) return 0;
-  int most = (int)(kRowsSmemAim / px_bytes) / 8 * 8;
-  if (most < 8) most = 8;
+  const bool vec = C % (16 / sizeof(T)) == 0;
+  const int q = vec ? 1 : 8;  // the span's granule
+  const int64_t px_in = ((int64_t)C << (2 * L)) * sizeof(T);
+  const int64_t px_smem = (((int64_t)C << L) + (vec ? 0 : C)) * sizeof(T);
+  if (q * px_smem > kRowsSmemMax) return 0;
+  int64_t most = kRowsInAim / px_in;
+  if (most > kRowsSmemMax / px_smem) most = kRowsSmemMax / px_smem;
+  most = most / q * q;
+  if (most < q) most = q;
   const int wo = W >> L;
-  const int spans = (wo + most - 1) / most;
-  return ((wo + spans - 1) / spans + 7) / 8 * 8;
+  const int64_t spans = (wo + most - 1) / most;
+  return (int)(((wo + spans - 1) / spans + q - 1) / q * q);
 }
 
 // Threads for n work items in blocks of at most 256: whole warps, no more
@@ -670,14 +726,16 @@ enum Route {
   kNone,        // nothing to store: no launch
   kC1,          // pyramid_c1_kernel
   kVec,         // pool_vec_kernel
-  kRows,        // pool_rows_kernel
+  kRowsVec,     // pool_rows_kernel, VEC
+  kRows,        // pool_rows_kernel, the element fold
   kVecPyramid,  // pyramid_vec_kernel
   kScalar,      // pyramid_kernel
 };
 
-const char* const kRouteNames[] = {"none", "pyramid_c1_kernel",
-                                   "pool_vec_kernel", "pool_rows_kernel",
-                                   "pyramid_vec_kernel", "pyramid_kernel"};
+const char* const kRouteNames[] = {
+    "none",           "pyramid_c1_kernel", "pool_vec_kernel",
+    "pool_rows_kernel<V=16B>", "pool_rows_kernel", "pyramid_vec_kernel",
+    "pyramid_kernel"};
 
 // The launcher's choice, from the shape, the levels stored and the
 // pointers' alignment; tiles_h and tiles_w cover level 1.
@@ -692,7 +750,10 @@ Route route(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
   if (stored == 1 && outs.p[L - 1]) {  // level L alone
     if ((H >> L) == 0 || (W >> L) == 0) return kNone;
     if (L > 5 || !aligned16(x) || !aligned16(outs.p[L - 1])) return kScalar;
-    if (C % V == 0) return L == 5 ? kVecPyramid : kVec;
+    if (C % V == 0) {
+      if (L == 5) return kVecPyramid;
+      return L >= 2 && rows_span<T>(W, C, L) > 0 ? kRowsVec : kVec;
+    }
     const int64_t row_in = (int64_t)W * C * sizeof(T);
     const int64_t row_out = (int64_t)(W >> L) * C * sizeof(T);
     if (row_in % 16 == 0 && row_out % 16 == 0 && rows_span<T>(W, C, L) > 0)
@@ -705,31 +766,40 @@ Route route(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
   return kVecPyramid;
 }
 
-template <typename T>
+// pool_rows_kernel for level L into `out`: VEC at L = 2..4 only.
+template <typename T, bool VEC>
 void launch_rows(const void* x, void* out, int64_t B, int H, int W, int C,
                  int L, cudaStream_t s) {
   const int span = rows_span<T>(W, C, L);
-  const int smem = (int)((((int64_t)span * C << L) + (int64_t)span * C) *
+  const int64_t folded = (int64_t)span * C << L;
+  const int smem = (int)((VEC ? folded : folded + (int64_t)span * C) *
                          sizeof(T));
   const dim3 grid((unsigned)(((W >> L) + span - 1) / span),
                   (unsigned)(H >> L), (unsigned)B);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   switch (L) {
-    case 1:
-      pool_rows_kernel<T, 2><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
-      break;
     case 2:
-      pool_rows_kernel<T, 4><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      pool_rows_kernel<T, 4, VEC><<<grid, 256, smem, s>>>(xt, ot, H, W, C,
+                                                          span);
       break;
     case 3:
-      pool_rows_kernel<T, 8><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      pool_rows_kernel<T, 8, VEC><<<grid, 256, smem, s>>>(xt, ot, H, W, C,
+                                                          span);
       break;
     case 4:
-      pool_rows_kernel<T, 16><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      pool_rows_kernel<T, 16, VEC><<<grid, 256, smem, s>>>(xt, ot, H, W, C,
+                                                           span);
       break;
     default:
-      pool_rows_kernel<T, 32><<<grid, 256, smem, s>>>(xt, ot, H, W, C, span);
+      if constexpr (!VEC) {
+        if (L == 1)
+          pool_rows_kernel<T, 2, false><<<grid, 256, smem, s>>>(xt, ot, H, W,
+                                                                C, span);
+        else
+          pool_rows_kernel<T, 32, false><<<grid, 256, smem, s>>>(xt, ot, H,
+                                                                 W, C, span);
+      }
   }
 }
 
@@ -833,8 +903,11 @@ void launch(Route r, const void* x, const OutPtrs& outs, int64_t B, int H,
     case kVec:
       launch_vec<T>(x, outs.p[L - 1], B, H, W, C, L, s);
       return;
+    case kRowsVec:
+      launch_rows<T, true>(x, outs.p[L - 1], B, H, W, C, L, s);
+      return;
     case kRows:
-      launch_rows<T>(x, outs.p[L - 1], B, H, W, C, L, s);
+      launch_rows<T, false>(x, outs.p[L - 1], B, H, W, C, L, s);
       return;
     case kVecPyramid:
       launch_vec_pyramid<T>(x, outs, B, H, W, C, L, tiles_h, tiles_w, s);
@@ -851,7 +924,10 @@ void launch(Route r, const void* x, const OutPtrs& outs, int64_t B, int H,
 }
 
 // The arguments of tpuseg_maxpool_pyramid, checked, and the route they
-// take; returns a CUDA error code (0 if they are valid).
+// take (`force`, if not null, the name of the route to take instead:
+// pool_vec_kernel for a single level 1..4 at a C of whole 16 bytes and
+// aligned pointers, nothing else); returns a CUDA error code (0 if they
+// are valid).
 struct Call {
   OutPtrs outs = {};
   int tiles_h = 0, tiles_w = 0;
@@ -859,7 +935,7 @@ struct Call {
 };
 
 int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
-            int W, int C, int L, Call* call) {
+            int W, int C, int L, const char* force, Call* call) {
   if (L < 1 || L > kMaxLevels || B < 0 || H < 0 || W < 0 || C < 1 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -879,6 +955,15 @@ int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
                      call->tiles_w)
       : route<__nv_bfloat16>(x, call->outs, B, H, W, C, L, call->tiles_h,
                              call->tiles_w);
+  if (force && call->route != kNone) {
+    int stored = 0;
+    for (int l = 0; l < L; ++l) stored += call->outs.p[l] != nullptr;
+    if (strcmp(force, kRouteNames[kVec]) || L > 4 || stored != 1 ||
+        !call->outs.p[L - 1] || C % (dtype == 0 ? 4 : 8) || !aligned16(x) ||
+        !aligned16(call->outs.p[L - 1]))
+      return (int)cudaErrorInvalidValue;
+    call->route = kVec;
+  }
   return (int)cudaSuccess;
 }
 
@@ -888,13 +973,17 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  out_ptrs: host array of L device
 // pointers, level 1 first, each an NHWC buffer of (B, H>>l, W>>l, C), or
-// null for a level the caller does not want.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// null for a level the caller does not want.  force: null, or the kernel
+// to launch in place of the launcher's choice (see prepare).  Launches on
+// `stream`, sets *launched to the name of the kernel it launched ("none"
+// if it launched nothing) and returns cudaGetLastError() (0 on success).
 int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
                            int64_t B, int H, int W, int C, int L,
+                           const char* force, const char** launched,
                            void* stream) {
   Call c;
-  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, &c);
+  *launched = kRouteNames[kNone];
+  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, force, &c);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -902,16 +991,17 @@ int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
   else
     launch<__nv_bfloat16>(c.route, x, c.outs, B, H, W, C, L, c.tiles_h,
                           c.tiles_w, s);
+  *launched = kRouteNames[c.route];
   return (int)cudaGetLastError();
 }
 
-// The kernel tpuseg_maxpool_pyramid launches for the same arguments
-// ("none" if it launches nothing), or null if it refuses them.
+// The kernel tpuseg_maxpool_pyramid launches for the same arguments and
+// no force ("none" if it launches nothing), or null if it refuses them.
 const char* tpuseg_maxpool_pyramid_route(const void* x, const void* out_ptrs,
                                          int dtype, int64_t B, int H, int W,
                                          int C, int L) {
   Call c;
-  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, &c)) return nullptr;
+  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, nullptr, &c)) return nullptr;
   return kRouteNames[c.route];
 }
 

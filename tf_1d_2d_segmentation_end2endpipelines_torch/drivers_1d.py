@@ -33,6 +33,7 @@ from .data import (batches, load_signal_dataset, load_signal_inputs,
 from .drivers import (_check_step_keys, _resolve_dtype, _restore_model,
                       _save_history, resolve_device)
 from .models import model_selector_1d
+from .models.api_1d import check_pools_1d
 from .train import (CheckpointManager, EarlyStopping, ReduceLROnPlateau,
                     Trainer, default_ds_weights)
 from .utils.config import (Signal1DConfig, load_signal_config, resume_token,
@@ -78,13 +79,16 @@ def _check_model_1d(cfg: Signal1DConfig, verb: str) -> None:
 
 def _check_signal_config(cfg: Signal1DConfig) -> None:
     """Raise before ``train_1d`` writes anything: ``NotImplementedError``
-    for a key the port does not take (``unported_signal_keys``),
-    ``ValueError`` for ``remat = blocks`` (the JAX verb's message) and
-    the settings the 2D verb refuses, ``ImportError`` naming a host
-    package a setting needs.  An unknown ``model_name`` raises the JAX
-    package's ``ValueError`` when the model is built, before the first
-    write."""
+    for a key the port does not take (``unported_signal_keys``) and for a
+    model or deep-supervision targets that pool by more than the port's
+    1D kernels take (``check_pools_1d``), ``ValueError`` for ``remat =
+    blocks`` (the JAX verb's message) and the settings the 2D verb
+    refuses, ``ImportError`` naming a host package a setting needs.  An
+    unknown ``model_name`` raises the JAX package's ``ValueError`` when
+    the model is built, before the first write."""
     _check_model_1d(cfg, "train1d")
+    check_pools_1d(cfg.model_name, cfg.model_depth,
+                   ds_targets=cfg.d_s == 1 and cfg.ds_type != "UNetPP")
     if cfg.remat == "blocks":
         raise ValueError(
             "remat = blocks is 2D-only (SegModel block_remat); for 1D use "

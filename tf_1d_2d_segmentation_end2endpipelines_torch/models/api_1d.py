@@ -54,6 +54,7 @@ from ..ops import (AttentionGate, AutoNamed, ConvBlock, ConvMixerBlock,
                    TransConv, apply_activation, concat, downsample_pool,
                    pooled_size, upsample)
 from ..ops.kernels import pyramid
+from ..ops.kernels.pool_backward import FACTORS_1D
 from .decoders import (ChainDecoder, FullScaleDecoder, GridDecoder,
                        SelfFullScaleDecoder, SelfGridDecoder)
 from .dense_inception import Dense_Inception_UNet
@@ -151,6 +152,37 @@ def check_arch_1d(arch: str, lstm: int = 0) -> None:
             "the 1D MultiResUNet3P with lstm = 1: the reference's LSTM "
             "branch crashes (undefined 'model_depth', unet_variants.py:942),"
             " and the JAX package refuses it too")
+
+
+def deepest_pool_1d(arch: str, depth: int) -> int:
+    """The deepest level m of the 1D max pools by 2**m that ``arch`` runs
+    at ``depth``: D - 1 where the decoder pools encoder tap 0 to every
+    level a later step reads (the full-scale skips of UNet3P, R2UNet3P,
+    SelfUNet3P and ConvMixerUNet3P, ``FullScaleDecoder`` and
+    ``SelfFullScaleDecoder``; MLMRSNet_V2's decoder taps), D - 2 for
+    UNet4P (its dense encoder pools tap 1 to the bottom), else 1."""
+    if _ARCHS.get(arch, {}).get("topo") in ("full", "selffull") \
+            or arch == "MLMRSNet_V2":
+        return max(depth - 1, 1)
+    if _ARCHS.get(arch, {}).get("enc") == "dense4p":
+        return max(depth - 2, 1)
+    return 1
+
+
+def check_pools_1d(arch: str, depth: int, ds_targets: bool = False) -> None:
+    """Raise ``NotImplementedError`` when ``arch`` at ``depth`` would run a
+    1D max pool wider than the port's kernels take (``FACTORS_1D``); with
+    ``ds_targets``, also for the deep-supervision targets that the train
+    verb pools from the mask to level ``depth``.  The JAX package builds
+    and trains these models; the port refuses them when they are built,
+    before a verb writes anything."""
+    level, what = deepest_pool_1d(arch, depth), f"{arch} at depth {depth}"
+    if ds_targets and depth > level:
+        level, what = depth, f"{what} with d_s = 1 (its targets)"
+    if level > len(FACTORS_1D):
+        raise NotImplementedError(
+            f"{what} pools by {2 ** level}; the port's 1D max pools take "
+            f"FACTORS_1D = {FACTORS_1D}")
 
 
 class SegModel1D(AutoNamed):
@@ -560,8 +592,11 @@ def model_selector_1d(arch: str, length: int, model_depth: int,
     SAUNet, ``alpha`` and ``lstm`` to LinkNet); an unknown name raises
     the JAX package's ``ValueError``.  ``length`` sizes the autoencoder
     bottleneck (``ae = 1``; without it the model takes any length); ``q``
-    is the Self-ONN archs' order."""
+    is the Self-ONN archs' order.  A model that would pool by more than
+    the port's 1D kernels take raises ``NotImplementedError`` here
+    (``check_pools_1d``)."""
     check_arch_1d(arch, lstm=lstm)
+    check_pools_1d(arch, model_depth)
     fam = dict(dtype=dtype, generator=generator)
     if arch in ("MLMRSNet", "MLMRSNet_V2", "LDNet"):
         return getattr(MLMRSNet(

@@ -109,11 +109,12 @@ def load_library() -> ctypes.CDLL:
             _build(so)
         lib = ctypes.CDLL(so)
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        cp, pcp = ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p)
         lib.tpuseg_maxpool_pyramid.argtypes = [vp, vp, i32, i64, i32, i32,
-                                               i32, i32, vp]
+                                               i32, i32, cp, pcp, vp]
         lib.tpuseg_maxpool_pyramid.restype = i32
         lib.tpuseg_maxpool_backward.argtypes = [vp, vp, vp, i32, i64, i32,
-                                                i32, i32, i32, vp]
+                                                i32, i32, i32, cp, pcp, vp]
         lib.tpuseg_maxpool_backward.restype = i32
         lib.tpuseg_maxpool_pyramid_route.argtypes = [vp, vp, i32, i64, i32,
                                                      i32, i32, i32]
@@ -122,13 +123,13 @@ def load_library() -> ctypes.CDLL:
                                                       i32, i32, i32, i32]
         lib.tpuseg_maxpool_backward_route.restype = ctypes.c_char_p
         lib.tpuseg_maxpool1d_pyramid.argtypes = [vp, vp, i32, i64, i32, i32,
-                                                 i32, vp]
+                                                 i32, pcp, vp]
         lib.tpuseg_maxpool1d_pyramid.restype = i32
         lib.tpuseg_maxpool1d_pyramid_route.argtypes = [vp, vp, i32, i64, i32,
                                                        i32, i32]
         lib.tpuseg_maxpool1d_pyramid_route.restype = ctypes.c_char_p
         lib.tpuseg_maxpool1d_backward.argtypes = [vp, vp, vp, i32, i64, i32,
-                                                  i32, i32, vp]
+                                                  i32, i32, pcp, vp]
         lib.tpuseg_maxpool1d_backward.restype = i32
         lib.tpuseg_maxpool1d_backward_route.argtypes = [vp, vp, vp, i32, i64,
                                                         i32, i32, i32]
@@ -151,3 +152,17 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.tpuseg_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, entry: str, args: tuple, stream: int,
+           what: str, counter) -> None:
+    """Call ``lib``'s C entry point ``entry`` with ``args``, a pointer for
+    the name of the kernel it launched, and ``stream``; raise on a CUDA
+    error; add one to ``counter`` under that name if it launched a
+    kernel."""
+    launched = ctypes.c_char_p()
+    check(lib, getattr(lib, entry)(*args, ctypes.byref(launched), stream),
+          what)
+    name = launched.value.decode()
+    if name != "none":
+        counter.add(name)

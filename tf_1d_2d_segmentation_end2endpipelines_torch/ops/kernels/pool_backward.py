@@ -22,7 +22,9 @@ it and what its design does about it.
   :func:`maxpool_backward_plain`; on a CUDA tensor it launches the kernel
   or raises.  Each launch adds one to :data:`launches`; each copy of ``g``
   into channels_last memory adds one to :data:`g_copies`.
-- :func:`route` names the kernel a CUDA call launches.
+- :func:`route` names the kernel a CUDA call launches; each launch adds
+  one to :data:`launches` under the name of the kernel that the C
+  launcher reports it launched.
 
 Rank 1: :func:`maxpool1d_backward` (plain version
 :func:`maxpool1d_backward_plain`, :func:`route1d`) is the same gradient
@@ -118,9 +120,12 @@ def _args(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor, factor: int
             b, h, w, c, factor)
 
 
-def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
-                           ) -> torch.Tensor:
-    from ._build import check, load_library
+def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int,
+                           force: "str | None" = None) -> torch.Tensor:
+    """The launch; ``force`` ("pool_backward_rows_kernel", at a factor of
+    4 or more) takes that kernel in place of the launcher's choice, so
+    that the card's checks time both on the same call."""
+    from ._build import launch, load_library
 
     g = _check_cuda(x, g)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
@@ -129,16 +134,18 @@ def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool_backward(*_args(x, g, dx, factor), stream)
-    check(lib, code, "maxpool_backward")
-    launches.add()
+        launch(lib, "tpuseg_maxpool_backward",
+               (*_args(x, g, dx, factor),
+                force.encode() if force else None),
+               stream, "maxpool_backward", launches)
     return dx
 
 
 def route(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
     """The name of the kernel that :func:`maxpool_backward` launches for
-    the same CUDA tensors and factor: ``pool_backward_kernel`` (F = 2) or
-    ``pool_backward_rows_kernel`` (F = 4 .. 32), with ``<V=1>`` where it takes
+    the same CUDA tensors and factor: ``pool_backward_kernel`` (F = 2),
+    ``pool_backward_rows_kernel`` (F = 4 .. 16) or
+    ``pool_backward_block_kernel`` (F = 32), with ``<V=1>`` where it takes
     one channel a thread; "none" for an empty ``x``.  Launches nothing and
     counts no copy (a ``g`` the wrapper would copy is judged as its
     copy, which is aligned)."""
@@ -225,7 +232,7 @@ def _args_1d(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor,
 
 def _maxpool1d_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
                              ) -> torch.Tensor:
-    from ._build import check, load_library
+    from ._build import launch, load_library
 
     g = _check_cuda(x, g)
     dx = torch.empty_like(x, memory_format=torch.channels_last)
@@ -234,10 +241,9 @@ def _maxpool1d_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool1d_backward(*_args_1d(x, g, dx, factor),
-                                             stream)
-    check(lib, code, "maxpool1d_backward")
-    launches.add()
+        launch(lib, "tpuseg_maxpool1d_backward",
+               _args_1d(x, g, dx, factor), stream, "maxpool1d_backward",
+               launches)
     return dx
 
 

@@ -25,7 +25,9 @@ W and channel count; float32 and bfloat16.
 - :func:`maxpool` is the pool by 2**m (m = 1..5): ``maxpool_levels``
   storing level m only.
 - :func:`fused_maxpool_pyramid` is the JAX package's NHWC entry point.
-- :func:`route` names the kernel a CUDA call launches.
+- :func:`route` names the kernel a CUDA call launches; each launch adds
+  one to :data:`launches` under the name of the kernel that the C
+  launcher reports it launched.
 
 Rank 1 (1D signals, a (B, C, 1, L) channels_last tensor: (B, L, C)
 memory, as the JAX package's NLC arrays): :func:`maxpool1d_pyramid`
@@ -113,8 +115,13 @@ def _cuda_args(x: torch.Tensor, levels: int, wanted: tp.List[int]):
 
 
 def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
-                          wanted: tp.List[int]) -> tp.List[torch.Tensor]:
-    from ._build import check, load_library
+                          wanted: tp.List[int],
+                          force: tp.Optional[str] = None
+                          ) -> tp.List[torch.Tensor]:
+    """The launch; ``force`` ("pool_vec_kernel", on a single level 1..4 at
+    a C of whole 16 bytes) takes that kernel in place of the launcher's
+    choice, so that the card's checks time both on the same call."""
+    from ._build import launch, load_library
 
     outs, ptrs, args = _cuda_args(x, levels, wanted)
     if outs[0].numel() == 0:  # nothing to store: no launch
@@ -122,9 +129,9 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool_pyramid(*args, stream)
-    check(lib, code, "maxpool_pyramid")
-    launches.add()
+        launch(lib, "tpuseg_maxpool_pyramid",
+               (*args, force.encode() if force else None), stream,
+               "maxpool_pyramid", launches)
     return outs
 
 
@@ -306,7 +313,7 @@ def _cuda_args_1d(x: torch.Tensor, levels: int, wanted: tp.List[int]):
 
 def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
                             wanted: tp.List[int]) -> tp.List[torch.Tensor]:
-    from ._build import check, load_library
+    from ._build import launch, load_library
 
     outs, ptrs, args = _cuda_args_1d(x, levels, wanted)
     if x.numel() == 0 or x.shape[3] < 2:  # nothing to pool: no launch
@@ -314,9 +321,8 @@ def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.tpuseg_maxpool1d_pyramid(*args, stream)
-    check(lib, code, "maxpool1d_pyramid")
-    launches.add()
+        launch(lib, "tpuseg_maxpool1d_pyramid", args, stream,
+               "maxpool1d_pyramid", launches)
     return outs
 
 
