@@ -56,18 +56,21 @@ kernel).  Phases, each printing lines:
    and the PyTorch library call that computes the same function (a
    yardstick the port never calls), and the bound: bytes moved at 3.35
    TB/s; beside each pooled UNet3+ skip, the earlier design of the same call
-   (one single-level launch per level); beside each call of
-   ``pool_rows_kernel<V=16B>`` and ``pool_backward_block_kernel``, the
-   kernel that call took before (``pool_vec_kernel``,
-   ``pool_backward_rows_kernel``, forced on the same call), checked and
-   timed in the same turns and then against the new kernel in
-   VERSUS_TURNS alternating turns;
-   beside the DS targets' row, the
+   (one single-level launch per level); beside the DS targets' row, the
    floor: the same kernel's time on a (1, 2, 2, 1) mask; then the 1D
    kernels (csrc/pool1d.cu) the same way at every 1D call (config 1's
    shapes, float32, and bfloat16 for its fixed batch and as twins of the
-   MultiRes and UNet3+ calls) and edge cases, the library yardstick
-   ``F.max_pool1d`` and its backward, the DS mask's floor on (1, 2, 1)
+   MultiRes and UNet3+ calls; phase 33's, levels 1-5 and the backward
+   by 32 among them) and edge cases, each naming its route
+   (``pool1d_flat_kernel`` where 2**levels divides the length and the
+   pointers start on 16 bytes, ``pool1d_kernel`` elsewhere), the library
+   yardstick ``F.max_pool1d`` and its backward; beside each call of
+   ``pool1d_flat_kernel``, the kernel it took before (``pool1d_kernel``,
+   forced on the same call: EARLIER1), checked and timed in the same
+   turns, and against the flat kernel in VERSUS_TURNS alternating turns
+   where the two lie within their turns' spread; beside each DS mask's
+   row, the floor: the same levels on (1, 2, 1) and the same kernel on
+   the least mask it takes
 4. serve: 16/16 answered 200 with a 256x256 mask; masks equal to
    ``label_from_pred`` of the same model run with the plain pool, away
    from the threshold; the pyramid kernel launched exactly 4 times (one
@@ -236,10 +239,18 @@ kernel).  Phases, each printing lines:
     launches; UNet4PV2 on ResNet50 through ``train``), W8/D3 references
     of one backbone a class and of AHNet on ResNet50, the CPU steps on
     the card's ReLU and ReLU6 pieces
+33. the 1D models that pool by 32 at config 1's size and width
+    (``phase_deep_1d``, DEEP_1D: UNet3P, R2UNet3P, SelfUNet3P (on the
+    signals times SELF_1D_SCALE, 20 steps), ConvMixerUNet3P and
+    MLMRSNet_V2 at depth 6, UNet4P at depth 7, 10 counted steps each
+    with the loss falling and exact launches, ``_deep_calls``; the 1D
+    verbs on UNet3P at depth 5 with ``d_s = 1``, whose targets pool the
+    mask by 2 .. 32), the W8/D6 UNet3P reference on the card's ReLU
+    masks (RELATIVE_BAR, the bfloat16 control)
 
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
-phases 21-32; the others run in their order.  Each phase's wall time is
+phases 21-33; the others run in their order.  Each phase's wall time is
 printed when it ends.
 The line before the last is one JSON object with a row for each CUDA
 kernel (``name``, the name the launcher reports) and each path that runs
@@ -255,13 +266,14 @@ paths of phases 27-28 (``lstm_*``, ``ae_UNet``, ``train_lstm``,
 ``self_*``, ``fpn_FPN``, ``train_self``), of phases 31-32
 (``dense_*``, ``train_AHNet``, ``proj_*``, ``train_UNet4PV2_ResNet50``),
 or a 1D path (phase 30's
-``1d_special_*``, ``1d_verbs_*`` among them) with the rows of the
-``pool1d_kernel`` and ``pool1d_backward_kernel`` routes): the launches of that
+``1d_special_*``, ``1d_verbs_*`` among them, phase 33's ``1d_deep_*``)
+with the rows of the ``pool1d_flat_kernel``, ``pool1d_kernel`` and
+``pool1d_backward_kernel`` routes): the launches of that
 path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted
 runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
 run; the fixed batches), 22 or 24 (the fixed batches; the train1d runs),
-26-32 (the fixed batches; the verb runs), and the device times and
+26-33 (the fixed batches; the verb runs), and the device times and
 bound of the
 calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
@@ -481,8 +493,9 @@ def _in_turns(fns: dict, flush, spreads: "dict | None" = None) -> dict:
 
 
 #: alternating turns in which a redesigned kernel is timed against the
-#: kernel its calls took before (the calls near the launch floor differ by
-#: less than two turns' spread)
+#: kernel its calls took before, where the two turns cannot tell them
+#: apart (the calls near the launch floor differ by less than two turns'
+#: spread)
 VERSUS_TURNS = 6
 
 
@@ -621,12 +634,9 @@ POOL_ROWS = "pool_rows_kernel"
 #: pool_backward.cu), 16 bytes of channels a thread
 BWD_ROWS = "pool_backward_rows_kernel"
 #: the single-level pools by 4, 8 and 16 at a C of whole 16 bytes: the
-#: row kernel's 16-byte fold (csrc/pyramid.cu); they took EARLIER_FWD
-#: before, which phase 3 forces on the same calls and times beside it
+#: row kernel's 16-byte fold (csrc/pyramid.cu)
 ROWS16 = "pool_rows_kernel<V=16B>"
-EARLIER_FWD = "pool_vec_kernel"
-#: the pool backward's kernel for windows of 32; F = 32 took BWD_ROWS
-#: before, which phase 3 forces on the same calls and times beside it
+#: the pool backward's kernel for windows of 32
 BWD_BLOCK = "pool_backward_block_kernel"
 #: an offset channels_last view of the same shape: elements of storage
 #: before the view's first (1: no row starts on 16 bytes; 8 bf16: all do)
@@ -969,6 +979,65 @@ def _zoo_calls(path: str, calls: dict) -> list:
     return out
 
 
+#: phase 33: the 1D models that pool by 32 at config 1's size and width
+#: (W32, 1024 samples, batch 128, float32): path -> (arch, depth).  The UNet3+-type archs at depth 6 pool
+#: skip 0 to levels 1-5, MLMRSNet_V2 at depth 6 pools its tap 0 by 32,
+#: UNet4P at depth 7 its tap 1 to levels 1-5 (``_deep_calls``)
+DEEP_1D = {"1d_deep_UNet3P_D6": ("UNet3P", 6),
+           "1d_deep_R2UNet3P_D6": ("R2UNet3P", 6),
+           "1d_deep_SelfUNet3P_D6": ("SelfUNet3P", 6),
+           "1d_deep_ConvMixerUNet3P_D6": ("ConvMixerUNet3P", 6),
+           "1d_deep_MLMRSNet_V2_D6": ("MLMRSNet_V2", 6),
+           "1d_deep_UNet4P_D7": ("UNet4P", 7)}
+#: phase 33's run of the 1D verbs: path -> (arch, depth, INI keys);
+#: ``d_s = 1`` at depth 5 pools the mask by 2 .. 32 for the targets
+DEEP_1D_VERBS = {"1d_verbs_UNet3P_D5_ds": ("UNet3P", 5, dict(d_s=1))}
+#: phase 33's counted steps (the loss must fall: the mean of the last 5
+#: below the first 5's); SelfUNet3P takes SELF_1D_STEPS, as in phase 29
+DEEP_STEPS = 10
+#: the deep-supervision targets of config 1's signals pooled to level 5
+_SIG_DS_MASK5 = (_F32, (SIG_BATCH, SIG_LEN, 1), 5, _all(5))
+_SIG_DS_MASKS = (_SIG_DS_MASK, _SIG_DS_MASK5)
+
+
+def _deep_calls(arch: str, depth: int, ds: int = 0, batch: int = SIG_BATCH,
+                length: int = SIG_LEN, width: int = 32, dt: str = _F32
+                ) -> tuple:
+    """The 1D pyramid calls (dtype, (B, L, C), levels, wanted) and
+    pool-backward calls (dtype, (B, L, C), factor) one train step of
+    ``arch`` at ``depth`` makes, tap k being (batch, length >> k, width
+    << k): the UNet3+-type archs pool every tap by 2 (one launch each) and
+    skip k to levels 1 .. D - 1 - k (one launch a skip); UNet4P pools tap
+    0 by 2 and tap k > 0 to levels 1 .. max(D - 1 - k, 1) (one launch a
+    tap); MLMRSNet_V2 pools each tap alone, in its encoder (tap i by 2,
+    taps 1 .. i - 2 into level i) and decoder (step j: taps k < D - j - 1
+    by 2**(D - j - k - 1)); ``ds`` adds the targets' pyramid, the mask
+    pooled to level D.  Every pooled level has one backward launch, the
+    targets none.  tests/test_torch_chip_smoke_tables.py holds these to the
+    calls the models make on the CPU."""
+    def tap(k):
+        return (batch, length >> k, width << k)
+
+    if arch == "MLMRSNet_V2":
+        pools = [(k, lvl) for i in range(depth)
+                 for k, lvl in [(kk, i - kk) for kk in range(1, i)] + [(i, 1)]]
+        pools += [(k, depth - j - k - 1) for j in range(depth)
+                  for k in range(depth - j - 1)]
+        fwd = [(dt, tap(k), lvl, (lvl,)) for k, lvl in pools]
+    elif arch == "UNet4P":
+        fwd = [(dt, tap(0), 1, (1,))] + [
+            (dt, tap(k), max(depth - 1 - k, 1),
+             _all(max(depth - 1 - k, 1))) for k in range(1, depth)]
+    else:
+        fwd = [(dt, tap(k), 1, (1,)) for k in range(depth)] + [
+            (dt, tap(k), depth - 1 - k, _all(depth - 1 - k))
+            for k in range(depth - 1)]
+    bwd = [(c[0], c[1], 1 << lvl) for c in fwd for lvl in c[3]]
+    if ds:
+        fwd.append((_F32, (batch, length, 1), depth, _all(depth)))
+    return fwd, bwd
+
+
 FWD_PATHS_1D = {
     "config1": _FWD1[_F32]["enc"],
     "config1_bf16": _FWD1[_BF16]["enc"],
@@ -984,6 +1053,9 @@ FWD_PATHS_1D = {
                                          **SELF_1D, **SELF_1D_VERBS}},
     **{p: _special_calls(p, _FWD1) for p in {**ZOO_1D_SPECIALS,
                                              **ZOO_1D_SPECIALS_VERBS}},
+    **{p: _deep_calls(*spec[:2])[0] for p, spec in DEEP_1D.items()},
+    **{p: _deep_calls(a, d, kw.get("d_s", 0))[0]
+       for p, (a, d, kw) in DEEP_1D_VERBS.items()},
 }
 BWD_PATHS_1D = {
     "config1": _BWD1[_F32]["enc"],
@@ -999,6 +1071,9 @@ BWD_PATHS_1D = {
                                          **SELF_1D, **SELF_1D_VERBS}},
     **{p: _special_calls(p, _BWD1) for p in {**ZOO_1D_SPECIALS,
                                              **ZOO_1D_SPECIALS_VERBS}},
+    **{p: _deep_calls(*spec[:2])[1] for p, spec in DEEP_1D.items()},
+    **{p: _deep_calls(a, d, kw.get("d_s", 0))[1]
+       for p, (a, d, kw) in DEEP_1D_VERBS.items()},
 }
 #: phase 25: BASELINE config 5's 2D model (zoo_bench.py:123-130), a W32/D4
 #: UNet on EfficientNetB0 (random weights: encoder_weights = none), bf16,
@@ -1135,29 +1210,65 @@ FWD1_EDGES = [
     (_F32, (3, 37, 5), 4, _all(4)),    # level 4 of a 37-sample signal: 2
     (_BF16, (2, 3, 16), 2, _all(2)),   # level 2 empty
     (_BF16, (2, 64, 24), 1, (1,)),     # offset: no row on 16 bytes
+    (_F32, (2, 100, 33), 5, _all(5)),  # ragged, level 5
+    (_BF16, (2, 70, 24), 5, (5,)),     # ragged, level 5 alone, 16-byte
+    (_BF16, (7, 96, 31), 5, (2, 5)),   # staged: the last span cut short
+    (_F32, (5, 64, 3), 4, (1, 4)),     # staged, 12-byte rows
+    (_BF16, (3, 64, 1), 5, _all(5)),   # C = 1 bf16, one thread a signal
+    (_BF16, (1, 6, 1), 1, (1,)),       # C = 1, 6 positions: staged
+    (_F32, (2, 64, 1), 3, _all(3)),    # offset C = 1: one channel a thread
+    (_BF16, (2, 64, 8), 2, _all(2)),   # offset 16 bytes: flat
+    (_BF16, (2, 64, 2047), 5, (5,)),   # a span past shared memory
+    (_F32, (3, 96, 12), 5, (1, 5)),    # 16-byte, 3 groups, lanes a row
 ]
-FWD1_OFFSETS = {(_BF16, (2, 64, 24), 1, (1,)): 1}
+#: edge cases in a view of their storage: elements before its first
+FWD1_OFFSETS = {(_BF16, (2, 64, 24), 1, (1,)): 1,
+                (_F32, (2, 64, 1), 3, _all(3)): 2,
+                (_BF16, (2, 64, 8), 2, _all(2)): 8}
 BWD1_EDGES = [
     (_F32, (3, 1001, 8), 4), (_BF16, (2, 77, 3), 8), (_F32, (2, 37, 16), 16),
     (_BF16, (1, 3, 8), 4),             # nothing pooled: zeros
+    (_F32, (3, 100, 33), 32),          # F = 32: odd C, a ragged tail
+    (_BF16, (2, 96, 1), 32),           # one channel
+    (_F32, (2, 31, 8), 32),            # shorter than a window: zeros
 ]
+#: the kernel the flat kernel's calls took before, which phase 3 forces on
+#: the same calls and times beside it (csrc/pool1d.cu)
+EARLIER1 = "pool1d_kernel"
 
 
 def _route1d(case: tuple, backward: bool = False) -> str:
-    """The kernel a 1D call on a fresh (16-byte aligned) tensor must take:
-    16 bytes of channels a thread when C is a multiple of 16 bytes, else
-    one channel a thread (csrc/pool1d.cu)."""
+    """The kernel a 1D call on a fresh (16-byte aligned) tensor must take
+    (csrc/pool1d.cu): forward, the flat kernel where 2**levels divides
+    the length (16 bytes of channels in registers, a one-channel mask
+    whose B * L positions the thread's max(2**levels, 16-byte vector)
+    divides, else the staged fold; a span past shared memory takes the
+    earlier kernel), else, as the backward, 16 bytes of channels a thread
+    when C is a multiple of 16 bytes, else one channel a thread."""
     dtype, shape = case[0], case[1]
-    vec = shape[-1] * (4 if dtype == _F32 else 2) % 16 == 0
-    name = "pool1d_backward_kernel" if backward else "pool1d_kernel"
-    return f"{name}<V={'16B' if vec else '1'}>"
+    size = 4 if dtype == _F32 else 2
+    vec = shape[-1] * size % 16 == 0
+    if backward:
+        return f"pool1d_backward_kernel<V={'16B' if vec else '1'}>"
+    b, n, c = shape
+    f = 1 << case[2]
+    if n % f == 0 and n >= 2:
+        if vec:
+            return "pool1d_flat_kernel<V=16B>"
+        if c == 1 and b * n % max(f, 16 // size) == 0:
+            return "pool1d_flat_kernel<C=1>"
+        row = c * size  # the least span, rows * row a multiple of 16 B
+        if 16 // (row & -row) * row * (2 * f - 1) <= 48 * 1024:
+            return "pool1d_flat_kernel"
+    return f"{EARLIER1}<V={'16B' if vec else '1'}>"
 
 
 FWD1_ROUTES = {c: _route1d(c) for cs in FWD_PATHS_1D.values()
-               for c in cs + FWD1_TWINS}
-FWD1_ROUTES[(_BF16, (2, 64, 24), 1, (1,))] = "pool1d_kernel<V=1>"
+               for c in cs + FWD1_TWINS + FWD1_EDGES}
+FWD1_ROUTES.update({c: f"{EARLIER1}<V=1>" for c, k in FWD1_OFFSETS.items()
+                    if k * (4 if c[0] == _F32 else 2) % 16})
 BWD1_ROUTES = {c: _route1d(c, backward=True) for cs in BWD_PATHS_1D.values()
-               for c in cs + BWD1_TWINS}
+               for c in cs + BWD1_TWINS + BWD1_EDGES}
 ALL_FWD_PATHS = {**FWD_PATHS, **FWD_PATHS_1D}
 ALL_BWD_PATHS = {**BWD_PATHS, **BWD_PATHS_1D}
 
@@ -1349,14 +1460,6 @@ def phase_kernels() -> dict:
             # the earlier design of the same call: one launch per level
             fns["per_level"] = lambda: [pyramid.maxpool_level(x, lvl)
                                         for lvl in wanted]
-        if kernel == ROWS16:
-            # the kernel this call took before, forced on the same input
-            fns["earlier"] = lambda: pyramid._maxpool_pyramid_cuda(
-                x, levels, [levels], force=EARLIER_FWD)
-            before = dict(pyramid.launches.by_kernel)
-            _check(torch.equal(_bits(fns["earlier"]()[0]), _bits(want[0])),
-                   f"{what}: {EARLIER_FWD} differs from plain")
-            _one_launch(what, pyramid.launches, before, EARLIER_FWD)
         spread = {}
         t = _timed_turns(fns, flush, spread)
         calls = {name: _call_ms(fns[name], flush)
@@ -1369,11 +1472,6 @@ def phase_kernels() -> dict:
         if "per_level" in t:
             lib += (f"; {len(wanted)} single-level launches "
                     f"{t['per_level']:.4f} ms")
-        if "earlier" in t:
-            lib += (f"; the earlier kernel ({EARLIER_FWD}) "
-                    f"{t['earlier']:.4f} ms (turns differ by "
-                    f"{spread['earlier']:.4f}); {ROWS16} against it "
-                    f"{_versus(fns['kernel'], fns['earlier'], flush)}")
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
               f"kept); device time kernel {t['kernel']:.4f} ms (turns "
               f"differ by {spread['kernel']:.4f}), plain "
@@ -1486,27 +1584,13 @@ def phase_pool_backward() -> dict:
             "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 g, x, [f, f], [f, f], [0, 0], [1, 1], False, idx),
         }
-        earlier = ""
-        if kernel == BWD_BLOCK:
-            # the kernel this call took before, forced on the same inputs
-            fns["earlier"] = lambda: pool_backward._maxpool_backward_cuda(
-                x, g, f, force=BWD_ROWS)
-            before = dict(pool_backward.launches.by_kernel)
-            _check(torch.equal(_bits(fns["earlier"]()), _bits(want)),
-                   f"{what}: {BWD_ROWS} differs from plain")
-            _one_launch(what, pool_backward.launches, before, BWD_ROWS)
         spread = {}
         t = _timed_turns(fns, flush, spread)
-        if "earlier" in t:
-            earlier = (f", the earlier kernel ({BWD_ROWS}) "
-                       f"{t['earlier']:.4f} ms (turns differ by "
-                       f"{spread['earlier']:.4f}); {BWD_BLOCK} against it "
-                       f"{_versus(fns['kernel'], fns['earlier'], flush)}")
         nbytes = _bytes(x, g, got)
         measured[case] = {**t, "bytes": nbytes, "route": kernel}
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
               f"and a NaN); device time kernel {t['kernel']:.4f} ms (turns "
-              f"differ by {spread['kernel']:.4f}){earlier}, plain "
+              f"differ by {spread['kernel']:.4f}), plain "
               f"{t['plain']:.4f} ms, library max_pool2d_with_indices_"
               f"backward {t['library']:.4f} ms, bound "
               f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s) (CUDA "
@@ -3539,11 +3623,16 @@ def phase_kernels_1d() -> tuple:
     every call each 1D path makes (FWD_PATHS_1D, BWD_PATHS_1D: config 1's
     shapes in float32, and bfloat16 for the fixed batch), their bf16 twins
     and edge cases, with ReLU plateaus and a NaN; each line names the
-    route and, for the timed calls, the device time of the kernel, the
-    plain version and the library call (``F.max_pool1d``, and the
-    backward of ``F.max_pool1d(return_indices=True)``), and the bound.
-    Beside the DS targets' row, the floor: the same kernel on a (1, 2, 1)
-    mask.  Returns ({path: pyramid row}, {path: backward row})."""
+    route (one launch of it) and, for the timed calls, the device time of
+    the kernel, the plain version and the library call (``F.max_pool1d``,
+    and the backward of ``F.max_pool1d(return_indices=True)``), and the
+    bound; beside each call of ``pool1d_flat_kernel``, the kernel the call
+    took before (EARLIER1, forced on the same call), checked and timed in
+    the same turns, and against the flat kernel in VERSUS_TURNS
+    alternating turns where the two turns' means lie within their spread.
+    Beside each one-channel (deep-supervision) row, the floor: the same
+    levels on a (1, 2, 1) mask, and the same kernel on the least mask it
+    takes.  Returns ({path: pyramid row}, {path: backward row})."""
     import torch
     import torch.nn.functional as F
 
@@ -3561,41 +3650,78 @@ def phase_kernels_1d() -> tuple:
         dtype, shape, levels, wanted = case
         x = _case_input(dtype, shape, gen, plateaus=False,
                         offset=FWD1_OFFSETS.get(case, 0))
-        before = pyramid.launches.value
-        got = pyramid.maxpool1d_pyramid(x, levels, wanted)
-        torch.cuda.synchronize()
-        _check(pyramid.launches.value == before + 1,
-               f"1D pyramid {shape} {wanted}: not one launch")
         what = (f"maxpool1d_pyramid {dtype} (B, L, C) {tuple(shape)} levels "
                 f"{list(wanted)}")
-        max_fwd = max(max_fwd, _max_err(
-            got, pyramid.maxpool1d_pyramid_plain(x, levels, wanted), what))
+        if case in FWD1_OFFSETS:
+            what += f", view {FWD1_OFFSETS[case]} element(s) into its storage"
         kernel = pyramid.route1d(x, levels, wanted)
         _check_route(what, kernel, FWD1_ROUTES.get(case))
+        before = dict(pyramid.launches.by_kernel)
+        got = pyramid.maxpool1d_pyramid(x, levels, wanted)
+        torch.cuda.synchronize()
+        _one_launch(what, pyramid.launches, before, kernel)
+        want = pyramid.maxpool1d_pyramid_plain(x, levels, wanted)
+        max_fwd = max(max_fwd, _max_err(got, want, what))
+        for k, p in zip(got, want):
+            _check(torch.equal(_bits(k), _bits(p)),
+                   f"{what}: bit patterns differ")
+        fns = {"plain": lambda: pyramid.maxpool1d_pyramid_plain(x, levels,
+                                                                wanted),
+               "kernel": lambda: pyramid.maxpool1d_pyramid(x, levels,
+                                                           wanted)}
+        if kernel.startswith("pool1d_flat_kernel"):
+            # the kernel this call took before, forced on the same input
+            fns["earlier"] = lambda: pyramid._maxpool1d_pyramid_cuda(
+                x, levels, list(wanted), force=EARLIER1)
+            earlier = EARLIER1 + ("<V=16B>" if "16B" in _route1d(
+                case, backward=True) else "<V=1>")
+            before = dict(pyramid.launches.by_kernel)
+            early = fns["earlier"]()
+            _one_launch(what, pyramid.launches, before, earlier)
+            _check(all(torch.equal(_bits(k), _bits(p))
+                       for k, p in zip(early, want)),
+                   f"{what}: the forced {earlier} differs from plain")
         what += f" [{kernel}]"
         if case not in fwd_timed:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
-                  "kept)", flush=True)
+                  "kept, bit patterns)"
+                  + (f"; so is the earlier {earlier}" if "earlier" in fns
+                     else ""), flush=True)
             continue
         x1 = x[:, :, 0]  # the (B, C, L) view F.max_pool1d takes
-        t = _in_turns({
-            "plain": lambda: pyramid.maxpool1d_pyramid_plain(x, levels,
-                                                             wanted),
-            "kernel": lambda: pyramid.maxpool1d_pyramid(x, levels, wanted),
-            "library": lambda: [F.max_pool1d(x1, 1 << lvl)
-                                for lvl in wanted]}, flush)
+        fns["library"] = lambda: [F.max_pool1d(x1, 1 << lvl)
+                                  for lvl in wanted]
+        spread = {}
+        t = _in_turns(fns, flush, spread)
         nbytes = _bytes(x, *got)
         measured[case] = {**t, "bytes": nbytes, "route": kernel}
         line = (f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
-                f"kept); device time kernel {t['kernel']:.4f} ms, plain "
+                f"kept, bit patterns); device time kernel {t['kernel']:.4f} "
+                f"ms (turns differ by {spread['kernel']:.4f}), plain "
                 f"{t['plain']:.4f} ms, library {len(wanted)} F.max_pool1d "
                 f"call(s) {t['library']:.4f} ms, bound "
                 f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s)")
-        if case == _SIG_DS_MASK:
-            tiny = _case_input(dtype, (1, 2, 1), gen, plateaus=False)
-            floor = _in_turns({"floor": lambda: pyramid.maxpool1d_pyramid(
-                tiny, levels)}, flush)["floor"]
-            line += f"; floor (the same call on (1, 2, 1)) {floor:.4f} ms"
+        if "earlier" in t:
+            line += (f"; the earlier kernel ({earlier}, equal to plain) "
+                     f"{t['earlier']:.4f} ms (turns differ by "
+                     f"{spread['earlier']:.4f})")
+            if abs(t["kernel"] - t["earlier"]) <= max(spread["kernel"],
+                                                      spread["earlier"]):
+                line += (f"; within the turns' spread, so {kernel} against "
+                         f"it {_versus(fns['kernel'], fns['earlier'], flush)}")
+        if shape[-1] == 1:
+            # a launch with next to nothing to move: the same levels on
+            # (1, 2, 1), and the same kernel on the least mask it takes
+            least = (1, max(1 << levels, 16 // (4 if dtype == _F32 else 2)),
+                     1)
+            tiny = {n: _case_input(dtype, n, gen, plateaus=False)
+                    for n in ((1, 2, 1), least)}
+            floor = _in_turns({n: (lambda a=a: pyramid.maxpool1d_pyramid(
+                a, levels)) for n, a in tiny.items()}, flush)
+            line += (f"; floor (the same call on (1, 2, 1), "
+                     f"{pyramid.route1d(tiny[(1, 2, 1)], levels)}) "
+                     f"{floor[(1, 2, 1)]:.4f} ms, the same kernel on "
+                     f"{least} {floor[least]:.4f} ms")
         print(line, flush=True)
     for case in bwd_timed + BWD1_EDGES:
         dtype, shape, f = case
@@ -3603,17 +3729,17 @@ def phase_kernels_1d() -> tuple:
         b, c, _, n = x.shape
         g = torch.randn((b, n // f, c), generator=gen).to(
             "cuda", x.dtype).permute(0, 2, 1).unsqueeze(2)
-        before = pool_backward.launches.value
-        got = pool_backward.maxpool1d_backward(x, g, f)
-        torch.cuda.synchronize()
-        _check(pool_backward.launches.value == before + 1,
-               f"1D pool backward {shape} f={f}: not one launch")
         what = f"maxpool1d_backward {dtype} (B, L, C) {tuple(shape)} f={f}"
-        want = pool_backward.maxpool1d_backward_plain(x, g, f)
-        _check(torch.equal(got, want), f"{what}: differs from plain")
-        max_bwd = max(max_bwd, _max_err([got], [want], what))
         kernel = pool_backward.route1d(x, g, f)
         _check_route(what, kernel, BWD1_ROUTES.get(case))
+        before = dict(pool_backward.launches.by_kernel)
+        got = pool_backward.maxpool1d_backward(x, g, f)
+        torch.cuda.synchronize()
+        _one_launch(what, pool_backward.launches, before, kernel)
+        want = pool_backward.maxpool1d_backward_plain(x, g, f)
+        _check(torch.equal(_bits(got), _bits(want)),
+               f"{what}: differs from plain")
+        max_bwd = max(max_bwd, _max_err([got], [want], what))
         what += f" [{kernel}]"
         if case not in bwd_timed:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0, "
@@ -3672,12 +3798,12 @@ def _write_signal_sets(tmp: str, scale: float = 1.0) -> dict:
 
 
 def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
-                    width: int = 32, **kw):
-    """Config 1's trainer for ``arch`` at width ``width``, depth 3, weights
-    from SEED: MeanAbsoluteError (on every head, default_ds_weights with
-    ``ds``, the ds_type UNet targets built on the card), Adam lr 3e-4;
-    ``kw`` goes to ``model_selector_1d`` (``lstm``, ``dense_loop``,
-    ``se_ratio``)."""
+                    width: int = 32, depth: int = 3, **kw):
+    """Config 1's trainer for ``arch`` at width ``width`` and depth
+    ``depth``, weights from SEED: MeanAbsoluteError (on every head,
+    default_ds_weights with ``ds``, the ds_type UNet targets built on the
+    card), Adam lr 3e-4; ``kw`` goes to ``model_selector_1d`` (``lstm``,
+    ``dense_loop``, ``se_ratio``)."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
@@ -3687,27 +3813,28 @@ def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
     from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
         Trainer, default_ds_weights)
 
-    model = model_selector_1d(arch, SIG_LEN, 3, 1, width, 3, ds=ds, ag=ag,
-                              dtype=dtype,
+    model = model_selector_1d(arch, SIG_LEN, depth, 1, width, 3, ds=ds,
+                              ag=ag, dtype=dtype,
                               generator=torch.Generator().manual_seed(SEED),
                               **kw)
     return Trainer(model, loss="MeanAbsoluteError", optimizer="Adam",
                    learning_rate=3e-4, device="cuda",
-                   loss_weights=default_ds_weights(3) if ds else None,
+                   loss_weights=default_ds_weights(depth) if ds else None,
                    prepare_targets=(lambda m: prepare_train_dict(
-                       m, 3, "UNet", spatial_rank=1)) if ds else None)
+                       m, depth, "UNet", spatial_rank=1)) if ds else None)
 
 
 def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
                   model_name: str, **over) -> dict:
     """The 1D verbs through the command line (the card by default) on
-    ``model_name`` at config 1's size (``over``: its other INI keys):
-    ``train1d`` on the synthetic sets for SIG_EPOCHS epochs (``path``'s
-    calls a step, its forward calls a validation batch; the loss falls;
-    Signal_Configs.ini, best.pt and history.json written); ``test1d`` on
-    the fold (the JAX verb's metric keys, the checkpoint restored, the
-    forward calls a batch of 128); ``predict1d`` on the test signals, its
-    outputs equal to the plain-pool forward of best.pt within 1e-5.
+    ``model_name`` at config 1's size (``over``: its other INI keys,
+    ``model_depth`` among them): ``train1d`` on the synthetic sets for
+    SIG_EPOCHS epochs (``path``'s calls a step and a validation batch; the
+    loss falls; Signal_Configs.ini, best.pt and history.json written);
+    ``test1d`` on the fold (the JAX verb's metric keys, the checkpoint
+    restored, the model's calls a batch of 128, the deep-supervision
+    targets' pyramid not among them); ``predict1d`` on the test signals,
+    its outputs equal to the plain-pool forward of best.pt within 1e-5.
     Returns {"pyramid", "backward"} of the train1d run and ``verb_ms``,
     the verb's step in its last epoch."""
     import torch
@@ -3721,15 +3848,17 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
         Signal1DConfig, save_signal_config)
 
     save_dir = os.path.join(tmp, f"Results_1D_{path}")
-    cfg = Signal1DConfig(
-        train_set=sets["train"], val_set=sets["val"], test_set=sets["test"],
-        signal_length=SIG_LEN, num_channel=1, model_name=model_name,
-        model_depth=3, model_width=32, kernel_size=3,
-        batch_size=SIG_BATCH, num_epochs=SIG_EPOCHS, save_dir=save_dir,
-        load_weights=False, seed=SEED, **over)
+    cfg = Signal1DConfig(**{
+        "train_set": sets["train"], "val_set": sets["val"],
+        "test_set": sets["test"], "signal_length": SIG_LEN,
+        "num_channel": 1, "model_name": model_name, "model_depth": 3,
+        "model_width": 32, "kernel_size": 3, "batch_size": SIG_BATCH,
+        "num_epochs": SIG_EPOCHS, "save_dir": save_dir,
+        "load_weights": False, "seed": SEED, **over})
     ini = os.path.join(tmp, f"Signal_Configs_{path}.ini")
     save_signal_config(cfg, ini)
-    print(f"{phase} signal verbs ({path}): W32/D3 {model_name} "
+    print(f"{phase} signal verbs ({path}): W32/D{cfg.model_depth} "
+          f"{model_name} "
           f"{over or ''} on ({SIG_LEN}, 1) signals, float32, "
           f"MeanAbsoluteError, Adam lr {cfg.learning_rate}, batch "
           f"{SIG_BATCH}, {SIG_EPOCHS} epochs of {N_SIG_TRAIN} signals, "
@@ -3749,6 +3878,7 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
     steps = SIG_EPOCHS * -(-N_SIG_TRAIN // SIG_BATCH)
     val = SIG_EPOCHS * -(-N_SIG_VAL // SIG_BATCH)
     n, n_bwd = len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])
+    n_eval = len([c for c in FWD_PATHS_1D[path] if c not in _SIG_DS_MASKS])
     _check((fwd, bwd) == (n * (steps + val), n_bwd * steps),
            f"train1d launched {fwd} + {bwd}, not {n} x ({steps} steps + "
            f"{val} val batches) + {n_bwd} x {steps}")
@@ -3778,16 +3908,17 @@ def _signal_verbs(phase: str, tmp: str, sets: dict, path: str,
     _check(metrics["restored_checkpoint"] is True, "best.pt not restored")
     _check(all(np.isfinite(v) for k, v in metrics.items()
                if k != "restored_checkpoint"), f"test1d metrics {metrics}")
-    _check((tfwd, tbwd) == (n * batches, 0),
-           f"test1d launched {tfwd} + {tbwd}, not {n} x {batches} + 0")
+    _check((tfwd, tbwd) == (n_eval * batches, 0),
+           f"test1d launched {tfwd} + {tbwd}, not {n_eval} x {batches} + 0")
     print(f"{phase} test1d ({path}): {test_s:.2f} s; {metrics}; "
-          f"maxpool1d_pyramid.launches = {tfwd} = {n} x {batches} batch(es)",
-          flush=True)
+          f"maxpool1d_pyramid.launches = {tfwd} = {n_eval} x {batches} "
+          f"batch(es)", flush=True)
 
     npz = os.path.join(tmp, f"predictions_{path}.npz")
     pred_s, pfwd, _, _ = counted(["predict1d", ini, "--out", npz])
     got = np.load(npz)["output"]
-    _check(got.shape == (N_SIG_TEST, SIG_LEN, 1) and pfwd == n * batches,
+    _check(got.shape == (N_SIG_TEST, SIG_LEN, 1)
+           and pfwd == n_eval * batches,
            f"predict1d: {got.shape}, {pfwd} launches")
     model, _ = drivers_1d._restore_model_1d(cfg, "checking", "cuda")
     with mock.patch.object(pyramid, "maxpool1d_pyramid",
@@ -4616,6 +4747,70 @@ def phase_zoo_1d_specials_reference() -> None:
             control=control)
 
 
+def phase_deep_1d(tmp: str) -> dict:
+    """Phase 33: the 1D models that pool by 32 (DEEP_1D: UNet3P,
+    R2UNet3P, SelfUNet3P, ConvMixerUNet3P and MLMRSNet_V2 at depth 6,
+    UNet4P at depth 7) at config 1's size and width (W32, 1024 samples,
+    batch 128 of phase 21's test signals, float32, MeanAbsoluteError,
+    Adam), DEEP_STEPS counted fixed-batch steps each, the loss falling,
+    exactly each path's launches a step (``_deep_calls``); SelfUNet3P on
+    the signals times SELF_1D_SCALE for SELF_1D_STEPS, as phase 29.  Then the 1D verbs on
+    UNet3P at depth 5 with ``d_s = 1`` (DEEP_1D_VERBS: its targets pool
+    the mask by 2 .. 32).  Returns {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp)
+    x, y = sets["x_test"], sets["y_test"]
+    counts = {}
+    for path, (arch, depth) in DEEP_1D.items():
+        self_onn = arch.startswith("Self")
+        scale = SELF_1D_SCALE if self_onn else 1.0
+        trainer = _signal_trainer(arch, torch.float32, depth=depth)
+        print(f"phase 33 {path}: W32/D{depth} {arch}, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, float32, batch {SIG_BATCH}"
+              + (f", signals times {scale}" if scale != 1.0 else ""),
+              flush=True)
+        xs = trainer.to_device(x * np.float32(scale))
+        counts[path] = _counted_steps(
+            "phase 33", path, trainer, xs, trainer.to_device(y),
+            SELF_1D_STEPS if self_onn else DEEP_STEPS, must_fall=True,
+            unit="signals")
+        del trainer
+        torch.cuda.empty_cache()
+    for path, (arch, depth, over) in DEEP_1D_VERBS.items():
+        counts[path] = _signal_verbs("phase 33", tmp, sets, path, arch,
+                                     model_depth=depth, **over)
+    return counts
+
+
+def phase_deep_1d_reference() -> None:
+    """Phase 33's reference: phase 26's check (the card's float32 step
+    against the CPU's float32 and float64 steps on the card's ReLU masks,
+    RELATIVE_BAR, the bfloat16 control) on UNet3P at W8/D6 on (2, 256, 1)
+    signals, whose skip 0 is pooled by 2 .. 32: 11 + 21 launches."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import get_loss
+
+    path = "1d_deep_UNet3P_D6"
+    arch, depth = DEEP_1D[path]
+    cpu = model_selector_1d(arch, 256, depth, 1, 8, 3,
+                            generator=torch.Generator().manual_seed(SEED + 33))
+    cpu64 = model_selector_1d(arch, 256, depth, 1, 8, 3, dtype=torch.float64)
+    cpu64.load_state_dict(cpu.state_dict())
+    control = model_selector_1d(arch, 256, depth, 1, 8, 3,
+                                dtype=torch.bfloat16)
+    control.load_state_dict(cpu.state_dict())
+    _train_reference(
+        "phase 33 1D reference", f"W8/D{depth} 1D {arch}", cpu, lambda y: y,
+        None, (len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])), cpu64,
+        shape=(2, 256, 1), loss=get_loss("MeanAbsoluteError"),
+        control=control)
+
+
 def _model_steps(phase: str, path: str, model, x, y, steps: int,
                  what: str, must_fall: bool = True,
                  calls: "tuple | None" = None):
@@ -4968,6 +5163,8 @@ def main() -> int:
         phase_dense_2d_reference()
         trained.update(phase_backbones_2d(tmp))
         phase_backbones_2d_reference()
+        trained.update(phase_deep_1d(tmp))
+        phase_deep_1d_reference()
     runs = {"serve": served, "test": tested, "predict": predicted,
             **trained}
     rows = _kernel_rows(list(pyr.values()) + list(bwd.values()), runs)

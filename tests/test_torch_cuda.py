@@ -5,7 +5,6 @@ without JAX:
 
     python3 -m pytest --noconftest -q tests/test_torch_cuda.py
 """
-import collections
 
 import pytest
 
@@ -614,33 +613,76 @@ def _signal(shape, seed, plateaus=True):
     return x.permute(0, 2, 1).unsqueeze(2)
 
 
+_FLAT16 = "pool1d_flat_kernel<V=16B>"
+_FLAT = "pool1d_flat_kernel"
+_FLAT_C1 = "pool1d_flat_kernel<C=1>"
+
+
+def _on_card(x, dtype, offset=0):
+    """The (B, C, 1, L) channels_last CPU tensor ``x`` on the card in
+    ``dtype``, ``offset`` elements into its storage."""
+    b, c, _, n = x.shape
+    flat = torch.zeros(offset + x.numel(), dtype=dtype, device="cuda")
+    flat[offset:] = x.permute(0, 2, 3, 1).reshape(-1).to(flat)
+    return flat[offset:].view(b, 1, n, c).permute(0, 3, 1, 2)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,shape,levels,wanted,route", [
-    (torch.bfloat16, (128, 1024, 32), 1, (1,), "pool1d_kernel<V=16B>"),
-    (torch.bfloat16, (128, 256, 128), 1, (1,), "pool1d_kernel<V=16B>"),
-    (torch.bfloat16, (128, 1024, 31), 1, (1,), "pool1d_kernel<V=1>"),
-    (torch.bfloat16, (128, 1024, 32), 2, None, "pool1d_kernel<V=16B>"),
-    (torch.float32, (128, 1024, 1), 3, None, "pool1d_kernel<V=1>"),
-    (torch.float32, (3, 1001, 8), 4, (1, 3), "pool1d_kernel<V=16B>"),
-    (torch.float32, (3, 37, 5), 4, None, "pool1d_kernel<V=1>"),
-    (torch.bfloat16, (2, 3, 16), 2, None, "pool1d_kernel<V=16B>"),
+@pytest.mark.parametrize("dtype,shape,levels,wanted,offset,route", [
+    (torch.bfloat16, (128, 1024, 32), 1, (1,), 0, _FLAT16),
+    (torch.bfloat16, (128, 256, 128), 1, (1,), 0, _FLAT16),
+    (torch.bfloat16, (128, 1024, 31), 1, (1,), 0, _FLAT),
+    (torch.bfloat16, (128, 1024, 32), 2, None, 0, _FLAT16),
+    (torch.float32, (128, 1024, 1), 3, None, 0, _FLAT_C1),
+    (torch.float32, (3, 1001, 8), 4, (1, 3), 0, "pool1d_kernel<V=16B>"),
+    (torch.float32, (3, 37, 5), 4, None, 0, "pool1d_kernel<V=1>"),
+    (torch.bfloat16, (2, 3, 16), 2, None, 0, "pool1d_kernel<V=16B>"),
+    # levels 1-5: UNet3+'s skip 0 at depth 6, MLMRSNet_V2's tap 0 by 32,
+    # the DS mask at depth 5 in both dtypes
+    (torch.float32, (128, 1024, 32), 5, None, 0, _FLAT16),
+    (torch.float32, (128, 1024, 32), 5, (5,), 0, _FLAT16),
+    (torch.float32, (128, 1024, 1), 5, None, 0, _FLAT_C1),
+    (torch.bfloat16, (3, 64, 1), 5, None, 0, _FLAT_C1),
+    (torch.bfloat16, (1, 6, 1), 1, None, 0, _FLAT),  # 6 positions: staged
+    # odd C: the MultiRes widths, Dense_Inception_UNet's 33; a last span
+    # cut short, a level subset
+    (torch.float32, (128, 512, 62), 1, (1,), 0, _FLAT),
+    (torch.float32, (128, 1024, 33), 1, (1,), 0, _FLAT),
+    (torch.bfloat16, (7, 96, 31), 5, (2, 5), 0, _FLAT),
+    (torch.float32, (5, 64, 3), 4, (1, 4), 0, _FLAT),
+    # ragged lengths and offset views: the one-window-a-thread kernel
+    (torch.float32, (2, 100, 33), 5, None, 0, "pool1d_kernel<V=1>"),
+    (torch.bfloat16, (2, 70, 24), 5, (5,), 0, "pool1d_kernel<V=16B>"),
+    (torch.bfloat16, (2, 64, 24), 1, (1,), 1, "pool1d_kernel<V=1>"),
+    (torch.float32, (2, 64, 1), 3, None, 2, "pool1d_kernel<V=1>"),
+    (torch.bfloat16, (2, 64, 8), 2, None, 8, _FLAT16),  # 16 bytes in
 ])
 def test_cuda_pool1d_kernel_equals_plain_version(dtype, shape, levels,
-                                                 wanted, route):
+                                                 wanted, offset, route):
     """The 1D pyramid launches once, takes the named route and equals
-    its plain version bit for bit (NaN positions kept), ragged lengths
-    and level subsets included."""
+    its plain version bit for bit (NaN positions kept), ragged lengths,
+    views into their storage and level subsets included; the kernel the
+    flat kernel's calls took before, forced on the same call, equals it
+    too."""
     _need_cuda()
-    x = _signal(shape, 6).to("cuda", dtype)
+    x = _on_card(_signal(shape, 6), dtype, offset)
     assert pyramid.route1d(x, levels, wanted) == route
-    before = pyramid.launches.value
+    pyramid.launches.reset()
     got = pyramid.maxpool1d_pyramid(x, levels, wanted)
     torch.cuda.synchronize()
-    assert pyramid.launches.value == before + 1
+    assert pyramid.launches.by_kernel == {route: 1}
     want = pyramid.maxpool1d_pyramid_plain(x, levels, wanted)
     assert len(got) == len(want)
     for k, w in zip(got, want):
         _assert_same(k, w)
+        assert torch.equal(_bits(k), _bits(w))
+    if route.startswith(_FLAT):
+        earlier = pyramid._maxpool1d_pyramid_cuda(
+            x, levels, pyramid._wanted(levels, wanted), force="pool1d_kernel")
+        for k, w in zip(earlier, want):
+            assert torch.equal(_bits(k), _bits(w))
+        (name,) = set(pyramid.launches.by_kernel) - {route}
+        assert name.startswith("pool1d_kernel<")
 
 
 @pytest.mark.cuda
@@ -648,6 +690,11 @@ def test_cuda_pool1d_kernel_equals_plain_version(dtype, shape, levels,
     (torch.bfloat16, (128, 1024, 32), 2), (torch.bfloat16, (128, 1024, 31), 2),
     (torch.float32, (3, 1001, 8), 4), (torch.bfloat16, (2, 77, 3), 8),
     (torch.float32, (2, 37, 16), 16), (torch.bfloat16, (1, 3, 8), 4),
+    # F = 32: UNet3+'s skip 0 at depth 6, UNet4P's tap 1 at depth 7; odd
+    # and one channel, a ragged tail, a signal shorter than a window
+    (torch.float32, (128, 1024, 32), 32), (torch.bfloat16, (128, 512, 64), 32),
+    (torch.float32, (3, 100, 33), 32), (torch.bfloat16, (2, 96, 1), 32),
+    (torch.float32, (2, 31, 8), 32),
 ])
 def test_cuda_pool1d_backward_equals_plain_version(dtype, shape, factor):
     """The 1D pool backward routes each gradient as the plain version
@@ -801,8 +848,7 @@ def test_cuda_single_level_pools_equal_plain_version(dtype, shape, level,
     the row kernel's 16-byte fold (a C whose folded row passes its shared
     memory, and level 1, the one-window-a-thread kernel): one launch,
     counted under that kernel's name, equal to the plain version bit for
-    bit on inputs with ReLU plateaus of +0.0 and a NaN; the kernel these
-    pools took before, forced on the same call, equals it too."""
+    bit on inputs with ReLU plateaus of +0.0 and a NaN."""
     _need_cuda()
     x = _plateau_input(shape, 11, dtype)
     assert pyramid.route(x, level, (level,)) == kernel
@@ -813,35 +859,6 @@ def test_cuda_single_level_pools_equal_plain_version(dtype, shape, level,
     want = pyramid.maxpool_level_plain(x, level)
     _assert_same(got, want)
     assert torch.equal(_bits(got), _bits(want))
-    earlier = pyramid._maxpool_pyramid_cuda(x, level, [level],
-                                            force="pool_vec_kernel")[0]
-    assert pyramid.launches.by_kernel == dict(
-        collections.Counter([kernel, "pool_vec_kernel"]))
-    assert torch.equal(_bits(earlier), _bits(want))
-
-
-@pytest.mark.cuda
-def test_cuda_forced_routes_refuse_calls_they_do_not_take():
-    """The forced routes take only the calls their kernels take: not
-    several levels, not a C of part of 16 bytes, not level 5, not a
-    backward by 2, no other kernel's name; a refusal launches nothing."""
-    _need_cuda()
-    x = _plateau_input((2, 64, 64, 32), 11, torch.bfloat16)
-    odd = _plateau_input((2, 64, 64, 31), 11, torch.bfloat16)
-    pyramid.launches.reset()
-    pool_backward.launches.reset()
-    for args in ((x, 3, [2, 3], "pool_vec_kernel"),
-                 (odd, 2, [2], "pool_vec_kernel"),
-                 (x, 5, [5], "pool_vec_kernel"),
-                 (x, 2, [2], "pyramid_kernel")):
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            pyramid._maxpool_pyramid_cuda(*args[:3], force=args[3])
-    g = torch.zeros((2, 32, 32, 32), device="cuda", dtype=torch.bfloat16
-                    ).permute(0, 3, 1, 2)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        pool_backward._maxpool_backward_cuda(
-            x, g, 2, force="pool_backward_rows_kernel")
-    assert pyramid.launches.value == pool_backward.launches.value == 0
 
 
 #: NHWC plants for the F = 32 backward: NaNs first, last and twice in a
@@ -873,8 +890,7 @@ def test_cuda_pool_backward_by_32_equals_plain_version(dtype, shape, plants,
                                                        kernel):
     """The pool backward by 32 takes the block kernel: one launch, counted
     under its name, equal to the plain version (the walk's first maximum,
-    NaN as select_and_scatter) bit for bit, zeros past the floor; the row
-    kernel that took it before, forced on the same call, equals it too."""
+    NaN as select_and_scatter) bit for bit, zeros past the floor."""
     _need_cuda()
     x = _plateau_input(shape, 12, dtype, plants)
     b, c, h, w = x.shape
@@ -888,11 +904,6 @@ def test_cuda_pool_backward_by_32_equals_plain_version(dtype, shape, plants,
     assert pool_backward.launches.by_kernel == {kernel: 1}
     want = pool_backward.maxpool_backward_plain(x, g, 32)
     assert torch.equal(_bits(got), _bits(want))
-    earlier = pool_backward._maxpool_backward_cuda(
-        x, g, 32, force="pool_backward_rows_kernel")
-    assert pool_backward.launches.by_kernel == {
-        kernel: 1, kernel.replace("block", "rows"): 1}
-    assert torch.equal(_bits(earlier), _bits(want))
 
 
 def _library_pools():

@@ -1,5 +1,5 @@
-"""The port's 1D max pools (``pyramid.maxpool1d_pyramid`` and its plain
-version, ``maxpool1d_levels``, ``maxpool1d``; backward
+"""The port's 1D max pools by 2 to 32 (``pyramid.maxpool1d_pyramid`` and
+its plain version, ``maxpool1d_levels``, ``maxpool1d``; backward
 ``pool_backward.maxpool1d_backward``) against the JAX package's
 ``downsample_pool`` on (B, L, C) arrays and ``jax.vjp`` of it (XLA's
 select_and_scatter routes each gradient to the first maximum of its
@@ -59,11 +59,12 @@ def _equal(a: np.ndarray, b: np.ndarray) -> bool:
 
 
 @pytest.mark.parametrize("dtype", sorted(_DTYPES))
-@pytest.mark.parametrize("factor", [2, 4, 8, 16])
+@pytest.mark.parametrize("factor", [2, 4, 8, 16, 32])
 @pytest.mark.parametrize("shape,kind", [
     ((2, 64, 3), "relu"),     # C % 8 != 0
     ((2, 37, 8), "coarse"),   # the floor cuts the tail
     ((3, 50, 1), "relu"),     # a DS mask's width
+    ((2, 100, 5), "coarse"),  # three windows of 32 and a ragged tail
 ])
 def test_pool1d_and_its_gradient_equal_jax(dtype, factor, shape, kind):
     """``downsample_pool(rank=1)`` forward and gradient bit for bit
@@ -96,16 +97,18 @@ def test_pool1d_avg_equals_jax():
 
 
 @pytest.mark.parametrize("levels,wanted", [(3, None), (4, (1, 3)),
-                                           (2, (2,))])
+                                           (2, (2,)), (5, None), (5, (2, 5)),
+                                           (5, (5,))])
 def test_pool1d_levels_equal_separate_jax_pools(levels, wanted):
     """``maxpool1d_levels``: level l equals the JAX pool by 2**l, and the
     gradient of a sum over the stored levels equals ``jax.vjp`` of the
     separate pools, summed as JAX sums them (highest level first), bit
     for bit."""
-    x = _input((2, 45, 6), 3, "coarse")
+    n = 45 if levels < 5 else 101  # level 5 keeps 3 windows of 32
+    x = _input((2, n, 6), 3, "coarse")
     lv = list(range(1, levels + 1)) if wanted is None else list(wanted)
     rng = np.random.default_rng(4)
-    gs = [rng.normal(size=(2, 45 >> l, 6)).astype(np.float32) for l in lv]
+    gs = [rng.normal(size=(2, n >> l, 6)).astype(np.float32) for l in lv]
 
     def f(t):
         return [jax_pool(t, 2 ** l, op="max") for l in lv]
@@ -145,7 +148,11 @@ def test_pool1d_rejects_bad_calls():
     with pytest.raises(NotImplementedError):
         pyramid.maxpool1d(x, 3)
     with pytest.raises(NotImplementedError):
-        pyramid.maxpool1d_levels(x, 5)
+        pyramid.maxpool1d_levels(x, 6)  # a pool by 64
+    with pytest.raises(NotImplementedError):
+        pyramid.maxpool1d(x, 64)
+    with pytest.raises(ValueError):
+        pool_backward.maxpool1d_backward(x, torch.zeros(1, 2, 1, 0), 64)
     with pytest.raises(ValueError):
         pyramid.maxpool1d_pyramid(torch.zeros(1, 2, 2, 8), 1)
     with pytest.raises(ValueError):
@@ -157,14 +164,19 @@ def test_pool1d_rejects_bad_calls():
 
 
 @pytest.mark.parametrize("ds_type", ["UNet", "UNetPP"])
-@pytest.mark.parametrize("shape", [(3, 64, 1), (3, 37)])
-def test_prepare_train_dict_1d_equals_jax(ds_type, shape):
+@pytest.mark.parametrize("shape,depth", [((3, 64, 1), 3), ((3, 37), 3),
+                                         ((3, 96, 1), 5), ((2, 77), 5)],
+                         ids=["shape0", "shape1", "depth5", "depth5-ragged"])
+def test_prepare_train_dict_1d_equals_jax(ds_type, shape, depth):
     """The 1D targets (one 1D pyramid call for ds_type UNet) equal the
-    JAX function's, a (B, L) mask gaining its channel axis."""
+    JAX function's, a (B, L) mask gaining its channel axis; at depth 5 the
+    mask is pooled by 2 .. 32."""
     y = (np.random.default_rng(0).uniform(size=shape) > 0.6).astype(
         np.float32)
-    want = jax_prepare_train_dict(jnp.asarray(y), 3, ds_type, spatial_rank=1)
-    got = prepare_train_dict(torch.from_numpy(y), 3, ds_type, spatial_rank=1)
+    want = jax_prepare_train_dict(jnp.asarray(y), depth, ds_type,
+                                  spatial_rank=1)
+    got = prepare_train_dict(torch.from_numpy(y), depth, ds_type,
+                             spatial_rank=1)
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         assert np.array_equal(got[k].numpy(), np.asarray(w)), k

@@ -41,9 +41,7 @@
 // The launcher (`route`; tpuseg_maxpool_backward_route names it, and
 // tpuseg_maxpool_backward reports the one it launched) takes
 // pool_backward_kernel at F = 2, pool_backward_rows_kernel at F = 4 .. 16
-// and pool_backward_block_kernel at F = 32.  A caller may force
-// pool_backward_rows_kernel at F = 32, the kernel that took it before, to
-// time it beside the block kernel.
+// and pool_backward_block_kernel at F = 32.
 // - pool_backward_kernel, F = 2: one thread per window and channel group
 //   walks the window (4 loads) and writes it (4 stores).
 // - pool_backward_rows_kernel, F = 4 .. 16: one thread per window, channel
@@ -97,7 +95,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
 
 #include <type_traits>
 
@@ -583,25 +580,17 @@ const char* route_name(Route r, const void* x, const void* g,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16 or 32.  x and dx: NHWC
-// (B, H, W, C); g: NHWC (B, H / factor, W / factor, C).  force: null, or
-// "pool_backward_rows_kernel" to launch that kernel in place of the
-// launcher's choice at a factor of 4 or more (to time it beside the
-// launcher's).  Launches on `stream`, sets *launched to the name of the
+// (B, H, W, C); g: NHWC (B, H / factor, W / factor, C).  Launches on
+// `stream`, sets *launched to the name of the
 // kernel it launched ("none" for an empty x) and returns
 // cudaGetLastError() (0 on success).
 int tpuseg_maxpool_backward(const void* x, const void* g, void* dx, int dtype,
                             int64_t B, int H, int W, int C, int factor,
-                            const char* force, const char** launched,
-                            void* stream) {
+                            const char** launched, void* stream) {
   *launched = kRouteNames[kNone];
   if (!valid(B, H, W, C, dtype, factor)) return (int)cudaErrorInvalidValue;
   Route r = route(B, H, W, factor);
   if (r == kNone) return (int)cudaSuccess;
-  if (force) {
-    if (strcmp(force, kRouteNames[kRows]) || factor < 4)
-      return (int)cudaErrorInvalidValue;
-    r = kRows;
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = dtype == 0
       ? launch<float>(r, x, g, dx, B, H, W, C, factor, s)
@@ -610,8 +599,8 @@ int tpuseg_maxpool_backward(const void* x, const void* g, void* dx, int dtype,
   return err;
 }
 
-// The kernel tpuseg_maxpool_backward launches for the same arguments and
-// no force ("none" if it launches nothing), with "<V=1>" where it takes
+// The kernel tpuseg_maxpool_backward launches for the same arguments
+// ("none" if it launches nothing), with "<V=1>" where it takes
 // one channel a thread; null if it refuses them.
 const char* tpuseg_maxpool_backward_route(const void* x, const void* g,
                                           const void* dx, int dtype,

@@ -80,9 +80,7 @@
 // The launcher picks one from the shape, the levels stored and the
 // pointers' alignment (`route`; tpuseg_maxpool_pyramid_route names it,
 // and tpuseg_maxpool_pyramid reports the one it launched); nothing falls
-// back at run time.  A caller may force pool_vec_kernel on a call it
-// takes (a single level 1..4 at a C of whole 16 bytes), to time it
-// beside the kernel the launcher picks.
+// back at run time.
 //
 // Ragged edges: level l has H >> l rows (floor(floor(H/2)/2) == H >> 2,
 // so one pass gives the reduce_window chain's answer).  The grids cover
@@ -111,7 +109,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace {
 
@@ -924,10 +921,7 @@ void launch(Route r, const void* x, const OutPtrs& outs, int64_t B, int H,
 }
 
 // The arguments of tpuseg_maxpool_pyramid, checked, and the route they
-// take (`force`, if not null, the name of the route to take instead:
-// pool_vec_kernel for a single level 1..4 at a C of whole 16 bytes and
-// aligned pointers, nothing else); returns a CUDA error code (0 if they
-// are valid).
+// take; returns a CUDA error code (0 if they are valid).
 struct Call {
   OutPtrs outs = {};
   int tiles_h = 0, tiles_w = 0;
@@ -935,7 +929,7 @@ struct Call {
 };
 
 int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
-            int W, int C, int L, const char* force, Call* call) {
+            int W, int C, int L, Call* call) {
   if (L < 1 || L > kMaxLevels || B < 0 || H < 0 || W < 0 || C < 1 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -955,15 +949,6 @@ int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
                      call->tiles_w)
       : route<__nv_bfloat16>(x, call->outs, B, H, W, C, L, call->tiles_h,
                              call->tiles_w);
-  if (force && call->route != kNone) {
-    int stored = 0;
-    for (int l = 0; l < L; ++l) stored += call->outs.p[l] != nullptr;
-    if (strcmp(force, kRouteNames[kVec]) || L > 4 || stored != 1 ||
-        !call->outs.p[L - 1] || C % (dtype == 0 ? 4 : 8) || !aligned16(x) ||
-        !aligned16(call->outs.p[L - 1]))
-      return (int)cudaErrorInvalidValue;
-    call->route = kVec;
-  }
   return (int)cudaSuccess;
 }
 
@@ -973,17 +958,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  out_ptrs: host array of L device
 // pointers, level 1 first, each an NHWC buffer of (B, H>>l, W>>l, C), or
-// null for a level the caller does not want.  force: null, or the kernel
-// to launch in place of the launcher's choice (see prepare).  Launches on
-// `stream`, sets *launched to the name of the kernel it launched ("none"
+// null for a level the caller does not want.  Launches on `stream`, sets *launched to the name of the kernel it launched ("none"
 // if it launched nothing) and returns cudaGetLastError() (0 on success).
 int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
                            int64_t B, int H, int W, int C, int L,
-                           const char* force, const char** launched,
-                           void* stream) {
+                           const char** launched, void* stream) {
   Call c;
   *launched = kRouteNames[kNone];
-  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, force, &c);
+  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, &c);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -995,13 +977,13 @@ int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
   return (int)cudaGetLastError();
 }
 
-// The kernel tpuseg_maxpool_pyramid launches for the same arguments and
-// no force ("none" if it launches nothing), or null if it refuses them.
+// The kernel tpuseg_maxpool_pyramid launches for the same arguments
+// ("none" if it launches nothing), or null if it refuses them.
 const char* tpuseg_maxpool_pyramid_route(const void* x, const void* out_ptrs,
                                          int dtype, int64_t B, int H, int W,
                                          int C, int L) {
   Call c;
-  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, nullptr, &c)) return nullptr;
+  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, &c)) return nullptr;
   return kRouteNames[c.route];
 }
 

@@ -1,5 +1,5 @@
 """Gradient of the max pool with window = stride = ``factor`` = 2**m,
-m = 1..5 (rank 1: m = 1..4; VALID floor truncation): each output
+m = 1..5 (VALID floor truncation), in both ranks: each output
 gradient goes to one element of its window, chosen by XLA's
 ``select_and_scatter`` rule under the pool's VJP (the JAX package's
 ``downsample_pool``, ops/blocks.py; pinned there by
@@ -49,7 +49,7 @@ g_copies = Counter()
 #: the window sides the kernel takes (rank 2)
 FACTORS = (2, 4, 8, 16, 32)
 #: the window sides the rank-1 kernel takes
-FACTORS_1D = (2, 4, 8, 16)
+FACTORS_1D = (2, 4, 8, 16, 32)
 
 
 def _check_shapes(x: torch.Tensor, g: torch.Tensor, factor: int) -> None:
@@ -120,11 +120,8 @@ def _args(x: torch.Tensor, g: torch.Tensor, dx: torch.Tensor, factor: int
             b, h, w, c, factor)
 
 
-def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int,
-                           force: "str | None" = None) -> torch.Tensor:
-    """The launch; ``force`` ("pool_backward_rows_kernel", at a factor of
-    4 or more) takes that kernel in place of the launcher's choice, so
-    that the card's checks time both on the same call."""
+def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
+                           ) -> torch.Tensor:
     from ._build import launch, load_library
 
     g = _check_cuda(x, g)
@@ -134,9 +131,7 @@ def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        launch(lib, "tpuseg_maxpool_backward",
-               (*_args(x, g, dx, factor),
-                force.encode() if force else None),
+        launch(lib, "tpuseg_maxpool_backward", _args(x, g, dx, factor),
                stream, "maxpool_backward", launches)
     return dx
 
@@ -270,7 +265,7 @@ def route1d(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
 
 def maxpool1d_backward(x: torch.Tensor, g: torch.Tensor, factor: int
                        ) -> torch.Tensor:
-    """dx of the max pool by ``factor`` (2, 4, 8 or 16) over the length
+    """dx of the max pool by ``factor`` (2, 4, 8, 16 or 32) over the length
     axis of ``x`` (B, C, 1, L) for the output gradient ``g``.  On a CUDA
     tensor ``x`` must be float32 or bfloat16 in channels_last memory, and
     ``g`` of the same dtype (copied into channels_last if it is not); one

@@ -32,9 +32,9 @@ W and channel count; float32 and bfloat16.
 Rank 1 (1D signals, a (B, C, 1, L) channels_last tensor: (B, L, C)
 memory, as the JAX package's NLC arrays): :func:`maxpool1d_pyramid`
 (plain version :func:`maxpool1d_pyramid_plain`, :func:`route1d`) pools
-the length axis by 2, 4, .., 2**levels (levels 1..4) in one read, VALID
-floor truncation, through the CUDA kernel of ``csrc/pool1d.cu`` on a CUDA
-tensor; :func:`maxpool1d_levels` and :func:`maxpool1d` are its
+the length axis by 2, 4, .., 2**levels (levels 1..5) in one read, VALID
+floor truncation, through the CUDA kernels of ``csrc/pool1d.cu`` on a
+CUDA tensor; :func:`maxpool1d_levels` and :func:`maxpool1d` are its
 differentiable forms, as :func:`maxpool_levels` and :func:`maxpool` are
 for rank 2 (the backward: ``pool_backward.maxpool1d_backward``).  They
 count in the same :data:`launches`.
@@ -115,12 +115,7 @@ def _cuda_args(x: torch.Tensor, levels: int, wanted: tp.List[int]):
 
 
 def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
-                          wanted: tp.List[int],
-                          force: tp.Optional[str] = None
-                          ) -> tp.List[torch.Tensor]:
-    """The launch; ``force`` ("pool_vec_kernel", on a single level 1..4 at
-    a C of whole 16 bytes) takes that kernel in place of the launcher's
-    choice, so that the card's checks time both on the same call."""
+                          wanted: tp.List[int]) -> tp.List[torch.Tensor]:
     from ._build import launch, load_library
 
     outs, ptrs, args = _cuda_args(x, levels, wanted)
@@ -129,8 +124,7 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        launch(lib, "tpuseg_maxpool_pyramid",
-               (*args, force.encode() if force else None), stream,
+        launch(lib, "tpuseg_maxpool_pyramid", args, stream,
                "maxpool_pyramid", launches)
     return outs
 
@@ -312,7 +306,12 @@ def _cuda_args_1d(x: torch.Tensor, levels: int, wanted: tp.List[int]):
 
 
 def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
-                            wanted: tp.List[int]) -> tp.List[torch.Tensor]:
+                            wanted: tp.List[int],
+                            force: tp.Optional[str] = None
+                            ) -> tp.List[torch.Tensor]:
+    """The launch; ``force`` ("pool1d_kernel") takes the kernel that the
+    flat kernel's calls took before in place of the launcher's choice, so
+    that the card's checks time both on the same call."""
     from ._build import launch, load_library
 
     outs, ptrs, args = _cuda_args_1d(x, levels, wanted)
@@ -321,7 +320,8 @@ def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        launch(lib, "tpuseg_maxpool1d_pyramid", args, stream,
+        launch(lib, "tpuseg_maxpool1d_pyramid",
+               (*args, force.encode() if force else None), stream,
                "maxpool1d_pyramid", launches)
     return outs
 
@@ -329,9 +329,12 @@ def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
 def route1d(x: torch.Tensor, levels: int,
             wanted: tp.Optional[tp.Sequence[int]] = None) -> str:
     """The name of the kernel that :func:`maxpool1d_pyramid` launches for
-    the same CUDA tensor and levels: ``pool1d_kernel`` with 16 bytes of
-    channels (``<V=16B>``) or one channel (``<V=1>``) a thread; "none"
-    when there is nothing to pool.  Launches nothing."""
+    the same CUDA tensor and levels: ``pool1d_flat_kernel`` where 2**levels
+    divides the length and every pointer starts on 16 bytes, folding 16
+    bytes of channels in registers (``<V=16B>``) or staged in shared
+    memory element by element (any other C); otherwise ``pool1d_kernel``
+    with 16 bytes of channels (``<V=16B>``) or one channel (``<V=1>``) a
+    thread; "none" when there is nothing to pool.  Launches nothing."""
     from ._build import load_library, route_name
 
     _check_1d(x, levels)
@@ -348,9 +351,10 @@ def maxpool1d_pyramid(x: torch.Tensor, levels: int,
                       wanted: tp.Optional[tp.Sequence[int]] = None
                       ) -> tp.List[torch.Tensor]:
     """``[maxpool1d(x, 2**l) for l in wanted]`` of a (B, C, 1, L) tensor,
-    ``wanted`` a subset of 1..levels (levels 1..4; default: all).  A CUDA
+    ``wanted`` a subset of 1..levels (levels 1..5; default: all).  A CUDA
     tensor must be float32 or bfloat16 in channels_last memory; it goes
-    through one launch of the CUDA kernel (one read of ``x``).  A CPU
+    through one launch of a CUDA kernel (one read of ``x``; the launcher
+    picks it, :func:`route1d`).  A CPU
     tensor goes through :func:`maxpool1d_pyramid_plain`.  Outputs are
     (B, C, 1, L >> l), channels_last."""
     _check_1d(x, levels)
@@ -366,14 +370,15 @@ def maxpool1d_levels(x: torch.Tensor, levels: int,
                      wanted: tp.Optional[tp.Sequence[int]] = None
                      ) -> tp.List[torch.Tensor]:
     """``[maxpool1d(x, 2**l) for l in wanted]`` (default: l in 1..levels,
-    levels 1..4) of a (B, C, 1, L) tensor from one pyramid launch,
-    differentiable (see :class:`MaxPoolLevels`)."""
+    levels 1..5) of a (B, C, 1, L) tensor from one pyramid launch,
+    differentiable (see :class:`MaxPoolLevels`).  A pool by 64 (level 6)
+    raises ``NotImplementedError``."""
     _check_1d(x, levels)
     return list(MaxPoolLevels.apply(x, levels, wanted, 1))
 
 
 def maxpool1d(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Differentiable max pool by ``factor`` (2, 4, 8 or 16) over the
+    """Differentiable max pool by ``factor`` (2, 4, 8, 16 or 32) over the
     length axis of a (B, C, 1, L) tensor: :func:`maxpool1d_levels`
     storing level log2(factor) only (window = stride, VALID floor
     truncation; XLA's gradient)."""
