@@ -41,36 +41,37 @@ kernel).  Phases, each printing lines:
 3. kernels: each kernel against its plain PyTorch version at every call
    each path makes (the pyramid storing every level, some levels or one
    level alone for a pool by 2**m; the pool backward with windows 2, 4,
-   8, 16 and 32) and at edge cases (bit-exact: max and its gradient
+   8, 16, 32 and 64) and at edge cases (bit-exact: max and its gradient
    routing are exact; bit patterns compared, NaN as NaN, on inputs with
    no -0.0), each line naming the kernel the launcher picked and
    reported (one launch of it), which must be ``pool_rows_kernel`` for
    every MultiRes encoder pool, ``pyramid_vec_kernel`` for every call
-   storing level 5, ``pool_rows_kernel<V=16B>`` for every level 2-4 alone
+   of several channels storing level 5 or 6, ``pyramid_c1_kernel`` for
+   every one-channel call (the deep-supervision targets, to level 7),
+   ``pool_rows_kernel<V=16B>`` for every level 2-4 alone
    at a C of whole 16 bytes, ``pool_backward_rows_kernel`` for every
-   backward by 4 to 16
-   and ``pool_backward_block_kernel`` for every backward by 32 on a
-   path, and the kernel named in ``FWD_ROUTES`` and ``BWD_ROUTES`` at
+   backward by 4 to 16, ``pool_backward_block_kernel`` for every
+   backward by 32 and ``pool_backward_wide_kernel`` for every backward by
+   64 on a path, and the kernel named in ``FWD_ROUTES`` and ``BWD_ROUTES`` at
    the edge cases, with CUDA-event device times of the
    kernel (and the difference between its two turns), the plain version
    and the PyTorch library call that computes the same function (a
    yardstick the port never calls), and the bound: bytes moved at 3.35
-   TB/s; beside each pooled UNet3+ skip, the earlier design of the same call
-   (one single-level launch per level); beside the DS targets' row, the
+   TB/s; beside each pooled UNet3+ skip to level 5 or less, the earlier
+   design of the same call (one single-level launch per level); beside
+   each call to level 6 or more, ``pyramid_kernel``, which such calls took
+   before, forced on the same call (held to plain too); FWD_EXTRA's DS
+   targets to level 6 timed as a path's; beside the DS targets' row, the
    floor: the same kernel's time on a (1, 2, 2, 1) mask; then the 1D
    kernels (csrc/pool1d.cu) the same way at every 1D call (config 1's
    shapes, float32, and bfloat16 for its fixed batch and as twins of the
-   MultiRes and UNet3+ calls; phase 33's, levels 1-5 and the backward
-   by 32 among them) and edge cases, each naming its route
-   (``pool1d_flat_kernel`` where 2**levels divides the length and the
-   pointers start on 16 bytes, ``pool1d_kernel`` elsewhere), the library
-   yardstick ``F.max_pool1d`` and its backward; beside each call of
-   ``pool1d_flat_kernel``, the kernel it took before (``pool1d_kernel``,
-   forced on the same call: EARLIER1), checked and timed in the same
-   turns, and against the flat kernel in VERSUS_TURNS alternating turns
-   where the two lie within their turns' spread; beside each DS mask's
-   row, the floor: the same levels on (1, 2, 1) and the same kernel on
-   the least mask it takes
+   MultiRes and UNet3+ calls and of skip 0 to level 6; phases 33 and 35's,
+   levels 1-6 and the backward by 32 and 64 among them) and edge cases,
+   each naming its route (``pool1d_flat_kernel`` where 2**levels divides
+   the length and the pointers start on 16 bytes, ``pool1d_kernel``
+   elsewhere), the library yardstick ``F.max_pool1d`` and its backward;
+   beside each DS mask's row, the floor: the same levels on (1, 2, 1) and
+   the same kernel on the least mask it takes
 4. serve: 16/16 answered 200 with a 256x256 mask; masks equal to
    ``label_from_pred`` of the same model run with the plain pool, away
    from the threshold; the pyramid kernel launched exactly 4 times (one
@@ -247,10 +248,24 @@ kernel).  Phases, each printing lines:
     verbs on UNet3P at depth 5 with ``d_s = 1``, whose targets pool the
     mask by 2 .. 32), the W8/D6 UNet3P reference on the card's ReLU
     masks (RELATIVE_BAR, the bfloat16 control)
+34. the 2D models that pool by 64 from scratch at the flagship's size
+    (``phase_deep_2d``, DEEP_2D: KSSNet at depth 6 and UNet3P at depth 7
+    with ``d_s = 1``, DEEP_LONG_STEPS counted steps with the loss falling;
+    UNet4P, UNet4PV2 and AHNet at depth 6, MultiResUNet3P and SelfUNet3P
+    at depth 7 on the images times SELF_2D_SCALE, DEEP_SHORT_STEPS with
+    finite losses; exact launches, ``_deep_2d_fwd``; UNet3P D7 ``d_s = 1``
+    through ``train``), W8 references at 128x128 of UNet4P D6 and UNet3P
+    D7 ``d_s = 1`` (phase 31's check)
+35. the 1D models that pool by 64 at config 1's size and width
+    (``phase_deeper_1d``, DEEPER_1D: the five of phase 33 at depth 7,
+    UNet4P at depth 8, DEEPER_STEPS counted steps each with finite losses
+    and exact launches; the 1D verbs on UNet3P at depth 6 with ``d_s =
+    1``, whose targets pool the mask by 2 .. 64), the W8/D7 UNet3P
+    reference (phase 33's check)
 
 Phase 16 runs after phase 12, on its PNGs; phases 18, 19 and 20 run
 after phase 17, on phase 6's folders and fold and phase 12's PNGs, then
-phases 21-33; the others run in their order.  Each phase's wall time is
+phases 21-35; the others run in their order.  Each phase's wall time is
 printed when it ends.
 The line before the last is one JSON object with a row for each CUDA
 kernel (``name``, the name the launcher reports) and each path that runs
@@ -266,14 +281,16 @@ paths of phases 27-28 (``lstm_*``, ``ae_UNet``, ``train_lstm``,
 ``self_*``, ``fpn_FPN``, ``train_self``), of phases 31-32
 (``dense_*``, ``train_AHNet``, ``proj_*``, ``train_UNet4PV2_ResNet50``),
 or a 1D path (phase 30's
-``1d_special_*``, ``1d_verbs_*`` among them, phase 33's ``1d_deep_*``)
+``1d_special_*``, ``1d_verbs_*`` among them, phase 33's ``1d_deep_*``,
+phase 35's ``1d_deeper_*``; phase 34's ``deep_*`` and
+``train_UNet3P_D7_ds``)
 with the rows of the ``pool1d_flat_kernel``, ``pool1d_kernel`` and
 ``pool1d_backward_kernel`` routes): the launches of that
 path's run in phase 4, 6, 8, 9, 11, 12, 14, 15, 16, 18 (its 8 counted
 runs and the verb's), 19, 20 (the straight verb run of
 ``train_options``, the patchify verb run), 21 (``config1``: the train1d
 run; the fixed batches), 22 or 24 (the fixed batches; the train1d runs),
-26-33 (the fixed batches; the verb runs), and the device times and
+26-35 (the fixed batches; the verb runs), and the device times and
 bound of the
 calls that path makes per batch or step; the last is ``{"ok":
 true, "device": {...}}``.  Any failure raises and the exit code is not 0.  Without CUDA it
@@ -388,7 +405,7 @@ def _call_ms(fn, flush) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, flush, loops: int = 5, reps: int = REPS) -> float:
+def _device_ms(fn, flush, loops: int = 3, reps: int = REPS) -> float:
     """Device time of one ``fn()`` with a cold 50 MB L2: events around
     ``reps`` (flush, fn) pairs minus events around ``reps`` flushes alone,
     per call; median over ``loops``.  Zeroing FLUSH_BYTES keeps the card
@@ -408,19 +425,17 @@ def _device_ms(fn, flush, loops: int = 5, reps: int = REPS) -> float:
         for _ in range(loops))
 
 
-#: a plain version slower than this a call is timed over SLOW_REPS calls
-#: in one loop and one turn (the pool backward's 1,024-step walk at F = 32
-#: takes about 95 ms: 300 calls would take half a minute a case)
-SLOW_PLAIN_MS = 10.0
+#: the plain version is timed over SLOW_REPS calls in one loop and one
+#: turn: it is the kernel's oracle, not a yardstick of speed, and the pool
+#: backward's walk over a window takes 1-6 ms at F = 4-8 and in 1D at F =
+#: 16-64, 95 ms at F = 32 and 350 ms at F = 64 in 2D (timed in turns, the
+#: plain versions took over a minute of the script)
 SLOW_REPS = 3
 
 
 def _timed_turns(fns: dict, flush, spreads: dict) -> dict:
-    """``_in_turns`` of ``fns``, the plain version taken out of the turns
-    and timed over SLOW_REPS calls when one call of it takes more than
-    SLOW_PLAIN_MS."""
-    if _events_ms(fns["plain"]) <= SLOW_PLAIN_MS:
-        return _in_turns(fns, flush, spreads)
+    """``_in_turns`` of ``fns`` but the plain version, which is timed over
+    SLOW_REPS calls."""
     fast = {k: f for k, f in fns.items() if k != "plain"}
     t = _in_turns(fast, flush, spreads)
     t["plain"] = _device_ms(fns["plain"], flush, loops=1, reps=SLOW_REPS)
@@ -439,6 +454,17 @@ def _host_ms(fn, reps: int = 20) -> float:
     dt = (time.perf_counter() - t) / reps * 1e3
     torch.cuda.synchronize()
     return dt
+
+
+def _built_on_card(build):
+    """``build(generator)`` with every tensor it makes on the card and
+    drawn from a generator there, seeded from SEED: drawing the largest
+    models' parameters on the host (1.24 G for the 2D SelfUNet3P at depth
+    7, 0.92 G for the 1D UNet4P at depth 8) took tens of seconds."""
+    import torch
+
+    with torch.device("cuda"):
+        return build(torch.Generator(device="cuda").manual_seed(SEED))
 
 
 def phase_device() -> None:
@@ -490,27 +516,6 @@ def _in_turns(fns: dict, flush, spreads: "dict | None" = None) -> dict:
     if spreads is not None:
         spreads.update({name: max(v) - min(v) for name, v in t.items()})
     return {name: statistics.mean(v) for name, v in t.items()}
-
-
-#: alternating turns in which a redesigned kernel is timed against the
-#: kernel its calls took before, where the two turns cannot tell them
-#: apart (the calls near the launch floor differ by less than two turns'
-#: spread)
-VERSUS_TURNS = 6
-
-
-def _versus(new, old, flush) -> str:
-    """``new`` against ``old`` in VERSUS_TURNS alternating turns: the
-    medians of their device times and the turns ``new`` won."""
-    t = {"new": [], "old": []}
-    for turn in range(VERSUS_TURNS):
-        for name in (("new", "old") if turn % 2 == 0 else ("old", "new")):
-            t[name].append(_device_ms(new if name == "new" else old, flush))
-    wins = sum(a < b for a, b in zip(t["new"], t["old"]))
-    return (f"in {VERSUS_TURNS} alternating turns, medians "
-            f"{statistics.median(t['new']):.4f} ms against "
-            f"{statistics.median(t['old']):.4f} ms, won {wins} of "
-            f"{VERSUS_TURNS}")
 
 
 _BF16, _F32 = "bfloat16", "float32"
@@ -638,6 +643,8 @@ BWD_ROWS = "pool_backward_rows_kernel"
 ROWS16 = "pool_rows_kernel<V=16B>"
 #: the pool backward's kernel for windows of 32
 BWD_BLOCK = "pool_backward_block_kernel"
+#: ... and of 64
+BWD_WIDE = "pool_backward_wide_kernel"
 #: an offset channels_last view of the same shape: elements of storage
 #: before the view's first (1: no row starts on 16 bytes; 8 bf16: all do)
 _OFFSET_1 = (_BF16, (2, 8, 64, 31), 1, (1,))
@@ -677,6 +684,27 @@ FWD_PLATEAUS = [
     (_BF16, (1, 33, 40, 1024), 4, (4,)),    # one pixel a span
 ]
 FWD_EDGES += FWD_PLATEAUS
+#: level 6 (64 lanes a patch), the one-channel kernel at levels 6-7 and
+#: what stays on pyramid_kernel; the plateau case is drawn with ReLU
+#: plateaus, the offset views as OFFSETS says
+_OFFSET_64_1 = (_BF16, (2, 64, 128, 16), 6, _all(6))
+_OFFSET_64_8 = (_BF16, (2, 128, 64, 16), 6, (6,))
+OFFSETS.update({_OFFSET_64_1: 1, _OFFSET_64_8: 8})
+FWD_PLATEAUS_64 = [(_BF16, (2, 128, 192, 32), 6, _all(6))]
+FWD_EDGES_64 = [
+    (_BF16, (2, 70, 130, 16), 6, _all(6)),   # ragged, two groups a pair
+    (_BF16, (3, 129, 200, 24), 6, _all(6)),  # three groups: a patch 64
+    (_F32, (2, 65, 97, 12), 6, (1, 3, 6)),   # f32, some levels
+    (_BF16, (2, 130, 66, 16), 6, (6,)),      # level 6 alone, ragged
+    (_BF16, (2, 64, 256, 31), 6, (6,)),      # odd C: pyramid_kernel
+    (_BF16, (2, 64, 256, 31), 6, _all(6)),   # odd C, every level
+    (_F32, (3, 200, 301, 1), 7, _all(7)),    # C = 1, f32 level 7, ragged
+    (_BF16, (2, 130, 257, 1), 6, _all(6)),   # C = 1, bf16 level 6
+    (_F32, (2, 40, 50, 1), 7, _all(7)),      # C = 1, smaller than a band
+    (_F32, (2, 256, 256, 1), 8, _all(8)),    # a chain's D8 targets
+    _OFFSET_64_1, _OFFSET_64_8,
+] + FWD_PLATEAUS_64
+FWD_EDGES += FWD_EDGES_64
 #: the kernel a call must reach, where phase 3 holds the launcher to it
 FWD_ROUTES = {
     **{c: POOL_ROWS for cs in _FWD_ENC_MRB.values() for c in cs},
@@ -694,7 +722,19 @@ FWD_ROUTES = {
     (_F32, (2, 33, 17, 4), 4, (4,)): ROWS16,
     **{c: ROWS16 for c in FWD_PLATEAUS},
     (_BF16, (1, 16, 16, 2048), 4, (4,)): "pool_vec_kernel",
+    **{c: "pyramid_vec_kernel" for c in FWD_EDGES_64 if c[1][-1] % 8 == 0},
+    (_F32, (2, 65, 97, 12), 6, (1, 3, 6)): "pyramid_vec_kernel",
+    (_BF16, (2, 64, 256, 31), 6, (6,)): "pyramid_kernel",
+    (_BF16, (2, 64, 256, 31), 6, _all(6)): "pyramid_kernel",
+    **{c: "pyramid_c1_kernel" for c in FWD_EDGES_64
+       if c[1][-1] == 1 and c[2] <= 7},
+    (_F32, (2, 256, 256, 1), 8, _all(8)): "pyramid_kernel",
+    _OFFSET_64_1: "pyramid_kernel",
 }
+#: calls timed beside the paths' (on no path): the deep-supervision
+#: targets pooled to level 6 (a full-scale decoder with ``d_s = 1`` at
+#: depth 6)
+FWD_EXTRA = [(_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 6, _all(6))]
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
 _BWD_DEC_3P = [(_BF16, s, f) for s, f in _DEC_3P]
@@ -744,7 +784,20 @@ BWD_EDGES = [
     (_BF16, (1, 33, 65, 24), 32),    # 24 channels, 3 vectors, ragged
     (_BF16, (3, 100, 40, 64), 32),   # 2 chunks of 32 channels, ragged
     (_BF16, (2, 32, 32, 8), 32),     # one window, all -inf but a NaN
+    (_BF16, (2, 130, 140, 16), 64),  # F = 64, ragged, 2 groups a chunk
+    (_F32, (2, 70, 66, 3), 64),      # one channel a thread
+    (_BF16, (2, 128, 128, 32), 64),  # NaNs; ties in two quarters
+    (_F32, (2, 64, 128, 40), 64),    # f32: 10 groups in a chunk of 16
+    (_BF16, (2, 128, 64, 256), 64),  # 2 chunks of 16 groups
+    (_BF16, (1, 33, 40, 8), 64),     # smaller than a window: zeros
+    (_BF16, (2, 64, 64, 8), 64),     # one window, all -inf but a NaN
+    (_BF16, (2, 64, 128, 16), 64),   # offset views (BWD_OFFSETS)
+    (_BF16, (2, 128, 64, 16), 64),
 ]
+#: backward edge cases in a view of their storage: elements before x's and
+#: g's first (8 bf16: 16 bytes, the vector path; 1: one channel a thread)
+BWD_OFFSETS = {(_BF16, (2, 64, 128, 16), 64): 1,
+               (_BF16, (2, 128, 64, 16), 64): 8}
 #: values planted in an input (NHWC index -> value) besides its NaN: for
 #: windows of 16, a NaN at window (0, 0)'s first element, at window (0,
 #: 1)'s last, and twice in batch 1's window (0, 0), the second one
@@ -765,6 +818,20 @@ PLANTS = {(_BF16, (2, 32, 32, 32), 16): [
     ((0, slice(None), slice(None), slice(None)), float("-inf")),
     ((0, 31, 31, 0), float("nan")), ((0, 0, 0, 1), float("nan")),
     ((1, slice(None), slice(None), 2), -1.0), ((1, 5, 6, 2), -0.0),
+    ((1, 5, 7, 2), 0.0)],
+    # windows of 64 as of 32, and in batch 0's window (0, 1) channel 4 a
+    # zero plateau with ones in two quarters: row 3's comes first in
+    # row-major order, row 40's first in a fold of the quarters in order
+    (_BF16, (2, 128, 128, 32), 64): [
+    ((0, 0, 0, 1), float("nan")), ((0, 63, 63, 2), float("nan")),
+    ((1, 3, 4, 3), float("nan")), ((1, 40, 12, 3), float("nan")),
+    ((1, 40, slice(13, 64), 3), -5.0),
+    ((0, slice(0, 64), slice(64, 128), 4), 0.0), ((0, 40, 64, 4), 1.0),
+    ((0, 3, 114, 4), 1.0)],
+    (_BF16, (2, 64, 64, 8), 64): [
+    ((0, slice(None), slice(None), slice(None)), float("-inf")),
+    ((0, 63, 63, 0), float("nan")), ((0, 0, 0, 1), float("nan")),
+    ((1, slice(None), slice(None), 2), -1.0), ((1, 5, 6, 2), -0.0),
     ((1, 5, 7, 2), 0.0)]}
 BWD_ROUTES = {
     **{c: BWD_ROWS for c in _BWD_DEC_3P + _BWD_TAPS_KSS if c[2] >= 4},
@@ -772,6 +839,9 @@ BWD_ROUTES = {
     (_BF16, (2, 37, 53, 16), 8): BWD_ROWS,
     **{c: BWD_BLOCK for c in BWD_EDGES if c[2] == 32},
     (_F32, (2, 70, 66, 3), 32): BWD_BLOCK + "<V=1>",
+    **{c: BWD_WIDE for c in BWD_EDGES if c[2] == 64},
+    (_F32, (2, 70, 66, 3), 64): BWD_WIDE + "<V=1>",
+    (_BF16, (2, 64, 128, 16), 64): BWD_WIDE + "<V=1>",
 }
 
 # ---- the 1D pipeline (phases 21-23): BASELINE config 1 (BASELINE.md:28;
@@ -997,7 +1067,23 @@ DEEP_1D_VERBS = {"1d_verbs_UNet3P_D5_ds": ("UNet3P", 5, dict(d_s=1))}
 DEEP_STEPS = 10
 #: the deep-supervision targets of config 1's signals pooled to level 5
 _SIG_DS_MASK5 = (_F32, (SIG_BATCH, SIG_LEN, 1), 5, _all(5))
-_SIG_DS_MASKS = (_SIG_DS_MASK, _SIG_DS_MASK5)
+#: phase 35: the 1D models that pool by 64 at config 1's size and width:
+#: path -> (arch, depth).  The UNet3+-type archs at depth 7 pool skip 0 to
+#: levels 1-6, MLMRSNet_V2 at depth 7 its tap 0 by 64, UNet4P at depth 8
+#: its tap 1 to levels 1-6 (``_deep_calls``)
+DEEPER_1D = {"1d_deeper_UNet3P_D7": ("UNet3P", 7),
+             "1d_deeper_R2UNet3P_D7": ("R2UNet3P", 7),
+             "1d_deeper_SelfUNet3P_D7": ("SelfUNet3P", 7),
+             "1d_deeper_ConvMixerUNet3P_D7": ("ConvMixerUNet3P", 7),
+             "1d_deeper_MLMRSNet_V2_D7": ("MLMRSNet_V2", 7),
+             "1d_deeper_UNet4P_D8": ("UNet4P", 8)}
+#: phase 35's run of the 1D verbs: ``d_s = 1`` at depth 6 pools the mask by
+#: 2 .. 64 for the targets
+DEEPER_1D_VERBS = {"1d_verbs_UNet3P_D6_ds": ("UNet3P", 6, dict(d_s=1))}
+#: phase 35's counted steps, each with a finite loss (not held to fall)
+DEEPER_STEPS = 3
+_SIG_DS_MASK6 = (_F32, (SIG_BATCH, SIG_LEN, 1), 6, _all(6))
+_SIG_DS_MASKS = (_SIG_DS_MASK, _SIG_DS_MASK5, _SIG_DS_MASK6)
 
 
 def _deep_calls(arch: str, depth: int, ds: int = 0, batch: int = SIG_BATCH,
@@ -1055,7 +1141,8 @@ FWD_PATHS_1D = {
                                              **ZOO_1D_SPECIALS_VERBS}},
     **{p: _deep_calls(*spec[:2])[0] for p, spec in DEEP_1D.items()},
     **{p: _deep_calls(a, d, kw.get("d_s", 0))[0]
-       for p, (a, d, kw) in DEEP_1D_VERBS.items()},
+       for p, (a, d, kw) in {**DEEP_1D_VERBS, **DEEPER_1D_VERBS}.items()},
+    **{p: _deep_calls(*spec)[0] for p, spec in DEEPER_1D.items()},
 }
 BWD_PATHS_1D = {
     "config1": _BWD1[_F32]["enc"],
@@ -1073,7 +1160,8 @@ BWD_PATHS_1D = {
                                              **ZOO_1D_SPECIALS_VERBS}},
     **{p: _deep_calls(*spec[:2])[1] for p, spec in DEEP_1D.items()},
     **{p: _deep_calls(a, d, kw.get("d_s", 0))[1]
-       for p, (a, d, kw) in DEEP_1D_VERBS.items()},
+       for p, (a, d, kw) in {**DEEP_1D_VERBS, **DEEPER_1D_VERBS}.items()},
+    **{p: _deep_calls(*spec)[1] for p, spec in DEEPER_1D.items()},
 }
 #: phase 25: BASELINE config 5's 2D model (zoo_bench.py:123-130), a W32/D4
 #: UNet on EfficientNetB0 (random weights: encoder_weights = none), bf16,
@@ -1085,9 +1173,9 @@ EFFNET_STEPS = 10
 # ---- phases 31-32: the dense-input family from scratch, every
 # backbone, the gated tap projectors; W32, batch 16, 256x256, bf16
 #: encoder tap k of a W32 model at 256x256: (16, 256 >> k, 256 >> k, 32 << k)
-_TAP = [(TRAIN_BATCH, SIZE >> k, SIZE >> k, 32 << k) for k in range(5)]
+_TAP = [(TRAIN_BATCH, SIZE >> k, SIZE >> k, 32 << k) for k in range(7)]
 #: a W32-wide tensor at tap k's grid (AHNet's ResPaths of the encoder taps)
-_AT_W = [(TRAIN_BATCH, SIZE >> k, SIZE >> k, 32) for k in range(5)]
+_AT_W = [(TRAIN_BATCH, SIZE >> k, SIZE >> k, 32) for k in range(7)]
 
 
 def _pyramids(taps: list, deepest: int) -> tuple:
@@ -1100,17 +1188,18 @@ def _pyramids(taps: list, deepest: int) -> tuple:
     return fwd, bwd
 
 
-def _ahnet_encoder(depth: int) -> tuple:
+def _ahnet_encoder(depth: int, taps: list = _TAP, at_w: list = _AT_W
+                   ) -> tuple:
     """AHNet's encoder: for each block i its fresh ResPath (W wide) on
     taps 0 .. i-1 pooled by 2**(i-k), then the chain's pool by 2 of tap
     i - 1, each a single level with its own backward."""
     fwd, bwd = [], []
     for i in range(1, depth + 1):
         for k in range(i):
-            fwd.append((_BF16, _AT_W[k], i - k, (i - k,)))
-            bwd.append((_BF16, _AT_W[k], 1 << (i - k)))
-        fwd.append((_BF16, _TAP[i - 1], 1, (1,)))
-        bwd.append((_BF16, _TAP[i - 1], 2))
+            fwd.append((_BF16, at_w[k], i - k, (i - k,)))
+            bwd.append((_BF16, at_w[k], 1 << (i - k)))
+        fwd.append((_BF16, taps[i - 1], 1, (1,)))
+        bwd.append((_BF16, taps[i - 1], 2))
     return fwd, bwd
 
 
@@ -1159,7 +1248,7 @@ NEW_BACKBONES = tuple(
 BACKBONE_CLASSES = ("ResNet50", "ResNet50V2", "VGG16", "DenseNet121",
                     "MobileNet", "MobileNetV2", "MobileNetV3Large",
                     "InceptionV3", "InceptionResNetV2", "EfficientNetV2S")
-BACKBONE_STEPS = 5
+BACKBONE_STEPS = 3
 #: phase 32's gated projector families on ResNet50, W32: path -> (decoder,
 #: depth, (forward, backward calls)); MultiResUNet and the UNet with
 #: ``a_e = 1`` pool nothing
@@ -1190,20 +1279,109 @@ FWD_PATHS["train_AHNet"] = DENSE_2D["dense_AHNet"][2][0]
 BWD_PATHS["train_AHNet"] = DENSE_2D["dense_AHNet"][2][1]
 FWD_PATHS["train_UNet4PV2_ResNet50"] = FWD_PATHS["proj_UNet4PV2"]
 BWD_PATHS["train_UNet4PV2_ResNet50"] = BWD_PATHS["proj_UNet4PV2"]
-#: every level-5 call takes a 16-byte kernel, every level 2-4 alone at a
-#: C of whole 16 bytes ROWS16; every pool backward by 4-16 the
-#: row kernel, by 32 the block kernel
+
+
+def _backward_of(fwd: list) -> list:
+    """One backward launch for each level each pyramid call stores (the
+    deep-supervision targets' pyramid, C = 1, has none)."""
+    return [(c[0], c[1], 1 << lvl) for c in fwd if c[1][-1] > 1
+            for lvl in c[3]]
+
+
+def _full_scale(depth: int, taps: list) -> list:
+    """A full-scale decoder's skip pyramids at ``depth``: tap k pooled to
+    levels 1 .. depth - 1 - k, one launch a skip."""
+    return [(_BF16, taps[k], depth - 1 - k, _all(depth - 1 - k))
+            for k in range(depth - 1)]
+
+
+def _chain_pools(depth: int, taps: list, multires: bool = False) -> list:
+    """The encoder chain's pools by 2 of taps 0 .. depth - 1; ``multires``:
+    of the MultiRes blocks, whose width truncates by their branches (31,
+    63, .., 2047 for taps 32, 64, .., 2048 wide; ops/blocks.py
+    multires_widths)."""
+    def width(u):
+        return sum(max(int(u * f), 1) for f in (0.167, 0.333, 0.5))
+
+    return [(_BF16, s[:3] + ((width(s[3]),) if multires else s[3:]), 1,
+             (1,)) for s in taps[:depth]]
+
+
+def _deep_2d_fwd(path: str, batch: int = TRAIN_BATCH, size: int = SIZE,
+                 width: int = 32) -> list:
+    """The pyramid calls one train step of phase 34's ``path`` makes, its
+    tap k being (batch, size >> k, size >> k, width << k).  KSSNet, UNet4P
+    and UNet4PV2 at depth 6 pool tap 0 to levels 1-6, AHNet its tap 0
+    ResPath by 64 alone, the full-scale decoders at depth 7 skip 0 to
+    levels 1-6; UNet3P with ``d_s = 1`` adds the targets' pyramid to level
+    7.  tests/test_torch_chip_smoke_tables.py holds these to the calls the
+    models make on the CPU."""
+    taps = [(batch, size >> k, size >> k, width << k) for k in range(7)]
+    at_w = [(batch, size >> k, size >> k, width) for k in range(7)]
+    return {
+        "deep_KSSNet_D6": _chain_pools(6, taps, multires=True)
+        + _pyramids(taps, 6)[0],
+        "deep_UNet3P_D7_ds": _chain_pools(7, taps) + _full_scale(7, taps)
+        + [(_F32, (batch, size, size, 1), 7, _all(7))],
+        "deep_UNet4P_D6": _pyramids(taps, 6)[0],
+        "deep_UNet4PV2_D6": _pyramids(taps, 6)[0] + _full_scale(6, taps),
+        "deep_AHNet_D6": _ahnet_encoder(6, taps, at_w)[0],
+        "deep_MultiResUNet3P_D7": _chain_pools(7, taps, multires=True)
+        + _full_scale(7, taps),
+        "deep_SelfUNet3P_D7": _chain_pools(7, taps) + _full_scale(7, taps),
+    }[path]
+
+
+#: phase 34: the 2D models that pool by 64, W32 from scratch at 256x256,
+#: batch 16, bf16: path -> (decoder, depth, keyword arguments); their
+#: calls are ``_deep_2d_fwd``'s, one backward a stored level
+DEEP_2D = {
+    "deep_KSSNet_D6": ("KSSNet", 6, {}),
+    "deep_UNet3P_D7_ds": ("UNet3P", 7, dict(ds=1)),
+    "deep_UNet4P_D6": ("UNet4P", 6, {}),
+    "deep_UNet4PV2_D6": ("UNet4PV2", 6, {}),
+    "deep_AHNet_D6": ("AHNet", 6, {}),
+    "deep_MultiResUNet3P_D7": ("MultiResUNet3P", 7, {}),
+    "deep_SelfUNet3P_D7": ("SelfUNet3P", 7, {})}
+#: phase 34's paths that take DEEP_LONG_STEPS counted steps with the loss
+#: falling; the others take DEEP_SHORT_STEPS on the images times
+#: SELF_2D_SCALE, as phase 28, with finite losses
+DEEP_2D_LONG = ("deep_KSSNet_D6", "deep_UNet3P_D7_ds")
+DEEP_LONG_STEPS = 10
+DEEP_SHORT_STEPS = 3
+for _path in DEEP_2D:
+    FWD_PATHS[_path] = _deep_2d_fwd(_path)
+    BWD_PATHS[_path] = _backward_of(FWD_PATHS[_path])
+#: phase 34's run of the train verb: UNet3P at depth 7 with ``d_s = 1``
+FWD_PATHS["train_UNet3P_D7_ds"] = FWD_PATHS["deep_UNet3P_D7_ds"]
+BWD_PATHS["train_UNet3P_D7_ds"] = BWD_PATHS["deep_UNet3P_D7_ds"]
+#: phase 34's references: W8 float32 card vs CPU at REF_SIZE_64 (decoder,
+#: depth, keyword arguments, pool launches a step): UNet4P at depth 6 (its
+#: tap 0 to level 6, a pool backward by 64), UNet3P at depth 7 with
+#: ``d_s = 1`` (its targets to level 7 on the one-channel kernel)
+DEEP_2D_REF = (("UNet4P", 6, {}, (6, 21)), ("UNet3P", 7, dict(ds=1), (14, 28)))
+REF_SIZE_64 = 128
+#: every level-5 and level-6 call at a C of several channels takes the
+#: 16-byte pyramid kernel, every one-channel call (the deep-supervision
+#: targets, to level 7) the one-channel kernel, every level 2-4 alone at a
+#: C of whole 16 bytes ROWS16; every pool backward by 4-16 the row kernel,
+#: by 32 the block kernel, by 64 the wide kernel
 FWD_ROUTES.update({c: "pyramid_vec_kernel" for cs in FWD_PATHS.values()
-                   for c in cs if c[2] == 5})
+                   for c in cs if c[2] in (5, 6) and c[1][-1] > 1})
+FWD_ROUTES.update({c: "pyramid_c1_kernel" for cs in FWD_PATHS.values()
+                   for c in cs if c[1][-1] == 1})
 FWD_ROUTES.update({
     c: ROWS16 for cs in FWD_PATHS.values() for c in cs
     if 2 <= c[2] <= 4 and c[3] == (c[2],)
     and c[1][-1] * (4 if c[0] == _F32 else 2) % 16 == 0})
-BWD_ROUTES.update({c: BWD_ROWS if c[2] < 32 else BWD_BLOCK
+BWD_ROUTES.update({c: {32: BWD_BLOCK, 64: BWD_WIDE}.get(c[2], BWD_ROWS)
                    for cs in BWD_PATHS.values() for c in cs if c[2] >= 4})
-#: timed beside the paths' calls: the same calls in bf16
-FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"]
-BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"]
+#: timed beside the paths' calls: the same calls in bf16, and skip 0 of
+#: the UNet3+-type archs at depth 7 (levels 1-6) and its backward by 64
+FWD1_TWINS = _FWD1[_BF16]["mrb"] + _FWD1[_BF16]["dec3p"] + [
+    (_BF16, _SIG_ENC[0], 6, _all(6))]
+BWD1_TWINS = _BWD1[_BF16]["mrb"] + _BWD1[_BF16]["dec3p"] + [
+    (_BF16, _SIG_ENC[0], 64)]
 FWD1_EDGES = [
     (_F32, (3, 1001, 8), 4, (1, 3)),   # ragged, 16-byte, levels 1 and 3
     (_BF16, (2, 77, 3), 3, _all(3)),   # ragged, one channel a thread
@@ -1220,21 +1398,41 @@ FWD1_EDGES = [
     (_BF16, (2, 64, 8), 2, _all(2)),   # offset 16 bytes: flat
     (_BF16, (2, 64, 2047), 5, (5,)),   # a span past shared memory
     (_F32, (3, 96, 12), 5, (1, 5)),    # 16-byte, 3 groups, lanes a row
+    (_F32, (3, 200, 33), 6, _all(6)),  # level 6: ragged, odd C
+    (_BF16, (2, 130, 24), 6, (6,)),    # ragged, level 6 alone, 16-byte
+    (_BF16, (7, 128, 31), 6, (2, 6)),  # odd C past the staged fold's 48 KB
+    (_F32, (3, 192, 12), 6, (1, 6)),   # 16-byte, 3 groups, 8 lanes a row
+    (_F32, (5, 64, 3), 6, _all(6)),    # staged, 12-byte rows
+    (_BF16, (3, 128, 1), 6, _all(6)),  # C = 1 bf16: 8 vectors a thread
+    (_F32, (2, 63, 8), 6, _all(6)),    # shorter than a top row
+    (_F32, (2, 128, 8), 6, (6,)),      # offset 16 bytes: flat
 ]
 #: edge cases in a view of their storage: elements before its first
 FWD1_OFFSETS = {(_BF16, (2, 64, 24), 1, (1,)): 1,
                 (_F32, (2, 64, 1), 3, _all(3)): 2,
-                (_BF16, (2, 64, 8), 2, _all(2)): 8}
+                (_BF16, (2, 64, 8), 2, _all(2)): 8,
+                (_F32, (2, 128, 8), 6, (6,)): 4}
 BWD1_EDGES = [
     (_F32, (3, 1001, 8), 4), (_BF16, (2, 77, 3), 8), (_F32, (2, 37, 16), 16),
     (_BF16, (1, 3, 8), 4),             # nothing pooled: zeros
     (_F32, (3, 100, 33), 32),          # F = 32: odd C, a ragged tail
     (_BF16, (2, 96, 1), 32),           # one channel
     (_F32, (2, 31, 8), 32),            # shorter than a window: zeros
+    (_F32, (3, 200, 33), 64),          # F = 64: odd C, a ragged tail
+    (_BF16, (2, 192, 1), 64),          # one channel
+    (_F32, (2, 63, 8), 64),            # shorter than a window: zeros
+    (_F32, (3, 130, 8), 64),           # a ragged tail past two windows
 ]
-#: the kernel the flat kernel's calls took before, which phase 3 forces on
-#: the same calls and times beside it (csrc/pool1d.cu)
-EARLIER1 = "pool1d_kernel"
+#: 1D backward edge cases drawn with values planted (signal, position,
+#: channel) besides the plateaus and the NaN: in a window of 64, a NaN
+#: first, last, and twice with -5s after the second; ties in the two
+#: lanes' halves of a window (a 1 at 40 and at 10: 10 comes first)
+PLANTS1 = {(_F32, (3, 130, 8), 64): [
+    ((0, 0, 1), float("nan")), ((0, 63, 2), float("nan")),
+    ((1, 3, 3), float("nan")), ((1, 40, 3), float("nan")),
+    ((1, slice(41, 64), 3), -5.0),
+    ((2, slice(0, 64), 4), 0.0), ((2, 40, 4), 1.0), ((2, 10, 4), 1.0),
+    ((2, slice(0, 64), 5), float("-inf")), ((2, 63, 5), float("nan"))]}
 
 
 def _route1d(case: tuple, backward: bool = False) -> str:
@@ -1242,8 +1440,8 @@ def _route1d(case: tuple, backward: bool = False) -> str:
     (csrc/pool1d.cu): forward, the flat kernel where 2**levels divides
     the length (16 bytes of channels in registers, a one-channel mask
     whose B * L positions the thread's max(2**levels, 16-byte vector)
-    divides, else the staged fold; a span past shared memory takes the
-    earlier kernel), else, as the backward, 16 bytes of channels a thread
+    divides, else the staged fold; a span past shared memory takes
+    ``pool1d_kernel``), else, as the backward, 16 bytes of channels a thread
     when C is a multiple of 16 bytes, else one channel a thread."""
     dtype, shape = case[0], case[1]
     size = 4 if dtype == _F32 else 2
@@ -1260,12 +1458,12 @@ def _route1d(case: tuple, backward: bool = False) -> str:
         row = c * size  # the least span, rows * row a multiple of 16 B
         if 16 // (row & -row) * row * (2 * f - 1) <= 48 * 1024:
             return "pool1d_flat_kernel"
-    return f"{EARLIER1}<V={'16B' if vec else '1'}>"
+    return f"pool1d_kernel<V={'16B' if vec else '1'}>"
 
 
 FWD1_ROUTES = {c: _route1d(c) for cs in FWD_PATHS_1D.values()
                for c in cs + FWD1_TWINS + FWD1_EDGES}
-FWD1_ROUTES.update({c: f"{EARLIER1}<V=1>" for c, k in FWD1_OFFSETS.items()
+FWD1_ROUTES.update({c: "pool1d_kernel<V=1>" for c, k in FWD1_OFFSETS.items()
                     if k * (4 if c[0] == _F32 else 2) % 16})
 BWD1_ROUTES = {c: _route1d(c, backward=True) for cs in BWD_PATHS_1D.values()
                for c in cs + BWD1_TWINS + BWD1_EDGES}
@@ -1331,13 +1529,14 @@ def _print_paths(what: str, paths: dict, measured: dict) -> None:
 
 def _case_input(dtype: str, shape: tuple, gen, plateaus: bool,
                 offset: int = 0, plants: tuple = ()):
-    """An NHWC input from ``gen`` with a NaN, as a (B, C, H, W)
-    channels_last tensor on the card (a (B, L, C) ``shape``: the (B, C,
-    1, L) tensor of a 1D signal): ``plants`` (index, value) set too;
-    ``offset`` elements of storage before it."""
+    """An NHWC input from ``gen`` (a generator on the card, which draws
+    the large inputs faster than the host) with a NaN, as a
+    (B, C, H, W) channels_last tensor on the card (a (B, L, C) ``shape``:
+    the (B, C, 1, L) tensor of a 1D signal): ``plants`` (index, value) set
+    too; ``offset`` elements of storage before it."""
     import torch
 
-    x = torch.randn(shape, generator=gen)
+    x = torch.randn(shape, generator=gen, device="cuda")
     if plateaus:
         x = torch.where(x < 0.3, torch.zeros_like(x), x)  # ReLU plateaus
     x.view(-1)[x.numel() // 3] = float("nan")  # must propagate / route
@@ -1404,8 +1603,9 @@ def phase_kernels() -> dict:
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pyramid)
 
-    on_path = list(dict.fromkeys(c for cs in FWD_PATHS.values() for c in cs))
-    gen = torch.Generator().manual_seed(SEED)
+    on_path = list(dict.fromkeys(
+        [c for cs in FWD_PATHS.values() for c in cs] + FWD_EXTRA))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     flush.zero_()
     small = flush[:128 * 2 ** 20]
@@ -1418,7 +1618,8 @@ def phase_kernels() -> dict:
     max_err, measured = 0.0, {}
     for case in on_path + FWD_EDGES:
         dtype, shape, levels, wanted = case
-        x = _case_input(dtype, shape, gen, plateaus=case in FWD_PLATEAUS,
+        x = _case_input(dtype, shape, gen,
+                        plateaus=case in FWD_PLATEAUS + FWD_PLATEAUS_64,
                         offset=OFFSETS.get(case, 0))
         fns = {"plain": lambda: pyramid.maxpool_pyramid_plain(x, levels,
                                                               wanted),
@@ -1456,10 +1657,21 @@ def phase_kernels() -> dict:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
                   f"kept)", flush=True)
             continue
-        if len(wanted) > 1 and shape[-1] > 1:
+        if len(wanted) > 1 and shape[-1] > 1 and levels <= 5:
             # the earlier design of the same call: one launch per level
             fns["per_level"] = lambda: [pyramid.maxpool_level(x, lvl)
                                         for lvl in wanted]
+        if levels >= 6:
+            # the kernel these calls took before this slice's kernels,
+            # forced on the same input and held to plain too
+            fns["earlier"] = lambda: pyramid._maxpool_pyramid_cuda(
+                x, levels, list(wanted), force="pyramid_kernel")
+            before = dict(pyramid.launches.by_kernel)
+            early = fns["earlier"]()
+            _one_launch(what, pyramid.launches, before, "pyramid_kernel")
+            _check(all(torch.equal(_bits(k), _bits(p))
+                       for k, p in zip(early, want)),
+                   f"{what}: the forced pyramid_kernel differs from plain")
         spread = {}
         t = _timed_turns(fns, flush, spread)
         calls = {name: _call_ms(fns[name], flush)
@@ -1472,6 +1684,10 @@ def phase_kernels() -> dict:
         if "per_level" in t:
             lib += (f"; {len(wanted)} single-level launches "
                     f"{t['per_level']:.4f} ms")
+        if "earlier" in t:
+            lib += (f"; pyramid_kernel forced on the call (equal to plain) "
+                    f"{t['earlier']:.4f} ms (turns differ by "
+                    f"{spread['earlier']:.4f})")
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
               f"kept); device time kernel {t['kernel']:.4f} ms (turns "
               f"differ by {spread['kernel']:.4f}), plain "
@@ -1510,7 +1726,7 @@ def phase_ds_mask() -> None:
         pyramid)
 
     dtype, shape, levels, _ = _DS_MASK
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     x = _case_input(dtype, shape, gen, plateaus=False)
     tiny = _case_input(dtype, (1, 2, 2, 1), gen, plateaus=False)
@@ -1542,16 +1758,17 @@ def phase_pool_backward() -> dict:
         pool_backward)
 
     on_path = list(dict.fromkeys(c for cs in BWD_PATHS.values() for c in cs))
-    gen = torch.Generator().manual_seed(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     max_err, measured = 0.0, {}
     for case in on_path + BWD_EDGES:
         dtype, shape, f = case
         x = _case_input(dtype, shape, gen, plateaus=True,
-                        plants=PLANTS.get(case, ()))
+                        plants=PLANTS.get(case, ()),
+                        offset=BWD_OFFSETS.get(case, 0))
         b, c, h, w = x.shape
-        g = torch.randn((b, h // f, w // f, c), generator=gen).to(
-            "cuda", x.dtype).permute(0, 3, 1, 2)
+        g = torch.randn((b, h // f, w // f, c), generator=gen,
+                        device="cuda").to(x.dtype).permute(0, 3, 1, 2)
         before = dict(pool_backward.launches.by_kernel)
         got = pool_backward.maxpool_backward(x, g, f)
         want = pool_backward.maxpool_backward_plain(x, g, f)
@@ -1572,6 +1789,8 @@ def phase_pool_backward() -> dict:
         what += f" [{kernel}]"
         if case in PLANTS:
             what += " (NaN first, last and twice in a window)"
+        if case in BWD_OFFSETS:
+            what += f", x a view {BWD_OFFSETS[case]} element(s) into its storage"
         if case not in on_path:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0)",
                   flush=True)
@@ -3622,15 +3841,12 @@ def phase_kernels_1d() -> tuple:
     the 1D pool backward against their plain versions, bit for bit, at
     every call each 1D path makes (FWD_PATHS_1D, BWD_PATHS_1D: config 1's
     shapes in float32, and bfloat16 for the fixed batch), their bf16 twins
-    and edge cases, with ReLU plateaus and a NaN; each line names the
-    route (one launch of it) and, for the timed calls, the device time of
-    the kernel, the plain version and the library call (``F.max_pool1d``,
-    and the backward of ``F.max_pool1d(return_indices=True)``), and the
-    bound; beside each call of ``pool1d_flat_kernel``, the kernel the call
-    took before (EARLIER1, forced on the same call), checked and timed in
-    the same turns, and against the flat kernel in VERSUS_TURNS
-    alternating turns where the two turns' means lie within their spread.
-    Beside each one-channel (deep-supervision) row, the floor: the same
+    and edge cases, with ReLU plateaus and a NaN (and PLANTS1's values);
+    each line names the route (one launch of it) and, for the timed calls,
+    the device time of the kernel, the plain version and the library call
+    (``F.max_pool1d``, and the backward of
+    ``F.max_pool1d(return_indices=True)``), and the bound.  Beside each
+    one-channel (deep-supervision) row, the floor: the same
     levels on a (1, 2, 1) mask, and the same kernel on the least mask it
     takes.  Returns ({path: pyramid row}, {path: backward row})."""
     import torch
@@ -3639,7 +3855,7 @@ def phase_kernels_1d() -> tuple:
     from tf_1d_2d_segmentation_end2endpipelines_torch.ops.kernels import (
         pool_backward, pyramid)
 
-    gen = torch.Generator().manual_seed(SEED + 21)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fwd_timed = list(dict.fromkeys(
         [c for cs in FWD_PATHS_1D.values() for c in cs] + FWD1_TWINS))
@@ -3669,30 +3885,16 @@ def phase_kernels_1d() -> tuple:
                                                                 wanted),
                "kernel": lambda: pyramid.maxpool1d_pyramid(x, levels,
                                                            wanted)}
-        if kernel.startswith("pool1d_flat_kernel"):
-            # the kernel this call took before, forced on the same input
-            fns["earlier"] = lambda: pyramid._maxpool1d_pyramid_cuda(
-                x, levels, list(wanted), force=EARLIER1)
-            earlier = EARLIER1 + ("<V=16B>" if "16B" in _route1d(
-                case, backward=True) else "<V=1>")
-            before = dict(pyramid.launches.by_kernel)
-            early = fns["earlier"]()
-            _one_launch(what, pyramid.launches, before, earlier)
-            _check(all(torch.equal(_bits(k), _bits(p))
-                       for k, p in zip(early, want)),
-                   f"{what}: the forced {earlier} differs from plain")
         what += f" [{kernel}]"
         if case not in fwd_timed:
             print(f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
-                  "kept, bit patterns)"
-                  + (f"; so is the earlier {earlier}" if "earlier" in fns
-                     else ""), flush=True)
+                  "kept, bit patterns)", flush=True)
             continue
         x1 = x[:, :, 0]  # the (B, C, L) view F.max_pool1d takes
         fns["library"] = lambda: [F.max_pool1d(x1, 1 << lvl)
                                   for lvl in wanted]
         spread = {}
-        t = _in_turns(fns, flush, spread)
+        t = _timed_turns(fns, flush, spread)
         nbytes = _bytes(x, *got)
         measured[case] = {**t, "bytes": nbytes, "route": kernel}
         line = (f"phase 3 kernel {what}: equal to plain (max-abs 0, NaN "
@@ -3701,14 +3903,6 @@ def phase_kernels_1d() -> tuple:
                 f"{t['plain']:.4f} ms, library {len(wanted)} F.max_pool1d "
                 f"call(s) {t['library']:.4f} ms, bound "
                 f"{_bound_ms(nbytes):.4f} ms ({nbytes} B at 3.35 TB/s)")
-        if "earlier" in t:
-            line += (f"; the earlier kernel ({earlier}, equal to plain) "
-                     f"{t['earlier']:.4f} ms (turns differ by "
-                     f"{spread['earlier']:.4f})")
-            if abs(t["kernel"] - t["earlier"]) <= max(spread["kernel"],
-                                                      spread["earlier"]):
-                line += (f"; within the turns' spread, so {kernel} against "
-                         f"it {_versus(fns['kernel'], fns['earlier'], flush)}")
         if shape[-1] == 1:
             # a launch with next to nothing to move: the same levels on
             # (1, 2, 1), and the same kernel on the least mask it takes
@@ -3725,9 +3919,10 @@ def phase_kernels_1d() -> tuple:
         print(line, flush=True)
     for case in bwd_timed + BWD1_EDGES:
         dtype, shape, f = case
-        x = _case_input(dtype, shape, gen, plateaus=True)
+        x = _case_input(dtype, shape, gen, plateaus=True,
+                        plants=PLANTS1.get(case, ()))
         b, c, _, n = x.shape
-        g = torch.randn((b, n // f, c), generator=gen).to(
+        g = torch.randn((b, n // f, c), generator=gen, device="cuda").to(
             "cuda", x.dtype).permute(0, 2, 1).unsqueeze(2)
         what = f"maxpool1d_backward {dtype} (B, L, C) {tuple(shape)} f={f}"
         kernel = pool_backward.route1d(x, g, f)
@@ -3747,14 +3942,14 @@ def phase_kernels_1d() -> tuple:
             continue
         x1, g1 = x[:, :, 0], g[:, :, 0]
         _, idx = F.max_pool1d(x1, f, return_indices=True)
-        t = _in_turns({
+        t = _timed_turns({
             "plain": lambda: pool_backward.maxpool1d_backward_plain(x, g, f),
             "kernel": lambda: pool_backward.maxpool1d_backward(x, g, f),
             # the backward of F.max_pool1d(return_indices=True), given the
             # indices its forward saved
             "library": lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 g1.unsqueeze(2), x1.unsqueeze(2), [1, f], [1, f], [0, 0],
-                [1, 1], False, idx.unsqueeze(2))}, flush)
+                [1, 1], False, idx.unsqueeze(2))}, flush, {})
         nbytes = _bytes(x, g, got)
         measured[case] = {**t, "bytes": nbytes, "route": kernel}
         print(f"phase 3 kernel {what}: equal to plain (max-abs 0, plateaus "
@@ -3798,12 +3993,12 @@ def _write_signal_sets(tmp: str, scale: float = 1.0) -> dict:
 
 
 def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
-                    width: int = 32, depth: int = 3, **kw):
+                    width: int = 32, depth: int = 3, generator=None, **kw):
     """Config 1's trainer for ``arch`` at width ``width`` and depth
-    ``depth``, weights from SEED: MeanAbsoluteError (on every head,
-    default_ds_weights with ``ds``, the ds_type UNet targets built on the
-    card), Adam lr 3e-4; ``kw`` goes to ``model_selector_1d`` (``lstm``,
-    ``dense_loop``, ``se_ratio``)."""
+    ``depth``, weights from SEED (or ``generator``): MeanAbsoluteError (on
+    every head, default_ds_weights with ``ds``, the ds_type UNet targets
+    built on the card), Adam lr 3e-4; ``kw`` goes to ``model_selector_1d``
+    (``lstm``, ``dense_loop``, ``se_ratio``)."""
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
@@ -3813,10 +4008,9 @@ def _signal_trainer(arch: str, dtype, ds: int = 0, ag: int = 0,
     from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
         Trainer, default_ds_weights)
 
-    model = model_selector_1d(arch, SIG_LEN, depth, 1, width, 3, ds=ds,
-                              ag=ag, dtype=dtype,
-                              generator=torch.Generator().manual_seed(SEED),
-                              **kw)
+    model = model_selector_1d(
+        arch, SIG_LEN, depth, 1, width, 3, ds=ds, ag=ag, dtype=dtype,
+        generator=generator or torch.Generator().manual_seed(SEED), **kw)
     return Trainer(model, loss="MeanAbsoluteError", optimizer="Adam",
                    learning_rate=3e-4, device="cuda",
                    loss_weights=default_ds_weights(depth) if ds else None,
@@ -4752,7 +4946,8 @@ def phase_deep_1d(tmp: str) -> dict:
     R2UNet3P, SelfUNet3P, ConvMixerUNet3P and MLMRSNet_V2 at depth 6,
     UNet4P at depth 7) at config 1's size and width (W32, 1024 samples,
     batch 128 of phase 21's test signals, float32, MeanAbsoluteError,
-    Adam), DEEP_STEPS counted fixed-batch steps each, the loss falling,
+    Adam; built on the card, ``_built_on_card``), DEEP_STEPS counted
+    fixed-batch steps each, the loss falling,
     exactly each path's launches a step (``_deep_calls``); SelfUNet3P on
     the signals times SELF_1D_SCALE for SELF_1D_STEPS, as phase 29.  Then the 1D verbs on
     UNet3P at depth 5 with ``d_s = 1`` (DEEP_1D_VERBS: its targets pool
@@ -4765,7 +4960,8 @@ def phase_deep_1d(tmp: str) -> dict:
     for path, (arch, depth) in DEEP_1D.items():
         self_onn = arch.startswith("Self")
         scale = SELF_1D_SCALE if self_onn else 1.0
-        trainer = _signal_trainer(arch, torch.float32, depth=depth)
+        trainer = _built_on_card(lambda g: _signal_trainer(
+            arch, torch.float32, depth=depth, generator=g))
         print(f"phase 33 {path}: W32/D{depth} {arch}, "
               f"{sum(p.numel() for p in trainer.model.parameters())} "
               f"params, float32, batch {SIG_BATCH}"
@@ -4878,7 +5074,8 @@ def _verbs_test_predict(phase: str, tmp: str, cfg, per_batch: int,
 
 def phase_dense_2d(tmp: str) -> dict:
     """Phase 31: the dense-input family from scratch at the flagship's size
-    (W32, 256x256, batch 16 of phase 11's images, bf16): UNet4P, UNet4PV2
+    (W32, 256x256, batch 16 of phase 11's images, bf16; the models built on
+    the card, ``_built_on_card``): UNet4P, UNet4PV2
     and AHNet at D4, UNet4P, AHNet and KSSNet at D5 (the INI's default
     depth: tap 1 pooled by 32), DENSE_STEPS counted steps each with the
     loss falling and exactly DENSE_2D's pool launches a step (UNet4P D4 4
@@ -4896,9 +5093,9 @@ def phase_dense_2d(tmp: str) -> dict:
     x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
     counts = {}
     for path, (dec, depth, _) in DENSE_2D.items():
-        model = SegModel(dec, 32, depth, output_nums=1,
-                         final_activation="sigmoid", dtype=torch.bfloat16,
-                         generator=torch.Generator().manual_seed(SEED))
+        model = _built_on_card(lambda g: SegModel(
+            dec, 32, depth, output_nums=1, final_activation="sigmoid",
+            dtype=torch.bfloat16, generator=g))
         counts[path], trainer = _model_steps(
             "phase 31", path, model, x, y, DENSE_STEPS,
             f"W32/D{depth} {dec} {SIZE}x{SIZE}x3 bf16")
@@ -4947,7 +5144,7 @@ def phase_dense_2d_reference() -> None:
 
 
 def _backbone_model(dec: str, depth: int, name: str, trainable: bool,
-                    width: int = 32, dtype=None, **kw):
+                    width: int = 32, dtype=None, generator=None, **kw):
     import torch
 
     from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
@@ -4957,12 +5154,14 @@ def _backbone_model(dec: str, depth: int, name: str, trainable: bool,
                     dtype=dtype or torch.bfloat16,
                     train_mode="pretrained_encoder", backbone=name,
                     backbone_trainable=trainable,
-                    generator=torch.Generator().manual_seed(SEED), **kw)
+                    generator=generator or torch.Generator().manual_seed(SEED),
+                    **kw)
 
 
 def phase_backbones_2d(tmp: str) -> dict:
     """Phase 32: the backbones the port added, each under the W32/D4 UNet
-    (``encoder_weights = none``, ``encoder_trainable = 1``) on phase 11's
+    (``encoder_weights = none``, ``encoder_trainable = 1``; built on the
+    card, ``_built_on_card``) on phase 11's
     images at pixel values (x 255), batch 16, bf16: BACKBONE_STEPS steps
     with finite losses (DENSE_STEPS for one name a class,
     BACKBONE_CLASSES) and no pool launch, an eval forward of the right
@@ -4985,7 +5184,8 @@ def phase_backbones_2d(tmp: str) -> dict:
     for name in NEW_BACKBONES:
         path = f"bb_{name}"
         steps = DENSE_STEPS if name in BACKBONE_CLASSES else BACKBONE_STEPS
-        model = _backbone_model("UNet", 4, name, True)
+        model = _built_on_card(
+            lambda g: _backbone_model("UNet", 4, name, True, generator=g))
         _, trainer = _model_steps(
             "phase 32", path, model, x, y, steps,
             f"W32/D4 UNet on {name} {SIZE}x{SIZE}x3 (x 255) bf16",
@@ -5019,8 +5219,9 @@ def phase_backbones_2d(tmp: str) -> dict:
     for path, (dec, depth, (fwd, bwd)) in PROJECTORS_2D.items():
         ae = path.endswith("_ae")
         b = PROJ_BATCH.get(path, TRAIN_BATCH)
-        model = _backbone_model(dec, depth, PROJ_BACKBONE, True, ae=int(ae),
-                                input_size=(SIZE, SIZE))
+        model = _built_on_card(lambda g: _backbone_model(
+            dec, depth, PROJ_BACKBONE, True, ae=int(ae),
+            input_size=(SIZE, SIZE), generator=g))
         run, trainer = _model_steps(
             "phase 32", path, model, x[:b], y[:b], BACKBONE_STEPS,
             f"W32/D{depth} {dec}{' a_e=1' if ae else ''} on {PROJ_BACKBONE}"
@@ -5078,6 +5279,168 @@ def phase_backbones_2d_reference() -> None:
                          cpu, lambda y: y, None, want, cpu64,
                          control=control, x_scale=255.0 if pixels else 1.0,
                          stats_relative=True)
+
+
+def phase_deep_2d(tmp: str) -> dict:
+    """Phase 34: the 2D models that pool by 64 (DEEP_2D), W32 from scratch
+    at the flagship's size (256x256, batch 16 of phase 11's images, bf16,
+    BCEDice, Adam lr 1e-4): KSSNet at depth 6 and UNet3P at depth 7 with
+    ``d_s = 1`` (its targets pooled to level 7 every step, the ds_type
+    UNet heads weighted by default_ds_weights(7)), DEEP_LONG_STEPS counted
+    steps each with the loss falling; UNet4P, UNet4PV2 and AHNet at depth
+    6, MultiResUNet3P and SelfUNet3P at depth 7 on the images times
+    SELF_2D_SCALE (the Self-ONN encoder overflows on [0, 1] images, phase
+    28), DEEP_SHORT_STEPS counted steps each with finite losses; exactly
+    each path's launches a step (``_deep_2d_fwd``), p50 and peak memory
+    printed; the models built on the card (``_built_on_card``).  Then the
+    ``train`` verb for one epoch on phase 6's folders with UNet3P at depth
+    7 and ``d_s = 1`` (14 + 28 launches a step, 14 a validation batch),
+    best.pt served.  Returns {path: launches}."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict, synthetic_images)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        Trainer, default_ds_weights)
+
+    x, y = synthetic_images(TRAIN_BATCH, SIZE, seed=SEED + 8)
+    counts = {}
+    for path, (dec, depth, kw) in DEEP_2D.items():
+        ds = kw.get("ds", 0)
+        long = path in DEEP_2D_LONG
+        scale = 1.0 if long else SELF_2D_SCALE
+        model = _built_on_card(lambda g: SegModel(
+            dec, 32, depth, output_nums=1, ds=ds, final_activation="sigmoid",
+            dtype=torch.bfloat16, generator=g))
+        print(f"phase 34 {path}: W32/D{depth} {dec}{' d_s=1' if ds else ''}"
+              f" {SIZE}x{SIZE}x3 bf16"
+              + (f", images times {scale}" if scale != 1.0 else "")
+              + f", {sum(p.numel() for p in model.parameters())} params, "
+              f"BCEDice, Adam lr 1e-4, batch {TRAIN_BATCH}", flush=True)
+        trainer = Trainer(
+            model, loss="BCEDiceLoss", optimizer="Adam", learning_rate=1e-4,
+            device="cuda",
+            loss_weights=default_ds_weights(depth) if ds else None,
+            prepare_targets=(lambda m, d=depth: prepare_train_dict(
+                m, d, "UNet")) if ds else None)
+        counts[path] = _counted_steps(
+            "phase 34", path, trainer,
+            trainer.to_device(x * np.float32(scale)), trainer.to_device(y),
+            DEEP_LONG_STEPS if long else DEEP_SHORT_STEPS, must_fall=long)
+        del model, trainer
+        torch.cuda.empty_cache()
+    cfg = _train_config(tmp, "ResultsUNet3PD7", decoder_name="UNet3P",
+                        model_depth=7, d_s=1, ds_type="UNet", num_epochs=1)
+    print(f"phase 34 verbs: W32/D7 UNet3P d_s 1, ds_type UNet, bf16, "
+          f"BCEDice on out and level1-7, Adam lr {cfg.learning_rate}, batch "
+          f"{TRAIN_BATCH}, 1 epoch", flush=True)
+    counts["train_UNet3P_D7_ds"] = _run_train_verb(
+        "phase 34 verbs", cfg, "train_UNet3P_D7_ds")
+    return counts
+
+
+def phase_deep_2d_reference() -> None:
+    """Phase 34's reference: phase 31's check (the card's float32 step
+    against the CPU's float32 and float64 steps on the card's ReLU masks,
+    gradients within RELATIVE_BAR, a bfloat16 control that must miss it)
+    at W8 on (2, REF_SIZE_64, REF_SIZE_64, 3), one model a new kernel
+    family (DEEP_2D_REF): UNet4P at depth 6 (``pyramid_vec_kernel`` at
+    level 6, ``pool_backward_wide_kernel``), UNet3P at depth 7 with ``d_s =
+    1`` (``pyramid_c1_kernel`` at level 7; its heads scaled as in phase
+    10)."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.data import (
+        prepare_train_dict)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import SegModel
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import (
+        default_ds_weights)
+
+    for dec, depth, kw, want in DEEP_2D_REF:
+        ds = kw.get("ds", 0)
+        cpu = SegModel(dec, 8, depth, ds=ds,
+                       generator=torch.Generator().manual_seed(SEED + 34))
+        if ds:
+            decoder = getattr(cpu, cpu._decoder_name)
+            with torch.no_grad():
+                for k in range(1, depth + 1):
+                    head = getattr(decoder, f"level{k}")
+                    head.weight.mul_(0.01)
+                    head.bias.fill_(0.5)
+        cpu64 = SegModel(dec, 8, depth, ds=ds, dtype=torch.float64)
+        cpu64.load_state_dict(cpu.state_dict())
+        control = SegModel(dec, 8, depth, ds=ds, dtype=torch.bfloat16)
+        control.load_state_dict(cpu.state_dict())
+        _train_reference(
+            "phase 34 reference",
+            f"W8/D{depth} {dec}" + (" with ds=1" if ds else ""), cpu,
+            (lambda y, d=depth: prepare_train_dict(y, d, "UNet")) if ds
+            else (lambda y: y), default_ds_weights(depth) if ds else None,
+            want, cpu64, shape=(2, REF_SIZE_64, REF_SIZE_64, 3),
+            control=control)
+
+
+def phase_deeper_1d(tmp: str) -> dict:
+    """Phase 35: the 1D models that pool by 64 (DEEPER_1D: UNet3P,
+    R2UNet3P, SelfUNet3P (on the signals times SELF_1D_SCALE), ConvMixerUNet3P
+    and MLMRSNet_V2 at depth 7, UNet4P at depth 8) at config 1's size and
+    width (W32, 1024 samples, batch 128 of phase 21's test signals,
+    float32, MeanAbsoluteError, Adam; built on the card), DEEPER_STEPS
+    counted fixed-batch steps each with finite losses and exactly each
+    path's launches a step (``_deep_calls``).  Then the 1D verbs on UNet3P at depth 6 with ``d_s =
+    1`` (DEEPER_1D_VERBS: its targets pool the mask by 2 .. 64).  Returns
+    {path: launches}."""
+    import torch
+
+    sets = _write_signal_sets(tmp)
+    x, y = sets["x_test"], sets["y_test"]
+    counts = {}
+    for path, (arch, depth) in DEEPER_1D.items():
+        scale = SELF_1D_SCALE if arch.startswith("Self") else 1.0
+        trainer = _built_on_card(lambda g: _signal_trainer(
+            arch, torch.float32, depth=depth, generator=g))
+        print(f"phase 35 {path}: W32/D{depth} {arch}, "
+              f"{sum(p.numel() for p in trainer.model.parameters())} "
+              f"params, float32, batch {SIG_BATCH}"
+              + (f", signals times {scale}" if scale != 1.0 else ""),
+              flush=True)
+        counts[path] = _counted_steps(
+            "phase 35", path, trainer,
+            trainer.to_device(x * np.float32(scale)), trainer.to_device(y),
+            DEEPER_STEPS, must_fall=False, unit="signals")
+        del trainer
+        torch.cuda.empty_cache()
+    for path, (arch, depth, over) in DEEPER_1D_VERBS.items():
+        counts[path] = _signal_verbs("phase 35", tmp, sets, path, arch,
+                                     model_depth=depth, **over)
+    return counts
+
+
+def phase_deeper_1d_reference() -> None:
+    """Phase 35's reference: phase 33's check on UNet3P at W8/D7 on (2,
+    256, 1) signals, whose skip 0 is pooled by 2 .. 64: 13 + 28
+    launches."""
+    import torch
+
+    from tf_1d_2d_segmentation_end2endpipelines_torch.models import (
+        model_selector_1d)
+    from tf_1d_2d_segmentation_end2endpipelines_torch.train import get_loss
+
+    path = "1d_deeper_UNet3P_D7"
+    arch, depth = DEEPER_1D[path]
+    cpu = model_selector_1d(arch, 256, depth, 1, 8, 3,
+                            generator=torch.Generator().manual_seed(SEED + 35))
+    cpu64 = model_selector_1d(arch, 256, depth, 1, 8, 3, dtype=torch.float64)
+    cpu64.load_state_dict(cpu.state_dict())
+    control = model_selector_1d(arch, 256, depth, 1, 8, 3,
+                                dtype=torch.bfloat16)
+    control.load_state_dict(cpu.state_dict())
+    _train_reference(
+        "phase 35 1D reference", f"W8/D{depth} 1D {arch}", cpu, lambda y: y,
+        None, (len(FWD_PATHS_1D[path]), len(BWD_PATHS_1D[path])), cpu64,
+        shape=(2, 256, 1), loss=get_loss("MeanAbsoluteError"),
+        control=control)
 
 
 def _time_phases() -> None:
@@ -5165,6 +5528,10 @@ def main() -> int:
         phase_backbones_2d_reference()
         trained.update(phase_deep_1d(tmp))
         phase_deep_1d_reference()
+        trained.update(phase_deep_2d(tmp))
+        phase_deep_2d_reference()
+        trained.update(phase_deeper_1d(tmp))
+        phase_deeper_1d_reference()
     runs = {"serve": served, "test": tested, "predict": predicted,
             **trained}
     rows = _kernel_rows(list(pyr.values()) + list(bwd.values()), runs)

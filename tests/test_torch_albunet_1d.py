@@ -3,7 +3,8 @@
 the strided stem and connectors, the residual groups with and without
 bottleneck, ``a_e``, the Dense head; every leaf mapped, every head in eval
 mode, one ``make_train_step`` in float64 and float32 against JAX's
-float64 step."""
+float64 step.  AlbUNet101 and 152 are in test_torch_albunet_1d_deep.py
+(split to keep each file short on one test worker)."""
 import pytest
 
 pytest.importorskip("torch")
@@ -18,8 +19,7 @@ CASES = [
     ("AlbUNet18", 4, 2, dict()),
     ("AlbUNet34", 4, 2, dict(ae=1, feature_number=8, length=256)),
     ("AlbUNet50", 4, 2, dict(length=1024)),
-    ("AlbUNet101", 2, 2, dict(length=256, sensitive=True)),
-    ("AlbUNet152", 2, 2, dict(length=256, sensitive=True)),
+    # AlbUNet101 and 152: test_torch_albunet_1d_deep.py
 ]
 
 

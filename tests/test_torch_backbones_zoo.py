@@ -18,7 +18,11 @@ converted by utils/flax_to_torch.py):
 - the gated tap projectors (MultiResUNet, KSSNet, UNet4P/UNet4PV2,
   AHNet) and ``a_e`` on a narrow MobileNet, held to
   ``assert_model_matches_jax``;
-- a frozen backbone keeps its statistics, a trained one moves them."""
+- a frozen backbone keeps its statistics, a trained one moves them.
+
+The full-width backbones are in test_torch_backbones_full.py, the
+projectors in test_torch_backbones_projectors.py (split to keep each file
+short on one test worker)."""
 import numpy as np
 import pytest
 
@@ -234,78 +238,7 @@ def test_narrow_backbone_equals_flax(name):
         jcls(**kw), lambda dtype: tcls(**kw, dtype=dtype), 64)
 
 
-FULL = {
-    "MobileNetV3Small": (jconv.MobileNetV3Backbone,
-                         convnets.MobileNetV3Backbone, dict(size="small")),
-    "InceptionV3": (jinc.InceptionV3Backbone, inception.InceptionV3Backbone,
-                    {}),
-    "InceptionResNetV2": (jinc.InceptionResNetV2Backbone,
-                          inception.InceptionResNetV2Backbone, {}),
-    "EfficientNetV2B0": (jeff.EfficientNetV2Backbone,
-                         efficientnet.EfficientNetV2Backbone,
-                         dict(size="b0")),
-}
-
-
-@pytest.mark.parametrize("name", sorted(FULL))
-def test_full_width_backbone_forward_equals_flax(name):
-    """Every tap of the full graph in eval and in training mode on (2, 64,
-    64, 3), the smallest input whose stride-32 tap trains on more than one
-    value an image (2 x 2)."""
-    jcls, tcls, kw = FULL[name]
-    _assert_backbone_matches_jax(
-        jcls(**kw), lambda dtype: tcls(**kw, dtype=dtype), 64, vjp=False)
-
-
 # ---- the projectors and a_e on a narrow backbone ----------------------
-
-@pytest.fixture
-def narrow_mobilenet(monkeypatch):
-    """Both packages' ``get_backbone`` give MobileNet at alpha 0.25."""
-    monkeypatch.setattr(jbackbones, "get_backbone",
-                        lambda name, dtype=jnp.float32, max_tap=5:
-                        jconv.MobileNetBackbone(alpha=0.25, dtype=dtype,
-                                                max_tap=max_tap))
-    monkeypatch.setattr(segmodel, "get_backbone",
-                        lambda name, **kw: convnets.MobileNetBackbone(
-                            alpha=0.25, **kw))
-
-
-# (decoder, depth, ds, ae): each projector branch (UNet4P at depth 3 runs
-# four, the fourth its bottom)
-PROJECTOR_CASES = [("MultiResUNet", 1, 0, 0), ("KSSNet", 2, 1, 0),
-                   ("UNet4P", 3, 1, 0), ("UNet4PV2", 2, 0, 0),
-                   ("AHNet", 3, 0, 0), ("UNet", 3, 0, 1)]
-_HEADS = {"MultiResUNet": ("ChainDecoder_0", "UNet"),
-          "KSSNet": ("ChainDecoder_0", "UNet"),
-          "UNet4P": ("GridDecoder_0", "UNetPP"),
-          "AHNet": ("GridDecoder_0", "UNetPP"),
-          "UNet4PV2": ("FullScaleDecoder_0", "UNet"),
-          "UNet": ("ChainDecoder_0", "UNet")}
-
-
-@pytest.mark.parametrize("name,D,ds,ae", PROJECTOR_CASES,
-                         ids=[f"{n}-D{d}-ds{s}-ae{a}"
-                              for n, d, s, a in PROJECTOR_CASES])
-def test_projectors_on_a_backbone_match_jax(narrow_mobilenet, name, D, ds,
-                                            ae):
-    """W4 on (2, 32, 32, 3), trainable backbone: held to
-    ``assert_model_matches_jax`` with JAX's step in float64, gradients and
-    statistics relative to their size where that is above 1.  The
-    gated projectors read the shallower projected taps (KSSNet and UNet4P
-    their pools by 2**(level - k), each tap pooled once; AHNet each
-    through its own ResPath); ``a_e`` sizes its bottleneck by the
-    backbone's tap D."""
-    kw = dict(output_nums=1, ds=ds, ae=ae, feature_number=8,
-              final_activation="sigmoid", train_mode="pretrained_encoder",
-              backbone="MobileNet", backbone_trainable=True)
-    size = 32
-    jm = JaxSegModel(decoder_name=name, model_width=4, model_depth=D, **kw)
-    tm = SegModel(name, 4, D, in_channels=3, input_size=(size, size), **kw)
-    if ae:
-        assert tm.FeatureExtractionBlock_0.spatial == (size >> D,) * 2
-    assert_model_matches_jax(jm, tm, ds, *_HEADS[name], depth=D, size=size,
-                             step_dtype=jnp.float64, relative=True)
 
 
 @pytest.mark.parametrize("trainable", [0, 1])

@@ -36,11 +36,9 @@ DECODERS = {"MultiResUNet": ("ChainDecoder_0", "UNet"),
 # (name, W, D, ds, ag, alpha): MultiResUNet W8/D3 has the MultiRes widths
 # 7, 15, 31 and 63, W8/D2 at alpha 1.67 12, 26 and 53; the gated MultiRes
 # chains gate ResPath taps of W * 2**k channels by truncated node outputs
-CASES = ([("MultiResUNet", 8, 3, 0, 0, 1.0),
-          ("MultiResUNet", 8, 2, 1, 0, 1.67),
-          ("MultiResUNet", 8, 2, 1, 1, 1.0),
-          ("KSSNet", 8, 2, 0, 1, 1.67)]
-         + [("UNet", 4, 3, ds, 1, 1.0) for ds in (0, 1)]
+#: the gated chains and grids; the MultiRes models' cases are in
+#: test_torch_config4_multires.py
+CASES = ([("UNet", 4, 3, ds, 1, 1.0) for ds in (0, 1)]
          + [(name, 4, 2, ds, 1, 1.0)
             for name in ("UNetE", "UNetP", "UNetPP") for ds in (0, 1)])
 
@@ -53,10 +51,7 @@ def _models(name, W, D, ds=0, ag=0, alpha=1.0):
             SegModel(name, W, D, in_channels=3, **kw))
 
 
-@pytest.mark.parametrize(
-    "name,W,D,ds,ag,alpha", CASES,
-    ids=[f"{n}-W{w}D{d}-ds{s}-ag{g}-a{a}" for n, w, d, s, g, a in CASES])
-def test_config4_model_float32_matches_jax(name, W, D, ds, ag, alpha):
+def assert_config4_model_matches_jax(name, W, D, ds, ag, alpha):
     """Held to ``assert_model_matches_jax`` with JAX's train step in
     float64: at these widths the MultiRes blocks have one-channel branches
     (W = 8 gives 1 + 2 + 4), which make the first block's weight
@@ -66,6 +61,13 @@ def test_config4_model_float32_matches_jax(name, W, D, ds, ag, alpha):
     jm, tm = _models(name, W, D, ds, ag, alpha)
     assert_model_matches_jax(jm, tm, ds, *DECODERS[name], depth=D,
                              step_dtype=jnp.float64)
+
+
+@pytest.mark.parametrize(
+    "name,W,D,ds,ag,alpha", CASES,
+    ids=[f"{n}-W{w}D{d}-ds{s}-ag{g}-a{a}" for n, w, d, s, g, a in CASES])
+def test_config4_model_float32_matches_jax(name, W, D, ds, ag, alpha):
+    assert_config4_model_matches_jax(name, W, D, ds, ag, alpha)
 
 
 @pytest.mark.parametrize("name,ag", [("MultiResUNet", 0), ("UNet", 1),
@@ -105,7 +107,7 @@ def test_lstm_and_other_families_still_raise():
     backbone build now, with ConvLSTM fusion and gates too: the 4P and AH
     grids gate and fuse their skips (new keys), UNet3+, UNet4PV2 and
     MultiResUNet3+ ignore ``ag`` and ``lstm``, as the JAX decoder does.
-    What still raises is a pool by 64: a dense-input encoder at depth 6,
+    What still raises is a pool by 128: a dense-input encoder at depth 7,
     with or without gates."""
     b0 = dict(train_mode="pretrained_encoder", backbone="EfficientNetB0")
     for name, kw in (("UNet4P", {}), ("UNet4PV2", {}), ("AHNet", {}),
@@ -115,8 +117,8 @@ def test_lstm_and_other_families_still_raise():
         plain = set(SegModel(name, 4, 2, **kw).state_dict())
         assert plain <= gated and (gated == plain) == (name == "UNet4PV2")
         if not kw:
-            with pytest.raises(NotImplementedError, match="pools by 64"):
-                SegModel(name, 4, 6, ag=1, lstm=1)
+            with pytest.raises(NotImplementedError, match="pools by 128"):
+                SegModel(name, 4, 7, ag=1, lstm=1)
     for name in ("UNet3P", "MultiResUNet3P", "UNet4PV2"):
         assert sorted(SegModel(name, 4, 2, ag=1, lstm=1).state_dict()) == \
             sorted(SegModel(name, 4, 2).state_dict())

@@ -656,14 +656,24 @@ def _on_card(x, dtype, offset=0):
     (torch.bfloat16, (2, 64, 24), 1, (1,), 1, "pool1d_kernel<V=1>"),
     (torch.float32, (2, 64, 1), 3, None, 2, "pool1d_kernel<V=1>"),
     (torch.bfloat16, (2, 64, 8), 2, None, 8, _FLAT16),  # 16 bytes in
+    # levels 1-6: UNet3+'s skip 0 at depth 7 in both dtypes, the DS mask
+    # at depth 6, 8 lanes a top row; odd C, ragged, short and offset
+    (torch.float32, (128, 1024, 32), 6, None, 0, _FLAT16),
+    (torch.bfloat16, (128, 1024, 32), 6, None, 0, _FLAT16),
+    (torch.float32, (128, 1024, 1), 6, None, 0, _FLAT_C1),
+    (torch.bfloat16, (3, 128, 1), 6, None, 0, _FLAT_C1),
+    (torch.float32, (3, 192, 12), 6, (1, 6), 0, _FLAT16),
+    (torch.float32, (5, 64, 3), 6, None, 0, _FLAT),
+    (torch.float32, (3, 200, 33), 6, None, 0, "pool1d_kernel<V=1>"),
+    (torch.bfloat16, (7, 128, 31), 6, (2, 6), 0, "pool1d_kernel<V=1>"),
+    (torch.float32, (2, 63, 8), 6, None, 0, "pool1d_kernel<V=16B>"),
+    (torch.float32, (2, 128, 8), 6, (6,), 4, _FLAT16),
 ])
 def test_cuda_pool1d_kernel_equals_plain_version(dtype, shape, levels,
                                                  wanted, offset, route):
     """The 1D pyramid launches once, takes the named route and equals
     its plain version bit for bit (NaN positions kept), ragged lengths,
-    views into their storage and level subsets included; the kernel the
-    flat kernel's calls took before, forced on the same call, equals it
-    too."""
+    views into their storage and level subsets included."""
     _need_cuda()
     x = _on_card(_signal(shape, 6), dtype, offset)
     assert pyramid.route1d(x, levels, wanted) == route
@@ -676,13 +686,6 @@ def test_cuda_pool1d_kernel_equals_plain_version(dtype, shape, levels,
     for k, w in zip(got, want):
         _assert_same(k, w)
         assert torch.equal(_bits(k), _bits(w))
-    if route.startswith(_FLAT):
-        earlier = pyramid._maxpool1d_pyramid_cuda(
-            x, levels, pyramid._wanted(levels, wanted), force="pool1d_kernel")
-        for k, w in zip(earlier, want):
-            assert torch.equal(_bits(k), _bits(w))
-        (name,) = set(pyramid.launches.by_kernel) - {route}
-        assert name.startswith("pool1d_kernel<")
 
 
 @pytest.mark.cuda
@@ -695,6 +698,11 @@ def test_cuda_pool1d_kernel_equals_plain_version(dtype, shape, levels,
     (torch.float32, (128, 1024, 32), 32), (torch.bfloat16, (128, 512, 64), 32),
     (torch.float32, (3, 100, 33), 32), (torch.bfloat16, (2, 96, 1), 32),
     (torch.float32, (2, 31, 8), 32),
+    # F = 64, two lanes a window: UNet3+'s skip 0 at depth 7; odd and one
+    # channel, ragged tails, a signal shorter than a window
+    (torch.float32, (128, 1024, 32), 64), (torch.bfloat16, (128, 1024, 32), 64),
+    (torch.float32, (3, 200, 33), 64), (torch.bfloat16, (2, 192, 1), 64),
+    (torch.float32, (3, 130, 8), 64), (torch.float32, (2, 63, 8), 64),
 ])
 def test_cuda_pool1d_backward_equals_plain_version(dtype, shape, factor):
     """The 1D pool backward routes each gradient as the plain version
@@ -983,3 +991,102 @@ def test_cuda_dropblock_max_pool_equals_cpu(dtype):
             masks.append(layer.block_mask(x.to(dev).contiguous(
                 memory_format=torch.channels_last)).cpu())
         assert torch.equal(masks[0], masks[1])
+
+
+_VEC = "pyramid_vec_kernel"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,levels,wanted,offset,kernel", [
+    # level 6: KSSNet's and UNet4P's tap 0 at depth 6, AHNet's ResPath by
+    # 64 alone; ragged, three groups (a patch of 64 lanes), f32, offset
+    (torch.bfloat16, (16, 256, 256, 32), 6, None, 0, _VEC),
+    (torch.bfloat16, (16, 256, 256, 32), 6, (6,), 0, _VEC),
+    (torch.bfloat16, (2, 70, 130, 16), 6, None, 0, _VEC),
+    (torch.bfloat16, (3, 129, 200, 24), 6, None, 0, _VEC),
+    (torch.float32, (2, 65, 97, 12), 6, (1, 3, 6), 0, _VEC),
+    (torch.bfloat16, (2, 130, 66, 16), 6, (6,), 0, _VEC),
+    (torch.bfloat16, (2, 128, 64, 16), 6, (6,), 8, _VEC),
+    (torch.bfloat16, (2, 64, 128, 16), 6, None, 1, "pyramid_kernel"),
+    (torch.bfloat16, (2, 64, 256, 31), 6, (6,), 0, "pyramid_kernel"),
+    # the deep-supervision targets at levels 6-7 (a full-scale decoder
+    # with d_s = 1 at depth 6-7), and at 8 on pyramid_kernel
+    (torch.float32, (16, 256, 256, 1), 6, None, 0, "pyramid_c1_kernel"),
+    (torch.float32, (16, 256, 256, 1), 7, None, 0, "pyramid_c1_kernel"),
+    (torch.float32, (3, 200, 301, 1), 7, None, 0, "pyramid_c1_kernel"),
+    (torch.bfloat16, (2, 130, 257, 1), 6, None, 0, "pyramid_c1_kernel"),
+    (torch.float32, (2, 256, 256, 1), 8, None, 0, "pyramid_kernel"),
+])
+def test_cuda_level_6_pyramid_equals_plain_version(dtype, shape, levels,
+                                                   wanted, offset, kernel):
+    """The pyramid to level 6 (7 for one channel) takes its named kernel:
+    one launch, counted under its name, equal to the plain version bit
+    for bit on inputs with ReLU plateaus and a NaN; pyramid_kernel, which
+    these calls took before, forced on the same call equals it too."""
+    _need_cuda()
+    x = _plateau_input(shape, 14, dtype)
+    if offset:
+        flat = torch.zeros(offset + x.numel(), dtype=dtype, device="cuda")
+        flat[offset:] = x.permute(0, 2, 3, 1).reshape(-1)
+        x = flat[offset:].view(shape).permute(0, 3, 1, 2)
+    assert pyramid.route(x, levels, wanted) == kernel
+    pyramid.launches.reset()
+    got = pyramid.maxpool_pyramid(x, levels, wanted)
+    torch.cuda.synchronize()
+    assert pyramid.launches.by_kernel == {kernel: 1}
+    want = pyramid.maxpool_pyramid_plain(x, levels, wanted)
+    forced = pyramid._maxpool_pyramid_cuda(
+        x, levels, pyramid._wanted(levels, wanted), force="pyramid_kernel")
+    for k, f, w in zip(got, forced, want):
+        _assert_same(k, w)
+        assert torch.equal(_bits(k), _bits(w))
+        assert torch.equal(_bits(f), _bits(w))
+
+
+#: NHWC plants for the F = 64 backward: NaNs first, last and twice in a
+#: window (the second followed by -5s), a window of -inf with a NaN last
+#: (channel 4) or first (5), one of -1 with -0.0 before +0.0 (6), and a
+#: zero plateau with ones in two quarters (7: row 3's comes first in
+#: row-major order, row 40's in a fold of the quarters)
+_PLANTS_64 = (
+    ((0, 0, 0, 1), float("nan")), ((0, 63, 63, 2), float("nan")),
+    ((1, 3, 4, 3), float("nan")), ((1, 40, 12, 3), float("nan")),
+    ((1, 40, slice(13, 64), 3), -5.0),
+    ((0, slice(0, 64), slice(0, 64), slice(4, 6)), float("-inf")),
+    ((0, 63, 63, 4), float("nan")), ((0, 0, 0, 5), float("nan")),
+    ((1, slice(0, 64), slice(0, 64), 6), -1.0), ((1, 5, 6, 6), -0.0),
+    ((1, 5, 7, 6), 0.0), ((0, slice(0, 64), slice(64, 128), 7), 0.0),
+    ((0, 40, 64, 7), 1.0), ((0, 3, 114, 7), 1.0))
+_WIDE = "pool_backward_wide_kernel"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,plants,kernel", [
+    (torch.bfloat16, (16, 256, 256, 32), (), _WIDE),
+    (torch.float32, (16, 256, 256, 32), (), _WIDE),
+    (torch.bfloat16, (2, 128, 128, 32), _PLANTS_64, _WIDE),
+    (torch.float32, (2, 130, 140, 8), _PLANTS_64, _WIDE),   # f32, ragged
+    (torch.bfloat16, (2, 128, 64, 256), (), _WIDE),          # 2 chunks
+    (torch.float32, (2, 64, 128, 40), (), _WIDE),            # 10 groups
+    (torch.bfloat16, (1, 33, 40, 8), (), _WIDE),             # zeros
+    (torch.float32, (2, 70, 136, 9), _PLANTS_64, _WIDE + "<V=1>"),
+])
+def test_cuda_pool_backward_by_64_equals_plain_version(dtype, shape, plants,
+                                                       kernel):
+    """The pool backward by 64 takes the wide kernel: one launch, counted
+    under its name, equal to the plain version (the walk's first maximum
+    in row-major order, NaN as select_and_scatter) bit for bit, zeros past
+    the floor and in an input smaller than a window."""
+    _need_cuda()
+    x = _plateau_input(shape, 15, dtype, plants)
+    b, c, h, w = x.shape
+    g = torch.randn((b, c, h // 64, w // 64), generator=torch.Generator()
+                    .manual_seed(16)).to("cuda", dtype).contiguous(
+        memory_format=torch.channels_last)
+    assert pool_backward.route(x, g, 64) == kernel
+    pool_backward.launches.reset()
+    got = pool_backward.maxpool_backward(x, g, 64)
+    torch.cuda.synchronize()
+    assert pool_backward.launches.by_kernel == {kernel: 1}
+    want = pool_backward.maxpool_backward_plain(x, g, 64)
+    assert torch.equal(_bits(got), _bits(want))

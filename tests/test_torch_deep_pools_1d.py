@@ -39,14 +39,14 @@ L = 256
 SCALES = {"SelfUNet3P": (0.1, 0.5)}
 
 
-def assert_deep_forward_matches_jax(arch, depth):
-    """The forward of ``arch`` at ``depth``, which pools by 32 (eval mode,
-    float32), equals JAX's within 1e-4 of max(1, its size), and it runs
-    level-5 pools: a pool by 32 passes through the 1D pyramid's plain
-    version."""
-    assert api_1d.deepest_pool_1d(arch, depth) == 5
+def assert_deep_forward_matches_jax(arch, depth, level=5, width=4):
+    """The forward of ``arch`` at ``depth`` and ``width``, which pools by
+    2**level (eval mode, float32), equals JAX's within 1e-4 of max(1, its
+    size), and it runs pools to ``level``: they pass through the 1D
+    pyramid's plain version."""
+    assert api_1d.deepest_pool_1d(arch, depth) == level
     x_scale, kernel_scale = SCALES.get(arch, (1.0, 1.0))
-    jm, tm = build_1d(arch, 4, depth, length=L)
+    jm, tm = build_1d(arch, width, depth, length=L)
     rng = np.random.default_rng(11)
     x = (rng.normal(size=(2, L, 2)) * x_scale).astype(np.float32)
     variables = scale_kernels(random_variables(jm, jnp.asarray(x), seed=3),
@@ -66,7 +66,7 @@ def assert_deep_forward_matches_jax(arch, depth):
     with mock.patch.object(pyramid, "maxpool1d_pyramid", spy), \
             torch.inference_mode():
         got = tm.eval()(torch.from_numpy(x))
-    assert max(levels) == 5
+    assert max(levels) == level
     assert sorted(got) == sorted(want)
     for key, w in want.items():
         w = np.asarray(w, np.float32)

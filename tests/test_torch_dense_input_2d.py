@@ -13,8 +13,11 @@ encoders need at depth 5:
   ResPath;
 - every name of the JAX ``DECODER_NAMES`` from scratch at D2 and D5,
   leaf for leaf (``jax.eval_shape``: nothing runs);
-- what still raises: a pool by 64 (a dense-input encoder at depth 6);
-- the ``train``, ``test`` and ``predict`` verbs on AHNet and UNet4P."""
+- what still raises: a pool by 128 (a dense-input encoder at depth 7);
+- the ``train``, ``test`` and ``predict`` verbs on AHNet and UNet4P.
+
+The D5 models are in test_torch_dense_input_2d_deep.py (split to keep
+each file short on one test worker)."""
 import os
 from unittest import mock
 
@@ -52,10 +55,10 @@ from tf_1d_2d_segmentation_end2endpipelines_torch.utils.flax_to_torch import (  
 DECODERS = {"UNet4P": ("GridDecoder_0", "UNetPP"),
             "AHNet": ("GridDecoder_0", "UNetPP"),
             "UNet4PV2": ("FullScaleDecoder_0", "UNet")}
-# (name, D, size, ds)
-CASES = ([(name, D, 32, ds) for name in DECODERS
-          for D, ds in ((2, 1), (3, 0))]
-         + [("UNet4P", 5, 64, 0), ("UNet4PV2", 5, 64, 1), ("AHNet", 5, 64, 1)])
+# (name, D, size, ds); the depth-5 cases are in
+# test_torch_dense_input_2d_deep.py
+CASES = [(name, D, 32, ds) for name in DECODERS
+         for D, ds in ((2, 1), (3, 0))]
 
 
 def _models(name, W, D, ds=0, **kw):
@@ -65,9 +68,7 @@ def _models(name, W, D, ds=0, **kw):
             SegModel(name, W, D, in_channels=3, **kw))
 
 
-@pytest.mark.parametrize("name,D,size,ds", CASES,
-                         ids=[f"{n}-D{d}-{s}px-ds{x}" for n, d, s, x in CASES])
-def test_dense_input_model_matches_jax(name, D, size, ds):
+def assert_dense_input_model_matches_jax(name, D, size, ds):
     """W4: the encoder's gated taps (UNet4P/UNet4PV2 the taps' own pools,
     AHNet each through a fresh ResPath), the 4P/AH grid's sigmoid skip
     paths (AH through ``ResPath(j, W)``) or UNet3+'s decoder; at D5 tap 1
@@ -77,6 +78,12 @@ def test_dense_input_model_matches_jax(name, D, size, ds):
     jm, tm = _models(name, 4, D, ds)
     assert_model_matches_jax(jm, tm, ds, *DECODERS[name], depth=D,
                              size=size, step_dtype=jnp.float64)
+
+
+@pytest.mark.parametrize("name,D,size,ds", CASES,
+                         ids=[f"{n}-D{d}-{s}px-ds{x}" for n, d, s, x in CASES])
+def test_dense_input_model_matches_jax(name, D, size, ds):
+    assert_dense_input_model_matches_jax(name, D, size, ds)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -182,18 +189,19 @@ def test_every_decoder_from_scratch_maps_leaf_for_leaf(name, D):
 
 
 def test_pools_by_64_raise_when_the_model_is_built():
-    """A from-scratch dense-input or KSSNet encoder at depth 6 pools tap 1
-    by 64, a full-scale decoder at depth 7 its first skip: the port's pool
-    kernels stop at 32, so these raise ``NotImplementedError`` before
-    anything runs (the JAX package builds them); a backbone at depth 6
-    raises the ``ValueError`` both packages raise."""
+    """A from-scratch dense-input or KSSNet encoder at depth 7 pools tap 1
+    by 128, a full-scale decoder at depth 8 its first skip: the port's pool
+    kernels stop at 64, so these raise ``NotImplementedError`` before
+    anything runs (the JAX package builds them); one depth shallower, the
+    pools by 64, they build.  A backbone at depth 6 raises the
+    ``ValueError`` both packages raise."""
     for name in ("UNet4P", "UNet4PV2", "AHNet", "KSSNet"):
-        SegModel(name, 2, 5)
-        with pytest.raises(NotImplementedError, match="pools by 64"):
-            SegModel(name, 2, 6)
-    SegModel("UNet3P", 2, 6)
-    with pytest.raises(NotImplementedError, match="pools by 64"):
-        SegModel("UNet3P", 2, 7)
+        SegModel(name, 2, 6)
+        with pytest.raises(NotImplementedError, match="pools by 128"):
+            SegModel(name, 2, 7)
+    SegModel("UNet3P", 2, 7)
+    with pytest.raises(NotImplementedError, match="pools by 128"):
+        SegModel("UNet3P", 2, 8)
     with pytest.raises(ValueError, match="1 to 5"):
         SegModel("UNet4P", 2, 6, train_mode="pretrained_encoder",
                  backbone="MobileNet")

@@ -9,7 +9,9 @@ head in eval mode, one ``make_train_step`` in float64 and float32 against
 JAX's float64 step.  With ``d_s = 1`` each family trains on the targets
 that fit its heads and raises, as JAX's step does, on the others
 (AlbUNet on both: its heads are half their targets' length); the flax
-auto-names of the new trees."""
+auto-names of the new trees.  TernausNet's models are in
+test_torch_ternausnet_1d.py (split to keep each file short on one test
+worker)."""
 import copy
 
 import numpy as np
@@ -297,11 +299,8 @@ def assert_both_steps_raise(arch, W, D, ds_type, length=64, **kw):
 
 
 #: (arch, W, D, options); ds_type: the targets that fit the heads
+#: (TernausNet's cases: test_torch_ternausnet_1d.py)
 CASES = [
-    ("TernausNet11", 4, 2, dict(ds=1)),
-    ("TernausNet13", 4, 2, dict(ag=1)),
-    ("TernausNet16", 4, 2, dict(is_transconv=False)),
-    ("TernausNet19", 4, 2, dict(ae=1, feature_number=8)),
     ("LinkNet", 4, 2, dict(ds=1, ag=1)),
     ("LinkNetE", 4, 2, dict(lstm=1, ds=1, ds_type="UNetPP")),
     ("LinkNetP", 4, 2, dict(ag=1, ae=1, feature_number=8)),

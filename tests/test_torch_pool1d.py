@@ -148,11 +148,11 @@ def test_pool1d_rejects_bad_calls():
     with pytest.raises(NotImplementedError):
         pyramid.maxpool1d(x, 3)
     with pytest.raises(NotImplementedError):
-        pyramid.maxpool1d_levels(x, 6)  # a pool by 64
+        pyramid.maxpool1d_levels(x, 7)  # a pool by 128
     with pytest.raises(NotImplementedError):
-        pyramid.maxpool1d(x, 64)
+        pyramid.maxpool1d(x, 128)
     with pytest.raises(ValueError):
-        pool_backward.maxpool1d_backward(x, torch.zeros(1, 2, 1, 0), 64)
+        pool_backward.maxpool1d_backward(x, torch.zeros(1, 2, 1, 0), 128)
     with pytest.raises(ValueError):
         pyramid.maxpool1d_pyramid(torch.zeros(1, 2, 2, 8), 1)
     with pytest.raises(ValueError):

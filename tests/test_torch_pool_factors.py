@@ -117,7 +117,7 @@ def test_plain_backward_refuses_bad_arguments():
     with pytest.raises(ValueError):
         pool_backward.maxpool_backward(x, g, 2)  # g is not 4x4-pooled
     with pytest.raises(NotImplementedError):
-        pyramid.maxpool(x, 64)  # pools by 32 are ported; by 64 are not
+        pyramid.maxpool(x, 128)  # pools by 64 are ported; by 128 are not
 
 
 def test_gradcheck_by_4_on_tie_free_input():

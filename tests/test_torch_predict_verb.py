@@ -136,12 +136,12 @@ def test_predict_refusals_write_nothing(tmp_path):
         drivers.predict(port, input_path=str(empty), out_dir=out,
                         device="cpu")
     # AHNet, UNet4P and the backbones are ported (tests/test_torch_dense_
-    # input_2d.py runs the verb on them); a dense-input encoder at depth 6
-    # still needs a pool by 64, which the port lacks
-    for over in ({"decoder_name": "AHNet", "model_depth": 6},
-                 {"decoder_name": "UNet4P", "model_depth": 6},
-                 {"decoder_name": "KSSNet", "model_depth": 6}):
-        with pytest.raises(NotImplementedError, match="pools by 64"):
+    # input_2d.py runs the verb on them); a dense-input encoder at depth 7
+    # still needs a pool by 128, which the port lacks
+    for over in ({"decoder_name": "AHNet", "model_depth": 7},
+                 {"decoder_name": "UNet4P", "model_depth": 7},
+                 {"decoder_name": "KSSNet", "model_depth": 7}):
+        with pytest.raises(NotImplementedError, match="pools by 128"):
             drivers.predict(dataclasses.replace(port, **over),
                             input_path=images, out_dir=out, device="cpu")
     with pytest.raises(ValueError, match="unknown TTA"):

@@ -140,7 +140,7 @@ def test_level_without_gradient_launches_no_backward():
     want = pyramid.maxpool_pyramid_plain(x.detach(), 3)[1]
     assert float(x.grad.sum()) == float(want.numel())
     with pytest.raises(NotImplementedError):
-        pyramid.maxpool_levels(x, 6)  # level 5 is ported; 6 is not
+        pyramid.maxpool_levels(x, 7)  # level 6 is ported; 7 is not
 
 
 def test_full_scale_decoder_pools_each_skip_once():

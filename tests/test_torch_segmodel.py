@@ -87,8 +87,9 @@ def test_flagship_parameter_tree_maps_leaf_for_leaf():
 def test_unported_configurations_raise():
     """These configurations raised before the rest of the 2D zoo was
     ported; each builds now and runs a forward of the right shape.  What
-    still raises: each of them at depth 6, a backbone by the ``ValueError``
-    of both packages, a dense-input encoder by a pool by 64."""
+    still raises: each of them at depth 6 on a backbone, by the
+    ``ValueError`` of both packages, and a dense-input encoder from
+    scratch at depth 7, by a pool by 128."""
     x = torch.rand(1, 64, 64, 3)
     for kw in ({"train_mode": "pretrained_encoder",
                 "backbone": "EfficientNetV2B0"},
@@ -113,7 +114,7 @@ def test_unported_configurations_raise():
             assert SegModel(name, 4, 2, **kw).eval()(x)["out"].shape == (
                 1, 64, 64, 1)
         with pytest.raises(ValueError if kw else NotImplementedError):
-            SegModel(name, 4, 6, **kw)
+            SegModel(name, 4, 6 if kw else 7, **kw)
 
 
 def test_batch_of_one_from_numpy_reaches_the_pool_channels_last(monkeypatch):

@@ -36,7 +36,11 @@ converted by utils/flax_to_torch.py):
   ``predict`` on the JAX verb's initial weights label every pixel as the
   JAX verbs do but within 1e-5 of the threshold; ``train1d`` on
   SelfUNetPP, then ``test1d`` and ``predict1d`` on JAX's initial weights
-  against JAX's verbs (metrics and predictions within 1e-4)."""
+  against JAX's verbs (metrics and predictions within 1e-4).
+
+The overflow and the verbs are in test_torch_self_verbs.py, the chip
+scales in test_torch_self_scales.py (split to keep each file short on one
+test worker)."""
 import dataclasses
 import json
 import os
@@ -229,216 +233,3 @@ def test_self_1d_pools_read_channels_last(monkeypatch):
         x = torch.randn(2, 32, 1) * 0.1
         tm.train()(x)["out"].sum().backward()
     assert len(seen) == 7 and all(seen)
-
-
-def test_self_1d_archs_overflow_where_jax_does():
-    """The 1D Self archs have no BatchNorm or tanh after their Opers, and
-    each Oper stacks x, x**2, x**3: on config 1's signals (amplitude up to
-    ~4.4) JAX's forward overflows, and the port's does at the same
-    elements; where JAX's output is finite the port's is within 1e-4 of
-    its largest magnitude (up to ~1e20)."""
-    x, _ = synthetic_signals(2, 256, seed=0)
-    seen_nan = False
-    for arch in ("SelfR2UNetPP", "SelfUNetPP", "SelfUNet3P"):
-        jm = jax_selector_1d(arch, 256, 3, 1, 8, 3)
-        tm = model_selector_1d(arch, 256, 3, 1, 8, 3)
-        variables = jax.tree.map(np.asarray, jax.jit(jm.init)(
-            jax.random.PRNGKey(0), jnp.asarray(x)))
-        tm.load_state_dict(flax_to_state_dict(variables, tm.state_dict()))
-        fwd = jax.jit(lambda v, a: jm.apply(
-            v, a, train=True, mutable=["batch_stats"])[0]["out"])
-        for s in (1.0, 0.3, 0.1, 0.03):
-            xs = x * np.float32(s)
-            want = np.asarray(fwd(variables, jnp.asarray(xs)))
-            with torch.no_grad():
-                got = tm.train()(torch.from_numpy(xs))["out"].numpy()
-            finite = np.isfinite(want)
-            np.testing.assert_array_equal(np.isfinite(got), finite)
-            seen_nan |= not finite.all()
-            if finite.any():
-                big = max(float(np.abs(want[finite]).max()), 1.0)
-                assert float(np.abs(got[finite] - want[finite]).max()) \
-                    <= 1e-4 * big, (arch, s)
-    assert seen_nan
-
-
-def test_chip_scales_are_the_largest_finite_ones():
-    """``chip_smoke.SELF_1D_SCALE`` is the largest of 1, 0.3, 0.1, 0.03,
-    0.01 and 0.001 at which JAX's float32 training forward of the three
-    1D Self archs at W32/D3 (JAX's PRNGKey(0) weights) is finite on
-    phase 29's 128 signals (SelfR2UNetPP's is not at any larger one,
-    SelfUNetPP's and SelfUNet3P's are from 0.03 down);
-    ``chip_smoke.SELF_2D_SCALE`` the largest of 1 and 0.3 at which the
-    four 2D Self models' at W32/D4 are on two of phase 28's images (64 x
-    64 here: SelfUNet overflows at 1 at this size too)."""
-    def fwd(jm, x):
-        variables = jax.jit(jm.init)(jax.random.PRNGKey(0), x[:1])
-        apply = jax.jit(lambda a: jm.apply(
-            variables, a, train=True, mutable=["batch_stats"])[0]["out"])
-        return lambda s: bool(jnp.isfinite(apply(x * np.float32(s))).all())
-
-    x, _ = synthetic_signals(chip_smoke.N_SIG_TRAIN + chip_smoke.N_SIG_VAL
-                             + chip_smoke.N_SIG_TEST, 1024,
-                             seed=chip_smoke.SEED + 21)
-    x = jnp.asarray(x[-chip_smoke.N_SIG_TEST:])
-    scales = (1.0, 0.3, 0.1, 0.03, 0.01, 0.001)
-    assert chip_smoke.SELF_1D_SCALE == scales[-1]
-    r2 = fwd(jax_selector_1d("SelfR2UNetPP", 1024, 3, 1, 32, 3), x)
-    assert [r2(s) for s in scales] == [False] * 5 + [True]
-    for arch in ("SelfUNetPP", "SelfUNet3P"):
-        finite = fwd(jax_selector_1d(arch, 1024, 3, 1, 32, 3), x)
-        assert [finite(s) for s in scales] == [False] * 3 + [True] * 3
-    x, _ = synthetic.synthetic_images(2, 64, seed=chip_smoke.SEED + 8)
-    x = jnp.asarray(x)
-    assert chip_smoke.SELF_2D_SCALE == 0.3
-    for name in ("SelfUNet", "SelfUNetPP", "SelfUNet3P", "SelfFPN"):
-        finite = fwd(JaxSegModel(
-            decoder_name=name, model_width=32, model_depth=4,
-            genre="FPN" if name == "SelfFPN" else "UNet"), x)
-        assert finite(0.3)
-        if name == "SelfUNet":
-            assert not finite(1.0)
-
-
-def _folder(tmp, n=4):
-    x, y = synthetic.synthetic_images(n, SIZE, seed=0)
-    synthetic.write_image_folder(os.path.join(tmp, "Data"), x, y)
-
-
-#: (decoder, genre, the images' normalizing factor): JAX's initial
-#: SelfUNetPP weights (W4/D2) overflow on most pixels of [0, 1] images
-#: (its encoder and latent cube their inputs seven times without
-#: normalization), and on none of [0, 0.25]
-VERB_CASES = [("SelfUNetPP", "UNet", 4 * 255.0), ("SelfFPN", "FPN", 255.0)]
-
-
-@pytest.mark.parametrize("name,genre,factor", VERB_CASES,
-                         ids=[c[0] for c in VERB_CASES])
-def test_2d_verbs_equal_jax(tmp_path, capsys, name, genre, factor):
-    tmp = str(tmp_path)
-    _folder(tmp)
-    cfg = TrainConfig(normalizing_factor_img=factor,
-        train_dir=os.path.join(tmp, "Data"), val_dir=os.path.join(tmp, "Data"),
-        imlength=SIZE, imwidth=SIZE, model_genre=genre, decoder_name=name,
-        model_width=4, model_depth=2, batch_size=2, num_epochs=1,
-        learning_rate=1e-3, loss_function="BCEDiceLoss",
-        metric_list=("BinaryAccuracy",), save_dir=os.path.join(tmp, "port"),
-        load_weights=False, seed=3)
-    ini = os.path.join(tmp, "Train_Configs.ini")
-    save_train_config(cfg, ini)
-    main(["train", ini, "--device", "cpu"])
-    saved = load_train_config(os.path.join(cfg.save_dir, "Train_Configs.ini"))
-    assert saved == cfg
-    fold = os.path.join(cfg.save_dir, "Fold_1")
-    best = torch.load(os.path.join(fold, drivers.BEST_WEIGHTS),
-                      weights_only=True)
-    server = serve.make_server(saved, fold, port=0, device="cpu")
-    try:
-        model = server.predictor.model
-        assert all(torch.equal(model.state_dict()[k], best[k]) for k in best)
-        probs = server.predictor(np.zeros((1, SIZE, SIZE, 3), np.float32))
-        assert probs.shape == (1, SIZE, SIZE, 1)
-        assert bool(np.isfinite(probs).all())
-    finally:
-        server.server_close()
-
-    # the JAX verbs' initial weights, converted into the port's fold
-    jcfg = dataclasses.replace(jconfig.load_train_config(ini),
-                               save_dir=os.path.join(tmp, "jax"))
-    os.makedirs(jcfg.save_dir)
-    save_train_config(dataclasses.replace(cfg, save_dir=jcfg.save_dir),
-                      os.path.join(jcfg.save_dir, "Train_Configs.ini"))
-    jt = JaxTrainer(jdrivers._build_model(jcfg))
-    jt.init_state(np.zeros((1, SIZE, SIZE, 3), np.float32))
-    torch.save(flax_to_state_dict(
-        {"params": jt.state.params, "batch_stats": jt.state.batch_stats},
-        best), os.path.join(fold, drivers.BEST_WEIGHTS))
-    capsys.readouterr()
-
-    test = EvalConfig(test_dir=os.path.join(tmp, "Data"), imheight=SIZE,
-                      imwidth=SIZE, class_number=1, batch_size=2,
-                      normalizing_factor_img=factor,
-                      normalizing_factor_msk=255.0)
-    tests = {side: dataclasses.replace(test, save_dir=os.path.join(tmp, side))
-             for side in ("port", "jax")}
-    jini = os.path.join(tmp, "jax", "Test_Configs.ini")
-    _write_ini(jini, "TEST", tests["jax"])
-    want = jdrivers.test(config=jconfig.load_test_config(jini))
-    got = drivers.test(config=tests["port"], device="cpu")
-    assert got[1]["checkpoint_restored"] is True
-    cm, jcm = got[1]["confusion_matrix"], want[1]["confusion_matrix"]
-    assert cm.sum() == jcm.sum() == 4 * SIZE * SIZE
-
-    ds = SegmentationFolderDataset(test.test_dir, (SIZE, SIZE),
-                                   normalizing_factor_img=factor,
-                                   normalizing_factor_msk=255.0)
-    xs = np.stack([ds.load_pair(i)[0] for i in range(len(ds))])
-    model = drivers._restore_model(cfg, fold, "evaluating", "cpu")
-    probs = Trainer(model, device="cpu").predict(xs)["out"][..., 0]
-    assert float(np.std(probs)) > 1e-4  # the maps are not constant
-    near = np.abs(probs - 0.5) < NEAR
-    differ = _labels(tests["port"].save_dir, 4) != _labels(
-        tests["jax"].save_dir, 4)
-    assert not bool((differ & ~near).any())
-    assert float(np.abs(cm - jcm).sum()) <= 2 * int(differ.sum())
-
-    images = os.path.join(tmp, "Data", "images")
-    mine = drivers.predict(cfg, input_path=images,
-                           out_dir=os.path.join(tmp, "port_masks"), batch=2,
-                           device="cpu")
-    theirs = jdrivers.predict(jcfg, input_path=images,
-                              out_dir=os.path.join(tmp, "jax_masks"),
-                              batch=2)
-    a = np.stack([np.asarray(Image.open(p)) for p in mine])
-    b = np.stack([np.asarray(Image.open(p)) for p in theirs])
-    assert a.shape == b.shape == (4, SIZE, SIZE)
-    assert not bool(((a != b) & ~near).any())
-
-
-def test_signal_verbs_on_self_unet_pp_equal_jax(tmp_path, capsys):
-    """``train1d`` on SelfUNetPP (W4/D2, d_s = 1, signals of amplitude
-    0.1) writes its artifacts with finite losses; ``test1d`` and
-    ``predict1d`` through the command line on JAX's initial weights
-    (converted into ``best.pt``) give JAX's verbs' metrics and arrays."""
-    tmp = str(tmp_path)
-    x, y = synthetic_signals(12, length=64, seed=3)
-    x = x * np.float32(0.1)
-    save_pt({"samples": x, "labels": y}, os.path.join(tmp, "Train_Set.pt"))
-    save_pt({"samples": x[:6], "labels": y[:6]},
-            os.path.join(tmp, "Test_Set.pt"))
-    cfg = _signal_cfg(tmp, model_name="SelfUNetPP", num_epochs=1,
-                      ds_type="UNetPP")
-    hist = drivers_1d.train_1d(config=cfg, device="cpu", verbose=0)
-    assert np.isfinite(hist["loss"]).all()
-    for name in ("Signal_Configs.ini", "best.pt", "history.json"):
-        assert os.path.exists(os.path.join(cfg.save_dir, name)), name
-    ini = os.path.join(cfg.save_dir, "Signal_Configs.ini")
-    assert load_signal_config(ini) == cfg
-
-    # JAX's verbs on a fold without a checkpoint take the seed's initial
-    # weights: converted, they are the port's best.pt
-    jcfg = jconfig.Signal1DConfig(**dict(
-        dataclasses.asdict(cfg), save_dir=os.path.join(tmp, "jax")))
-    _, jt, restored = jdrivers_1d._restore_trainer_1d(jcfg, "x")
-    assert not restored
-    model, _ = drivers_1d._restore_model_1d(cfg, "x", "cpu")
-    torch.save(flax_to_state_dict(
-        {"params": jt.state.params, "batch_stats": jt.state.batch_stats},
-        model.state_dict()), os.path.join(cfg.save_dir, "best.pt"))
-    main(["test1d", ini, "--device", "cpu"])
-    want = jdrivers_1d.test_1d(config=jcfg)
-    with open(os.path.join(cfg.save_dir, "test_metrics_1d.json")) as f:
-        got = json.load(f)
-    assert sorted(got) == sorted(want) and got["restored_checkpoint"]
-    for key, w in want.items():
-        if key != "restored_checkpoint" and w is not None:
-            assert abs(got[key] - w) <= 1e-4 + 1e-9, key
-    out = str(tmp_path / "port.npz")
-    main(["predict1d", ini, "--device", "cpu", "--out", out])
-    jout = jdrivers_1d.predict_1d(config=jcfg,
-                                  out_path=str(tmp_path / "jax.npz"))
-    got, want = np.load(out), np.load(jout)
-    assert sorted(got.files) == sorted(want.files)
-    for key in want.files:
-        assert got[key].shape == want[key].shape
-        assert float(np.abs(got[key] - want[key]).max()) <= 1e-4, key

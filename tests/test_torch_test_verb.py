@@ -248,13 +248,13 @@ def test_test_verb_writes_its_reports(tmp_path, capsys):
 def test_unported_settings_raise_before_anything_is_written(tmp_path, key,
                                                             value):
     """These decoders are ported (tests/test_torch_dense_input_2d.py runs
-    the verb on them); at depth 6 their encoders pool by 64, which the
+    the verb on them); at depth 7 their encoders pool by 128, which the
     port lacks, and the verb raises before it writes anything."""
     cfg = EvalConfig(test_dir=str(tmp_path), imheight=SIZE, imwidth=SIZE,
                      save_dir=str(tmp_path / "R"))
     tcfg = TrainConfig(imlength=SIZE, imwidth=SIZE, model_width=4,
-                       model_depth=6, save_dir=cfg.save_dir, **{key: value})
-    with pytest.raises(NotImplementedError, match="pools by 64"):
+                       model_depth=7, save_dir=cfg.save_dir, **{key: value})
+    with pytest.raises(NotImplementedError, match="pools by 128"):
         drivers.test(config=cfg, train_config=tcfg, device="cpu")
     assert not os.path.exists(cfg.save_dir)
 

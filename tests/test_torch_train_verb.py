@@ -168,10 +168,10 @@ def test_train_verb_resumes_from_best(trained, tmp_path):
 
 #: (key, value, further settings): UNet4P and UNet4PV2 are ported
 #: (tests/test_torch_dense_input_2d.py trains them); what still raises for
-#: them: UNet4PV2 at depth 6 (a pool by 64) and UNet4P on a backbone with
+#: them: UNet4PV2 at depth 7 (a pool by 128) and UNet4P on a backbone with
 #: ImageNet weights, which are not in the repository
 UNPORTED = [
-    ("decoder_name", "UNet4PV2", {"model_depth": 6}), ("model_parallel", 2, {}),
+    ("decoder_name", "UNet4PV2", {"model_depth": 7}), ("model_parallel", 2, {}),
     ("spatial_parallel", 2, {}), ("pipeline_parallel", 2, {}),
     ("zero1", True, {}),
     ("decoder_name", "UNet4P", {"encoder_mode": "pretrained_encoder",

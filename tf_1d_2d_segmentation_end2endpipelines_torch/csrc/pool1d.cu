@@ -1,11 +1,11 @@
 // Max pools over the length axis of 1D signals, forward and gradient, on
 // (B, L, C) memory (a (B, C, 1, L) channels_last tensor):
 //
-// - the 1D pyramid: [maxpool(x, 2**l) for l in 1..levels] (levels 1..5),
+// - the 1D pyramid: [maxpool(x, 2**l) for l in 1..levels] (levels 1..6),
 //   window = stride = 2**l along L, VALID floor truncation (level l has
 //   L >> l positions), a subset of the levels stored;
 // - the 1D pool gradient: dx = g routed to one element of each window of
-//   F = 2**m positions (m = 1..5).
+//   F = 2**m positions (m = 1..6).
 //
 // The forward replaces, for rank-1 inputs, the Pallas TPU kernel
 // `_pyramid_tpu` / `_kernel` in tf_1d_2d_segmentation_end2endpipelines_tpu/
@@ -27,16 +27,17 @@
 //   call is B * (L_in >> L) top rows of 2^L input rows each.
 //   * <V=16B>, C a multiple of 16 bytes (the encoder pools, 32 .. 1408
 //     channels; UNet3+'s skip pyramids; MLMRSNet_V2's taps): a thread a
-//     16-byte channel group of up to 8 rows of a top row (2 or 4 lanes a
-//     top row at L = 4, 5), its loads issued together, the levels folded
+//     16-byte channel group of up to 8 rows of a top row (2, 4 or 8 lanes
+//     a top row at L = 4, 5, 6), its loads issued together, the levels folded
 //     in registers in T (bf16 pairs by __hmax2_nan), the levels above 3
 //     across the lanes by __shfl_xor_sync, each stored cell written with
 //     one 16-byte store; two 32-bit divisions a thread for its (row,
 //     group).
 //   * <C=1>, the deep-supervision mask: a thread owns max(2^L, V)
 //     consecutive positions of the B * length run (16-byte loads: 4 f32
-//     or 8 bf16 positions a vector), folds every level in registers,
-//     within a vector and across them, and stores each level's values
+//     or 8 bf16 positions a vector; at L = 6, 16 f32 or 8 bf16 vectors),
+//     folds every level in registers, within a vector and across them,
+//     and stores each level's values
 //     with the widest aligned stores they fill.
 //   * the staged fold, any other C (the MultiRes pools, 31 * 2^k
 //     channels; Dense_Inception_UNet's 33): a block owns a span of top
@@ -53,23 +54,29 @@
 //     its load and store instructions, not by bytes (35-58% of the bound
 //     on the MultiRes calls; NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 // - pool1d_kernel<T, V, L>: the rest (a length that 2^L does not divide,
-//   a pointer off 16 bytes, a staged span past its shared memory), and
-//   the forward of every call before the flat kernel, which a caller may
-//   force to time it beside the flat kernel.  One thread owns one group
-//   of V channels of a span of 2^L positions: it reads the span a
+//   a pointer off 16 bytes, a staged span past its shared memory, as the
+//   staged fold of most odd C at L = 6, whose every level's output, 2^7 -
+//   1 times a top row, passes 48 KB in the least span).  One thread owns
+//   one group of V channels of a span of 2^L positions: it reads the span a
 //   level-1 cell (two positions) at a time, folds the levels in registers
 //   and stores each wanted cell as soon as it is complete.  Neighbouring
 //   threads take neighbouring channel groups of the same span.  V = 16 /
 //   sizeof(T) (16-byte loads and stores) when C is a multiple of 16 bytes
 //   and every pointer is 16-byte aligned; otherwise V = 1.
-// - pool1d_backward_kernel<T, V, F>: one thread owns one window and one
-//   group of V channels: it walks the window's F positions in order (F
-//   independent loads; 32 at F = 32), keeping a selected element and
+// - pool1d_backward_kernel<T, V, F, S>: S lanes own one window and one
+//   group of V channels, each a run of F / S positions: a lane walks its
+//   run in order (F / S independent loads; 32 at F = 32 and 64, where S =
+//   2 keeps an f32 lane's 16-byte loads at 128 registers), keeping a
+//   selected element and
 //   moving to the next element e whenever !(selected >= e) --
 //   select_and_scatter's rule with the max pool's `ge` select: the first
 //   maximum for finite values, and a NaN is passed over by the next
-//   element -- then writes all F positions, the gradient at the chosen
-//   one and zeros elsewhere, so dx needs no memset.  The threads of the
+//   element -- and at S = 2 the two runs' summaries (the walk's value and
+//   position, and whether the run held a NaN) join in run order across the
+//   lane pair by __shfl_xor_sync (the later run's choice wins if it held a
+//   NaN or its value is not <= the earlier's), then each lane writes its
+//   run, the gradient at the chosen position and zeros elsewhere, so dx
+//   needs no memset.  The threads of the
 //   window just past the pooled region write zeros to the positions that
 //   the floor cut off.
 //
@@ -85,11 +92,10 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace {
 
-constexpr int kMaxLevels1d = 5;
+constexpr int kMaxLevels1d = 6;
 
 struct OutPtrs1d {
   void* p[kMaxLevels1d];
@@ -426,56 +432,81 @@ __global__ void __launch_bounds__(256)
     flat_staged<T, L>(x, outs, C, rows, span);
 }
 
-// grid: x over (batch, window, channel group) triples, flattened; the
-// windows include the ragged one past the pooled region.
-template <typename T, int V, int F>
+// grid: x over (batch, window, channel group, lane of the window)
+// quadruples, flattened; the windows include the ragged one past the
+// pooled region.  The S lanes of a window are neighbours (S divides 32),
+// in or past the end together, and on the same branch.
+template <typename T, int V, int F, int S>
 __global__ void pool1d_backward_kernel(const T* __restrict__ x,
                                        const T* __restrict__ g,
                                        T* __restrict__ dx, int64_t B,
                                        int Len, int C, int windows) {
+  constexpr int FL = F / S;  // positions of a lane's run
   const int groups = C / V;
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t per_b = (int64_t)windows * groups;
-  if (t >= B * per_b) return;
-  const int64_t b = t / per_b;
-  const int r = (int)(t - b * per_b);
+  if (t >= B * per_b * S) return;
+  const int s = (int)(t % S);
+  const int64_t u = t / S;
+  const int64_t b = u / per_b;
+  const int r = (int)(u - b * per_b);
   const int grp = r % groups;
   const int w = r / groups;
   const int c0 = grp * V;
   const int lf = Len / F;
-  const int64_t base = (b * Len + (int64_t)w * F) * C + c0;
+  const int64_t base = (b * Len + (int64_t)w * F + s * FL) * C + c0;
   float zero[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) zero[k] = 0.0f;
   if (w >= lf) {  // the ragged tail: zeros where positions exist
-    for (int j = 0; j < F && w * F + j < Len; ++j)
+    for (int j = 0; j < FL && w * F + s * FL + j < Len; ++j)
       store<T, V>(dx + base + (int64_t)j * C, zero);
     return;
   }
   float sel_val[V];
   int sel[V];
+  bool nan[V];
   load<T, V>(x + base, sel_val);
 #pragma unroll
-  for (int k = 0; k < V; ++k) sel[k] = 0;
+  for (int k = 0; k < V; ++k) {
+    sel[k] = s * FL;
+    nan[k] = sel_val[k] != sel_val[k];
+  }
 #pragma unroll
-  for (int j = 1; j < F; ++j) {
+  for (int j = 1; j < FL; ++j) {
     float e[V];
     load<T, V>(x + base + (int64_t)j * C, e);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
+      nan[k] = nan[k] || e[k] != e[k];
       if (!(sel_val[k] >= e[k])) {
         sel_val[k] = e[k];
-        sel[k] = j;
+        sel[k] = s * FL + j;
       }
+    }
+  }
+  if (S == 2) {  // the runs in order: lane s = 0 holds the earlier
+    const unsigned pair = 3u << ((threadIdx.x & 31) & ~1u);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float ov = __shfl_xor_sync(pair, sel_val[k], 1);
+      const int os = __shfl_xor_sync(pair, sel[k], 1);
+      const bool on = __shfl_xor_sync(pair, (int)nan[k], 1) != 0;
+      // the later run's choice wins if that run held a NaN or the
+      // earlier run's value is not >= its value; lane 0 then takes its
+      // partner's choice, lane 1 otherwise
+      const bool later = s == 0 ? (on || !(sel_val[k] >= ov))
+                                : (nan[k] || !(ov >= sel_val[k]));
+      if (later == (s == 0)) sel[k] = os;
     }
   }
   float gv[V];
   load<T, V>(g + (b * lf + w) * C + c0, gv);
 #pragma unroll
-  for (int j = 0; j < F; ++j) {
+  for (int j = 0; j < FL; ++j) {
     float o[V];
 #pragma unroll
-    for (int k = 0; k < V; ++k) o[k] = sel[k] == j ? gv[k] : 0.0f;
+    for (int k = 0; k < V; ++k) o[k] = sel[k] == s * FL + j ? gv[k] : 0.0f;
     store<T, V>(dx + base + (int64_t)j * C, o);
   }
 }
@@ -501,9 +532,6 @@ const char* const kPyramid1dNames[] = {
 const char* const kBackward1dNames[] = {"none",
                                         "pool1d_backward_kernel<V=16B>",
                                         "pool1d_backward_kernel<V=1>"};
-// what a caller names to force the kernel the flat kernel's calls took
-// before (pool1d_kernel, V picked as before)
-const char* const kEarlier1d = "pool1d_kernel";
 
 // The staged fold's shared memory a block may use (the input run and
 // every level: span * C * (2^(L+1) - 1) elements), the input it aims at,
@@ -576,8 +604,12 @@ void launch_pyramid_v(const T* x, const OutPtrs1d& outs, int64_t B, int Len,
       pool1d_kernel<T, V, 4><<<grid, threads, 0, s>>>(x, outs, B, Len, C,
                                                       spans);
       break;
-    default:
+    case 5:
       pool1d_kernel<T, V, 5><<<grid, threads, 0, s>>>(x, outs, B, Len, C,
+                                                      spans);
+      break;
+    default:
+      pool1d_kernel<T, V, 6><<<grid, threads, 0, s>>>(x, outs, B, Len, C,
                                                       spans);
   }
 }
@@ -634,19 +666,21 @@ void launch_flat(const T* x, const OutPtrs1d& outs, int64_t B, int Len,
     case 4:
       launch_flat_l<T, 4, MODE>(x, outs, C, rows, span, s);
       break;
-    default:
+    case 5:
       launch_flat_l<T, 5, MODE>(x, outs, C, rows, span, s);
+      break;
+    default:
+      launch_flat_l<T, 6, MODE>(x, outs, C, rows, span, s);
   }
 }
 
-// The arguments checked, and the route they take (`force`, if not null,
-// must be kEarlier1d: pool1d_kernel in place of the launcher's choice, V
-// picked as before); returns a CUDA error code (0 if they are valid).
+// The arguments checked, and the route they take; returns a CUDA error
+// code (0 if they are valid).
 int prepare_pyramid(const void* x, const void* out_ptrs, int dtype, int64_t B,
-                    int Len, int C, int L, const char* force,
-                    OutPtrs1d* outs, int* spans, int* span, Route1d* r) {
+                    int Len, int C, int L, OutPtrs1d* outs, int* spans,
+                    int* span, Route1d* r) {
   if (L < 1 || L > kMaxLevels1d || B < 0 || Len < 0 || C < 1 ||
-      (dtype != 0 && dtype != 1) || (force && strcmp(force, kEarlier1d)))
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const uint64_t* ptrs = static_cast<const uint64_t*>(out_ptrs);
   for (int l = 0; l < kMaxLevels1d; ++l)
@@ -659,10 +693,6 @@ int prepare_pyramid(const void* x, const void* out_ptrs, int dtype, int64_t B,
   *r = dtype == 0
       ? pyramid_route<float>(x, *outs, B, Len, C, L, span)
       : pyramid_route<__nv_bfloat16>(x, *outs, B, Len, C, L, span);
-  if (force && (*r == kFlatVec1d || *r == kFlat1d || *r == kFlatC11d)) {
-    bool vec = C % (dtype == 0 ? 4 : 8) == 0;  // aligned: the flat route's
-    *r = vec ? kVec1d : kScalar1d;
-  }
   return (int)cudaSuccess;
 }
 
@@ -694,32 +724,38 @@ Route1d backward_route(const void* x, const void* g, const void* dx,
   return vec ? kVec1d : kScalar1d;
 }
 
+// pool1d_backward_kernel for windows of F, S lanes a window.
+template <typename T, int V, int F, int S>
+void launch_backward_f(const T* x, const T* g, T* dx, int64_t B, int Len,
+                       int C, cudaStream_t s) {
+  const int threads = 256;
+  const int windows = (Len + F - 1) / F;
+  const int grid = blocks_for(B * windows * (C / V) * S, threads);
+  pool1d_backward_kernel<T, V, F, S><<<grid, threads, 0, s>>>(
+      x, g, dx, B, Len, C, windows);
+}
+
 template <typename T, int V>
 void launch_backward_v(const T* x, const T* g, T* dx, int64_t B, int Len,
                        int C, int F, cudaStream_t s) {
-  const int threads = 256;
-  const int windows = (Len + F - 1) / F;
-  const int grid = blocks_for(B * windows * (C / V), threads);
   switch (F) {
     case 2:
-      pool1d_backward_kernel<T, V, 2><<<grid, threads, 0, s>>>(
-          x, g, dx, B, Len, C, windows);
+      launch_backward_f<T, V, 2, 1>(x, g, dx, B, Len, C, s);
       break;
     case 4:
-      pool1d_backward_kernel<T, V, 4><<<grid, threads, 0, s>>>(
-          x, g, dx, B, Len, C, windows);
+      launch_backward_f<T, V, 4, 1>(x, g, dx, B, Len, C, s);
       break;
     case 8:
-      pool1d_backward_kernel<T, V, 8><<<grid, threads, 0, s>>>(
-          x, g, dx, B, Len, C, windows);
+      launch_backward_f<T, V, 8, 1>(x, g, dx, B, Len, C, s);
       break;
     case 16:
-      pool1d_backward_kernel<T, V, 16><<<grid, threads, 0, s>>>(
-          x, g, dx, B, Len, C, windows);
+      launch_backward_f<T, V, 16, 1>(x, g, dx, B, Len, C, s);
+      break;
+    case 32:
+      launch_backward_f<T, V, 32, 1>(x, g, dx, B, Len, C, s);
       break;
     default:
-      pool1d_backward_kernel<T, V, 32><<<grid, threads, 0, s>>>(
-          x, g, dx, B, Len, C, windows);
+      launch_backward_f<T, V, 64, 2>(x, g, dx, B, Len, C, s);
   }
 }
 
@@ -739,9 +775,11 @@ int prepare_backward(const void* x, const void* g, const void* dx, int dtype,
                      int64_t B, int Len, int C, int factor, Route1d* r) {
   if (B < 0 || Len < 0 || C < 1 || (dtype != 0 && dtype != 1) ||
       (factor != 2 && factor != 4 && factor != 8 && factor != 16 &&
-       factor != 32))
+       factor != 32 && factor != 64))
     return (int)cudaErrorInvalidValue;
-  const int64_t per_b = (int64_t)((Len + factor - 1) / factor) * C;
+  // threads: a window, channel and lane of the window (2 at F = 64)
+  const int64_t per_b =
+      (int64_t)((Len + factor - 1) / factor) * C * (factor == 64 ? 2 : 1);
   if (per_b > 0x7fffffffLL || B * per_b > 0x7fffffffLL * 256)
     return (int)cudaErrorInvalidConfiguration;
   *r = dtype == 0 ? backward_route<float>(x, g, dx, B, Len, C)
@@ -754,23 +792,20 @@ int prepare_backward(const void* x, const void* g, const void* dx, int dtype,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  x: (B, Len, C) memory.  out_ptrs:
-// host array of L (1..5) device pointers, level 1 first, each a (B,
+// host array of L (1..6) device pointers, level 1 first, each a (B,
 // Len >> l, C) buffer, or null for a level the caller does not want.
-// force: null, or "pool1d_kernel" to launch the kernel the flat kernel's
-// calls took before in its place (to time it beside the flat kernel).
 // Launches on `stream` and returns cudaGetLastError() (0 on success);
 // launches nothing when there is nothing to pool.  Sets *launched to the
 // name of the kernel it launched ("none" if it launched nothing).
 int tpuseg_maxpool1d_pyramid(const void* x, const void* out_ptrs, int dtype,
                              int64_t B, int Len, int C, int L,
-                             const char* force, const char** launched,
-                             void* stream) {
+                             const char** launched, void* stream) {
   OutPtrs1d outs;
   int spans, span = 0;
   Route1d r;
   *launched = kPyramid1dNames[kNone1d];
-  const int err = prepare_pyramid(x, out_ptrs, dtype, B, Len, C, L, force,
-                                  &outs, &spans, &span, &r);
+  const int err = prepare_pyramid(x, out_ptrs, dtype, B, Len, C, L, &outs,
+                                  &spans, &span, &r);
   if (err) return err;
   if (r == kNone1d) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -782,21 +817,21 @@ int tpuseg_maxpool1d_pyramid(const void* x, const void* out_ptrs, int dtype,
   return (int)cudaGetLastError();
 }
 
-// The kernel tpuseg_maxpool1d_pyramid launches for the same arguments and
-// no force ("none" if it launches nothing), or null if it refuses them.
+// The kernel tpuseg_maxpool1d_pyramid launches for the same arguments
+// ("none" if it launches nothing), or null if it refuses them.
 const char* tpuseg_maxpool1d_pyramid_route(const void* x,
                                            const void* out_ptrs, int dtype,
                                            int64_t B, int Len, int C, int L) {
   OutPtrs1d outs;
   int spans, span = 0;
   Route1d r;
-  if (prepare_pyramid(x, out_ptrs, dtype, B, Len, C, L, nullptr, &outs,
-                      &spans, &span, &r))
+  if (prepare_pyramid(x, out_ptrs, dtype, B, Len, C, L, &outs, &spans, &span,
+                      &r))
     return nullptr;
   return kPyramid1dNames[r];
 }
 
-// dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16 or 32.  x and dx:
+// dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16, 32 or 64.  x and dx:
 // (B, Len, C) memory; g: (B, Len / factor, C).  Launches on `stream` and
 // returns cudaGetLastError() (0 on success); sets *launched to the name
 // of the kernel it launched ("none" if it launched nothing).

@@ -1,4 +1,4 @@
-// Gradient of the max pool with window = stride = F = 2^m (m = 1..5),
+// Gradient of the max pool with window = stride = F = 2^m (m = 1..6),
 // VALID floor truncation, on NHWC memory (a channels_last NCHW tensor):
 // dx = the output gradient g routed to one element of each F x F window.
 //
@@ -40,8 +40,9 @@
 // misaligned pointer) takes the same kernel with one channel per thread.
 // The launcher (`route`; tpuseg_maxpool_backward_route names it, and
 // tpuseg_maxpool_backward reports the one it launched) takes
-// pool_backward_kernel at F = 2, pool_backward_rows_kernel at F = 4 .. 16
-// and pool_backward_block_kernel at F = 32.
+// pool_backward_kernel at F = 2, pool_backward_rows_kernel at F = 4 .. 16,
+// pool_backward_block_kernel at F = 32 and pool_backward_wide_kernel at
+// F = 64.
 // - pool_backward_kernel, F = 2: one thread per window and channel group
 //   walks the window (4 loads) and writes it (4 stores).
 // - pool_backward_rows_kernel, F = 4 .. 16: one thread per window, channel
@@ -81,6 +82,24 @@
 //   channel group in registers and choosing by order-free maxima of
 //   (value, index) keys, and the same folding its keys as the loads
 //   arrived (PERF.md).
+// - pool_backward_wide_kernel, F = 64 (the pool by 64 of a dense-input
+//   encoder's tap 0 at depth 6, a full-scale decoder's skip 0 at depth
+//   7): a 64 x 64 window of 32 bf16 channels is 256 KB, past the 227 KB
+//   of shared memory a block may have, so nothing is staged.  dx is zero
+//   but at one element of each window and channel, so a thread writes
+//   zeros over each vector it reads as it reads it, and only the choice
+//   needs the whole window: one block of 256 threads per window and
+//   chunk of GB <= 16 channel groups (the next power of two of the
+//   groups, so one chunk for up to 16 groups), thread t owning group
+//   t % GB and the run t / GB of R = 16 GB consecutive pixels of the
+//   window in row-major order (a row of 64 pixels at 32 bf16 channels),
+//   read 16 loads at a time.  The runs' summaries (the walk's value and
+//   index, and whether the run held a NaN) join in run order by the rule
+//   above, by __shfl_xor_sync within a warp and through shared memory
+//   across the 8 warps; then one thread a channel writes the gradient at
+//   the chosen pixel over its zero (the barrier orders the two stores).
+//   The block reads the window once and writes it once, with a few
+//   2- or 4-byte stores more.
 // The ragged last rows and columns are covered by threads of the windows
 // just past the pooled region, which write zeros to the elements that
 // exist.
@@ -94,6 +113,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -456,6 +476,124 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// F = 64: a block per window and chunk of GB channel groups (grid: x over
+// (window column, chunk), the ragged window column included; y over
+// window rows, the ragged one included; z over the batch), 256 threads.
+// GB is a power of two, at most 16; lanes whose group is past C (the last
+// chunk's) read the chunk's first group, join, and store nothing.
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+    pool_backward_wide_kernel(const T* __restrict__ x,
+                              const T* __restrict__ g, T* __restrict__ dx,
+                              int H, int W, int C, int GB) {
+  constexpr int F = 64, U = 16;  // window side, loads in flight a thread
+  using P = Pack<T, V>;
+  __shared__ float sval[8][16][V];  // [warp][group in chunk][channel]
+  __shared__ int sidx[8][16][V];
+  __shared__ unsigned char snan[8][16][V];
+  const int groups = C / V;
+  const int chunks = (groups + GB - 1) / GB;
+  const int chunk = blockIdx.x % chunks;
+  const int xw = blockIdx.x / chunks, yw = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int gl = t & (GB - 1), run = t / GB;
+  const int grp = chunk * GB + gl;
+  const bool live = grp < groups;
+  const int R = 16 * GB;  // pixels of a run: F * F * GB / 256
+  const int hf = H / F, wf = W / F;
+  const T* xs = x + ((b * H + (int64_t)F * yw) * W + (int64_t)F * xw) * C +
+                (int64_t)(live ? grp : chunk * GB) * V;
+  T* ds = dx + (xs - x);
+  P zero;
+#pragma unroll
+  for (int k = 0; k < V; ++k) zero.v[k] = from_f<T>(0.0f);
+  if (yw >= hf || xw >= wf) {
+    // a window the floor cut off: zero the elements that exist
+    if (!live) return;
+    for (int p = run * R; p < run * R + R; ++p) {
+      const int i = p / F, j = p % F;
+      if (F * yw + i < H && F * xw + j < W)
+        *reinterpret_cast<P*>(ds + ((int64_t)i * W + j) * C) = zero;
+    }
+    return;
+  }
+  // the run's walk, per channel, from a value every element replaces
+  Walk w[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) w[k] = {NAN, run * R, false};
+#pragma unroll 1
+  for (int p0 = run * R; p0 < run * R + R; p0 += U) {
+    P q[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u;
+      q[u] = *reinterpret_cast<const P*>(xs + ((int64_t)(p / F) * W + p % F) *
+                                                  C);
+    }
+    if (live)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int p = p0 + u;
+        *reinterpret_cast<P*>(ds + ((int64_t)(p / F) * W + p % F) * C) = zero;
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float e = to_f(q[u].v[k]);
+        w[k].nan = w[k].nan || e != e;
+        if (!(w[k].val >= e)) {
+          w[k].val = e;
+          w[k].idx = p0 + u;
+        }
+      }
+  }
+  // the warp's runs in run order: lanes d apart hold neighbouring blocks
+  // of runs, the one whose bit d is clear the earlier
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    if (d < GB) continue;
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const Walk o = {__shfl_xor_sync(0xffffffffu, w[k].val, d),
+                      __shfl_xor_sync(0xffffffffu, w[k].idx, d),
+                      __shfl_xor_sync(0xffffffffu, (int)w[k].nan, d) != 0};
+      w[k] = (lane & d) ? join(o, w[k]) : join(w[k], o);
+    }
+  }
+  if (lane < GB)
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      sval[warp][gl][k] = w[k].val;
+      sidx[warp][gl][k] = w[k].idx;
+      snan[warp][gl][k] = w[k].nan;
+    }
+  __syncthreads();
+  // the 8 warps in warp order, one thread a channel of the chunk
+  if (t < GB * V) {
+    const int g2 = t / V, k = t % V;
+    const int c = (chunk * GB + g2) * V + k;
+    if (chunk * GB + g2 < groups) {
+      Walk r = {sval[0][g2][k], sidx[0][g2][k], snan[0][g2][k] != 0};
+#pragma unroll
+      for (int wp = 1; wp < 8; ++wp)
+        r = join(r, {sval[wp][g2][k], sidx[wp][g2][k], snan[wp][g2][k] != 0});
+      const int i = r.idx / F, j = r.idx % F;
+      dx[((b * H + (int64_t)F * yw + i) * W + (int64_t)F * xw + j) * C + c] =
+          g[((b * hf + yw) * wf + xw) * C + c];
+    }
+  }
+}
+
+// Channel groups of a pool_backward_wide_kernel chunk: the next power of
+// two of the groups, at most 16.
+int wide_chunk(int groups) {
+  int gb = 1;
+  while (gb < groups && gb < 16) gb <<= 1;
+  return gb;
+}
+
 // Shared memory of a pool_backward_block_kernel block.
 template <typename T>
 constexpr int block_smem() {
@@ -464,15 +602,15 @@ constexpr int block_smem() {
 }
 
 // The kernel the launcher picks for a call.
-enum Route { kNone, kWindow, kRows, kBlock };
+enum Route { kNone, kWindow, kRows, kBlock, kWide };
 
-const char* const kRouteNames[] = {"none", "pool_backward_kernel",
-                                   "pool_backward_rows_kernel",
-                                   "pool_backward_block_kernel"};
+const char* const kRouteNames[] = {
+    "none", "pool_backward_kernel", "pool_backward_rows_kernel",
+    "pool_backward_block_kernel", "pool_backward_wide_kernel"};
 
 Route route(int64_t B, int H, int W, int F) {
   if (B == 0 || H == 0 || W == 0) return kNone;
-  return F == 2 ? kWindow : F == 32 ? kBlock : kRows;
+  return F == 2 ? kWindow : F == 32 ? kBlock : F == 64 ? kWide : kRows;
 }
 
 // 16-byte channel groups when C and every pointer allow them.
@@ -510,7 +648,17 @@ int launch_block(int64_t B, int H, int W, int C, cudaStream_t s, const T* x,
   return (int)cudaSuccess;
 }
 
-// The kernel of route r (kRows for F = 4 .. 32); returns a CUDA error code
+template <typename T, int V>
+void launch_wide(int64_t B, int H, int W, int C, cudaStream_t s, const T* x,
+                 const T* g, T* dx) {
+  const int groups = C / V, gb = wide_chunk(groups);
+  const dim3 grid(
+      (unsigned)((int64_t)((W + 63) / 64) * ((groups + gb - 1) / gb)),
+      (unsigned)((H + 63) / 64), (unsigned)B);
+  pool_backward_wide_kernel<T, V><<<grid, 256, 0, s>>>(x, g, dx, H, W, C, gb);
+}
+
+// The kernel of route r (kRows for F = 4 .. 16); returns a CUDA error code
 // from before the launch (0 if there was none).
 template <typename T, int V>
 int launch_v(Route r, int64_t B, int H, int W, int C, int F, cudaStream_t s,
@@ -523,6 +671,8 @@ int launch_v(Route r, int64_t B, int H, int W, int C, int F, cudaStream_t s,
     pool_backward_kernel<T, V><<<grid, threads, 0, s>>>(x, g, dx, H, W, C);
   } else if (r == kBlock) {
     return launch_block<T, V>(B, H, W, C, s, x, g, dx);
+  } else if (r == kWide) {
+    launch_wide<T, V>(B, H, W, C, s, x, g, dx);
   } else {
     switch (F) {
       case 4:
@@ -531,11 +681,8 @@ int launch_v(Route r, int64_t B, int H, int W, int C, int F, cudaStream_t s,
       case 8:
         launch_rows<T, V, 8>(B, H, W, C, s, x, g, dx);
         break;
-      case 16:
-        launch_rows<T, V, 16>(B, H, W, C, s, x, g, dx);
-        break;
       default:
-        launch_rows<T, V, 32>(B, H, W, C, s, x, g, dx);
+        launch_rows<T, V, 16>(B, H, W, C, s, x, g, dx);
     }
   }
   return (int)cudaSuccess;
@@ -560,7 +707,7 @@ int launch(Route r, const void* x, const void* g, void* dx, int64_t B, int H,
 bool valid(int64_t B, int H, int W, int C, int dtype, int factor) {
   return !(B < 0 || H < 0 || W < 0 || C < 1 || (dtype != 0 && dtype != 1) ||
            (factor != 2 && factor != 4 && factor != 8 && factor != 16 &&
-            factor != 32));
+            factor != 32 && factor != 64));
 }
 
 // The name of route r's kernel for these arguments, with "<V=1>" where it
@@ -569,7 +716,7 @@ const char* route_name(Route r, const void* x, const void* g,
                        const void* dx, int dtype, int C) {
   static const char* const kScalarNames[] = {
       "none", "pool_backward_kernel<V=1>", "pool_backward_rows_kernel<V=1>",
-      "pool_backward_block_kernel<V=1>"};
+      "pool_backward_block_kernel<V=1>", "pool_backward_wide_kernel<V=1>"};
   const bool vec = dtype == 0 ? vector_path<float>(x, g, dx, C)
                               : vector_path<__nv_bfloat16>(x, g, dx, C);
   return (vec ? kRouteNames : kScalarNames)[r];
@@ -579,7 +726,8 @@ const char* route_name(Route r, const void* x, const void* g,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16 or 32.  x and dx: NHWC
+// dtype: 0 = float32, 1 = bfloat16; factor: 2, 4, 8, 16, 32 or 64.  x and
+// dx: NHWC
 // (B, H, W, C); g: NHWC (B, H / factor, W / factor, C).  Launches on
 // `stream`, sets *launched to the name of the
 // kernel it launched ("none" for an empty x) and returns

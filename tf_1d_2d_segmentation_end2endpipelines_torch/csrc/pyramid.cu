@@ -13,8 +13,11 @@
 // from the call's shape:
 //
 // - pyramid_c1_kernel, C = 1 (the deep-supervision mask, the TPU kernel's
-//   own case), L <= 5: a block owns a band of 2^L rows of one image and a
-//   thread 16 bytes of each row (4 f32 or 8 bf16 columns), so a warp
+//   own case), L <= 7 (2^L <= 32 V: a top cell's columns lie in one warp;
+//   levels 6-7 are the targets of a full-scale decoder with deep
+//   supervision at depth 6-7): a block owns a band of 2^L rows of one
+//   image and a thread 16 bytes of each row (4 f32 or 8 bf16 columns), so
+//   a warp
 //   reads 512 contiguous bytes of a row and a thread has up to 16
 //   independent 16-byte loads in flight.  The thread folds its rows in
 //   registers, the levels whose cells fit in its 16 bytes across its own
@@ -57,9 +60,9 @@
 //     each, and was bound by its load and store instructions, not by
 //     bytes (20% of the bound, slower than F.max_pool2d).
 // - pyramid_vec_kernel, several levels stored, C a multiple of 16 bytes,
-//   2 <= L <= 5 (UNet3+'s decoder pools each skip to every level it
+//   2 <= L <= 6 (UNet3+'s decoder pools each skip to every level it
 //   needs in one launch; the dense-input encoders pool each tap to every
-//   level a deeper block reads, 1 .. 5 at depth 5): one thread owns one
+//   level a deeper block reads, 1 .. 6 at depth 6): one thread owns one
 //   16-byte channel group of a 2^L x 2^L patch, reads it a level-2 cell
 //   (4 x 4 pixels, 16 loads) at a time, folds the levels in registers in
 //   Morton order, V channels wide, and writes each stored cell with one
@@ -68,11 +71,18 @@
 //   with 64 rounds of loads in turn; there the 16 lanes of a warp share a
 //   patch, each folds an 8 x 8 quarter of a quarter (levels 1-3, four
 //   rounds), and levels 4 and 5 are folded across the lanes with
-//   __shfl_xor_sync (65,536 threads).  It takes level 5 alone too.
+//   __shfl_xor_sync (65,536 threads).  At L = 6 (the KSSNet and UNet4P
+//   encoders' tap 0 at depth 6, a full-scale decoder's skip 0 at depth 7,
+//   which stores level 6 alone) a patch has 64 lanes: each 16-lane
+//   quarter folds a 32 x 32 quarter as at L = 5, and level 6 joins the
+//   four quarters through shared memory (65,536 threads, 4 rounds of 16
+//   loads each, for a (16, 256, 256, 32) bf16 input, where pyramid_kernel
+//   gave 8,192 threads 4,096 loads each in turn).  It takes levels 5 and
+//   6 alone too.
 // - pyramid_kernel, any L, any C (the rest: several levels stored at a C
 //   that is not a multiple of 16 bytes, rows that do not start on 16
-//   bytes, L > 5): one thread owns one 2^L x 2^L patch of one channel,
-//   reads it once, folds every level from the level below it in
+//   bytes, L > 6; a one-channel mask at L > 7): one thread owns one
+//   2^L x 2^L patch of one channel, reads it once, folds every level from the level below it in
 //   registers (Morton order), and writes each level as soon as a cell of
 //   it is complete.  Neighbouring threads take neighbouring channels, so
 //   a warp's accesses are contiguous runs of NHWC memory.
@@ -109,6 +119,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -204,9 +215,10 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return !(reinterpret_cast<uintptr_t>(p) & 15);
 }
 
-// C = 1, L <= 5 (2^L <= 32 V, so a top-level cell's columns lie in one
-// warp).  Grid: x over groups of 16-byte column vectors of a row, y over
-// bands of F = 2^L rows, z over the batch.  Every lane of a warp runs the
+// C = 1, L <= 7 (2^L <= 32 V, so a top-level cell's columns lie in one
+// warp: f32 holds 4 columns a lane, 128 a warp).  Grid: x over groups of
+// 16-byte column vectors of a row, y over bands of F = 2^L rows, z over
+// the batch.  Every lane of a warp runs the
 // shuffles, so no thread returns early: a lane past the row's end folds
 // -inf and stores nothing.
 template <typename T, int L>
@@ -341,15 +353,22 @@ __device__ __forceinline__ void load_cell(const T* __restrict__ x, int64_t b,
 }
 
 // Several levels of a C that is a multiple of V = 16 / sizeof(T), 2 <= L
-// <= 5: grid as pyramid_kernel's, (1 << 2Q) consecutive threads per
+// <= 6: grid as pyramid_kernel's, (1 << 2Q) consecutive threads per
 // (patch, channel group).  With Q = 0 a thread folds its whole patch.
 // With Q > 0 the patch is split into 4^Q sub-patches of side 2^(L - Q),
 // one a lane, numbered in Morton order by the lane's low 2Q bits; each
 // lane folds levels 1 .. L - Q of its own, and the last Q levels are
 // folded across the lanes (xor 1 and 2 give level L - Q + 1, xor 4 and 8
-// the next), the lane whose low bits are 0 storing the cell.  No thread
-// returns early there: every lane of a patch runs the shuffles, and a
-// lane past the grid's patches folds -inf and stores nothing.
+// the next), the lane whose low bits are 0 storing the cell.  At Q = 3
+// (L = 6) the last level joins four quarters of 16 lanes through shared
+// memory.  There a warp holds the same quarter of two neighbouring
+// channel groups' patches where the groups are even in number (lanes 16
+// apart take neighbouring 16-byte groups, so a warp's loads and stores
+// cover whole 32-byte sectors, as at L = 5: 128 threads a pair of
+// groups), else two quarters of one group's patch (64 threads a patch);
+// the block is a multiple of either.  No thread returns early there: every
+// lane of a patch runs the shuffles and the barrier, and a lane past the
+// grid's patches folds -inf and stores nothing.
 template <typename T, int V, int L, int Q>
 __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
                                    int H, int W, int C, int tiles_w) {
@@ -358,8 +377,18 @@ __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
   constexpr int S = 1 << (LT - 2);  // level-2 cells per sub-patch side
   const int groups = C / V;
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int sub = t & ((1 << (2 * Q)) - 1);
-  const int patch = t >> (2 * Q);
+  // Q = 3: the stride between a patch's quarters of 16 lanes
+  const int qs = groups % 2 == 0 ? 32 : 16;
+  int sub, patch;  // the lane's sub-patch (Morton), (patch, group) index
+  if (Q == 3 && qs == 32) {
+    const int pair = t >> 7;  // (patch column, pair of groups)
+    sub = (t & 15) | (((t >> 5) & 3) << 4);
+    patch = (pair / (groups / 2)) * groups + (pair % (groups / 2)) * 2 +
+            ((t >> 4) & 1);
+  } else {
+    sub = t & ((1 << (2 * Q)) - 1);
+    patch = t >> (2 * Q);
+  }
   const bool live = patch < tiles_w * groups;
   if (Q == 0 && !live) return;
   const int64_t cg = (int64_t)(patch % groups) * V;
@@ -477,15 +506,28 @@ __global__ void pyramid_vec_kernel(const T* __restrict__ x, OutPtrs outs,
     }
   }
   // levels LT + 1 .. L across the lanes of the patch
+  __shared__ float xchg[Q == 3 ? 256 : 1][V];  // Q = 3: the quarters' tops
 #pragma unroll
   for (int q = 1; q <= Q; ++q) {
     const int l = LT + q;
+    if (q < 3) {
 #pragma unroll
-    for (int k = 0; k < V; ++k) {
-      top[k] = max_nan(top[k],
-                       __shfl_xor_sync(0xffffffffu, top[k], 1 << (2 * q - 2)));
-      top[k] = max_nan(top[k],
-                       __shfl_xor_sync(0xffffffffu, top[k], 1 << (2 * q - 1)));
+      for (int k = 0; k < V; ++k) {
+        top[k] = max_nan(
+            top[k], __shfl_xor_sync(0xffffffffu, top[k], 1 << (2 * q - 2)));
+        top[k] = max_nan(
+            top[k], __shfl_xor_sync(0xffffffffu, top[k], 1 << (2 * q - 1)));
+      }
+    } else {  // the quarter-0 lane folds the other three quarters' tops
+#pragma unroll
+      for (int k = 0; k < V; ++k) xchg[threadIdx.x][k] = top[k];
+      __syncthreads();
+      if ((sub >> 4) == 0)
+#pragma unroll
+        for (int j = 1; j < 4; ++j)
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            top[k] = max_nan(top[k], xchg[threadIdx.x + j * qs][k]);
     }
     const int hl = H >> l, wl = W >> l, yl = py >> q, xl = px >> q;
     if (!(live && yl < hl && xl < wl)) {
@@ -743,21 +785,22 @@ Route route(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
   if (B == 0 || tiles_h == 0 || tiles_w == 0) return kNone;
   int stored = 0;
   for (int l = 0; l < L; ++l) stored += outs.p[l] != nullptr;
-  if (C == 1) return L <= 5 ? kC1 : kScalar;
+  if (C == 1) return L <= 7 ? kC1 : kScalar;
   if (stored == 1 && outs.p[L - 1]) {  // level L alone
     if ((H >> L) == 0 || (W >> L) == 0) return kNone;
-    if (L > 5 || !aligned16(x) || !aligned16(outs.p[L - 1])) return kScalar;
+    if (L > 6 || !aligned16(x) || !aligned16(outs.p[L - 1])) return kScalar;
     if (C % V == 0) {
-      if (L == 5) return kVecPyramid;
+      if (L >= 5) return kVecPyramid;
       return L >= 2 && rows_span<T>(W, C, L) > 0 ? kRowsVec : kVec;
     }
+    if (L > 5) return kScalar;
     const int64_t row_in = (int64_t)W * C * sizeof(T);
     const int64_t row_out = (int64_t)(W >> L) * C * sizeof(T);
     if (row_in % 16 == 0 && row_out % 16 == 0 && rows_span<T>(W, C, L) > 0)
       return kRows;
     return kScalar;
   }
-  if (L < 2 || L > 5 || C % V || !aligned16(x)) return kScalar;
+  if (L < 2 || L > 6 || C % V || !aligned16(x)) return kScalar;
   for (int l = 0; l < L; ++l)
     if (!aligned16(outs.p[l])) return kScalar;
   return kVecPyramid;
@@ -826,7 +869,7 @@ void launch_vec(const void* x, void* out, int64_t B, int H, int W, int C,
   }
 }
 
-// pyramid_c1_kernel (C == 1, L <= 5).
+// pyramid_c1_kernel (C == 1, L <= 7).
 template <typename T>
 void launch_c1(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
                int L, cudaStream_t s) {
@@ -851,19 +894,28 @@ void launch_c1(const void* x, const OutPtrs& outs, int64_t B, int H, int W,
     case 4:
       pyramid_c1_kernel<T, 4><<<grid, threads, 0, s>>>(xt, outs, H, W);
       break;
-    default:
+    case 5:
       pyramid_c1_kernel<T, 5><<<grid, threads, 0, s>>>(xt, outs, H, W);
+      break;
+    case 6:
+      pyramid_c1_kernel<T, 6><<<grid, threads, 0, s>>>(xt, outs, H, W);
+      break;
+    default:
+      pyramid_c1_kernel<T, 7><<<grid, threads, 0, s>>>(xt, outs, H, W);
   }
 }
 
-// pyramid_vec_kernel (2 <= L <= 5, C a multiple of 16 bytes, every
-// pointer 16-byte aligned); at L = 5, 16 lanes a patch.
+// Lanes a pyramid_vec_kernel patch: 16 at L = 5, 64 at L = 6, else 1.
+int vec_lanes(int L) { return L == 5 ? 16 : L == 6 ? 64 : 1; }
+
+// pyramid_vec_kernel (2 <= L <= 6, C a multiple of 16 bytes, every
+// pointer 16-byte aligned); at L = 5, 16 lanes a patch, at L = 6, 64.
 template <typename T>
 void launch_vec_pyramid(const void* x, const OutPtrs& outs, int64_t B, int H,
                         int W, int C, int L, int tiles_h, int tiles_w,
                         cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
-  const int lanes = L == 5 ? 16 : 1;
+  const int lanes = vec_lanes(L);
   const int64_t n = (int64_t)tiles_w * (C / V) * lanes;
   const int threads = block_for(n);
   const dim3 grid((unsigned)((n + threads - 1) / threads), (unsigned)tiles_h,
@@ -882,8 +934,12 @@ void launch_vec_pyramid(const void* x, const OutPtrs& outs, int64_t B, int H,
       pyramid_vec_kernel<T, V, 4, 0><<<grid, threads, 0, s>>>(xt, outs, H, W,
                                                               C, tiles_w);
       break;
-    default:
+    case 5:
       pyramid_vec_kernel<T, V, 5, 2><<<grid, threads, 0, s>>>(xt, outs, H, W,
+                                                              C, tiles_w);
+      break;
+    default:
+      pyramid_vec_kernel<T, V, 6, 3><<<grid, threads, 0, s>>>(xt, outs, H, W,
                                                               C, tiles_w);
   }
 }
@@ -928,10 +984,14 @@ struct Call {
   Route route = kNone;
 };
 
+// `force`, if not null, must name pyramid_kernel: that kernel in place of
+// the launcher's choice, so that the card's checks time a call's kernel
+// beside the one its calls took before.
 int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
-            int W, int C, int L, Call* call) {
+            int W, int C, int L, const char* force, Call* call) {
   if (L < 1 || L > kMaxLevels || B < 0 || H < 0 || W < 0 || C < 1 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) ||
+      (force && strcmp(force, kRouteNames[kScalar])))
     return (int)cudaErrorInvalidValue;
   const uint64_t* ptrs = static_cast<const uint64_t*>(out_ptrs);
   for (int l = 0; l < L; ++l)
@@ -939,8 +999,8 @@ int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
   const int side1 = 1 << (L - 1);
   call->tiles_h = ((H >> 1) + side1 - 1) / side1;
   call->tiles_w = ((W >> 1) + side1 - 1) / side1;
-  // threads along x: a patch and channel a thread, 16 at L = 5
-  if ((int64_t)call->tiles_w * C * (L == 5 ? 16 : 1) > 0x7fffffffLL ||
+  // threads along x: a patch and channel a thread, 16 at L = 5, 64 at 6
+  if ((int64_t)call->tiles_w * C * vec_lanes(L) > 0x7fffffffLL ||
       call->tiles_h > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -949,6 +1009,7 @@ int prepare(const void* x, const void* out_ptrs, int dtype, int64_t B, int H,
                      call->tiles_w)
       : route<__nv_bfloat16>(x, call->outs, B, H, W, C, L, call->tiles_h,
                              call->tiles_w);
+  if (force && call->route != kNone) call->route = kScalar;
   return (int)cudaSuccess;
 }
 
@@ -958,14 +1019,18 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  out_ptrs: host array of L device
 // pointers, level 1 first, each an NHWC buffer of (B, H>>l, W>>l, C), or
-// null for a level the caller does not want.  Launches on `stream`, sets *launched to the name of the kernel it launched ("none"
-// if it launched nothing) and returns cudaGetLastError() (0 on success).
+// null for a level the caller does not want.  force: null, or
+// "pyramid_kernel" to launch that kernel in the launcher's place (to time
+// it beside the launcher's choice).  Launches on `stream`, sets *launched
+// to the name of the kernel it launched ("none" if it launched nothing)
+// and returns cudaGetLastError() (0 on success).
 int tpuseg_maxpool_pyramid(const void* x, const void* out_ptrs, int dtype,
                            int64_t B, int H, int W, int C, int L,
-                           const char** launched, void* stream) {
+                           const char* force, const char** launched,
+                           void* stream) {
   Call c;
   *launched = kRouteNames[kNone];
-  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, &c);
+  const int err = prepare(x, out_ptrs, dtype, B, H, W, C, L, force, &c);
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -983,7 +1048,7 @@ const char* tpuseg_maxpool_pyramid_route(const void* x, const void* out_ptrs,
                                          int dtype, int64_t B, int H, int W,
                                          int C, int L) {
   Call c;
-  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, &c)) return nullptr;
+  if (prepare(x, out_ptrs, dtype, B, H, W, C, L, nullptr, &c)) return nullptr;
   return kRouteNames[c.route];
 }
 

@@ -488,7 +488,7 @@ def downsample_pool(x: torch.Tensor, factor: int = 2,
     over H and W (``rank`` 2) or over the length axis of a (B, C, 1, L)
     signal (``rank`` 1).
 
-    Max pooling by ``2**m`` (m = 1..5, in both ranks) is level m of the
+    Max pooling by ``2**m`` (m = 1..6, in both ranks) is level m of the
     max-pool pyramid,
     so it runs the pyramid kernel on a CUDA tensor (JAX:
     ``lax.reduce_window``), with XLA's first-max gradient

@@ -111,7 +111,7 @@ def load_library() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         cp, pcp = ctypes.c_char_p, ctypes.POINTER(ctypes.c_char_p)
         lib.tpuseg_maxpool_pyramid.argtypes = [vp, vp, i32, i64, i32, i32,
-                                               i32, i32, pcp, vp]
+                                               i32, i32, cp, pcp, vp]
         lib.tpuseg_maxpool_pyramid.restype = i32
         lib.tpuseg_maxpool_backward.argtypes = [vp, vp, vp, i32, i64, i32,
                                                 i32, i32, i32, pcp, vp]
@@ -123,7 +123,7 @@ def load_library() -> ctypes.CDLL:
                                                       i32, i32, i32, i32]
         lib.tpuseg_maxpool_backward_route.restype = ctypes.c_char_p
         lib.tpuseg_maxpool1d_pyramid.argtypes = [vp, vp, i32, i64, i32, i32,
-                                                 i32, cp, pcp, vp]
+                                                 i32, pcp, vp]
         lib.tpuseg_maxpool1d_pyramid.restype = i32
         lib.tpuseg_maxpool1d_pyramid_route.argtypes = [vp, vp, i32, i64, i32,
                                                        i32, i32]

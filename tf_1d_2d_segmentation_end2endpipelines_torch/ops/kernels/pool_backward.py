@@ -1,5 +1,5 @@
 """Gradient of the max pool with window = stride = ``factor`` = 2**m,
-m = 1..5 (VALID floor truncation), in both ranks: each output
+m = 1..6 (VALID floor truncation), in both ranks: each output
 gradient goes to one element of its window, chosen by XLA's
 ``select_and_scatter`` rule under the pool's VJP (the JAX package's
 ``downsample_pool``, ops/blocks.py; pinned there by
@@ -47,9 +47,9 @@ launches = Counter()
 g_copies = Counter()
 
 #: the window sides the kernel takes (rank 2)
-FACTORS = (2, 4, 8, 16, 32)
+FACTORS = (2, 4, 8, 16, 32, 64)
 #: the window sides the rank-1 kernel takes
-FACTORS_1D = (2, 4, 8, 16, 32)
+FACTORS_1D = (2, 4, 8, 16, 32, 64)
 
 
 def _check_shapes(x: torch.Tensor, g: torch.Tensor, factor: int) -> None:
@@ -139,8 +139,9 @@ def _maxpool_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
 def route(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
     """The name of the kernel that :func:`maxpool_backward` launches for
     the same CUDA tensors and factor: ``pool_backward_kernel`` (F = 2),
-    ``pool_backward_rows_kernel`` (F = 4 .. 16) or
-    ``pool_backward_block_kernel`` (F = 32), with ``<V=1>`` where it takes
+    ``pool_backward_rows_kernel`` (F = 4 .. 16),
+    ``pool_backward_block_kernel`` (F = 32) or
+    ``pool_backward_wide_kernel`` (F = 64), with ``<V=1>`` where it takes
     one channel a thread; "none" for an empty ``x``.  Launches nothing and
     counts no copy (a ``g`` the wrapper would copy is judged as its
     copy, which is aligned)."""
@@ -162,7 +163,7 @@ def route(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
 
 def maxpool_backward(x: torch.Tensor, g: torch.Tensor, factor: int
                      ) -> torch.Tensor:
-    """dx of the max pool by ``factor`` (2, 4, 8, 16 or 32) of ``x`` (B, C,
+    """dx of the max pool by ``factor`` (2, 4, .., 64) of ``x`` (B, C,
     H, W) for the output gradient ``g``.  On a CUDA tensor ``x`` must be
     float32 or bfloat16 in channels_last memory, and ``g`` of the same
     dtype (copied into channels_last if it is not); one launch of the
@@ -245,8 +246,9 @@ def _maxpool1d_backward_cuda(x: torch.Tensor, g: torch.Tensor, factor: int
 def route1d(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
     """The name of the kernel that :func:`maxpool1d_backward` launches for
     the same CUDA tensors and factor: ``pool1d_backward_kernel`` with
-    16 bytes (``<V=16B>``) or one channel (``<V=1>``) a thread; "none" for
-    an empty ``x``.  Launches nothing and counts no copy."""
+    16 bytes (``<V=16B>``) or one channel (``<V=1>``) a thread (two
+    threads a window at F = 64); "none" for an empty ``x``.  Launches
+    nothing and counts no copy."""
     from ._build import load_library, route_name
 
     _check_shapes_1d(x, g, factor)
@@ -265,7 +267,7 @@ def route1d(x: torch.Tensor, g: torch.Tensor, factor: int) -> str:
 
 def maxpool1d_backward(x: torch.Tensor, g: torch.Tensor, factor: int
                        ) -> torch.Tensor:
-    """dx of the max pool by ``factor`` (2, 4, 8, 16 or 32) over the length
+    """dx of the max pool by ``factor`` (2, 4, .., 64) over the length
     axis of ``x`` (B, C, 1, L) for the output gradient ``g``.  On a CUDA
     tensor ``x`` must be float32 or bfloat16 in channels_last memory, and
     ``g`` of the same dtype (copied into channels_last if it is not); one

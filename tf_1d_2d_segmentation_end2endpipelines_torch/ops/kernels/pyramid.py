@@ -22,7 +22,7 @@ W and channel count; float32 and bfloat16.
   level that received a gradient (the CUDA kernel ``csrc/
   pool_backward.cu`` on a CUDA tensor), which routes each gradient to the
   first maximum of its window in row-major order, as XLA does.
-- :func:`maxpool` is the pool by 2**m (m = 1..5): ``maxpool_levels``
+- :func:`maxpool` is the pool by 2**m (m = 1..6): ``maxpool_levels``
   storing level m only.
 - :func:`fused_maxpool_pyramid` is the JAX package's NHWC entry point.
 - :func:`route` names the kernel a CUDA call launches; each launch adds
@@ -32,7 +32,7 @@ W and channel count; float32 and bfloat16.
 Rank 1 (1D signals, a (B, C, 1, L) channels_last tensor: (B, L, C)
 memory, as the JAX package's NLC arrays): :func:`maxpool1d_pyramid`
 (plain version :func:`maxpool1d_pyramid_plain`, :func:`route1d`) pools
-the length axis by 2, 4, .., 2**levels (levels 1..5) in one read, VALID
+the length axis by 2, 4, .., 2**levels (levels 1..6) in one read, VALID
 floor truncation, through the CUDA kernels of ``csrc/pool1d.cu`` on a
 CUDA tensor; :func:`maxpool1d_levels` and :func:`maxpool1d` are its
 differentiable forms, as :func:`maxpool_levels` and :func:`maxpool` are
@@ -115,7 +115,12 @@ def _cuda_args(x: torch.Tensor, levels: int, wanted: tp.List[int]):
 
 
 def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
-                          wanted: tp.List[int]) -> tp.List[torch.Tensor]:
+                          wanted: tp.List[int],
+                          force: tp.Optional[str] = None
+                          ) -> tp.List[torch.Tensor]:
+    """The launch; ``force`` ("pyramid_kernel") takes that kernel in place
+    of the launcher's choice, so that the card's checks time a call's
+    kernel beside the one its calls took before."""
     from ._build import launch, load_library
 
     outs, ptrs, args = _cuda_args(x, levels, wanted)
@@ -124,7 +129,8 @@ def _maxpool_pyramid_cuda(x: torch.Tensor, levels: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        launch(lib, "tpuseg_maxpool_pyramid", args, stream,
+        launch(lib, "tpuseg_maxpool_pyramid",
+               (*args, force.encode() if force else None), stream,
                "maxpool_pyramid", launches)
     return outs
 
@@ -219,9 +225,9 @@ def maxpool_levels(x: torch.Tensor, levels: int,
                    wanted: tp.Optional[tp.Sequence[int]] = None
                    ) -> tp.List[torch.Tensor]:
     """``[maxpool(x, 2**l) for l in wanted]`` (default: l in 1..levels,
-    levels 1..5) of a (B, C, H, W) tensor from one pyramid launch,
-    differentiable (see :class:`MaxPoolLevels`).  A pool by 64 (level 6,
-    a from-scratch dense-input encoder at depth 6 or more) raises
+    levels 1..6) of a (B, C, H, W) tensor from one pyramid launch,
+    differentiable (see :class:`MaxPoolLevels`).  A pool by 128 (level 7,
+    a from-scratch dense-input encoder at depth 7 or more) raises
     ``NotImplementedError``."""
     if levels not in range(1, len(FACTORS) + 1):
         raise NotImplementedError(
@@ -231,7 +237,7 @@ def maxpool_levels(x: torch.Tensor, levels: int,
 
 
 def maxpool(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Differentiable max pool by ``factor`` (2, 4, 8, 16 or 32) of a (B,
+    """Differentiable max pool by ``factor`` (2, 4, .., 64) of a (B,
     C, H, W) tensor: :func:`maxpool_levels` storing level log2(factor) only
     (window = stride, VALID floor truncation; XLA's gradient)."""
     if factor not in FACTORS:
@@ -306,12 +312,7 @@ def _cuda_args_1d(x: torch.Tensor, levels: int, wanted: tp.List[int]):
 
 
 def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
-                            wanted: tp.List[int],
-                            force: tp.Optional[str] = None
-                            ) -> tp.List[torch.Tensor]:
-    """The launch; ``force`` ("pool1d_kernel") takes the kernel that the
-    flat kernel's calls took before in place of the launcher's choice, so
-    that the card's checks time both on the same call."""
+                            wanted: tp.List[int]) -> tp.List[torch.Tensor]:
     from ._build import launch, load_library
 
     outs, ptrs, args = _cuda_args_1d(x, levels, wanted)
@@ -320,8 +321,7 @@ def _maxpool1d_pyramid_cuda(x: torch.Tensor, levels: int,
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        launch(lib, "tpuseg_maxpool1d_pyramid",
-               (*args, force.encode() if force else None), stream,
+        launch(lib, "tpuseg_maxpool1d_pyramid", args, stream,
                "maxpool1d_pyramid", launches)
     return outs
 
@@ -351,7 +351,7 @@ def maxpool1d_pyramid(x: torch.Tensor, levels: int,
                       wanted: tp.Optional[tp.Sequence[int]] = None
                       ) -> tp.List[torch.Tensor]:
     """``[maxpool1d(x, 2**l) for l in wanted]`` of a (B, C, 1, L) tensor,
-    ``wanted`` a subset of 1..levels (levels 1..5; default: all).  A CUDA
+    ``wanted`` a subset of 1..levels (levels 1..6; default: all).  A CUDA
     tensor must be float32 or bfloat16 in channels_last memory; it goes
     through one launch of a CUDA kernel (one read of ``x``; the launcher
     picks it, :func:`route1d`).  A CPU
@@ -370,15 +370,15 @@ def maxpool1d_levels(x: torch.Tensor, levels: int,
                      wanted: tp.Optional[tp.Sequence[int]] = None
                      ) -> tp.List[torch.Tensor]:
     """``[maxpool1d(x, 2**l) for l in wanted]`` (default: l in 1..levels,
-    levels 1..5) of a (B, C, 1, L) tensor from one pyramid launch,
-    differentiable (see :class:`MaxPoolLevels`).  A pool by 64 (level 6)
+    levels 1..6) of a (B, C, 1, L) tensor from one pyramid launch,
+    differentiable (see :class:`MaxPoolLevels`).  A pool by 128 (level 7)
     raises ``NotImplementedError``."""
     _check_1d(x, levels)
     return list(MaxPoolLevels.apply(x, levels, wanted, 1))
 
 
 def maxpool1d(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Differentiable max pool by ``factor`` (2, 4, 8, 16 or 32) over the
+    """Differentiable max pool by ``factor`` (2, 4, .., 64) over the
     length axis of a (B, C, 1, L) tensor: :func:`maxpool1d_levels`
     storing level log2(factor) only (window = stride, VALID floor
     truncation; XLA's gradient)."""
