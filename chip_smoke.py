@@ -733,8 +733,13 @@ FWD_ROUTES = {
 }
 #: calls timed beside the paths' (on no path): the deep-supervision
 #: targets pooled to level 6 (a full-scale decoder with ``d_s = 1`` at
-#: depth 6)
-FWD_EXTRA = [(_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 6, _all(6))]
+#: depth 6), and level 6 alone at four times the paths' batch (at 16
+#: images the call runs 2,048 warps, a quarter of the card's warp slots:
+#: whether that holds its read rate back)
+_LEVEL6_BATCH_64 = (_BF16, (4 * TRAIN_BATCH, SIZE, SIZE, 32), 6, (6,))
+FWD_EXTRA = [(_F32, (TRAIN_BATCH, SIZE, SIZE, 1), 6, _all(6)),
+             _LEVEL6_BATCH_64]
+FWD_ROUTES[_LEVEL6_BATCH_64] = "pyramid_vec_kernel"
 # pool-backward calls per step: (dtype, NHWC shape, factor)
 _BWD_ENC = [(_BF16, s, 2) for s in _ENC]
 _BWD_DEC_3P = [(_BF16, s, f) for s, f in _DEC_3P]
